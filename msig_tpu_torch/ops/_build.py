@@ -1,0 +1,110 @@
+"""Build the CUDA kernels of ``msig_tpu_torch/csrc`` with nvcc and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C entry point
+``msig_<name>``. It is compiled at first use for ``sm_90a`` into
+``build/msig_kernels/`` at the repository root (listed in ``.gitignore``), under
+a file name that carries a hash of the sources and flags, so a changed source
+is rebuilt. Several sources build in parallel, one nvcc process each.
+
+Nothing is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "msig_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked at $NVCC, PATH and /usr/local/cuda/bin): the CUDA "
+        "kernels of msig_tpu_torch are compiled from msig_tpu_torch/csrc at first use")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that is not built yet, all nvcc processes at once.
+
+    Returns ``{name: compiler output}`` for the sources compiled by this call
+    (``-Xptxas -v`` prints registers, shared memory and spills per kernel).
+    Raises ``RuntimeError`` with the compiler's output if one fails.
+    """
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    try:
+        for name in todo:
+            out = library_path(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs: Dict[str, str] = {}
+        failed: List[str] = []
+        for name, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return logs
+    finally:
+        for _, _, tmp, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+def load(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``msig_<name>``, building its library if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+    fn = getattr(lib, f"msig_{name}")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
