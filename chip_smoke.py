@@ -5,19 +5,24 @@
 
 Phases, each reported on its own line:
 
-1. build: compiles every CUDA kernel of the serving path from
+1. build: compiles the four CUDA sources of the serving path from
    ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and prints the
    card's name and power limit as nvidia-smi reports them;
-2. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shape [8, 64, 64, 256], with seeded random int8 inputs: int8
-   outputs at most 1 step apart on under 1% of the elements, scales within
-   rtol 1e-5; times by CUDA events;
+2. kernels: each of the five kernel sites against its plain PyTorch version
+   on the card, at the main path's shapes (batch 8): the two trunk sites at
+   [8, 64, 64, 256], up0 [8, 64, 64, 256] -> [8, 128, 128, 128], up1
+   [8, 128, 128, 128] -> [8, 256, 256, 64], final7 [8, 256, 256, 64] ->
+   [8, 256, 256, 3], with seeded random inputs: int8 outputs at most 1 step
+   apart on under 1% of the elements, scales within rtol 1e-5, uint8 at most
+   1 apart on under 1e-3; times by CUDA events;
 3. end to end: ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256) at 256², batch 8, over 20 seeded inputs: one
-   output per input, each kernel launched 8 times per batch, and the int8
-   output's PSNR against the port's fp32 float path on the same inputs and
-   style at least 30 dB;
+   output per input, each trunk site launched 8 times per batch and each
+   decoder site once, and the int8 output's PSNR against the port's fp32
+   float path on the same inputs and style at least 30 dB; then the
+   generators' steady-state time per batch and the int8 generator's stages,
+   with the kernel decoder and the unfused decoder on the same trunk output;
 4. a ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -47,10 +52,18 @@ PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 B, SIDE, C = 8, 64, 256            # trunk shape of the main path: 256² input, batch 8
+N_RES = 8                          # resblocks of the demo checkpoint
 N_INPUTS, TARGET = 20, "dom3"     # 3 batches of 8, the last one padded
-SITE_FILES = {
-    "conv3x3_adain_relu_requant": "msig_tpu/ops/fused_conv_int8_v2.py:351",
-    "conv3x3_adain_residual_requant": "msig_tpu/ops/fused_conv_int8_v2.py:386",
+# kernel site -> (TPU kernel it replaces, CUDA source, launches per batch on the main path)
+SITES = {
+    "conv3x3_adain_relu_requant": ("msig_tpu/ops/fused_conv_int8_v2.py:351",
+                                   "conv3x3_adain_relu_requant.cu", N_RES),
+    "conv3x3_adain_residual_requant": ("msig_tpu/ops/fused_conv_int8_v2.py:386",
+                                       "conv3x3_adain_residual_requant.cu", N_RES),
+    "convt4x4s2_in_relu_requant_ps": ("msig_tpu/ops/fused_conv_int8_v2.py:653",
+                                      "convt4x4s2_in_relu_requant.cu", 1),
+    "up1_s2d16": ("msig_tpu/ops/fused_dec_int8.py:237", "convt4x4s2_in_relu_requant.cu", 1),
+    "final7_tanh_u8": ("msig_tpu/ops/fused_dec_int8.py:612", "final7_tanh_u8.cu", 1),
 }
 
 
@@ -81,27 +94,37 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 3) -> float:
 
 
 def bound(site: str) -> tuple:
-    """(bound_ms, bound_by) for one site call at [B, SIDE, SIDE, C].
+    """(bound_ms, bound_by) for one site call at its main-path shape, batch B.
 
     Bytes: each input read once, each output written once. Operations: the
     int8 multiply-adds of the conv (2 ops each) at the int8 tensor rate, plus
     the fp32 work per output element at the fp32 rate: statistics (3), and
-    affine + ReLU + clip + round (5) at the relu site, or hn (4) + max|hn| (2)
-    + scale, clip, round (4) at the residual site."""
-    elems = B * SIDE * SIDE * C
-    int8_ops = 2 * elems * 9 * C
-    if site == "conv3x3_adain_relu_requant":
-        nbytes = 2 * elems + 9 * C * C + 2 * B * C * 4
-        fp_ops = 8 * elems
+    affine + ReLU + clip + round (5) at the relu and ConvT sites, or hn (4) +
+    max|hn| (2) + scale, clip, round (4) at the residual site; at final7,
+    dequant, bias, tanh (counted as 20), scale, round, clip (26)."""
+    if site in ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant"):
+        out = B * SIDE * SIDE * C
+        int8_ops = 2 * out * 9 * C
+        if site == "conv3x3_adain_relu_requant":
+            nbytes, fp_ops = 2 * out + 9 * C * C + 2 * B * C * 4, 8 * out
+        else:
+            nbytes, fp_ops = 3 * out + 9 * C * C + 2 * B * C * 4 + 2 * B * 4, 13 * out
+    elif site in ("convt4x4s2_in_relu_requant_ps", "up1_s2d16"):
+        side, cin = (SIDE, C) if site == "convt4x4s2_in_relu_requant_ps" else (2 * SIDE, C // 2)
+        cout = cin // 2
+        x_elems, out = B * side * side * cin, B * 4 * side * side * cout
+        int8_ops = 2 * out * 4 * cin
+        nbytes, fp_ops = x_elems + 16 * cin * cout + out + B * 4, 8 * out
     else:
-        nbytes = 3 * elems + 9 * C * C + 2 * B * C * 4 + 2 * B * 4
-        fp_ops = 13 * elems
+        x_elems, out = B * 4 * SIDE * 4 * SIDE * 64, B * 4 * SIDE * 4 * SIDE * 3
+        int8_ops = 2 * out * 49 * 64
+        nbytes, fp_ops = x_elems + 3 * 64 * 49 + 2 * 3 * 4 + B * 4 + out, 26 * out
     t_ops = int8_ops / PEAK_INT8_OPS + fp_ops / PEAK_FP32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_phase(torch, fc, dev) -> dict:
+def kernel_phase(torch, fc, fd, dev) -> dict:
     rng = np.random.default_rng(0)
     shape = (B, SIDE, SIDE, C)
     x = rng.integers(-127, 128, shape, dtype=np.int8)
@@ -111,10 +134,22 @@ def kernel_phase(torch, fc, dev) -> dict:
     h = rng.normal(0, 1.5, shape).astype(np.float32)
     hs = (np.abs(h).max(axis=(1, 2, 3)) / 127.0).astype(np.float32).reshape(B, 1)
     hq = np.clip(np.round(h / hs.reshape(B, 1, 1, 1)), -127, 127).astype(np.int8)
-    t = {k: torch.from_numpy(v).to(dev) for k, v in
-         dict(x=x, hq=hq, hs=hs, gamma=gamma, beta=beta).items()}
+    # Decoder inputs: up1 and final7 read ReLU outputs (0..127). final7's
+    # scales put y * wscale * inv_s around +-1.5, across the tanh.
+    x1 = rng.integers(0, 128, (B, 2 * SIDE, 2 * SIDE, C // 2), dtype=np.int8)
+    x2 = rng.integers(0, 128, (B, 4 * SIDE, 4 * SIDE, 64), dtype=np.int8)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        x=x, hq=hq, hs=hs, gamma=gamma, beta=beta, x1=x1, x2=x2,
+        w7=rng.integers(-127, 128, (3, 64, 7, 7), dtype=np.int8),
+        ws7=rng.uniform(1e-4, 2e-4, 3).astype(np.float32),
+        b7=rng.uniform(-0.3, 0.3, 3).astype(np.float32),
+        is7=rng.uniform(0.02, 0.05, (B, 1)).astype(np.float32)).items()}
     t["w"] = fc.pack_weights(torch.from_numpy(w)).to(dev)
+    for name, cin in (("w0", C), ("w1", C // 2)):
+        wt = rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8)
+        t[name] = fc.pack_convt_weights_ps(torch.from_numpy(wt), cin, cin // 2).to(dev)
 
+    final7_args = (t["x2"], t["w7"], t["ws7"], t["b7"], t["is7"])
     calls = {
         "conv3x3_adain_relu_requant": (
             lambda: fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"]),
@@ -124,6 +159,13 @@ def kernel_phase(torch, fc, dev) -> dict:
                                                       t["gamma"], t["beta"]),
             lambda: fc.conv3x3_adain_residual_requant_plain(t["x"], t["hq"], t["hs"], t["w"],
                                                             t["gamma"], t["beta"])),
+        "convt4x4s2_in_relu_requant_ps": (
+            lambda: fc.convt4x4s2_in_relu_requant_ps(t["x"], t["w0"]),
+            lambda: fc.convt4x4s2_in_relu_requant_ps_plain(t["x"], t["w0"])),
+        "up1_s2d16": (lambda: fd.up1_s2d16(t["x1"], t["w1"]),
+                      lambda: fd.up1_s2d16_plain(t["x1"], t["w1"])),
+        "final7_tanh_u8": (lambda: fd.final7_tanh_u8(*final7_args),
+                           lambda: fd.final7_tanh_u8_plain(*final7_args)),
     }
     results = {}
     for name, (kernel, plain) in calls.items():
@@ -134,19 +176,22 @@ def kernel_phase(torch, fc, dev) -> dict:
             (got, got_s), (want, want_s) = got, want
             check(torch.allclose(got_s, want_s, rtol=1e-5, atol=0), f"{name} scale rtol 1e-5")
             scale_err = float(((got_s - want_s).abs() / want_s.abs()).max())
-        check(got.dtype == torch.int8 and got.shape == shape, f"{name} output int8 {shape}")
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name} output {got.dtype} {tuple(got.shape)}")
         diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
         max_err, frac = int(diff.max()), float((diff > 0).float().mean())
-        check(max_err <= 1, f"{name} max int8 step {max_err} <= 1")
-        check(frac < 0.01, f"{name} differing share {frac} < 1%")
+        limit = 1e-3 if got.dtype == torch.uint8 else 0.01
+        check(max_err <= 1, f"{name} max step {max_err} <= 1")
+        check(frac < limit, f"{name} differing share {frac} < {limit}")
         ms = cuda_ms(torch, kernel, reps=30)
         plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
         bound_ms, bound_by = bound(name)
         results[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
-        print(f"[kernel] {name}: max step {max_err}, differing {frac:.2e}, scale rel err "
-              f"{scale_err}, {ms:.4f} ms (median of 30, CUDA events), plain {plain_ms:.2f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        print(f"[kernel] {name} {tuple(got.shape)} {got.dtype}: max step {max_err}, "
+              f"differing {frac:.2e}, scale rel err {scale_err}, {ms:.4f} ms (median of 30, "
+              f"CUDA events), plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
     return results
 
 
@@ -175,7 +220,7 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def e2e_phase(torch, fc, work: str) -> dict:
+def e2e_phase(torch, fc, fd, work: str) -> dict:
     from PIL import Image
 
     from msig_tpu_torch import inference as cli
@@ -191,17 +236,21 @@ def e2e_phase(torch, fc, work: str) -> dict:
         "--quantize", "int8", "--image_size", "256", "--batch_size", str(B),
         "--compute_dtype", "float32", "--device", "cuda"])
     fc.reset_launch_counts()
+    fd.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(cli.config_from_args(args))
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = dict(fc.LAUNCHES)
+    launches = {**fc.LAUNCHES, **fd.LAUNCHES}
     check(rc == 0, f"inference main exit code {rc} == 0")
     names = sorted(os.listdir(out))
     check(len(names) == N_INPUTS, f"{len(names)} outputs for {N_INPUTS} inputs")
     n_batches = -(-N_INPUTS // B)
+    check(set(launches) == set(SITES), f"launch counters {sorted(launches)}")
     for name, n in launches.items():
-        check(n == 8 * n_batches, f"{name} launched {n} times, want 8 x {n_batches} batches")
+        per_batch = SITES[name][2]
+        check(n == per_batch * n_batches,
+              f"{name} launched {n} times, want {per_batch} x {n_batches} batches")
     print(f"[e2e] inference main: rc 0, {len(names)} images in {cli_s:.2f} s "
           f"(load + style bank + build + generate + save: {N_INPUTS / cli_s:.2f} images/s), "
           f"launches {launches}", flush=True)
@@ -244,14 +293,17 @@ def e2e_phase(torch, fc, work: str) -> dict:
     from msig_tpu_torch.infer import quantized as tq
 
     q, n_res = engines["int8"].q, meta["n_residual_blocks"]
+    check(n_res == N_RES, f"demo checkpoint has {n_res} resblocks, want {N_RES}")
     with torch.inference_mode():
         h = tq._xla_encoder(q, imgs)
         hq = tq._fused_trunk(q, h, styles, n_res)
         stages = {
             "encoder (3 int8 library products + bf16 IN/requant)": lambda: tq._xla_encoder(q, imgs),
             f"trunk ({2 * n_res} CUDA kernel calls)": lambda: tq._fused_trunk(q, h, styles, n_res),
-            "decoder (2 ConvT + final conv: int8 library products + bf16 IN/requant)": lambda: tq._xla_decoder(
+            "decoder, served (3 CUDA kernel sites: up0, up1, final7)": lambda: tq._fused_decoder(
                 q, hq, torch.uint8),
+            "decoder, unfused (2 ConvT + final conv: int8 library products + bf16 IN/requant)":
+                lambda: tq._xla_decoder(q, hq, torch.uint8),
         }
         for stage, fn in stages.items():
             print(f"[e2e] int8 stage {stage}: {cuda_ms(torch, fn, reps=5, warmup=1):.2f} ms "
@@ -269,12 +321,14 @@ def main() -> int:
         sys.path.insert(0, ROOT)
     from msig_tpu_torch.ops import _build
     from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
+    from msig_tpu_torch.ops import fused_dec_int8 as fd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    logs = _build.build(fc.KERNELS)
-    print(f"[build] {len(logs)} of {len(fc.KERNELS)} kernel sources compiled in "
+    t_start = t0 = time.perf_counter()
+    sources = fc.SOURCES + fd.SOURCES
+    logs = _build.build(sources)
+    print(f"[build] {len(logs)} of {len(sources)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -284,16 +338,19 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
 
     dev = torch.device("cuda")
-    kernels = kernel_phase(torch, fc, dev)
+    kernels = kernel_phase(torch, fc, fd, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
-        e2e = e2e_phase(torch, fc, work)
+        e2e = e2e_phase(torch, fc, fd, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    rows = [dict(name=name, route="cuda", source=f"msig_tpu_torch/csrc/{name}.cu",
-                 replaces=SITE_FILES[name], launches=e2e["launches"][name],
+    # library_ms is null: no single PyTorch call computes conv + IN (+ AdaIN)
+    # + requant, or conv7 + dequant + tanh + uint8, and int8 ConvT is no cuDNN op.
+    rows = [dict(name=name, route="cuda", source=f"msig_tpu_torch/csrc/{SITES[name][1]}",
+                 replaces=SITES[name][0], launches=e2e["launches"][name],
                  max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None)
             for name, k in kernels.items()]

@@ -12,9 +12,9 @@
 // twice (once for max|hn|, once to store) instead of keeping it; a later pass
 // can fuse them.
 //
-// Three launches: conv + statistics (conv3x3_int8.cuh), max|hn| per sample
+// Three launches: conv + statistics (conv_int8.cuh), max|hn| per sample
 // (float atomicMax on the bit pattern of a non-negative float), requant.
-#include "conv3x3_int8.cuh"
+#include "conv_int8.cuh"
 
 namespace msig {
 
@@ -110,10 +110,10 @@ extern "C" int msig_conv3x3_adain_residual_requant(const void* y1, const void* h
   using namespace msig;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  dim3 grid_a(B * (HW / kBM), C / kBN);
-  conv3x3_i8_stats_kernel<<<grid_a, kConvThreads, 0, st>>>(
+  dim3 grid_a(B * (HW / kBM), C / 128);
+  conv_i8_stats_kernel<Conv3x3Geom, 128><<<grid_a, kConvThreads, 0, st>>>(
       static_cast<const int8_t*>(y1), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C);
+      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b(epilogue_blocks(HW, C), B);

@@ -1,0 +1,324 @@
+// Shared pieces of the int8 conv sites that end in an instance norm (sm_90a):
+// the resblock 3x3 sites and the decoder's 4x4/s2 ConvT sites.
+//
+// Every such site starts with the same pass: an int8 convolution over a dense
+// NHWC map, written as an implicit GEMM and accumulated exactly in int32 with
+// mma.sync m16n8k32, whose output goes to an int32 scratch in device memory
+// while exact per-(sample, channel) statistics are reduced across CTAs with
+// int64 atomics. A site's geometry (which input pixel and which weight block
+// each tap reads, and where an output row lands) is a small struct; the tile
+// loop is shared.
+//
+// Why two passes: the TPU kernels (msig_tpu/ops/fused_conv_int8_v2.py,
+// fused_dec_int8.py) run one whole sample per program and keep its int32
+// accumulator (4 to 16 MB) in VMEM, because the per-sample requant scale
+// needs every conv output of the sample before any int8 is written. One SM
+// holds 227 KB of shared memory, so here the accumulator round-trips through
+// device memory (8 B per element: 4 written, 4 read back) and the epilogue
+// runs as a second kernel.
+//
+// Statistics block (int64, zero-initialised by the caller), for B samples and
+// C output channels:
+//   [0*B*C + b*C + c]  sum of y          (exact)
+//   [1*B*C + b*C + c]  sum of y*y        (exact: the wrapper checks the bound)
+//   [2*B*C + b*C + c]  min(0, min y)     (the zero-masked min of the TPU kernel)
+//   [3*B*C + b*C + c]  max(0, max y)     (the zero-masked max)
+//   [4*B*C + b]        max |hn| of the residual site, as the bits of a float
+// Integer sums make the statistics independent of the order of the CTAs.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace msig {
+
+constexpr int kBM = 128;          // GEMM rows (input-grid pixels) per CTA, consecutive in one sample
+constexpr int kBK = 64;           // input channels staged per (tap, chunk)
+constexpr int kLds = kBK + 16;    // smem row pitch in bytes (20 words: fragment loads hit 32 banks)
+constexpr int kConvThreads = 256; // 8 warps: 4 along M (32 rows each) x 2 along N (BN/2 cols each)
+constexpr int kEpiThreads = 256;
+
+// 3x3 "same" conv: one phase, 9 taps, weight block t = ky*3 + kx.
+struct Conv3x3Geom {
+  static constexpr int kPhases = 1;
+  static constexpr int kTaps = 9;
+  __device__ static void tap(int, int t, int& dy, int& dx, int& blk) {
+    dy = t / 3 - 1;
+    dx = t % 3 - 1;
+    blk = t;
+  }
+  __device__ static int out_pixel(int, int iy, int ix, int W) { return iy * W + ix; }
+};
+
+// ConvT 4x4 / stride 2 / pad 1 as four output phases q = (qy, qx), each a
+// dense 2x2-tap conv on the input grid (msig_tpu/ops/fused_conv_int8_v2.py::
+// pack_convt_weights_ps): out(2I+qy, 2J+qx) = sum over dy in D(qy), dx in
+// D(qx) of x(I+dy, J+dx) * w[2dy+2-qy, 2dx+2-qx], D(0) = {-1, 0},
+// D(1) = {0, 1}; weight block q*4 + t with t = 2*(dy index) + (dx index).
+struct ConvT4x4s2Geom {
+  static constexpr int kPhases = 4;
+  static constexpr int kTaps = 4;
+  __device__ static void tap(int q, int t, int& dy, int& dx, int& blk) {
+    dy = (t >> 1) - ((q >> 1) == 0);
+    dx = (t & 1) - ((q & 1) == 0);
+    blk = q * 4 + t;
+  }
+  __device__ static int out_pixel(int q, int iy, int ix, int W) {
+    return (2 * iy + (q >> 1)) * (2 * W) + 2 * ix + (q & 1);
+  }
+};
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Pass A. grid = (B * Geom::kPhases * (H*W / kBM), Cout / BN), block = kConvThreads.
+// x: [B, H, W, Cin] int8; w: [kPhases*kTaps*Cin, Cout] int8, row blk*Cin + ci,
+// column co; y: [B, kPhases*H*W, Cout] int32, rows in output-pixel order.
+// Needs Cin % kBK == 0, Cout % BN == 0, H*W % kBM == 0 (the wrappers check).
+template <class Geom, int BN>
+__global__ void __launch_bounds__(kConvThreads)
+conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                     int32_t* __restrict__ y, long long* __restrict__ stats,
+                     int B, int H, int W, int Cin, int Cout) {
+  constexpr int NI = BN / 16;  // n-tiles of 8 per warp
+  __shared__ __align__(16) int8_t As[kBM * kLds];  // [pixel][k]
+  __shared__ __align__(16) int8_t Bs[BN * kLds];   // [co][k]: the "col" operand of mma
+
+  const int HW = H * W;
+  const int tiles = HW / kBM;
+  const int m0 = (blockIdx.x % tiles) * kBM;
+  const int q = (blockIdx.x / tiles) % Geom::kPhases;
+  const int b = blockIdx.x / (tiles * Geom::kPhases);
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  int acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+
+  const int8_t* xb = x + (size_t)b * HW * Cin;
+  for (int t = 0; t < Geom::kTaps; ++t) {
+    int dy, dx, blk;
+    Geom::tap(q, t, dy, dx, blk);
+    for (int c0 = 0; c0 < Cin; c0 += kBK) {
+      // Input tile: kBM pixels x kBK channels, 16 B per load; the zero halo
+      // comes from the bounds check.
+      for (int i = tid; i < kBM * kBK / 16; i += kConvThreads) {
+        const int p = i / (kBK / 16), j = i % (kBK / 16);
+        const int m = m0 + p;
+        const int yy = m / W + dy, xx = m % W + dx;
+        int4 v = make_int4(0, 0, 0, 0);
+        if (yy >= 0 && yy < H && xx >= 0 && xx < W)
+          v = *reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16);
+        *reinterpret_cast<int4*>(As + p * kLds + j * 16) = v;
+      }
+      // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][n0 + co].
+      for (int i = tid; i < kBK * BN / 16; i += kConvThreads) {
+        const int k = i % kBK, j = i / kBK;
+        const int4 v = *reinterpret_cast<const int4*>(
+            w + (size_t)(blk * Cin + c0 + k) * Cout + n0 + j * 16);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) Bs[(j * 16 + e) * kLds + k] = vb[e];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 32) {
+        uint32_t af[2][4], bf[NI][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wm * 32 + mi * 16 + g;
+          af[mi][0] = *reinterpret_cast<const uint32_t*>(As + r * kLds + ks + t4 * 4);
+          af[mi][1] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * kLds + ks + t4 * 4);
+          af[mi][2] = *reinterpret_cast<const uint32_t*>(As + r * kLds + ks + 16 + t4 * 4);
+          af[mi][3] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * kLds + ks + 16 + t4 * 4);
+        }
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int n = wn * (BN / 2) + ni * 8 + g;
+          bf[ni][0] = *reinterpret_cast<const uint32_t*>(Bs + n * kLds + ks + t4 * 4);
+          bf[ni][1] = *reinterpret_cast<const uint32_t*>(Bs + n * kLds + ks + 16 + t4 * 4);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+      }
+      __syncthreads();
+    }
+  }
+
+  // acc[mi][ni][r] holds GEMM row wm*32 + mi*16 + g (+8 for r >= 2) and
+  // column wn*BN/2 + ni*8 + t4*2 + (r & 1) of the CTA tile; a GEMM row is an
+  // input-grid pixel, which the geometry maps to its output pixel.
+  int32_t* yb = y + (size_t)b * Geom::kPhases * HW * Cout + n0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mi * 16 + g + h * 8;
+      const size_t row = Geom::out_pixel(q, m / W, m % W, W);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = wn * (BN / 2) + ni * 8 + t4 * 2;
+        *reinterpret_cast<int2*>(yb + row * Cout + col) =
+            make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+
+  const size_t BC = (size_t)B * Cout;
+  long long* st = stats + (size_t)b * Cout + n0;
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      long long s = 0, sq = 0;
+      int mn = 0, mx = 0;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int v = acc[mi][ni][h * 2 + e];
+          s += v;
+          sq += (long long)v * v;
+          mn = min(mn, v);
+          mx = max(mx, v);
+        }
+      // Reduce over the 8 row groups of the warp (lane bits 2..4).
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      if (g == 0) {
+        const int col = wn * (BN / 2) + ni * 8 + t4 * 2 + e;
+        atomicAdd(reinterpret_cast<unsigned long long*>(st + col), (unsigned long long)s);
+        atomicAdd(reinterpret_cast<unsigned long long*>(st + BC + col), (unsigned long long)sq);
+        atomicMin(st + 2 * BC + col, (long long)mn);
+        atomicMax(st + 3 * BC + col, (long long)mx);
+      }
+    }
+}
+
+// Per-channel IN (+ AdaIN) affine of sample b, in the order of the TPU kernel
+// (fused_conv_int8_v2.py:121-126): mean = sum/n, var = max(sumsq/n - mean^2, 0),
+// a = gamma * rsqrt(var + eps), d = beta - mean * a. A null gamma / beta is
+// the plain IN of the ConvT sites (:627-631): 1 * r and 0 - m * a give the
+// bits of r and -m * a. Explicit _rn intrinsics keep nvcc from contracting
+// into FMAs, so the plain PyTorch version can repeat the arithmetic.
+__device__ __forceinline__ void channel_affine(const long long* __restrict__ stats,
+                                               const float* __restrict__ gamma,
+                                               const float* __restrict__ beta, int b, int B,
+                                               int C, int HW, float eps, float* a_s, float* d_s) {
+  const float n = (float)HW;
+  const size_t BC = (size_t)B * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const size_t i = (size_t)b * C + c;
+    const float mean = __fdiv_rn((float)stats[i], n);
+    const float var = fmaxf(__fsub_rn(__fdiv_rn((float)stats[BC + i], n), __fmul_rn(mean, mean)), 0.f);
+    const float a = __fmul_rn(gamma ? gamma[i] : 1.f, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
+    a_s[c] = a;
+    d_s[c] = __fsub_rn(beta ? beta[i] : 0.f, __fmul_rn(mean, a));
+  }
+}
+
+// Max of non-negative per-thread values over the block.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// Epilogue CTAs per sample: each walks a contiguous share of the sample's
+// HW*C/4 groups of 4 channels.
+inline int epilogue_blocks(int HW, int C) {
+  const long long groups = (long long)HW * C / 4;
+  long long n = (groups + 16LL * kEpiThreads - 1) / (16LL * kEpiThreads);
+  return (int)(n < 1 ? 1 : (n > 1024 ? 1024 : n));
+}
+
+// Pass B of the relu sites (resblock conv1, the ConvT sites): IN (+ AdaIN)
+// -> ReLU -> per-sample requant. amax is the affine image of the zero-masked
+// min and max, as the TPU kernels take it (fused_conv_int8_v2.py:127-131,
+// :634-637); it may exceed the true max, never clip. Then
+// y -> round(min(max(y*a2 + d2, 0), 127)) with a2 = a*s, d2 = d*s, s = 127/amax.
+// out_scale (null at the resblock site) gets amax/127, or 1 when amax is 0.
+// grid = (epilogue_blocks(HW, C), B), dynamic smem 2*C floats; HW is the
+// number of output pixels per sample.
+__global__ void __launch_bounds__(kEpiThreads)
+relu_requant_kernel(const int32_t* __restrict__ y, const long long* __restrict__ stats,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    int8_t* __restrict__ out, float* __restrict__ out_scale, int B, int HW,
+                    int C, float eps) {
+  extern __shared__ float sh[];  // a[C], d[C]
+  __shared__ float red[32];
+  float* a_s = sh;
+  float* d_s = sh + C;
+  const int b = blockIdx.y;
+  channel_affine(stats, gamma, beta, b, B, C, HW, eps, a_s, d_s);
+  __syncthreads();
+
+  const size_t BC = (size_t)B * C;
+  float local = 0.f;  // max(hi, 0)
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float cmin = (float)stats[2 * BC + (size_t)b * C + c];
+    const float cmax = (float)stats[3 * BC + (size_t)b * C + c];
+    const float hi = __fadd_rn(fmaxf(__fmul_rn(a_s[c], cmax), __fmul_rn(a_s[c], cmin)), d_s[c]);
+    local = fmaxf(local, hi);
+  }
+  const float amax = block_max(local, red);
+  const float s = amax > 0.f ? __fdiv_rn(127.f, amax) : 1.f;
+  if (out_scale != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    out_scale[b] = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    a_s[c] = __fmul_rn(a_s[c], s);
+    d_s[c] = __fmul_rn(d_s[c], s);
+  }
+  __syncthreads();
+
+  const size_t n4 = (size_t)HW * C / 4;
+  const int4* y4 = reinterpret_cast<const int4*>(y + (size_t)b * HW * C);
+  char4* o4 = reinterpret_cast<char4*>(out + (size_t)b * HW * C);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int4 v = y4[i];
+    const int c = (int)((i * 4) % C);
+    const int vals[4] = {v.x, v.y, v.z, v.w};
+    signed char qv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float t = __fadd_rn(__fmul_rn((float)vals[k], a_s[c + k]), d_s[c + k]);
+      t = fminf(fmaxf(t, 0.f), 127.f);
+      qv[k] = (signed char)__float2int_rn(t);
+    }
+    o4[i] = make_char4(qv[0], qv[1], qv[2], qv[3]);
+  }
+}
+
+}  // namespace msig

@@ -1,16 +1,25 @@
 """Int8 generator forward for serving (inference only).
 
-Counterpart of ``msig_tpu/infer/quantized.py`` in the composition that
-``quantized_generator_apply_staged(..., pallas=("trunk",))`` runs there:
+Counterpart of ``msig_tpu/infer/quantized.py``. At 256² input the port runs
+the composition of ``quantized_generator_apply_staged(..., pallas=("trunk",
+"dec"))`` there:
 
-  - encoder and decoder: the unfused int8 chain (``_xla_encoder``,
-    ``_xla_decoder(int8_body=True)``, ``_final_conv``), whose convolutions
+  - encoder: the unfused int8 chain (``_xla_encoder``), whose convolutions
     the JAX package leaves to XLA. Here they are an im2col times the
     library's exact int8 matrix product (``torch._int_mm``, int32
     accumulation), on the CPU and on the card alike, with the bf16
     activations and requant steps of the JAX chain;
   - residual trunk: the two CUDA kernels of ``ops/fused_conv_int8_v2.py``,
-    one launch each per resblock, on dense NHWC int8.
+    one launch each per resblock, on dense NHWC int8;
+  - decoder (``_fused_decoder``): for uint8 output, three kernel sites, up0
+    (``fc.convt4x4s2_in_relu_requant_ps``), up1 (``fd.up1_s2d16``) and the
+    final conv7 + dequant + tanh + uint8 (``fd.final7_tanh_u8``); for float
+    output the ConvT site twice, then the unfused final conv on up1's int8
+    output and inverse scale.
+
+At any other input size the decoder is the unfused chain too
+(``_xla_decoder``), which is the composition ``pallas=("trunk",)``: the JAX
+package's staged composition and its decoder kernels are for 256² only.
 
 Every conv but the last is followed by an instance norm, which absorbs the
 per-output-channel weight scales, the per-sample activation scales and the
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
+from msig_tpu_torch.ops import fused_dec_int8 as fd
 from msig_tpu_torch.ops.norm import instance_norm
 
 Q = Dict[str, torch.Tensor]
@@ -60,7 +70,8 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     """int8 weights of the generator from its state_dict (torch names).
 
     Keys as in the JAX package: ``enc_conv{0,1,2}`` and ``dec_up{0,1}`` (int8
-    OIHW of the forward conv), ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
+    OIHW of the forward conv), ``up{0,1}_ps`` (the same ConvT kernels packed
+    [16*Cin, Cout] by phase), ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
     ``res{i}_adain{1,2}_{k,b}`` (style affine, fp32), ``out_kernel_i8``,
     ``out_wscale``, ``out_bias`` (final conv, with a true dequant).
     """
@@ -73,6 +84,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
         "dec_up0": _quantize_kernel(_convt_forward_kernel(sd[f"decoder.{n}.weight"])),
         "dec_up1": _quantize_kernel(_convt_forward_kernel(sd[f"decoder.{n + 3}.weight"])),
     }
+    for i in (0, 1):
+        w_hwio = q[f"dec_up{i}"].permute(2, 3, 1, 0)
+        q[f"up{i}_ps"] = fc.pack_convt_weights_ps(w_hwio, *w_hwio.shape[2:])
     for i in range(n):
         for c in ("conv1", "conv2"):
             w_i8 = _quantize_kernel(sd[f"decoder.{i}.{c}.weight"])
@@ -141,16 +155,16 @@ def _bf16(y_i32: torch.Tensor) -> torch.Tensor:
 def _requant(x: torch.Tensor) -> torch.Tensor:
     """bf16 activations -> int8 with a per-sample dynamic scale (never dequantized)."""
     amax = x.abs().amax(dim=(1, 2, 3), keepdim=True).to(torch.float32)
-    scale = torch.where(amax > 0, 127.0 / amax, 1.0).to(x.dtype)
+    scale = torch.where(amax > 0, fc.div_rn(127.0, amax), 1.0).to(x.dtype)
     return torch.clamp(torch.round((x * scale).to(torch.float32)), -127, 127).to(torch.int8)
 
 
 def _requant_with_inv_scale(x: torch.Tensor):
     """Like :func:`_requant`, plus the fp32 inverse scale [B, 1, 1, 1]."""
     amax = x.abs().amax(dim=(1, 2, 3), keepdim=True).to(torch.float32)
-    scale = torch.where(amax > 0, 127.0 / amax, 1.0)
+    scale = torch.where(amax > 0, fc.div_rn(127.0, amax), 1.0)
     xi = torch.clamp(torch.round((x * scale.to(x.dtype)).to(torch.float32)), -127, 127)
-    return xi.to(torch.int8), 1.0 / scale
+    return xi.to(torch.int8), fc.div_rn(1.0, scale)
 
 
 def _in_relu(y_i32: torch.Tensor) -> torch.Tensor:
@@ -201,9 +215,13 @@ def _xla_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
 
 def _final_conv(q: Q, h: torch.Tensor, out_dtype) -> torch.Tensor:
     """Requant -> reflect pad -> int8 conv7 -> dequant -> tanh."""
-    hi, inv_s = _requant_with_inv_scale(h)
+    return _final_conv_i8(q, *_requant_with_inv_scale(h), out_dtype)
+
+
+def _final_conv_i8(q: Q, hi: torch.Tensor, inv_s: torch.Tensor, out_dtype) -> torch.Tensor:
+    """int8 map and its inverse scale -> reflect pad -> int8 conv7 -> dequant -> tanh."""
     y = _conv_i8(_reflect_pad(hi, 3), q["out_kernel_i8"], 1, 0)
-    yf = y.to(torch.float32) * (q["out_wscale"] * inv_s)
+    yf = y.to(torch.float32) * (q["out_wscale"] * inv_s.reshape(-1, 1, 1, 1))
     return to_out_dtype(torch.tanh(yf + q["out_bias"]), out_dtype)
 
 
@@ -214,14 +232,33 @@ def to_out_dtype(y: torch.Tensor, out_dtype) -> torch.Tensor:
     return y.to(out_dtype)
 
 
+def _fused_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
+    """int8 trunk output -> final image on the decoder's kernel sites.
+
+    Dense counterpart of ``msig_tpu/infer/quantized.py::_fused_decoder``
+    (:290-329). uint8 output: up0, up1 and the fused final conv7 + tanh +
+    uint8, three launches. Float output: the ConvT site for up0 and up1,
+    then the unfused final conv on up1's int8 output and its inverse scale,
+    with no second requant."""
+    y0, _ = fc.convt4x4s2_in_relu_requant_ps(hq, q["up0_ps"])
+    if out_dtype == torch.uint8:
+        y1, inv_s = fd.up1_s2d16(y0, q["up1_ps"])
+        return fd.final7_tanh_u8(y1, q["out_kernel_i8"], q["out_wscale"], q["out_bias"], inv_s)
+    return _final_conv_i8(q, *fc.convt4x4s2_in_relu_requant_ps(y0, q["up1_ps"]), out_dtype)
+
+
 def quantized_generator_apply(q: Q, img_u8: torch.Tensor, style: torch.Tensor, n_res: int = 8,
                               out_dtype=torch.uint8) -> torch.Tensor:
     """uint8 NHWC image + style [B, S] -> image (uint8, or [-1,1] float).
 
-    The JAX package's ``quantized_generator_apply_staged(q, img, style, n_res,
-    out_dtype, pallas=("trunk",))``: unfused int8 encoder and decoder, the
-    trunk on the two fused kernels."""
+    At 256² input, the JAX package's ``quantized_generator_apply_staged(q, img,
+    style, n_res, out_dtype, pallas=("trunk", "dec"))``: unfused int8 encoder,
+    the trunk and the decoder on their kernel sites. At any other size,
+    ``pallas=("trunk",)``: the decoder unfused as well, since the JAX
+    package's decoder kernels are for 256² only (the choice is by shape)."""
     _trunk_hifi_mode()
     h = _xla_encoder(q, img_u8)
     hq = _fused_trunk(q, h, style, n_res)
+    if tuple(img_u8.shape[1:3]) == (256, 256):
+        return _fused_decoder(q, hq, out_dtype)
     return _xla_decoder(q, hq, out_dtype)

@@ -5,8 +5,8 @@ values behind them, so the records can quote them:
 
     JAX_PLATFORMS=cpu python tests/port_parity_report.py
 
-It runs the JAX side on the CPU (Pallas in interpret mode) and the port on the
-CPU (its kernels' plain versions), and takes about a minute.
+It runs the JAX side on the CPU, eagerly (Pallas in interpret mode), and the
+port on the CPU (its kernels' plain versions), and takes about three minutes.
 """
 
 import os
@@ -30,11 +30,13 @@ from msig_tpu.models import MultiDomainStyleEncoder as JStyleEncoder  # noqa: E4
 from msig_tpu.models import StyleCycleGANGenerator as JGenerator  # noqa: E402
 from msig_tpu.ops import fused_conv_int8 as jfc  # noqa: E402
 from msig_tpu.ops import fused_conv_int8_v2 as jf2  # noqa: E402
+from msig_tpu.ops import fused_dec_int8 as jfd  # noqa: E402
 from msig_tpu_torch.compat.from_jax import generator_state_dict, style_encoder_state_dict  # noqa: E402
 from msig_tpu_torch.infer import quantized as tq  # noqa: E402
 from msig_tpu_torch.infer.styles import sample_styles  # noqa: E402
 from msig_tpu_torch.models import MultiDomainStyleEncoder, StyleCycleGANGenerator  # noqa: E402
 from msig_tpu_torch.ops import fused_conv_int8_v2 as tf2  # noqa: E402
+from msig_tpu_torch.ops import fused_dec_int8 as tfd  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "results", "tomato_r3b", "demo_checkpoint")
@@ -119,23 +121,114 @@ def float_networks():
     print("(e) demo generator 256², fp32: max abs err %.2e, max rel err %.2e" % rel(got, want))
 
 
-def int8_slice():
-    jgen = JGenerator(style_dim=64, n_residual_blocks=2, dtype=jnp.bfloat16)
-    params = jgen.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.bfloat16),
+def _random_int8_gen(n_res, seed):
+    jgen = JGenerator(style_dim=64, n_residual_blocks=n_res, dtype=jnp.bfloat16)
+    params = jgen.init(jax.random.PRNGKey(seed), jnp.zeros((1, 64, 64, 3), jnp.bfloat16),
                        jnp.zeros((1, 64), jnp.bfloat16))
+    return (jq.quantize_generator_params(params, n_res),
+            tq.quantize_generator_params(generator_state_dict(params, n_res), n_res))
+
+
+def _cr_rsqrt_instance_norm(x, eps=1e-5):
+    """JAX instance_norm with a correctly rounded inverse sqrt (float64 in numpy)."""
+    xf = x.astype(jnp.float32)
+    mean = jnp.mean(xf, axis=(1, 2), keepdims=True)
+    var = jnp.mean(jnp.square(xf - mean), axis=(1, 2), keepdims=True)
+    inv = (1.0 / np.sqrt(np.asarray(var + eps, np.float64))).astype(np.float32)
+    return ((xf - mean) * jnp.asarray(inv)).astype(x.dtype)
+
+
+def _cr_rsqrt_stats(x, eps):
+    """The port's ops/norm.py::_stats with a correctly rounded inverse sqrt."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(1, 2), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
+    return xf, mean, (1.0 / torch.sqrt((var + eps).double())).float()
+
+
+def int8_slice():
+    jqp, q = _random_int8_gen(2, 0)
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     style = rng.normal(0, 1, (2, 64)).astype(np.float32)
+
+    def compare(tag):
+        want = np.asarray(jq.quantized_generator_apply_staged(
+            jqp, jnp.asarray(img), jnp.asarray(style), n_res=2, out_dtype=jnp.uint8,
+            pallas=("trunk",)))
+        got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
+                                           n_res=2).numpy()
+        d = np.abs(got.astype(int) - want.astype(int))
+        print(f"(d) int8 slice 64², random params, n_res 2, vs staged(pallas=('trunk',)){tag}: "
+              f"PSNR {psnr_u8(got, want):.2f} dB, within 1: {(d <= 1).mean():.4f}, max {d.max()}")
+
+    compare("")
+    from unittest import mock
+
+    from msig_tpu_torch.ops import norm as tnorm
+    with mock.patch.object(jq, "instance_norm", _cr_rsqrt_instance_norm), \
+            mock.patch.object(tnorm, "_stats", _cr_rsqrt_stats):
+        compare(", correctly rounded rsqrt on both sides")
+
+    # Where the packages part: the first encoder conv, its IN, the requant.
+    x = jnp.pad((jnp.asarray(img).astype(jnp.int32) - 128).astype(jnp.int8),
+                ((0, 0), (3, 3), (3, 3), (0, 0)), mode="reflect")
+    y = jq._conv_i8(x, jqp["enc_conv0"], 1, ((0, 0), (0, 0)))
+    yt = tq._conv_i8(torch.from_numpy(np.array(x)), q["enc_conv0"], 1, 0)
+    h = jnp.maximum(jq.instance_norm(y.astype(jnp.bfloat16)), 0)
+    ht = tq._in_relu(torch.from_numpy(np.array(y)))
+    ulps = np.abs(ht.view(torch.int16).numpy().astype(int)
+                  - np.asarray(jax.lax.bitcast_convert_type(h, jnp.int16)).astype(int))
+    hb = torch.from_numpy(np.array(h.astype(jnp.float32))).to(torch.bfloat16)
+    rq = (tq._requant(hb).numpy() != np.asarray(jq._requant(h))).sum()
+    jit_rq = (np.asarray(jax.jit(jq._requant)(h)) != np.asarray(jq._requant(h))).mean()
+    print(f"(d) where the packages part: conv0 int32 equal {np.array_equal(yt.numpy(), y)}; "
+          f"relu(IN) bf16 differing share {(ulps > 0).mean():.2e}, max {ulps.max()} ulp; "
+          f"_requant of the same bf16 codes differing {rq}; "
+          f"jax.jit(_requant) vs eager differing share {jit_rq:.4f}")
+
+
+def decoder_slice():
+    """The decoder's three sites, the decoder and the generator at 256², B = 1."""
+    jqp, q = _random_int8_gen(1, 1)
+    hq = np.random.default_rng(0).integers(-127, 128, (1, 64, 64, 256), dtype=np.int8)
+    y0, s0 = jf2.convt4x4s2_in_relu_requant_ps(jf2.to_padded_rows(jnp.asarray(hq)),
+                                               jqp["up0_ps"], jf2.PS_TAPS, 64, guarded_out=True)
+    y1, s1 = jfd.up1_s2d16(y0, jqp["up1_s16"])
+    u8 = np.asarray(jfd.unphase_s2d16_u8(jfd.final7_tanh_u8(
+        y1, jqp["final_s16"], jqp["out_wscale"], jqp["out_bias"], s1)))
+    g = jf2.guard_rows(64)
+    y0 = np.array(jf2.unphase_s2d(y0[:, g:-g], 64, 128))
+    y1 = np.array(jfd.unphase_s2d16(y1, 64))
+    sites = [("up0", tf2.convt4x4s2_in_relu_requant_ps(torch.from_numpy(hq), q["up0_ps"]), y0, s0),
+             ("up1", tfd.up1_s2d16(torch.from_numpy(y0), q["up1_ps"]), y1, s1)]
+    for name, (gq, gs), want, ws in sites:
+        d = np.abs(gq.numpy().astype(int) - want.astype(int))
+        srel = np.abs(gs.numpy().ravel() / np.asarray(ws).ravel() - 1).max()
+        print(f"(g) {name} site: max step {d.max()}, differing share {(d > 0).mean():.2e}, "
+              f"scale rel err {srel:.2e}")
+    got = tfd.final7_tanh_u8(torch.from_numpy(y1), q["out_kernel_i8"], q["out_wscale"],
+                             q["out_bias"], torch.from_numpy(np.array(s1).reshape(-1, 1))).numpy()
+    d = np.abs(got.astype(int) - u8.astype(int))
+    print(f"(g) final7 site: max uint8 diff {d.max()}, differing share {(d > 0).mean():.2e}")
+    for dt, peak in (("uint8", 255.0), ("float32", 2.0)):
+        want = np.asarray(jq._fused_decoder(jqp, jf2.to_padded_rows(jnp.asarray(hq)),
+                                            getattr(jnp, dt), w_cells=64), np.float64)
+        got = tq._fused_decoder(q, torch.from_numpy(hq), getattr(torch, dt)).numpy()
+        mse = np.mean((got.astype(np.float64) - want) ** 2)
+        print(f"(g) fused decoder, {dt} output, same trunk output: PSNR "
+              f"{10 * np.log10(peak ** 2 / mse):.2f} dB (peak {peak:g})")
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    style = rng.normal(0, 1, (1, 64)).astype(np.float32)
     want = np.asarray(jq.quantized_generator_apply_staged(
-        jq.quantize_generator_params(params, 2), jnp.asarray(img), jnp.asarray(style), n_res=2,
-        out_dtype=jnp.uint8, pallas=("trunk",)))
-    got = tq.quantized_generator_apply(tq.quantize_generator_params(generator_state_dict(params, 2),
-                                                                    2),
-                                       torch.from_numpy(img), torch.from_numpy(style),
-                                       n_res=2).numpy()
+        jqp, jnp.asarray(img), jnp.asarray(style), n_res=1, out_dtype=jnp.uint8,
+        pallas=("trunk", "dec")))
+    got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
+                                       n_res=1).numpy()
     d = np.abs(got.astype(int) - want.astype(int))
-    print(f"(d) int8 slice 64², random params, n_res 2, vs staged(pallas=('trunk',)): "
-          f"PSNR {psnr_u8(got, want):.2f} dB, within 1: {(d <= 1).mean():.4f}, max {d.max()}")
+    print(f"(g) int8 generator 256², n_res 1, vs staged(pallas=('trunk', 'dec')): "
+          f"PSNR {psnr_u8(got, want):.2f} dB, within 1: {(d <= 1).mean():.4f}")
 
 
 def leaf_tiles(sheet, col):
@@ -155,9 +248,10 @@ def int8_fidelity_on_leaves():
     style = jnp.broadcast_to(st.mean(0), (len(imgs), 256))
     jfp32 = to_u8(JGenerator(style_dim=256, n_residual_blocks=8).apply(
         gen, jnp.asarray(imgs.astype(np.float32) / 127.5 - 1), style))
-    jint8 = np.asarray(jq.quantized_generator_apply_staged(
-        jq.quantize_generator_params(gen, 8), jnp.asarray(imgs), style, n_res=8,
-        out_dtype=jnp.uint8, pallas=("trunk",)))
+    jqp = jq.quantize_generator_params(gen, 8)
+    jint8 = {p: np.asarray(jq.quantized_generator_apply_staged(
+        jqp, jnp.asarray(imgs), style, n_res=8, out_dtype=jnp.uint8, pallas=p))
+        for p in (("trunk",), ("trunk", "dec"))}
     sd = generator_state_dict(gen, 8)
     tg = StyleCycleGANGenerator(style_dim=256, n_residual_blocks=8)
     tg.load_state_dict(sd)
@@ -166,9 +260,11 @@ def int8_fidelity_on_leaves():
         tfp32 = to_u8(tg(torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1), ts).numpy())
     tint8 = tq.quantized_generator_apply(tq.quantize_generator_params(sd, 8),
                                          torch.from_numpy(imgs), ts, n_res=8).numpy()
-    print(f"int8 vs fp32, demo checkpoint, 4 leaf photos at 256²: JAX staged trunk "
-          f"{psnr_u8(jint8, jfp32):.2f} dB, port {psnr_u8(tint8, tfp32):.2f} dB; "
-          f"port int8 vs JAX int8 {psnr_u8(tint8, jint8):.2f} dB")
+    print(f"int8 vs fp32, demo checkpoint, 4 leaf photos at 256²: JAX staged "
+          f"pallas=('trunk',) {psnr_u8(jint8[('trunk',)], jfp32):.2f} dB, "
+          f"pallas=('trunk', 'dec') {psnr_u8(jint8[('trunk', 'dec')], jfp32):.2f} dB; "
+          f"port (trunk and dec kernels) {psnr_u8(tint8, tfp32):.2f} dB; port int8 vs JAX "
+          f"pallas=('trunk', 'dec') int8 {psnr_u8(tint8, jint8[('trunk', 'dec')]):.2f} dB")
 
 
 def styles():
@@ -197,5 +293,6 @@ if __name__ == "__main__":
     kernel_sites()
     float_networks()
     int8_slice()
+    decoder_slice()
     styles()
     int8_fidelity_on_leaves()

@@ -7,11 +7,14 @@ msig_tpu, so it runs on a machine that has only PyTorch (with
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
+from msig_tpu_torch.ops import fused_dec_int8 as fd
 
 
 @pytest.fixture
@@ -77,3 +80,89 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         fc.conv3x3_adain_relu_requant(t["x"].transpose(1, 2), t["w"], t["gamma"], t["beta"])
     with pytest.raises(ValueError, match="float32"):
         fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"].double(), t["beta"])
+
+
+def _convt_inputs(b, side, cin, cout, dev, seed=2):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, (b, side, side, cin), dtype=np.int8)).to(dev)
+    w = rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8)
+    return x, fc.pack_convt_weights_ps(torch.from_numpy(w), cin, cout).to(dev)
+
+
+def _final7_inputs(b, side, dev, seed=3):
+    rng = np.random.default_rng(seed)
+    t = dict(x=rng.integers(0, 128, (b, side, side, 64), dtype=np.int8),
+             w=rng.integers(-127, 128, (3, 64, 7, 7), dtype=np.int8),
+             ws=rng.uniform(1e-4, 2e-4, 3).astype(np.float32),
+             bias=rng.uniform(-0.3, 0.3, 3).astype(np.float32),
+             inv_s=rng.uniform(0.02, 0.05, (b, 1)).astype(np.float32))
+    return [torch.from_numpy(v).to(dev) for v in t.values()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,cin,cout", [(1, 16, 64, 64), (2, 16, 256, 128),
+                                             (8, 64, 256, 128), (8, 128, 128, 64)])
+def test_convt_sites_kernel_matches_plain(cuda_device, b, side, cin, cout):
+    """up0 and up1 run one kernel and count apart; the last two shapes are theirs."""
+    x, w = _convt_inputs(b, side, cin, cout, cuda_device)
+    before = fc.LAUNCHES[fc.CONVT_SITE], fd.LAUNCHES[fd.UP1_SITE]
+    got = [fc.convt4x4s2_in_relu_requant_ps(x, w), fd.up1_s2d16(x, w)]
+    assert (fc.LAUNCHES[fc.CONVT_SITE], fd.LAUNCHES[fd.UP1_SITE]) == (before[0] + 1, before[1] + 1)
+    want_q, want_s = fc.convt4x4s2_in_relu_requant_ps_plain(x, w)
+    torch.cuda.synchronize()
+    for got_q, got_s in got:
+        assert got_q.shape == (b, 2 * side, 2 * side, cout) and got_s.shape == (b, 1)
+        torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+        _assert_int8_close(got_q, want_q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side", [(1, 32), (2, 64), (8, 256)])
+def test_final7_kernel_matches_plain(cuda_device, b, side):
+    args = _final7_inputs(b, side, cuda_device)
+    before = fd.LAUNCHES[fd.FINAL7_SITE]
+    got = fd.final7_tanh_u8(*args)
+    assert fd.LAUNCHES[fd.FINAL7_SITE] == before + 1
+    want = fd.final7_tanh_u8_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.shape == (b, side, side, 3)
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_decoder_wrappers_reject_bad_inputs(cuda_device):
+    x, w = _convt_inputs(1, 16, 64, 64, cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        fc.convt4x4s2_in_relu_requant_ps(x.to(torch.int32), w)
+    with pytest.raises(ValueError, match="shape"):
+        fd.up1_s2d16(x, w[:-64])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fd.up1_s2d16(x, w.cpu())
+    with pytest.raises(ValueError, match="Cin % 64"):
+        fc.convt4x4s2_in_relu_requant_ps(x[..., :32].contiguous(), w[:512])
+    x7, w7, ws, bias, inv_s = _final7_inputs(1, 32, cuda_device)
+    with pytest.raises(ValueError, match="C == 64"):
+        fd.final7_tanh_u8(x7[..., :32].contiguous(), w7, ws, bias, inv_s)
+    with pytest.raises(ValueError, match="float32"):
+        fd.final7_tanh_u8(x7, w7, ws.double(), bias, inv_s)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fd.final7_tanh_u8(x7, w7.cpu(), ws, bias, inv_s)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.final7_tanh_u8(x7.transpose(1, 2), w7, ws, bias, inv_s)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_take_the_plain_path(cuda_device):
+    x, w = _convt_inputs(1, 16, 64, 64, cuda_device)
+    x7 = _final7_inputs(1, 32, cuda_device)
+    with mock.patch.object(fc, "convt4x4s2_in_relu_requant_ps_plain") as p0, \
+            mock.patch.object(fd, "up1_s2d16_plain") as p1, \
+            mock.patch.object(fd, "final7_tanh_u8_plain") as p7:
+        fc.convt4x4s2_in_relu_requant_ps(x, w)
+        fd.up1_s2d16(x, w)
+        fd.final7_tanh_u8(*x7)
+        torch.cuda.synchronize()
+    for plain in (p0, p1, p7):
+        plain.assert_not_called()

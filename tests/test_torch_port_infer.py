@@ -3,8 +3,11 @@
 (d) the int8 path end to end against
 ``quantized_generator_apply_staged(..., pallas=("trunk",))`` on random
 weights at 64², with the JAX trunk kernels in interpret mode and the port's
-wrappers on their plain versions; (f) the style modes, the random ones fed
-the draws ``jax.random`` makes.
+wrappers on their plain versions, and where the two packages part; (f) the
+style modes, the random ones fed the draws ``jax.random`` makes. JAX runs
+eagerly throughout: under ``jax.jit`` XLA keeps ``_requant``'s product
+``x * scale`` in fp32 instead of rounding it to bf16, which changes int8
+codes.
 """
 
 import json
@@ -101,9 +104,11 @@ def slice_inputs(random_gen):
 
 
 def test_int8_slice_matches_jax_staged_trunk(slice_inputs):
-    """End to end. The bf16 encoder chain amplifies 1-ulp differences of
-    XLA's CPU rsqrt into int8 steps, so the bar is PSNR; the trunk and the
-    decoder are held bit-exact below."""
+    """End to end. The first encoder IN's fp32 statistics are summed in
+    another order than XLA's, so a few bf16 outputs differ by one ulp (see
+    the two tests below), and the bf16 encoder chain amplifies those into
+    int8 steps: the bar is PSNR. The trunk and the decoder are held
+    bit-exact below."""
     jqp, q, img, style = slice_inputs
     want = np.asarray(jq.quantized_generator_apply_staged(
         jqp, jnp.asarray(img), jnp.asarray(style), n_res=N_RES, out_dtype=jnp.uint8,
@@ -130,6 +135,49 @@ def test_int8_trunk_and_decoder_bit_exact_on_jax_encoder_output(slice_inputs):
     want = np.asarray(jq._xla_decoder(jqp, jnp.asarray(want_trunk), jnp.uint8, int8_body=True))
     got = tq._xla_decoder(q, got_trunk, torch.uint8).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def conv0_out(slice_inputs):
+    """The first encoder conv's int32 output, from the JAX chain."""
+    jqp, _, img, _ = slice_inputs
+    x = (jnp.asarray(img).astype(jnp.int32) - 128).astype(jnp.int8)
+    x = jnp.pad(x, ((0, 0), (3, 3), (3, 3), (0, 0)), mode="reflect")
+    return np.array(jq._conv_i8(x, jqp["enc_conv0"], 1, ((0, 0), (0, 0))))
+
+
+def _jax_in_relu(y_i32):
+    return jnp.maximum(jq.instance_norm(jnp.asarray(y_i32).astype(jnp.bfloat16)), 0)
+
+
+def test_in_relu_parts_from_jax_only_by_reduction_order(conv0_out):
+    """Where the packages part: given the same int32 conv0 output, relu(IN) in
+    bf16 differs from eager JAX only where the fp32 statistics, reduced in
+    another order, differ in the last bit: on <= 1e-4 of the elements, each
+    by at most one bf16 ulp."""
+    want = _jax_in_relu(conv0_out)
+    want_bits = np.asarray(jax.lax.bitcast_convert_type(want, jnp.int16)).astype(np.int32)
+    got = tq._in_relu(torch.from_numpy(conv0_out))
+    assert got.dtype == torch.bfloat16
+    got_bits = got.view(torch.int16).numpy().astype(np.int32)
+    # relu outputs are >= 0, where bf16 bit patterns are ordered; -0 is 0.
+    want_bits[np.asarray(want) == 0] = 0
+    got_bits[got.float().numpy() == 0] = 0
+    ulps = np.abs(got_bits - want_bits)
+    assert ulps.max() <= 1, ulps.max()
+    assert (ulps > 0).mean() <= 1e-4, (ulps > 0).mean()
+
+
+@pytest.mark.parametrize("fn", ["_requant", "_requant_with_inv_scale"])
+def test_requant_bit_identical_to_eager_jax(conv0_out, fn):
+    h = _jax_in_relu(conv0_out)
+    got = getattr(tq, fn)(torch.from_numpy(np.array(h.astype(jnp.float32))).to(torch.bfloat16))
+    want = getattr(jq, fn)(h)
+    if fn == "_requant":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_trunk_hands_the_kernels_dense_contiguous_tensors(slice_inputs, monkeypatch):
