@@ -5,24 +5,27 @@
 
 Phases, each reported on its own line:
 
-1. build: compiles the four CUDA sources of the serving path from
+1. build: compiles the six CUDA sources of the serving path from
    ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and prints the
    card's name and power limit as nvidia-smi reports them;
-2. kernels: each of the five kernel sites against its plain PyTorch version
-   on the card, at the main path's shapes (batch 8): the two trunk sites at
-   [8, 64, 64, 256], up0 [8, 64, 64, 256] -> [8, 128, 128, 128], up1
-   [8, 128, 128, 128] -> [8, 256, 256, 64], final7 [8, 256, 256, 64] ->
-   [8, 256, 256, 3], with seeded random inputs: int8 outputs at most 1 step
-   apart on under 1% of the elements, scales within rtol 1e-5, uint8 at most
-   1 apart on under 1e-3; times by CUDA events;
+2. kernels: each of the eight kernel sites against its plain PyTorch version
+   on the card, at the main path's shapes (batch 8): enc0 uint8
+   [8, 256, 256, 3] -> [8, 256, 256, 64], enc1 [8, 256, 256, 64] ->
+   [8, 128, 128, 128], enc2 [8, 128, 128, 128] -> [8, 64, 64, 256], the two
+   trunk sites at [8, 64, 64, 256], up0 [8, 64, 64, 256] ->
+   [8, 128, 128, 128], up1 [8, 128, 128, 128] -> [8, 256, 256, 64], final7
+   [8, 256, 256, 64] -> [8, 256, 256, 3], with seeded random inputs: int8
+   outputs at most 1 step apart on under 1% of the elements, scales within
+   rtol 1e-5, uint8 at most 1 apart on under 1e-3; times by CUDA events;
 3. end to end: ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256) at 256², batch 8, over 20 seeded inputs: one
-   output per input, each trunk site launched 8 times per batch and each
-   decoder site once, and the int8 output's PSNR against the port's fp32
-   float path on the same inputs and style at least 30 dB; then the
-   generators' steady-state time per batch and the int8 generator's stages,
-   with the kernel decoder and the unfused decoder on the same trunk output;
+   output per input, each encoder and decoder site launched once per batch
+   and each trunk site 8 times, and the int8 output's PSNR against the
+   port's fp32 float path on the same inputs and style at least 30 dB; then
+   the generators' steady-state time per batch and the int8 generator's
+   stages, the kernel encoder and the unfused encoder on the same images, the
+   kernel decoder and the unfused decoder on the same trunk output;
 4. a ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -56,6 +59,11 @@ N_RES = 8                          # resblocks of the demo checkpoint
 N_INPUTS, TARGET = 20, "dom3"     # 3 batches of 8, the last one padded
 # kernel site -> (TPU kernel it replaces, CUDA source, launches per batch on the main path)
 SITES = {
+    "enc0_in_relu_requant": ("msig_tpu/ops/fused_enc_int8.py:606", "enc0_in_relu_requant.cu", 1),
+    "enc1_in_relu_requant": ("msig_tpu/ops/fused_enc_int8.py:623",
+                             "conv4x4s2_in_relu_requant.cu", 1),
+    "enc2_in_relu_requant": ("msig_tpu/ops/fused_enc_int8.py:643",
+                             "conv4x4s2_in_relu_requant.cu", 1),
     "conv3x3_adain_relu_requant": ("msig_tpu/ops/fused_conv_int8_v2.py:351",
                                    "conv3x3_adain_relu_requant.cu", N_RES),
     "conv3x3_adain_residual_requant": ("msig_tpu/ops/fused_conv_int8_v2.py:386",
@@ -99,7 +107,7 @@ def bound(site: str) -> tuple:
     Bytes: each input read once, each output written once. Operations: the
     int8 multiply-adds of the conv (2 ops each) at the int8 tensor rate, plus
     the fp32 work per output element at the fp32 rate: statistics (3), and
-    affine + ReLU + clip + round (5) at the relu and ConvT sites, or hn (4) +
+    affine + ReLU + clip + round (5) at the relu, ConvT and encoder sites, or hn (4) +
     max|hn| (2) + scale, clip, round (4) at the residual site; at final7,
     dequant, bias, tanh (counted as 20), scale, round, clip (26)."""
     if site in ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant"):
@@ -115,6 +123,17 @@ def bound(site: str) -> tuple:
         x_elems, out = B * side * side * cin, B * 4 * side * side * cout
         int8_ops = 2 * out * 4 * cin
         nbytes, fp_ops = x_elems + 16 * cin * cout + out + B * 4, 8 * out
+    elif site == "enc0_in_relu_requant":
+        px = B * 4 * SIDE * 4 * SIDE
+        out = px * 64
+        int8_ops = 2 * out * 147
+        nbytes, fp_ops = px * 3 + 160 * 64 + out, 8 * out
+    elif site in ("enc1_in_relu_requant", "enc2_in_relu_requant"):
+        side, cin = (4 * SIDE, C // 4) if site == "enc1_in_relu_requant" else (2 * SIDE, C // 2)
+        cout = 2 * cin
+        x_elems, out = B * side * side * cin, B * (side // 2) * (side // 2) * cout
+        int8_ops = 2 * out * 16 * cin
+        nbytes, fp_ops = x_elems + 16 * cin * cout + out + B * 4, 8 * out
     else:
         x_elems, out = B * 4 * SIDE * 4 * SIDE * 64, B * 4 * SIDE * 4 * SIDE * 3
         int8_ops = 2 * out * 49 * 64
@@ -124,7 +143,7 @@ def bound(site: str) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_phase(torch, fc, fd, dev) -> dict:
+def kernel_phase(torch, fc, fd, fe, dev) -> dict:
     rng = np.random.default_rng(0)
     shape = (B, SIDE, SIDE, C)
     x = rng.integers(-127, 128, shape, dtype=np.int8)
@@ -134,12 +153,14 @@ def kernel_phase(torch, fc, fd, dev) -> dict:
     h = rng.normal(0, 1.5, shape).astype(np.float32)
     hs = (np.abs(h).max(axis=(1, 2, 3)) / 127.0).astype(np.float32).reshape(B, 1)
     hq = np.clip(np.round(h / hs.reshape(B, 1, 1, 1)), -127, 127).astype(np.int8)
-    # Decoder inputs: up1 and final7 read ReLU outputs (0..127). final7's
-    # scales put y * wscale * inv_s around +-1.5, across the tanh.
+    # up1, final7, enc1 and enc2 read ReLU outputs (0..127): x1 feeds up1 and
+    # enc2, x2 final7 and enc1. final7's scales put y * wscale * inv_s around
+    # +-1.5, across the tanh.
     x1 = rng.integers(0, 128, (B, 2 * SIDE, 2 * SIDE, C // 2), dtype=np.int8)
     x2 = rng.integers(0, 128, (B, 4 * SIDE, 4 * SIDE, 64), dtype=np.int8)
     t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
         x=x, hq=hq, hs=hs, gamma=gamma, beta=beta, x1=x1, x2=x2,
+        img=rng.integers(0, 256, (B, 4 * SIDE, 4 * SIDE, 3), dtype=np.uint8),
         w7=rng.integers(-127, 128, (3, 64, 7, 7), dtype=np.int8),
         ws7=rng.uniform(1e-4, 2e-4, 3).astype(np.float32),
         b7=rng.uniform(-0.3, 0.3, 3).astype(np.float32),
@@ -149,8 +170,20 @@ def kernel_phase(torch, fc, fd, dev) -> dict:
         wt = rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8)
         t[name] = fc.pack_convt_weights_ps(torch.from_numpy(wt), cin, cin // 2).to(dev)
 
+    t["we0"] = fe.pack_enc0(torch.from_numpy(
+        rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).to(dev)
+    for name, cin in (("we1", C // 4), ("we2", C // 2)):
+        wt = rng.integers(-127, 128, (4, 4, cin, 2 * cin), dtype=np.int8)
+        t[name] = fe.pack_conv4x4(torch.from_numpy(wt)).to(dev)
+
     final7_args = (t["x2"], t["w7"], t["ws7"], t["b7"], t["is7"])
     calls = {
+        "enc0_in_relu_requant": (lambda: fe.enc0_in_relu_requant(t["img"], t["we0"]),
+                                 lambda: fe.enc0_in_relu_requant_plain(t["img"], t["we0"])),
+        "enc1_in_relu_requant": (lambda: fe.enc1_in_relu_requant(t["x2"], t["we1"]),
+                                 lambda: fe.enc1_in_relu_requant_plain(t["x2"], t["we1"])),
+        "enc2_in_relu_requant": (lambda: fe.enc2_in_relu_requant(t["x1"], t["we2"]),
+                                 lambda: fe.enc2_in_relu_requant_plain(t["x1"], t["we2"])),
         "conv3x3_adain_relu_requant": (
             lambda: fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"]),
             lambda: fc.conv3x3_adain_relu_requant_plain(t["x"], t["w"], t["gamma"], t["beta"])),
@@ -220,7 +253,7 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
-def e2e_phase(torch, fc, fd, work: str) -> dict:
+def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
     from PIL import Image
 
     from msig_tpu_torch import inference as cli
@@ -235,13 +268,13 @@ def e2e_phase(torch, fc, fd, work: str) -> dict:
         "--output_dir", out, "--target_domain", TARGET, "--style_mode", "average",
         "--quantize", "int8", "--image_size", "256", "--batch_size", str(B),
         "--compute_dtype", "float32", "--device", "cuda"])
-    fc.reset_launch_counts()
-    fd.reset_launch_counts()
+    for mod in (fc, fd, fe):
+        mod.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(cli.config_from_args(args))
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {**fc.LAUNCHES, **fd.LAUNCHES}
+    launches = {**fe.LAUNCHES, **fc.LAUNCHES, **fd.LAUNCHES}
     check(rc == 0, f"inference main exit code {rc} == 0")
     names = sorted(os.listdir(out))
     check(len(names) == N_INPUTS, f"{len(names)} outputs for {N_INPUTS} inputs")
@@ -295,11 +328,15 @@ def e2e_phase(torch, fc, fd, work: str) -> dict:
     q, n_res = engines["int8"].q, meta["n_residual_blocks"]
     check(n_res == N_RES, f"demo checkpoint has {n_res} resblocks, want {N_RES}")
     with torch.inference_mode():
-        h = tq._xla_encoder(q, imgs)
-        hq = tq._fused_trunk(q, h, styles, n_res)
+        hq_in, hs_in = tq._fused_encoder(q, imgs)
+        hq = tq._fused_trunk_rows(q, hq_in, hs_in, styles, n_res)
         stages = {
-            "encoder (3 int8 library products + bf16 IN/requant)": lambda: tq._xla_encoder(q, imgs),
-            f"trunk ({2 * n_res} CUDA kernel calls)": lambda: tq._fused_trunk(q, h, styles, n_res),
+            "encoder, served (3 CUDA kernel sites: enc0, enc1, enc2)": lambda: tq._fused_encoder(
+                q, imgs),
+            "encoder, unfused (3 convs: int8 library products + bf16 IN/requant)":
+                lambda: tq._xla_encoder(q, imgs),
+            f"trunk ({2 * n_res} CUDA kernel calls)": lambda: tq._fused_trunk_rows(
+                q, hq_in, hs_in, styles, n_res),
             "decoder, served (3 CUDA kernel sites: up0, up1, final7)": lambda: tq._fused_decoder(
                 q, hq, torch.uint8),
             "decoder, unfused (2 ConvT + final conv: int8 library products + bf16 IN/requant)":
@@ -322,11 +359,12 @@ def main() -> int:
     from msig_tpu_torch.ops import _build
     from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
     from msig_tpu_torch.ops import fused_dec_int8 as fd
+    from msig_tpu_torch.ops import fused_enc_int8 as fe
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = t0 = time.perf_counter()
-    sources = fc.SOURCES + fd.SOURCES
+    sources = fe.SOURCES + fc.SOURCES + fd.SOURCES
     logs = _build.build(sources)
     print(f"[build] {len(logs)} of {len(sources)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)", flush=True)
@@ -338,11 +376,11 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
 
     dev = torch.device("cuda")
-    kernels = kernel_phase(torch, fc, fd, dev)
+    kernels = kernel_phase(torch, fc, fd, fe, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
-        e2e = e2e_phase(torch, fc, fd, work)
+        e2e = e2e_phase(torch, fc, fd, fe, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)

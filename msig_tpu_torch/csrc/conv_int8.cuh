@@ -1,5 +1,6 @@
 // Shared pieces of the int8 conv sites that end in an instance norm (sm_90a):
-// the resblock 3x3 sites and the decoder's 4x4/s2 ConvT sites.
+// the resblock 3x3 sites, the decoder's 4x4/s2 ConvT sites and the encoder's
+// 4x4/s2 conv sites (and, for all but its own staging, the encoder's 7x7 site).
 //
 // Every such site starts with the same pass: an int8 convolution over a dense
 // NHWC map, written as an implicit GEMM and accumulated exactly in int32 with
@@ -32,22 +33,43 @@
 
 namespace msig {
 
-constexpr int kBM = 128;          // GEMM rows (input-grid pixels) per CTA, consecutive in one sample
+constexpr int kBM = 128;          // GEMM rows (pixels of the site's grid) per CTA, consecutive in one sample
 constexpr int kBK = 64;           // input channels staged per (tap, chunk)
 constexpr int kLds = kBK + 16;    // smem row pitch in bytes (20 words: fragment loads hit 32 banks)
 constexpr int kConvThreads = 256; // 8 warps: 4 along M (32 rows each) x 2 along N (BN/2 cols each)
 constexpr int kEpiThreads = 256;
 
+// A geometry says how the GEMM of pass A maps onto a conv. GEMM rows are the
+// pixels (gy, gx) of a grid of H/kStride x W/kStride; tap t of phase q reads
+// input pixel (gy*kStride + dy, gx*kStride + dx), zero outside the map, against
+// weight block blk, and the row lands at output pixel out_pixel(q, gy, gx, GW),
+// GW the grid's width.
+
 // 3x3 "same" conv: one phase, 9 taps, weight block t = ky*3 + kx.
 struct Conv3x3Geom {
   static constexpr int kPhases = 1;
   static constexpr int kTaps = 9;
+  static constexpr int kStride = 1;
   __device__ static void tap(int, int t, int& dy, int& dx, int& blk) {
     dy = t / 3 - 1;
     dx = t % 3 - 1;
     blk = t;
   }
-  __device__ static int out_pixel(int, int iy, int ix, int W) { return iy * W + ix; }
+  __device__ static int out_pixel(int, int gy, int gx, int GW) { return gy * GW + gx; }
+};
+
+// 4x4 / stride 2 / pad 1 conv: the grid is the output map; tap t = 4u + v
+// reads input (2*oy + u - 1, 2*ox + v - 1), weight block t.
+struct Conv4x4s2Geom {
+  static constexpr int kPhases = 1;
+  static constexpr int kTaps = 16;
+  static constexpr int kStride = 2;
+  __device__ static void tap(int, int t, int& dy, int& dx, int& blk) {
+    dy = (t >> 2) - 1;
+    dx = (t & 3) - 1;
+    blk = t;
+  }
+  __device__ static int out_pixel(int, int gy, int gx, int GW) { return gy * GW + gx; }
 };
 
 // ConvT 4x4 / stride 2 / pad 1 as four output phases q = (qy, qx), each a
@@ -58,13 +80,14 @@ struct Conv3x3Geom {
 struct ConvT4x4s2Geom {
   static constexpr int kPhases = 4;
   static constexpr int kTaps = 4;
+  static constexpr int kStride = 1;
   __device__ static void tap(int q, int t, int& dy, int& dx, int& blk) {
     dy = (t >> 1) - ((q >> 1) == 0);
     dx = (t & 1) - ((q & 1) == 0);
     blk = q * 4 + t;
   }
-  __device__ static int out_pixel(int q, int iy, int ix, int W) {
-    return (2 * iy + (q >> 1)) * (2 * W) + 2 * ix + (q & 1);
+  __device__ static int out_pixel(int q, int gy, int gx, int GW) {
+    return (2 * gy + (q >> 1)) * (2 * GW) + 2 * gx + (q & 1);
   }
 };
 
@@ -76,112 +99,51 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Pass A. grid = (B * Geom::kPhases * (H*W / kBM), Cout / BN), block = kConvThreads.
-// x: [B, H, W, Cin] int8; w: [kPhases*kTaps*Cin, Cout] int8, row blk*Cin + ci,
-// column co; y: [B, kPhases*H*W, Cout] int32, rows in output-pixel order.
-// Needs Cin % kBK == 0, Cout % BN == 0, H*W % kBM == 0 (the wrappers check).
-template <class Geom, int BN>
-__global__ void __launch_bounds__(kConvThreads)
-conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                     int32_t* __restrict__ y, long long* __restrict__ stats,
-                     int B, int H, int W, int Cin, int Cout) {
-  constexpr int NI = BN / 16;  // n-tiles of 8 per warp
-  __shared__ __align__(16) int8_t As[kBM * kLds];  // [pixel][k]
-  __shared__ __align__(16) int8_t Bs[BN * kLds];   // [co][k]: the "col" operand of mma
+// ReflectionPad2d source index: -i -> i, n-1+i -> n-1-i (pad < n).
+__device__ __forceinline__ int reflect_index(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
 
-  const int HW = H * W;
-  const int tiles = HW / kBM;
-  const int m0 = (blockIdx.x % tiles) * kBM;
-  const int q = (blockIdx.x / tiles) % Geom::kPhases;
-  const int b = blockIdx.x / (tiles * Geom::kPhases);
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  int acc[2][NI][4];
+// acc += As * Bs^T over one staged K chunk of KC bytes. As: [kBM pixels][k],
+// Bs: [BN channels][k], both with a row pitch of LDS bytes. Warp (wm, wn) owns
+// rows wm*32 .. +31 and columns wn*BN/2 .. +BN/2-1; g = lane / 4, t4 = lane % 4.
+template <int BN, int KC, int LDS>
+__device__ __forceinline__ void mma_chunk(const int8_t* As, const int8_t* Bs,
+                                          int (&acc)[2][BN / 16][4], int wm, int wn, int g,
+                                          int t4) {
+  constexpr int NI = BN / 16;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int ks = 0; ks < KC; ks += 32) {
+    uint32_t af[2][4], bf[NI][2];
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
-
-  const int8_t* xb = x + (size_t)b * HW * Cin;
-  for (int t = 0; t < Geom::kTaps; ++t) {
-    int dy, dx, blk;
-    Geom::tap(q, t, dy, dx, blk);
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-      // Input tile: kBM pixels x kBK channels, 16 B per load; the zero halo
-      // comes from the bounds check.
-      for (int i = tid; i < kBM * kBK / 16; i += kConvThreads) {
-        const int p = i / (kBK / 16), j = i % (kBK / 16);
-        const int m = m0 + p;
-        const int yy = m / W + dy, xx = m % W + dx;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-          v = *reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16);
-        *reinterpret_cast<int4*>(As + p * kLds + j * 16) = v;
-      }
-      // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][n0 + co].
-      for (int i = tid; i < kBK * BN / 16; i += kConvThreads) {
-        const int k = i % kBK, j = i / kBK;
-        const int4 v = *reinterpret_cast<const int4*>(
-            w + (size_t)(blk * Cin + c0 + k) * Cout + n0 + j * 16);
-        const int8_t* vb = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) Bs[(j * 16 + e) * kLds + k] = vb[e];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 32) {
-        uint32_t af[2][4], bf[NI][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + g;
-          af[mi][0] = *reinterpret_cast<const uint32_t*>(As + r * kLds + ks + t4 * 4);
-          af[mi][1] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * kLds + ks + t4 * 4);
-          af[mi][2] = *reinterpret_cast<const uint32_t*>(As + r * kLds + ks + 16 + t4 * 4);
-          af[mi][3] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * kLds + ks + 16 + t4 * 4);
-        }
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          const int n = wn * (BN / 2) + ni * 8 + g;
-          bf[ni][0] = *reinterpret_cast<const uint32_t*>(Bs + n * kLds + ks + t4 * 4);
-          bf[ni][1] = *reinterpret_cast<const uint32_t*>(Bs + n * kLds + ks + 16 + t4 * 4);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-      }
-      __syncthreads();
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = wm * 32 + mi * 16 + g;
+      af[mi][0] = *reinterpret_cast<const uint32_t*>(As + r * LDS + ks + t4 * 4);
+      af[mi][1] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * LDS + ks + t4 * 4);
+      af[mi][2] = *reinterpret_cast<const uint32_t*>(As + r * LDS + ks + 16 + t4 * 4);
+      af[mi][3] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * LDS + ks + 16 + t4 * 4);
     }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = wn * (BN / 2) + ni * 8 + g;
+      bf[ni][0] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + ks + t4 * 4);
+      bf[ni][1] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + ks + 16 + t4 * 4);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
   }
+}
 
-  // acc[mi][ni][r] holds GEMM row wm*32 + mi*16 + g (+8 for r >= 2) and
-  // column wn*BN/2 + ni*8 + t4*2 + (r & 1) of the CTA tile; a GEMM row is an
-  // input-grid pixel, which the geometry maps to its output pixel.
-  int32_t* yb = y + (size_t)b * Geom::kPhases * HW * Cout + n0;
+// Adds a CTA tile's share to the statistics block. acc[mi][ni][r] holds tile
+// row wm*32 + mi*16 + g (+8 for r >= 2) and column wn*BN/2 + ni*8 + t4*2 +
+// (r & 1); st points at the tile's first channel of sample b, BC = B * C.
+template <int BN>
+__device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4], long long* st,
+                                                  size_t BC, int wn, int g, int t4) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 32 + mi * 16 + g + h * 8;
-      const size_t row = Geom::out_pixel(q, m / W, m % W, W);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = wn * (BN / 2) + ni * 8 + t4 * 2;
-        *reinterpret_cast<int2*>(yb + row * Cout + col) =
-            make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-
-  const size_t BC = (size_t)B * Cout;
-  long long* st = stats + (size_t)b * Cout + n0;
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni)
+  for (int ni = 0; ni < BN / 16; ++ni)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       long long s = 0, sq = 0;
@@ -212,6 +174,93 @@ conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         atomicMax(st + 3 * BC + col, (long long)mx);
       }
     }
+}
+
+// Pass A. With GHW = (H / kStride) * (W / kStride) grid pixels per sample:
+// grid = (B * Geom::kPhases * (GHW / kBM), Cout / BN), block = kConvThreads.
+// x: [B, H, W, Cin] int8; w: [(number of blocks)*Cin, Cout] int8, row
+// blk*Cin + ci, column co; y: [B, kPhases*GHW, Cout] int32, rows in
+// output-pixel order. Needs Cin % kBK == 0, Cout % BN == 0, GHW % kBM == 0,
+// H and W multiples of kStride (the wrappers check).
+template <class Geom, int BN>
+__global__ void __launch_bounds__(kConvThreads)
+conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                     int32_t* __restrict__ y, long long* __restrict__ stats,
+                     int B, int H, int W, int Cin, int Cout) {
+  constexpr int NI = BN / 16;  // n-tiles of 8 per warp
+  __shared__ __align__(16) int8_t As[kBM * kLds];  // [pixel][k]
+  __shared__ __align__(16) int8_t Bs[BN * kLds];   // [co][k]: the "col" operand of mma
+
+  const int GW = W / Geom::kStride;
+  const int GHW = (H / Geom::kStride) * GW;
+  const int tiles = GHW / kBM;
+  const int m0 = (blockIdx.x % tiles) * kBM;
+  const int q = (blockIdx.x / tiles) % Geom::kPhases;
+  const int b = blockIdx.x / (tiles * Geom::kPhases);
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  int acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+
+  const int8_t* xb = x + (size_t)b * H * W * Cin;
+  for (int t = 0; t < Geom::kTaps; ++t) {
+    int dy, dx, blk;
+    Geom::tap(q, t, dy, dx, blk);
+    for (int c0 = 0; c0 < Cin; c0 += kBK) {
+      // Input tile: kBM pixels x kBK channels, 16 B per load; the zero halo
+      // comes from the bounds check.
+      for (int i = tid; i < kBM * kBK / 16; i += kConvThreads) {
+        const int p = i / (kBK / 16), j = i % (kBK / 16);
+        const int m = m0 + p;
+        const int yy = (m / GW) * Geom::kStride + dy, xx = (m % GW) * Geom::kStride + dx;
+        int4 v = make_int4(0, 0, 0, 0);
+        if (yy >= 0 && yy < H && xx >= 0 && xx < W)
+          v = *reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16);
+        *reinterpret_cast<int4*>(As + p * kLds + j * 16) = v;
+      }
+      // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][n0 + co].
+      for (int i = tid; i < kBK * BN / 16; i += kConvThreads) {
+        const int k = i % kBK, j = i / kBK;
+        const int4 v = *reinterpret_cast<const int4*>(
+            w + (size_t)(blk * Cin + c0 + k) * Cout + n0 + j * 16);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) Bs[(j * 16 + e) * kLds + k] = vb[e];
+      }
+      __syncthreads();
+      mma_chunk<BN, kBK, kLds>(As, Bs, acc, wm, wn, g, t4);
+      __syncthreads();
+    }
+  }
+
+  // acc[mi][ni][r] holds GEMM row wm*32 + mi*16 + g (+8 for r >= 2) and
+  // column wn*BN/2 + ni*8 + t4*2 + (r & 1) of the CTA tile; a GEMM row is a
+  // grid pixel, which the geometry maps to its output pixel.
+  int32_t* yb = y + (size_t)b * Geom::kPhases * GHW * Cout + n0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mi * 16 + g + h * 8;
+      const size_t row = Geom::out_pixel(q, m / GW, m % GW, GW);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = wn * (BN / 2) + ni * 8 + t4 * 2;
+        *reinterpret_cast<int2*>(yb + row * Cout + col) =
+            make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+
+  reduce_tile_stats<BN>(acc, stats + (size_t)b * Cout + n0, (size_t)B * Cout, wn, g, t4);
 }
 
 // Per-channel IN (+ AdaIN) affine of sample b, in the order of the TPU kernel
@@ -263,7 +312,8 @@ inline int epilogue_blocks(int HW, int C) {
   return (int)(n < 1 ? 1 : (n > 1024 ? 1024 : n));
 }
 
-// Pass B of the relu sites (resblock conv1, the ConvT sites): IN (+ AdaIN)
+// Pass B of the relu sites (resblock conv1, the ConvT sites, the encoder
+// sites): IN (+ AdaIN)
 // -> ReLU -> per-sample requant. amax is the affine image of the zero-masked
 // min and max, as the TPU kernels take it (fused_conv_int8_v2.py:127-131,
 // :634-637); it may exceed the true max, never clip. Then

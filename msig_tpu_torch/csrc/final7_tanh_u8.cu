@@ -5,7 +5,7 @@
 // Replaces the TPU kernel msig_tpu/ops/fused_dec_int8.py::final7_tanh_u8
 // (_kernel_final7), which runs nine tap matmuls on up1's s2d-16 slab whose
 // guard cells up1 filled with reflected values. Here the halo is read by
-// index: i < 0 -> -i, i >= H -> 2H - 2 - i.
+// index (reflect_index in conv_int8.cuh): i < 0 -> -i, i >= H -> 2H - 2 - i.
 //
 // Bound on an H100 at the main path's shape [8, 256, 256, 64]: 2 * 1.57 M
 // outputs * 3,136 = 9.9 G int8 operations (5.0 us at 1,979 TOP/s) against
@@ -25,8 +25,7 @@
 // rounding to nearest (|y| reaches 127^2 * 3,136 ~ 5.1e7, above 2^24, as
 // astype(float32) does), tanhf, and rintf, which rounds half to even like
 // torch.round and jnp.round.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv_int8.cuh"
 
 namespace msig {
 
@@ -39,10 +38,6 @@ constexpr int kHaloW = kTW + 2 * kPad, kHaloH = kTH + 2 * kPad;
 constexpr int kXWords = kHaloH * kHaloW * kPitch;
 constexpr int kWWords = kK * kK * kWords * kCout;
 constexpr size_t kSmemBytes = (size_t)(kXWords + kWWords) * sizeof(int);
-
-__device__ __forceinline__ int reflect(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
 
 // grid = (W / kTW, H / kTH, B), block = kThreads, dynamic smem kSmemBytes.
 // x: [B, H, W, 64] int8; w: [3, 64, 7, 7] int8 (OIHW); wscale, bias: [3]
@@ -67,8 +62,8 @@ final7_tanh_u8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
   const int8_t* xb = x + (size_t)b * H * W * kCin;
   for (int i = threadIdx.x; i < kHaloH * kHaloW * 4; i += kThreads) {
     const int quarter = i & 3, p = i >> 2;
-    const int iy = reflect(oy0 - kPad + p / kHaloW, H);
-    const int ix = reflect(ox0 - kPad + p % kHaloW, W);
+    const int iy = reflect_index(oy0 - kPad + p / kHaloW, H);
+    const int ix = reflect_index(ox0 - kPad + p % kHaloW, W);
     const int4 v = *reinterpret_cast<const int4*>(xb + ((size_t)iy * W + ix) * kCin + quarter * 16);
     int* d = xs + p * kPitch + quarter * 4;
     d[0] = v.x;

@@ -9,7 +9,7 @@ Counterpart of ``msig_tpu/infer/engine.py``:
   - decodes input images in a thread pool on a producer thread, so decode
     overlaps device compute;
   - float path (the CLI default) or the int8 serving path
-    (``infer/quantized.py``, whose trunk runs the CUDA kernels on ``cuda``).
+    (``infer/quantized.py``, whose kernel sites run CUDA kernels on ``cuda``).
 
 Data-parallel serving is not ported yet.
 """

@@ -1,25 +1,30 @@
 """Int8 generator forward for serving (inference only).
 
-Counterpart of ``msig_tpu/infer/quantized.py``. At 256² input the port runs
-the composition of ``quantized_generator_apply_staged(..., pallas=("trunk",
-"dec"))`` there:
+Counterpart of ``msig_tpu/infer/quantized.py``. At 256² input
+``quantized_generator_apply`` runs the all-kernel chain of the JAX package
+(``quantized_generator_apply_staged(..., pallas=("enc", "trunk", "dec"))``),
+every site a CUDA kernel on dense NHWC int8:
 
-  - encoder: the unfused int8 chain (``_xla_encoder``), whose convolutions
-    the JAX package leaves to XLA. Here they are an im2col times the
-    library's exact int8 matrix product (``torch._int_mm``, int32
-    accumulation), on the CPU and on the card alike, with the bf16
-    activations and requant steps of the JAX chain;
-  - residual trunk: the two CUDA kernels of ``ops/fused_conv_int8_v2.py``,
-    one launch each per resblock, on dense NHWC int8;
+  - encoder (``_fused_encoder``): ``fe.enc0_in_relu_requant``,
+    ``fe.enc1_in_relu_requant``, ``fe.enc2_in_relu_requant``; enc2 hands the
+    trunk its int8 map and inverse scale, with no bf16 step and no second
+    requant in between;
+  - residual trunk (``_fused_trunk_rows``): the two kernels of
+    ``ops/fused_conv_int8_v2.py``, one launch each per resblock;
   - decoder (``_fused_decoder``): for uint8 output, three kernel sites, up0
     (``fc.convt4x4s2_in_relu_requant_ps``), up1 (``fd.up1_s2d16``) and the
     final conv7 + dequant + tanh + uint8 (``fd.final7_tanh_u8``); for float
     output the ConvT site twice, then the unfused final conv on up1's int8
     output and inverse scale.
 
-At any other input size the decoder is the unfused chain too
-(``_xla_decoder``), which is the composition ``pallas=("trunk",)``: the JAX
-package's staged composition and its decoder kernels are for 256² only.
+At any other input size it runs the composition ``pallas=("trunk",)``: the
+unfused int8 encoder and decoder (``_xla_encoder``, ``_xla_decoder``) around
+the kernel trunk. The JAX package leaves the unfused chain's convolutions to
+XLA; here they are an im2col times the library's exact int8 matrix product
+(``torch._int_mm``, int32 accumulation), on the CPU and on the card alike,
+with the bf16 activations and requant steps of the JAX chain.
+``quantized_generator_apply_staged`` runs any of the eight compositions, to
+attribute a difference to one stage.
 
 Every conv but the last is followed by an instance norm, which absorbs the
 per-output-channel weight scales, the per-sample activation scales and the
@@ -29,14 +34,15 @@ conv biases, so no dequantization appears until the final RGB conv.
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 from msig_tpu_torch.ops import fused_dec_int8 as fd
-from msig_tpu_torch.ops.norm import instance_norm
+from msig_tpu_torch.ops import fused_enc_int8 as fe
+from msig_tpu_torch.ops.norm import adain_modulate, instance_norm
 
 Q = Dict[str, torch.Tensor]
 
@@ -70,7 +76,8 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     """int8 weights of the generator from its state_dict (torch names).
 
     Keys as in the JAX package: ``enc_conv{0,1,2}`` and ``dec_up{0,1}`` (int8
-    OIHW of the forward conv), ``up{0,1}_ps`` (the same ConvT kernels packed
+    OIHW of the forward conv), ``enc{0,1,2}_p`` (the encoder kernels packed
+    [K, Cout] for their sites), ``up{0,1}_ps`` (the ConvT kernels packed
     [16*Cin, Cout] by phase), ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
     ``res{i}_adain{1,2}_{k,b}`` (style affine, fp32), ``out_kernel_i8``,
     ``out_wscale``, ``out_bias`` (final conv, with a true dequant).
@@ -84,6 +91,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
         "dec_up0": _quantize_kernel(_convt_forward_kernel(sd[f"decoder.{n}.weight"])),
         "dec_up1": _quantize_kernel(_convt_forward_kernel(sd[f"decoder.{n + 3}.weight"])),
     }
+    q["enc0_p"] = fe.pack_enc0(q["enc_conv0"].permute(2, 3, 1, 0))
+    for i in (1, 2):
+        q[f"enc{i}_p"] = fe.pack_conv4x4(q[f"enc_conv{i}"].permute(2, 3, 1, 0))
     for i in (0, 1):
         w_hwio = q[f"dec_up{i}"].permute(2, 3, 1, 0)
         q[f"up{i}_ps"] = fc.pack_convt_weights_ps(w_hwio, *w_hwio.shape[2:])
@@ -190,10 +200,20 @@ def _style_affines(q: Q, style: torch.Tensor, n_res: int):
     return gammas.contiguous(), betas.contiguous()
 
 
-def _fused_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int) -> torch.Tensor:
-    """bf16 trunk input -> int8 trunk output with an absorbed per-sample scale."""
-    hq, inv_s = _requant_with_inv_scale(h)
-    hs = inv_s.reshape(h.shape[0], 1).to(torch.float32)
+def _fused_encoder(q: Q, img_u8: torch.Tensor):
+    """uint8 NHWC image -> (int8 trunk input [B, H/4, W/4, 256], residual scale [B, 1]).
+
+    Dense counterpart of ``msig_tpu/infer/quantized.py::_fused_encoder``: the
+    three encoder sites chained on int8, enc2's inverse scale as it comes."""
+    h0 = fe.enc0_in_relu_requant(img_u8, q["enc0_p"])
+    h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"])
+    return fe.enc2_in_relu_requant(h1, q["enc2_p"])
+
+
+def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Tensor,
+                      n_res: int) -> torch.Tensor:
+    """int8 trunk input and its inverse scale [B, 1] -> int8 trunk output with an
+    absorbed per-sample scale (the stock int8 + scale residual carry)."""
     gammas, betas = _style_affines(q, style, n_res)
     for i in range(n_res):
         y1q = fc.conv3x3_adain_relu_requant(hq, q[f"res{i}_conv1_p"], gammas[2 * i],
@@ -203,11 +223,39 @@ def _fused_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int) -> torc
     return hq
 
 
-def _xla_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
-    """int8 trunk output -> final image (``_xla_decoder(..., int8_body=True)``).
+def _fused_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int) -> torch.Tensor:
+    """bf16-input wrapper of :func:`_fused_trunk_rows` (after the unfused encoder)."""
+    hq, inv_s = _requant_with_inv_scale(h)
+    return _fused_trunk_rows(q, hq, inv_s.reshape(h.shape[0], 1).to(torch.float32), style, n_res)
 
-    ``hq`` carries an absorbed per-sample scale, which dec_up0 (IN-followed)
-    consumes directly."""
+
+def _xla_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int) -> torch.Tensor:
+    """bf16 trunk input -> bf16 trunk output on the unfused int8 chain
+    (``_xla_trunk`` without ``fused_epilogue``), the residual carried in bf16."""
+    gammas, betas = _style_affines(q, style, n_res)
+    for i in range(n_res):
+        # OIHW kernels back from the packed [9C, C] rows (ky*3 + kx)*C + ci.
+        w1, w2 = (q[f"res{i}_{c}_p"].reshape(3, 3, h.shape[-1], -1).permute(3, 2, 0, 1)
+                  for c in ("conv1", "conv2"))
+        y = _conv_i8(_requant(h), w1, 1, 1)
+        y = torch.relu(adain_modulate(_bf16(y), gammas[2 * i], betas[2 * i]))
+        y = _conv_i8(_requant(y), w2, 1, 1)
+        h = adain_modulate(_bf16(y), gammas[2 * i + 1], betas[2 * i + 1]) + h
+    return h
+
+
+def _rows_to_spatial(hq: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+    """int8 map and its inverse scale [B, 1] -> bf16 activations (``_rows_to_spatial``)."""
+    return hq.to(torch.bfloat16) * hs.reshape(-1, 1, 1, 1).to(torch.bfloat16)
+
+
+def _xla_decoder(q: Q, h: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Trunk output -> final image on the unfused int8 chain.
+
+    An int8 ``h`` carries an absorbed per-sample scale, which dec_up0
+    (IN-followed) consumes directly (``_xla_decoder(..., int8_body=True)``);
+    a bf16 ``h`` is requantized first."""
+    hq = h if h.dtype == torch.int8 else _requant(h)
     h = _in_relu(_conv_i8(hq, q["dec_up0"], 1, 2, lhs_dilation=True))
     h = _in_relu(_conv_i8(_requant(h), q["dec_up1"], 1, 2, lhs_dilation=True))
     return _final_conv(q, h, out_dtype)
@@ -247,18 +295,47 @@ def _fused_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
     return _final_conv_i8(q, *fc.convt4x4s2_in_relu_requant_ps(y0, q["up1_ps"]), out_dtype)
 
 
+ALL_STAGES = ("enc", "trunk", "dec")
+
+
+def quantized_generator_apply_staged(q: Q, img_u8: torch.Tensor, style: torch.Tensor,
+                                     n_res: int = 8, out_dtype=torch.uint8,
+                                     pallas: Tuple[str, ...] = ALL_STAGES) -> torch.Tensor:
+    """Per-stage composition of the int8 generator (``quantized_generator_apply_staged``).
+
+    ``pallas`` names the stages that run on their kernel sites; the others run
+    the unfused int8 chain. Each hybrid swaps whole stages, so a difference
+    between two compositions names its stage. Between a kernel stage and an
+    unfused one the activations cross as the JAX package's do: int8 times its
+    inverse scale to bf16, or bf16 requantized to int8 and an inverse scale."""
+    unknown = set(pallas) - set(ALL_STAGES)
+    if unknown:
+        raise ValueError(f"unknown stages {sorted(unknown)}: pallas takes a subset of {ALL_STAGES}")
+    _trunk_hifi_mode()
+    if "enc" in pallas:
+        hq, hs = _fused_encoder(q, img_u8)
+        h = hq if "trunk" in pallas else _rows_to_spatial(hq, hs)
+    else:
+        h = _xla_encoder(q, img_u8)
+    if "trunk" not in pallas:
+        h = _xla_trunk(q, h, style, n_res)
+    elif "enc" in pallas:
+        h = _fused_trunk_rows(q, hq, hs, style, n_res)
+    else:
+        h = _fused_trunk(q, h, style, n_res)
+    # h: the trunk's int8 output with an absorbed scale, or the unfused trunk's bf16.
+    if "dec" not in pallas:
+        return _xla_decoder(q, h, out_dtype)
+    return _fused_decoder(q, h if h.dtype == torch.int8 else _requant(h), out_dtype)
+
+
 def quantized_generator_apply(q: Q, img_u8: torch.Tensor, style: torch.Tensor, n_res: int = 8,
                               out_dtype=torch.uint8) -> torch.Tensor:
     """uint8 NHWC image + style [B, S] -> image (uint8, or [-1,1] float).
 
-    At 256² input, the JAX package's ``quantized_generator_apply_staged(q, img,
-    style, n_res, out_dtype, pallas=("trunk", "dec"))``: unfused int8 encoder,
-    the trunk and the decoder on their kernel sites. At any other size,
-    ``pallas=("trunk",)``: the decoder unfused as well, since the JAX
-    package's decoder kernels are for 256² only (the choice is by shape)."""
-    _trunk_hifi_mode()
-    h = _xla_encoder(q, img_u8)
-    hq = _fused_trunk(q, h, style, n_res)
-    if tuple(img_u8.shape[1:3]) == (256, 256):
-        return _fused_decoder(q, hq, out_dtype)
-    return _xla_decoder(q, hq, out_dtype)
+    At 256² input, the JAX package's all-kernel chain (``quantized.py:352-368``,
+    ``pallas=("enc", "trunk", "dec")``): 3 + 2*n_res + 3 kernel-site calls. At
+    any other size ``pallas=("trunk",)``, the unfused encoder and decoder
+    around the kernel trunk (the choice is by shape)."""
+    stages = ALL_STAGES if tuple(img_u8.shape[1:3]) == (256, 256) else ("trunk",)
+    return quantized_generator_apply_staged(q, img_u8, style, n_res, out_dtype, pallas=stages)

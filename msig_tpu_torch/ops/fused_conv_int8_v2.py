@@ -1,7 +1,8 @@
 """The int8 conv sites that end in an instance norm: CUDA kernels and their plain versions.
 
 Counterpart of ``msig_tpu/ops/fused_conv_int8_v2.py``: the resblock trunk's
-two 3x3 sites and the decoder's phase-split ConvT 4x4/s2 site. The TPU
+two 3x3 sites and the decoder's phase-split ConvT 4x4/s2 site; the encoder's
+sites (``fused_enc_int8.py``) share the epilogue and the checks here. The TPU
 kernels work on a guard-padded row slab (and the ConvT on a space-to-depth
 slab) shaped for VMEM; here every site takes and gives dense NHWC int8
 ``[B, H, W, C]``. ``guard_rows`` and ``from_padded_rows`` know the row slab
@@ -187,17 +188,23 @@ def conv3x3_adain_relu_requant_plain(x_i8, w_packed, gamma, beta, eps: float = _
     return _relu_requant(y, *_channel_affine(y, gamma, beta, eps))[0]
 
 
-def convt4x4s2_in_relu_requant_ps_plain(x_i8, w_ps, eps: float = _EPS):
-    """ConvT 4x4/s2 -> IN -> ReLU -> per-sample requant (``_kernel_up_ps``).
+def in_relu_requant_i64(y: torch.Tensor, eps: float = _EPS):
+    """Plain IN -> ReLU -> per-sample requant of an exact int64 conv output [B, H, W, C].
 
-    IN statistics per output channel over all four phases; the affine is the
-    relu site's with gamma = 1, beta = 0 (same bits as the TPU kernel's
-    ``rsqrt`` and ``-mean * a``). Returns (int8 [B, 2H, 2W, Cout], inverse
-    scale [B, 1])."""
-    y = convt4x4s2_i64(x_i8, w_ps)
+    The epilogue of the ConvT and encoder sites: the relu site's affine with
+    gamma = 1, beta = 0 (same bits as the TPU kernels' ``rsqrt`` and
+    ``-mean * a``). Returns (int8, inverse scale [B, 1])."""
     b, c = y.shape[0], y.shape[-1]
     ones = torch.ones((b, c), dtype=torch.float32, device=y.device)
     return _relu_requant(y, *_channel_affine(y, ones, torch.zeros_like(ones), eps))
+
+
+def convt4x4s2_in_relu_requant_ps_plain(x_i8, w_ps, eps: float = _EPS):
+    """ConvT 4x4/s2 -> IN -> ReLU -> per-sample requant (``_kernel_up_ps``).
+
+    IN statistics per output channel over all four phases. Returns (int8
+    [B, 2H, 2W, Cout], inverse scale [B, 1])."""
+    return in_relu_requant_i64(convt4x4s2_i64(x_i8, w_ps), eps)
 
 
 def conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma, beta,

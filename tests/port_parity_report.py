@@ -6,7 +6,7 @@ values behind them, so the records can quote them:
     JAX_PLATFORMS=cpu python tests/port_parity_report.py
 
 It runs the JAX side on the CPU, eagerly (Pallas in interpret mode), and the
-port on the CPU (its kernels' plain versions), and takes about three minutes.
+port on the CPU (its kernels' plain versions), and takes about six minutes.
 """
 
 import os
@@ -31,12 +31,14 @@ from msig_tpu.models import StyleCycleGANGenerator as JGenerator  # noqa: E402
 from msig_tpu.ops import fused_conv_int8 as jfc  # noqa: E402
 from msig_tpu.ops import fused_conv_int8_v2 as jf2  # noqa: E402
 from msig_tpu.ops import fused_dec_int8 as jfd  # noqa: E402
+from msig_tpu.ops import fused_enc_int8 as jfe  # noqa: E402
 from msig_tpu_torch.compat.from_jax import generator_state_dict, style_encoder_state_dict  # noqa: E402
 from msig_tpu_torch.infer import quantized as tq  # noqa: E402
 from msig_tpu_torch.infer.styles import sample_styles  # noqa: E402
 from msig_tpu_torch.models import MultiDomainStyleEncoder, StyleCycleGANGenerator  # noqa: E402
 from msig_tpu_torch.ops import fused_conv_int8_v2 as tf2  # noqa: E402
 from msig_tpu_torch.ops import fused_dec_int8 as tfd  # noqa: E402
+from msig_tpu_torch.ops import fused_enc_int8 as tfe  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, "results", "tomato_r3b", "demo_checkpoint")
@@ -224,11 +226,84 @@ def decoder_slice():
     want = np.asarray(jq.quantized_generator_apply_staged(
         jqp, jnp.asarray(img), jnp.asarray(style), n_res=1, out_dtype=jnp.uint8,
         pallas=("trunk", "dec")))
-    got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
-                                       n_res=1).numpy()
+    got = tq.quantized_generator_apply_staged(q, torch.from_numpy(img), torch.from_numpy(style),
+                                              n_res=1, pallas=("trunk", "dec")).numpy()
     d = np.abs(got.astype(int) - want.astype(int))
     print(f"(g) int8 generator 256², n_res 1, vs staged(pallas=('trunk', 'dec')): "
           f"PSNR {psnr_u8(got, want):.2f} dB, within 1: {(d <= 1).mean():.4f}")
+
+
+def _cells(o, wc=64):
+    """JAX slab [B, g + wc*(wc+8) + g, L] -> the grid's cells [B, wc, wc, L]."""
+    wp, srows, _, _, g, _ = jfe.enc_geometry(wc)
+    o = np.asarray(o)
+    return o[:, g:g + srows].reshape(o.shape[0], wc, wp, o.shape[-1])[:, :, :wc]
+
+
+def _dense_enc0(o, wc=64):
+    t = _cells(o, wc).reshape(-1, wc, wc, 2, 2, 2, 2, 64)
+    return t.transpose(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, 4 * wc, 4 * wc, 64)
+
+
+def _dense_enc1(o, wc=64):
+    t = _cells(o, wc).reshape(-1, wc, wc, 2, 2, 128)
+    return t.transpose(0, 1, 3, 2, 4, 5).reshape(-1, 2 * wc, 2 * wc, 128)
+
+
+def encoder_slice():
+    """The encoder's three sites, each on the JAX kernel's output of the site
+    before it, the encoder chained, and the generator at 256², B = 1."""
+    jqp, q = _random_int8_gen(1, 2)
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    style = rng.normal(0, 1, (1, 64)).astype(np.float32)
+    h0 = jfe.enc0_in_relu_requant(jfe.prep_s2d4_input(jnp.asarray(img)), jqp["enc0_p"])
+    h1 = jfe.enc1_in_relu_requant(h0, jqp["enc1_p"])
+    h2, s2 = jfe.enc2_in_relu_requant(h1, jqp["enc2_p"])
+    d0, d1, d2 = _dense_enc0(h0), _dense_enc1(h1), _cells(h2)
+    g2, gs = tfe.enc2_in_relu_requant(torch.from_numpy(d1), q["enc2_p"])
+    sites = [("enc0", tfe.enc0_in_relu_requant(torch.from_numpy(img), q["enc0_p"]), d0),
+             ("enc1", tfe.enc1_in_relu_requant(torch.from_numpy(d0), q["enc1_p"]), d1),
+             ("enc2", g2, d2)]
+    for name, got, want in sites:
+        d = np.abs(got.numpy().astype(int) - want.astype(int))
+        print(f"(h) {name} site, same input: max step {d.max()}, differing share "
+              f"{(d > 0).mean():.2e}")
+    srel = np.abs(gs.numpy().ravel() / np.asarray(s2).ravel() - 1).max()
+    print(f"(h) enc2 site, same input: scale rel err {srel:.2e}")
+    cq, cs = tq._fused_encoder(q, torch.from_numpy(img))
+    d = np.abs(cq.numpy().astype(int) - d2.astype(int))
+    srel = np.abs(cs.numpy().ravel() / np.asarray(s2).ravel() - 1).max()
+    print(f"(h) fused encoder, chained: max step {d.max()}, differing share {(d > 0).mean():.2e}, "
+          f"scale rel err {srel:.2e}")
+    # The input of tests/test_torch_port_enc.py::test_fused_encoder_matches_jax_on_demo_weights.
+    gen, _, _, _ = _load_npz(DEMO, 10)
+    img6 = np.random.default_rng(6).integers(0, 256, (1, 256, 256, 3), dtype=np.uint8)
+    dq, ds = jq._fused_encoder(jq.quantize_generator_params(gen, 8), jnp.asarray(img6))
+    cq, cs = tq._fused_encoder(tq.quantize_generator_params(generator_state_dict(gen, 8), 8),
+                               torch.from_numpy(img6))
+    d = np.abs(cq.numpy().astype(int) - _cells(dq).astype(int))
+    srel = np.abs(cs.numpy().ravel() / np.asarray(ds).ravel() - 1).max()
+    print(f"(h) fused encoder, chained, demo weights: max step {d.max()}, differing share "
+          f"{(d > 0).mean():.2e}, scale rel err {srel:.2e}")
+    want = np.asarray(jq.quantized_generator_apply_staged(
+        jqp, jnp.asarray(img), jnp.asarray(style), n_res=1, out_dtype=jnp.uint8,
+        pallas=("enc", "trunk", "dec")))
+    got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
+                                       n_res=1).numpy()
+    d = np.abs(got.astype(int) - want.astype(int))
+    print(f"(h) int8 generator 256², n_res 1, vs staged(pallas=('enc', 'trunk', 'dec')): "
+          f"PSNR {psnr_u8(got, want):.2f} dB, within 1: {(d <= 1).mean():.4f}, within 2: "
+          f"{(d <= 2).mean():.4f}, max {d.max()}")
+    # The rest of the chain from the JAX encoder's own output.
+    rows = jq._fused_trunk_rows(jqp, h2, s2.reshape(1, 1), jnp.asarray(style), 1, w_img=64)
+    want = np.asarray(jq._fused_decoder(jqp, rows, jnp.uint8, w_cells=64))
+    hq = tq._fused_trunk_rows(q, torch.from_numpy(d2.copy()),
+                              torch.from_numpy(np.array(s2).reshape(1, 1)),
+                              torch.from_numpy(style), 1)
+    d = np.abs(tq._fused_decoder(q, hq, torch.uint8).numpy().astype(int) - want.astype(int))
+    print(f"(h) trunk + decoder from the JAX encoder's output: within 1: {(d <= 1).mean():.6f}, "
+          f"max {d.max()}")
 
 
 def leaf_tiles(sheet, col):
@@ -251,20 +326,24 @@ def int8_fidelity_on_leaves():
     jqp = jq.quantize_generator_params(gen, 8)
     jint8 = {p: np.asarray(jq.quantized_generator_apply_staged(
         jqp, jnp.asarray(imgs), style, n_res=8, out_dtype=jnp.uint8, pallas=p))
-        for p in (("trunk",), ("trunk", "dec"))}
+        for p in (("trunk",), ("trunk", "dec"), ("enc", "trunk", "dec"))}
     sd = generator_state_dict(gen, 8)
     tg = StyleCycleGANGenerator(style_dim=256, n_residual_blocks=8)
     tg.load_state_dict(sd)
     ts = torch.from_numpy(np.array(style))
     with torch.no_grad():
         tfp32 = to_u8(tg(torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1), ts).numpy())
-    tint8 = tq.quantized_generator_apply(tq.quantize_generator_params(sd, 8),
-                                         torch.from_numpy(imgs), ts, n_res=8).numpy()
-    print(f"int8 vs fp32, demo checkpoint, 4 leaf photos at 256²: JAX staged "
-          f"pallas=('trunk',) {psnr_u8(jint8[('trunk',)], jfp32):.2f} dB, "
-          f"pallas=('trunk', 'dec') {psnr_u8(jint8[('trunk', 'dec')], jfp32):.2f} dB; "
-          f"port (trunk and dec kernels) {psnr_u8(tint8, tfp32):.2f} dB; port int8 vs JAX "
-          f"pallas=('trunk', 'dec') int8 {psnr_u8(tint8, jint8[('trunk', 'dec')]):.2f} dB")
+    tq8 = tq.quantize_generator_params(sd, 8)
+    tint8 = {p: tq.quantized_generator_apply_staged(tq8, torch.from_numpy(imgs), ts, n_res=8,
+                                                    pallas=p).numpy()
+             for p in (("trunk", "dec"), ("enc", "trunk", "dec"))}
+    served = ("enc", "trunk", "dec")
+    print("int8 vs fp32, demo checkpoint, 4 leaf photos at 256²: JAX staged "
+          + ", ".join(f"pallas={p} {psnr_u8(jint8[p], jfp32):.2f} dB" for p in jint8)
+          + "; port staged "
+          + ", ".join(f"pallas={p} {psnr_u8(tint8[p], tfp32):.2f} dB" for p in tint8)
+          + f"; port int8 vs JAX int8, both pallas={served}: "
+          f"{psnr_u8(tint8[served], jint8[served]):.2f} dB")
 
 
 def styles():
@@ -294,5 +373,6 @@ if __name__ == "__main__":
     float_networks()
     int8_slice()
     decoder_slice()
+    encoder_slice()
     styles()
     int8_fidelity_on_leaves()

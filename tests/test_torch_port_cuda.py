@@ -15,6 +15,7 @@ import torch
 
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 from msig_tpu_torch.ops import fused_dec_int8 as fd
+from msig_tpu_torch.ops import fused_enc_int8 as fe
 
 
 @pytest.fixture
@@ -153,16 +154,90 @@ def test_decoder_wrappers_reject_bad_inputs(cuda_device):
         fd.final7_tanh_u8(x7.transpose(1, 2), w7, ws, bias, inv_s)
 
 
+def _enc_inputs(b, side, dev, seed=4):
+    """enc0's image and weights, and 0..127 maps (ReLU outputs) for enc1 and enc2."""
+    rng = np.random.default_rng(seed)
+    t = dict(img=rng.integers(0, 256, (b, side, side, 3), dtype=np.uint8),
+             x1=rng.integers(0, 128, (b, side, side, 64), dtype=np.int8),
+             x2=rng.integers(0, 128, (b, side // 2, side // 2, 128), dtype=np.int8))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+    t["w0"] = fe.pack_enc0(torch.from_numpy(
+        rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).to(dev)
+    for name, cin in (("w1", 64), ("w2", 128)):
+        w = rng.integers(-127, 128, (4, 4, cin, 2 * cin), dtype=np.int8)
+        t[name] = fe.pack_conv4x4(torch.from_numpy(w)).to(dev)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side", [(1, 64), (2, 128), (8, 256)])
+def test_encoder_sites_kernel_matches_plain(cuda_device, b, side):
+    """The last shape is the main path's: 256² images, batch 8."""
+    t = _enc_inputs(b, side, cuda_device)
+    before = dict(fe.LAUNCHES)
+    got0 = fe.enc0_in_relu_requant(t["img"], t["w0"])
+    got1 = fe.enc1_in_relu_requant(t["x1"], t["w1"])
+    got2, got_s = fe.enc2_in_relu_requant(t["x2"], t["w2"])
+    assert fe.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want2, want_s = fe.enc2_in_relu_requant_plain(t["x2"], t["w2"])
+    torch.cuda.synchronize()
+    assert got0.shape == (b, side, side, 64) and got1.shape == (b, side // 2, side // 2, 128)
+    assert got2.shape == (b, side // 4, side // 4, 256) and got_s.shape == (b, 1)
+    _assert_int8_close(got0, fe.enc0_in_relu_requant_plain(t["img"], t["w0"]))
+    _assert_int8_close(got1, fe.enc1_in_relu_requant_plain(t["x1"], t["w1"]))
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+    _assert_int8_close(got2, want2)
+
+
+@pytest.mark.cuda
+def test_enc0_kernel_reflects_a_map_that_is_not_square(cuda_device):
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 24, 48, 3), dtype=np.uint8)).to(cuda_device)
+    w = fe.pack_enc0(torch.from_numpy(
+        rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).to(cuda_device)
+    got = fe.enc0_in_relu_requant(img, w)
+    torch.cuda.synchronize()
+    _assert_int8_close(got, fe.enc0_in_relu_requant_plain(img, w))
+
+
+@pytest.mark.cuda
+def test_encoder_wrappers_reject_bad_inputs(cuda_device):
+    t = _enc_inputs(1, 64, cuda_device)
+    with pytest.raises(ValueError, match="uint8"):
+        fe.enc0_in_relu_requant(t["img"].to(torch.int8), t["w0"])
+    with pytest.raises(ValueError, match="shape"):
+        fe.enc0_in_relu_requant(t["img"], t["w0"][:147].contiguous())
+    with pytest.raises(ValueError, match="H % 8"):
+        fe.enc0_in_relu_requant(t["img"][:, :60].contiguous(), t["w0"])
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.enc0_in_relu_requant(t["img"].transpose(1, 2), t["w0"])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fe.enc1_in_relu_requant(t["x1"], t["w1"].cpu())
+    with pytest.raises(ValueError, match="Cin % 64"):
+        fe.enc1_in_relu_requant(t["x1"][..., :32].contiguous(), t["w1"][:512])
+    with pytest.raises(ValueError, match="int8"):
+        fe.enc2_in_relu_requant(t["x2"].to(torch.int32), t["w2"])
+    with pytest.raises(ValueError, match="shape"):
+        fe.enc2_in_relu_requant(t["x2"], t["w2"][:-128])
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_path(cuda_device):
     x, w = _convt_inputs(1, 16, 64, 64, cuda_device)
     x7 = _final7_inputs(1, 32, cuda_device)
+    e = _enc_inputs(1, 64, cuda_device)
     with mock.patch.object(fc, "convt4x4s2_in_relu_requant_ps_plain") as p0, \
             mock.patch.object(fd, "up1_s2d16_plain") as p1, \
-            mock.patch.object(fd, "final7_tanh_u8_plain") as p7:
+            mock.patch.object(fd, "final7_tanh_u8_plain") as p7, \
+            mock.patch.object(fe, "enc0_in_relu_requant_plain") as e0, \
+            mock.patch.object(fe, "enc1_in_relu_requant_plain") as e1, \
+            mock.patch.object(fe, "enc2_in_relu_requant_plain") as e2:
         fc.convt4x4s2_in_relu_requant_ps(x, w)
         fd.up1_s2d16(x, w)
         fd.final7_tanh_u8(*x7)
+        fe.enc0_in_relu_requant(e["img"], e["w0"])
+        fe.enc1_in_relu_requant(e["x1"], e["w1"])
+        fe.enc2_in_relu_requant(e["x2"], e["w2"])
         torch.cuda.synchronize()
-    for plain in (p0, p1, p7):
+    for plain in (p0, p1, p7, e0, e1, e2):
         plain.assert_not_called()

@@ -191,25 +191,38 @@ def test_generator_256_matches_jax_staged_trunk_dec(qparams):
     want = np.asarray(jq.quantized_generator_apply_staged(
         jqp, jnp.asarray(img), jnp.asarray(style), n_res=N_RES, out_dtype=jnp.uint8,
         pallas=("trunk", "dec")))
-    got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
-                                       n_res=N_RES, out_dtype=torch.uint8).numpy()
+    got = tq.quantized_generator_apply_staged(q, torch.from_numpy(img), torch.from_numpy(style),
+                                              n_res=N_RES, out_dtype=torch.uint8,
+                                              pallas=("trunk", "dec")).numpy()
     assert got.dtype == np.uint8 and got.shape == want.shape == (1, 256, 256, 3)
     assert _psnr(got, want) >= 40.0
 
 
-@pytest.mark.parametrize("side,decoder", [(64, "_xla_decoder"), (128, "_xla_decoder"),
-                                          (256, "_fused_decoder")])
-def test_decoder_is_chosen_by_input_size(side, decoder, monkeypatch):
-    """256² takes the kernel decoder (``pallas=("trunk", "dec")``); other sizes
-    keep ``pallas=("trunk",)``."""
+_ALL_KERNELS = ["_fused_encoder", "_fused_trunk_rows", "_fused_decoder"]
+_TRUNK_ONLY = ["_xla_encoder", "_fused_trunk", "_xla_decoder"]
+
+
+@pytest.mark.parametrize("side,chain", [(64, _TRUNK_ONLY), (128, _TRUNK_ONLY),
+                                        (256, _ALL_KERNELS)])
+def test_decoder_is_chosen_by_input_size(side, chain, monkeypatch):
+    """256² takes the all-kernel chain (``pallas=("enc", "trunk", "dec")``):
+    the kernel encoder, the trunk straight on its int8 output and scale, the
+    kernel decoder. Other sizes keep ``pallas=("trunk",)``."""
     calls = []
-    monkeypatch.setattr(tq, "_xla_encoder", lambda q, img: img)
-    monkeypatch.setattr(tq, "_fused_trunk", lambda q, h, style, n_res: h)
+    hq = torch.zeros((1, 1, 1, 1), dtype=torch.int8)
+
+    def fake(name, result):
+        return lambda *args: calls.append(name) or result
+
+    monkeypatch.setattr(tq, "_xla_encoder", fake("_xla_encoder", hq.to(torch.bfloat16)))
+    monkeypatch.setattr(tq, "_fused_encoder", fake("_fused_encoder", (hq, torch.ones((1, 1)))))
+    for name in ("_fused_trunk", "_fused_trunk_rows", "_xla_trunk"):
+        monkeypatch.setattr(tq, name, fake(name, hq))
     for name in ("_xla_decoder", "_fused_decoder"):
-        monkeypatch.setattr(tq, name, lambda q, hq, out_dtype, name=name: calls.append(name))
+        monkeypatch.setattr(tq, name, fake(name, None))
     tq.quantized_generator_apply({}, torch.zeros((1, side, side, 3), dtype=torch.uint8),
                                  torch.zeros((1, SDIM)))
-    assert calls == [decoder]
+    assert calls == chain
 
 
 # ---------------------------------------------------- no silent fallback

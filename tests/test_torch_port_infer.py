@@ -113,8 +113,9 @@ def test_int8_slice_matches_jax_staged_trunk(slice_inputs):
     want = np.asarray(jq.quantized_generator_apply_staged(
         jqp, jnp.asarray(img), jnp.asarray(style), n_res=N_RES, out_dtype=jnp.uint8,
         pallas=("trunk",)))
-    got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
-                                       n_res=N_RES, out_dtype=torch.uint8).numpy()
+    got = tq.quantized_generator_apply_staged(q, torch.from_numpy(img), torch.from_numpy(style),
+                                              n_res=N_RES, out_dtype=torch.uint8,
+                                              pallas=("trunk",)).numpy()
     assert got.dtype == np.uint8 and got.shape == want.shape == (2, 64, 64, 3)
     assert _psnr_u8(got, want) >= 40.0
 
