@@ -19,7 +19,7 @@
 
 // Returns cudaGetLastError() after the launches (0 = success). Launches on
 // `stream` and does not synchronise. y_scratch: [B, H*W, C] int32;
-// stats: int64 [4*B*C + B], zero-initialised.
+// stats: int64 [5*B*C + B], zero-initialised.
 extern "C" int msig_conv3x3_adain_relu_requant(const void* x, const void* w, const void* gamma,
                                                const void* beta, void* y_scratch, void* stats,
                                                void* out, int B, int H, int W, int C, float eps,
@@ -34,7 +34,7 @@ extern "C" int msig_conv3x3_adain_relu_requant(const void* x, const void* w, con
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b(epilogue_blocks(HW, C), B);
-  relu_requant_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
+  relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
       static_cast<const int32_t*>(y_scratch), static_cast<const long long*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<int8_t*>(out), nullptr, B, HW, C, eps);

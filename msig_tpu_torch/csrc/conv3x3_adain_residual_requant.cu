@@ -54,9 +54,7 @@ residual_amax_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h
     local = fmaxf(local, fabsf(residual_hn(v.w, r.w, a_s[c + 3], d_s[c + 3], hs)));
   }
   const float m = block_max(local, red);
-  if (threadIdx.x == 0)
-    atomicMax(reinterpret_cast<unsigned long long*>(stats + 4 * (size_t)B * C + b),
-              (unsigned long long)__float_as_uint(m));
+  if (threadIdx.x == 0) store_amax(stats, B, C, b, m);
 }
 
 __global__ void __launch_bounds__(kEpiThreads)
@@ -71,7 +69,7 @@ residual_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict_
   const int b = blockIdx.y;
   channel_affine(stats, gamma, beta, b, B, C, HW, eps, a_s, d_s);
   __syncthreads();
-  const float amax = __uint_as_float((unsigned int)stats[4 * (size_t)B * C + b]);
+  const float amax = load_amax(stats, B, C, b);
   const float s = amax > 0.f ? __fdiv_rn(127.f, amax) : 1.f;
   if (blockIdx.x == 0 && threadIdx.x == 0) out_scale[b] = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
   const float hs = h_scale[b];
@@ -100,7 +98,7 @@ residual_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict_
 
 // Returns cudaGetLastError() after the launches (0 = success). Launches on
 // `stream` and does not synchronise. h_scale: [B] float32; out_scale: [B]
-// float32; y_scratch: [B, H*W, C] int32; stats: int64 [4*B*C + B], zeroed.
+// float32; y_scratch: [B, H*W, C] int32; stats: int64 [5*B*C + B], zeroed.
 extern "C" int msig_conv3x3_adain_residual_requant(const void* y1, const void* h,
                                                    const void* h_scale, const void* w,
                                                    const void* gamma, const void* beta,

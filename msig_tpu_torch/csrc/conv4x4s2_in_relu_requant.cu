@@ -27,7 +27,7 @@
 // Returns cudaGetLastError() after the launches (0 = success). Launches on
 // `stream` and does not synchronise. w: [16*Cin, Cout] int8, row
 // (4u + v)*Cin + ci; y_scratch: [B, H/2 * W/2, Cout] int32; stats: int64
-// [4*B*Cout + B], zero-initialised; out: [B, H/2, W/2, Cout] int8;
+// [5*B*Cout + B], zero-initialised; out: [B, H/2, W/2, Cout] int8;
 // out_scale: [B] float32. Needs H and W even, Cin % 64 == 0,
 // Cout % 64 == 0, (H/2)*(W/2) % 128 == 0.
 extern "C" int msig_conv4x4s2_in_relu_requant(const void* x, const void* w, void* y_scratch,
@@ -53,7 +53,7 @@ extern "C" int msig_conv4x4s2_in_relu_requant(const void* x, const void* w, void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b(epilogue_blocks(HWo, Cout), B);
-  relu_requant_kernel<<<grid_b, kEpiThreads, 2 * Cout * sizeof(float), st>>>(
+  relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, 2 * Cout * sizeof(float), st>>>(
       yp, sp, nullptr, nullptr, static_cast<int8_t*>(out), static_cast<float*>(out_scale), B,
       HWo, Cout, eps);
   return (int)cudaGetLastError();

@@ -21,13 +21,18 @@
 // Statistics block (int64, zero-initialised by the caller), for B samples and
 // C output channels:
 //   [0*B*C + b*C + c]  sum of y          (exact)
-//   [1*B*C + b*C + c]  sum of y*y        (exact: the wrapper checks the bound)
+//   [1*B*C + b*C + c]  sum of y*y, low words: each warp's partial sum & (2^32 - 1)
 //   [2*B*C + b*C + c]  min(0, min y)     (the zero-masked min of the TPU kernel)
 //   [3*B*C + b*C + c]  max(0, max y)     (the zero-masked max)
-//   [4*B*C + b]        max |hn| of the residual site, as the bits of a float
-// Integer sums make the statistics independent of the order of the CTAs.
+//   [4*B*C + b*C + c]  sum of y*y, high words: each warp's partial sum >> 32
+//   [5*B*C + b]        max |hn| of the residual sites, as the bits of a float
+// The sum of squares is hi * 2^32 + lo, exact while max|y| < 2^29 and the sum
+// stays below 2^94 (the wrappers check): a [B, 256, 256, 256] trunk map can
+// reach 2^66, past one int64. Integer sums make the statistics independent
+// of the order of the CTAs.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +43,40 @@ constexpr int kBK = 64;           // input channels staged per (tap, chunk)
 constexpr int kLds = kBK + 16;    // smem row pitch in bytes (20 words: fragment loads hit 32 banks)
 constexpr int kConvThreads = 256; // 8 warps: 4 along M (32 rows each) x 2 along N (BN/2 cols each)
 constexpr int kEpiThreads = 256;
+constexpr int kStatBlocks = 5;    // per-(sample, channel) blocks of the statistics block
+
+// The scratch that carries pass A's accumulator to the epilogue is int32, or
+// __half holding y * 2^-12 (msig_tpu/ops/fused_dec_int8.py: STAGE_SCALE):
+// half the round trip, |y| * 2^-12 < 65504 for every site here, and the
+// statistics are taken from the exact int32 values before the narrowing. The
+// epilogue folds 2^12 into its multiplier.
+constexpr float kStageScale = 1.f / 4096.f;
+
+template <class Stage> struct StageOf;
+template <> struct StageOf<int32_t> {
+  static constexpr float kUnscale = 1.f;
+  __device__ static void store2(int32_t* p, int v0, int v1) {
+    *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+  }
+  __device__ static void load4(const int32_t* p, float (&f)[4]) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    f[0] = (float)v.x, f[1] = (float)v.y, f[2] = (float)v.z, f[3] = (float)v.w;
+  }
+};
+template <> struct StageOf<__half> {
+  static constexpr float kUnscale = 4096.f;
+  __device__ static void store2(__half* p, int v0, int v1) {
+    *reinterpret_cast<__half2*>(p) =
+        __halves2half2(__float2half_rn(__fmul_rn((float)v0, kStageScale)),
+                       __float2half_rn(__fmul_rn((float)v1, kStageScale)));
+  }
+  __device__ static void load4(const __half* p, float (&f)[4]) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const __half2 lo = *reinterpret_cast<const __half2*>(&v.x);
+    const __half2 hi = *reinterpret_cast<const __half2*>(&v.y);
+    f[0] = __low2float(lo), f[1] = __high2float(lo), f[2] = __low2float(hi), f[3] = __high2float(hi);
+  }
+};
 
 // A geometry says how the GEMM of pass A maps onto a conv. GEMM rows are the
 // pixels (gy, gx) of a grid of H/kStride x W/kStride; tap t of phase q reads
@@ -139,14 +178,22 @@ __device__ __forceinline__ void mma_chunk(const int8_t* As, const int8_t* Bs,
 // Adds a CTA tile's share to the statistics block. acc[mi][ni][r] holds tile
 // row wm*32 + mi*16 + g (+8 for r >= 2) and column wn*BN/2 + ni*8 + t4*2 +
 // (r & 1); st points at the tile's first channel of sample b, BC = B * C.
+// The warps first meet in shared memory (the four warps along M share their
+// columns), so the tile costs kStatBlocks global atomics per column. Every
+// thread of the CTA must call it.
 template <int BN>
 __device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4], long long* st,
                                                   size_t BC, int wn, int g, int t4) {
+  // Zero is the neutral value of all five: min and max are zero-masked.
+  __shared__ long long cta[kStatBlocks][BN];
+  for (int i = threadIdx.x; i < kStatBlocks * BN; i += blockDim.x) (&cta[0][0])[i] = 0;
+  __syncthreads();
 #pragma unroll
   for (int ni = 0; ni < BN / 16; ++ni)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      long long s = 0, sq = 0;
+      long long s = 0;
+      unsigned long long sq = 0;  // 32 rows of v*v < 2^58 each
       int mn = 0, mx = 0;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -154,7 +201,7 @@ __device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4
         for (int h = 0; h < 2; ++h) {
           const int v = acc[mi][ni][h * 2 + e];
           s += v;
-          sq += (long long)v * v;
+          sq += (unsigned long long)((long long)v * v);
           mn = min(mn, v);
           mx = max(mx, v);
         }
@@ -167,25 +214,40 @@ __device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4
         mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       }
       if (g == 0) {
+        // The warp's sum of squares is split here: four of them could pass 2^64.
         const int col = wn * (BN / 2) + ni * 8 + t4 * 2 + e;
-        atomicAdd(reinterpret_cast<unsigned long long*>(st + col), (unsigned long long)s);
-        atomicAdd(reinterpret_cast<unsigned long long*>(st + BC + col), (unsigned long long)sq);
-        atomicMin(st + 2 * BC + col, (long long)mn);
-        atomicMax(st + 3 * BC + col, (long long)mx);
+        atomicAdd(reinterpret_cast<unsigned long long*>(&cta[0][col]), (unsigned long long)s);
+        atomicAdd(reinterpret_cast<unsigned long long*>(&cta[1][col]), sq & 0xffffffffull);
+        atomicMin(&cta[2][col], (long long)mn);
+        atomicMax(&cta[3][col], (long long)mx);
+        atomicAdd(reinterpret_cast<unsigned long long*>(&cta[4][col]), sq >> 32);
       }
     }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kStatBlocks * BN; i += blockDim.x) {
+    const int k = i / BN, col = i % BN;
+    long long* dst = st + k * BC + col;
+    const long long v = cta[k][col];
+    if (k == 2)
+      atomicMin(dst, v);
+    else if (k == 3)
+      atomicMax(dst, v);
+    else
+      atomicAdd(reinterpret_cast<unsigned long long*>(dst), (unsigned long long)v);
+  }
 }
 
 // Pass A. With GHW = (H / kStride) * (W / kStride) grid pixels per sample:
 // grid = (B * Geom::kPhases * (GHW / kBM), Cout / BN), block = kConvThreads.
 // x: [B, H, W, Cin] int8; w: [(number of blocks)*Cin, Cout] int8, row
 // blk*Cin + ci, column co; y: [B, kPhases*GHW, Cout] int32, rows in
-// output-pixel order. Needs Cin % kBK == 0, Cout % BN == 0, GHW % kBM == 0,
-// H and W multiples of kStride (the wrappers check).
-template <class Geom, int BN>
+// output-pixel order, int32 or __half (see StageOf). Needs Cin % kBK == 0,
+// Cout % BN == 0, GHW % kBM == 0, H and W multiples of kStride (the wrappers
+// check).
+template <class Geom, int BN, class Stage = int32_t>
 __global__ void __launch_bounds__(kConvThreads)
 conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                     int32_t* __restrict__ y, long long* __restrict__ stats,
+                     Stage* __restrict__ y, long long* __restrict__ stats,
                      int B, int H, int W, int Cin, int Cout) {
   constexpr int NI = BN / 16;  // n-tiles of 8 per warp
   __shared__ __align__(16) int8_t As[kBM * kLds];  // [pixel][k]
@@ -245,7 +307,7 @@ conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   // acc[mi][ni][r] holds GEMM row wm*32 + mi*16 + g (+8 for r >= 2) and
   // column wn*BN/2 + ni*8 + t4*2 + (r & 1) of the CTA tile; a GEMM row is a
   // grid pixel, which the geometry maps to its output pixel.
-  int32_t* yb = y + (size_t)b * Geom::kPhases * GHW * Cout + n0;
+  Stage* yb = y + (size_t)b * Geom::kPhases * GHW * Cout + n0;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -255,12 +317,39 @@ conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int col = wn * (BN / 2) + ni * 8 + t4 * 2;
-        *reinterpret_cast<int2*>(yb + row * Cout + col) =
-            make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        StageOf<Stage>::store2(yb + row * Cout + col, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
       }
     }
 
   reduce_tile_stats<BN>(acc, stats + (size_t)b * Cout + n0, (size_t)B * Cout, wn, g, t4);
+}
+
+// The exact sum of squares hi * 2^32 + lo of a statistics block's two words,
+// rounded once to fp32 (a route through float64 would round twice). Below
+// 2^62 the integer converts directly; above, it is first cut to its top 62
+// bits with the bits cut off ORed into the last one, which lies far below
+// fp32's rounding position, so the one rounding sees what the full integer
+// would show it; the power of two restores the magnitude exactly.
+__device__ __forceinline__ float sumsq_to_float(unsigned long long lo_sum,
+                                                unsigned long long hi_sum) {
+  const unsigned long long hi = hi_sum + (lo_sum >> 32), lo = lo_sum & 0xffffffffull;
+  const int s = max(0, 34 - __clzll((long long)hi));  // bit length of hi, less 30
+  const unsigned long long m =
+      (hi << (32 - s)) | (lo >> s) | (unsigned long long)((lo & ((1ull << s) - 1)) != 0);
+  return __fmul_rn(__ull2float_rn(m), (float)(1ull << s));
+}
+
+// Where the residual sites keep max |hn| of sample b.
+__device__ __forceinline__ long long* amax_slot(long long* stats, int B, int C, int b) {
+  return stats + (size_t)kStatBlocks * B * C + b;
+}
+__device__ __forceinline__ float load_amax(const long long* stats, int B, int C, int b) {
+  return __uint_as_float((unsigned int)stats[(size_t)kStatBlocks * B * C + b]);
+}
+// v >= 0: the bit patterns of non-negative floats are ordered as integers.
+__device__ __forceinline__ void store_amax(long long* stats, int B, int C, int b, float v) {
+  atomicMax(reinterpret_cast<unsigned long long*>(amax_slot(stats, B, C, b)),
+            (unsigned long long)__float_as_uint(v));
 }
 
 // Per-channel IN (+ AdaIN) affine of sample b, in the order of the TPU kernel
@@ -278,7 +367,9 @@ __device__ __forceinline__ void channel_affine(const long long* __restrict__ sta
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const size_t i = (size_t)b * C + c;
     const float mean = __fdiv_rn((float)stats[i], n);
-    const float var = fmaxf(__fsub_rn(__fdiv_rn((float)stats[BC + i], n), __fmul_rn(mean, mean)), 0.f);
+    const float sumsq = sumsq_to_float((unsigned long long)stats[BC + i],
+                                       (unsigned long long)stats[4 * BC + i]);
+    const float var = fmaxf(__fsub_rn(__fdiv_rn(sumsq, n), __fmul_rn(mean, mean)), 0.f);
     const float a = __fmul_rn(gamma ? gamma[i] : 1.f, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
     a_s[c] = a;
     d_s[c] = __fsub_rn(beta ? beta[i] : 0.f, __fmul_rn(mean, a));
@@ -319,10 +410,13 @@ inline int epilogue_blocks(int HW, int C) {
 // :634-637); it may exceed the true max, never clip. Then
 // y -> round(min(max(y*a2 + d2, 0), 127)) with a2 = a*s, d2 = d*s, s = 127/amax.
 // out_scale (null at the resblock site) gets amax/127, or 1 when amax is 0.
+// A __half scratch holds y * 2^-12: a2 takes the factor 2^12, after the
+// product a*s, as the TPU's staged sites fold it (fused_dec_int8.py:425-428).
 // grid = (epilogue_blocks(HW, C), B), dynamic smem 2*C floats; HW is the
 // number of output pixels per sample.
+template <class Stage>
 __global__ void __launch_bounds__(kEpiThreads)
-relu_requant_kernel(const int32_t* __restrict__ y, const long long* __restrict__ stats,
+relu_requant_kernel(const Stage* __restrict__ y, const long long* __restrict__ stats,
                     const float* __restrict__ gamma, const float* __restrict__ beta,
                     int8_t* __restrict__ out, float* __restrict__ out_scale, int B, int HW,
                     int C, float eps) {
@@ -347,23 +441,23 @@ relu_requant_kernel(const int32_t* __restrict__ y, const long long* __restrict__
   if (out_scale != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     out_scale[b] = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    a_s[c] = __fmul_rn(a_s[c], s);
+    a_s[c] = __fmul_rn(__fmul_rn(a_s[c], s), StageOf<Stage>::kUnscale);
     d_s[c] = __fmul_rn(d_s[c], s);
   }
   __syncthreads();
 
   const size_t n4 = (size_t)HW * C / 4;
-  const int4* y4 = reinterpret_cast<const int4*>(y + (size_t)b * HW * C);
+  const Stage* yb = y + (size_t)b * HW * C;
   char4* o4 = reinterpret_cast<char4*>(out + (size_t)b * HW * C);
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
-    const int4 v = y4[i];
+    float vals[4];
+    StageOf<Stage>::load4(yb + i * 4, vals);
     const int c = (int)((i * 4) % C);
-    const int vals[4] = {v.x, v.y, v.z, v.w};
     signed char qv[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      float t = __fadd_rn(__fmul_rn((float)vals[k], a_s[c + k]), d_s[c + k]);
+      float t = __fadd_rn(__fmul_rn(vals[k], a_s[c + k]), d_s[c + k]);
       t = fminf(fmaxf(t, 0.f), 127.f);
       qv[k] = (signed char)__float2int_rn(t);
     }

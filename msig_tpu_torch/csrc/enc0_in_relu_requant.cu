@@ -24,6 +24,14 @@
 // which goes to the int32 scratch while the statistics are reduced as at the
 // other sites (conv_int8.cuh). Pass B is relu_requant_kernel with gamma = 1,
 // beta = 0 and C = 64.
+//
+// At 512² the TPU runs this site as the staged pair msig_tpu/ops/
+// fused_enc_int8.py::_enc0_hbm (_kernel_enc0_conv_hbm, _kernel_enc0_rq_hbm),
+// because there the accumulator no longer fits VMEM; here it goes through
+// device memory at every size, so the staged site is these two launches at
+// [B, 512, 512, 3]. What the staged pair adds is kept: with stage_fp16 the
+// accumulator crosses as fp16 x 2^-12 (StageOf<__half>), 268 MB instead of
+// 537 MB each way at B = 8, the statistics still from the exact int32 values.
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -41,10 +49,11 @@ static_assert(kE0TH * kE0TW == kBM, "one CTA tile is kBM GEMM rows");
 
 // grid = (W / 16, H / 8, B), block = kConvThreads. img: [B, H, W, 3] uint8;
 // w: [160, 64] int8, row (u*7 + v)*3 + ci, rows 147 .. 159 zero; y:
-// [B, H*W, 64] int32; stats as in conv_int8.cuh.
+// [B, H*W, 64] int32 or __half; stats as in conv_int8.cuh.
+template <class Stage>
 __global__ void __launch_bounds__(kConvThreads)
 enc0_conv_stats_kernel(const uint8_t* __restrict__ img, const int8_t* __restrict__ w,
-                       int32_t* __restrict__ y, long long* __restrict__ stats, int B, int H,
+                       Stage* __restrict__ y, long long* __restrict__ stats, int B, int H,
                        int W) {
   constexpr int NI = kE0Cout / 16;
   __shared__ __align__(16) int8_t As[kBM * kE0Lds];      // [pixel][k]
@@ -99,7 +108,7 @@ enc0_conv_stats_kernel(const uint8_t* __restrict__ img, const int8_t* __restrict
   mma_chunk<kE0Cout, kE0Kpad, kE0Lds>(As, Bs, acc, wm, wn, g, t4);
 
   // Tile row p is output pixel (oy0 + p / 16, ox0 + p % 16).
-  int32_t* yb = y + (size_t)b * H * W * kE0Cout;
+  Stage* yb = y + (size_t)b * H * W * kE0Cout;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -109,34 +118,43 @@ enc0_conv_stats_kernel(const uint8_t* __restrict__ img, const int8_t* __restrict
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int col = wn * (kE0Cout / 2) + ni * 8 + t4 * 2;
-        *reinterpret_cast<int2*>(yb + row * kE0Cout + col) =
-            make_int2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        StageOf<Stage>::store2(yb + row * kE0Cout + col, acc[mi][ni][2 * h],
+                               acc[mi][ni][2 * h + 1]);
       }
     }
   reduce_tile_stats<kE0Cout>(acc, stats + (size_t)b * kE0Cout, (size_t)B * kE0Cout, wn, g, t4);
 }
 
-}  // namespace msig
-
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. y_scratch: [B, H*W, 64] int32; stats:
-// int64 [4*B*64 + B], zero-initialised; out: [B, H, W, 64] int8. Needs
-// H % 8 == 0 and W % 16 == 0 (the wrapper checks; the reflection's
-// H, W >= 4 follows).
-extern "C" int msig_enc0_in_relu_requant(const void* img, const void* w, void* y_scratch,
-                                         void* stats, void* out, int B, int H, int W, float eps,
-                                         void* stream) {
-  using namespace msig;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  int32_t* yp = static_cast<int32_t*>(y_scratch);
-  long long* sp = static_cast<long long*>(stats);
+template <class Stage>
+int enc0_launch(const uint8_t* img, const int8_t* w, Stage* y, long long* stats, int8_t* out, int B,
+                int H, int W, float eps, cudaStream_t st) {
   dim3 grid_a(W / kE0TW, H / kE0TH, B);
-  enc0_conv_stats_kernel<<<grid_a, kConvThreads, 0, st>>>(
-      static_cast<const uint8_t*>(img), static_cast<const int8_t*>(w), yp, sp, B, H, W);
+  enc0_conv_stats_kernel<Stage><<<grid_a, kConvThreads, 0, st>>>(img, w, y, stats, B, H, W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b(epilogue_blocks(H * W, kE0Cout), B);
-  relu_requant_kernel<<<grid_b, kEpiThreads, 2 * kE0Cout * sizeof(float), st>>>(
-      yp, sp, nullptr, nullptr, static_cast<int8_t*>(out), nullptr, B, H * W, kE0Cout, eps);
+  relu_requant_kernel<Stage><<<grid_b, kEpiThreads, 2 * kE0Cout * sizeof(float), st>>>(
+      y, stats, nullptr, nullptr, out, nullptr, B, H * W, kE0Cout, eps);
   return (int)cudaGetLastError();
+}
+
+}  // namespace msig
+
+// Returns cudaGetLastError() after the launches (0 = success). Launches on
+// `stream` and does not synchronise. y_scratch: [B, H*W, 64], int32 or
+// (stage_fp16 != 0) fp16; stats: int64 [5*B*64 + B], zero-initialised; out:
+// [B, H, W, 64] int8. Needs H % 8 == 0 and W % 16 == 0 (the wrapper checks;
+// the reflection's H, W >= 4 follows).
+extern "C" int msig_enc0_in_relu_requant(const void* img, const void* w, void* y_scratch,
+                                         void* stats, void* out, int B, int H, int W, float eps,
+                                         int stage_fp16, void* stream) {
+  using namespace msig;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const uint8_t* ip = static_cast<const uint8_t*>(img);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  long long* sp = static_cast<long long*>(stats);
+  int8_t* op = static_cast<int8_t*>(out);
+  if (stage_fp16)
+    return enc0_launch(ip, wp, static_cast<__half*>(y_scratch), sp, op, B, H, W, eps, st);
+  return enc0_launch(ip, wp, static_cast<int32_t*>(y_scratch), sp, op, B, H, W, eps, st);
 }

@@ -1,21 +1,27 @@
 """Int8 generator forward for serving (inference only).
 
-Counterpart of ``msig_tpu/infer/quantized.py``. At 256² input
-``quantized_generator_apply`` runs the all-kernel chain of the JAX package
-(``quantized_generator_apply_staged(..., pallas=("enc", "trunk", "dec"))``),
-every site a CUDA kernel on dense NHWC int8:
+Counterpart of ``msig_tpu/infer/quantized.py``. At 256² input, and at 512²
+for uint8 output, ``quantized_generator_apply`` runs the all-kernel chain of
+the JAX package (``quantized_generator_apply_staged(..., pallas=("enc",
+"trunk", "dec"))``), every site a CUDA kernel on dense NHWC int8:
 
-  - encoder (``_fused_encoder``): ``fe.enc0_in_relu_requant``,
+  - encoder (``_fused_encoder``): ``fe.enc0_in_relu_requant`` (on inputs
+    wider than 256 pixels the staged site ``fe.enc0_hbm``),
     ``fe.enc1_in_relu_requant``, ``fe.enc2_in_relu_requant``; enc2 hands the
     trunk its int8 map and inverse scale, with no bf16 step and no second
     requant in between;
-  - residual trunk (``_fused_trunk_rows``): the two kernels of
-    ``ops/fused_conv_int8_v2.py``, one launch each per resblock;
+  - residual trunk (``_fused_trunk_rows``): conv1 and conv2 of each resblock,
+    one launch each, of ``ops/fused_conv_int8_v2.py``; ``MSIG_TRUNK_HIFI``
+    chooses conv2's residual carry: 0 int8 + scale, 1 bf16, 2 two int8 planes;
   - decoder (``_fused_decoder``): for uint8 output, three kernel sites, up0
-    (``fc.convt4x4s2_in_relu_requant_ps``), up1 (``fd.up1_s2d16``) and the
+    (``fc.convt4x4s2_in_relu_requant_ps``), up1 (``fd.up1_s2d16``; on maps
+    wider than 128 pixels the staged site ``fd.up1_s2d16_hbm``) and the
     final conv7 + dequant + tanh + uint8 (``fd.final7_tanh_u8``); for float
     output the ConvT site twice, then the unfused final conv on up1's int8
     output and inverse scale.
+
+The staged sites pass their accumulator as int32, or as fp16 x 2^-12 with
+``MSIG_STAGE_FP16=1``. ``MSIG_512_FUSED=0`` keeps 512² off the all-kernel chain.
 
 At any other input size it runs the composition ``pallas=("trunk",)``: the
 unfused int8 encoder and decoder (``_xla_encoder``, ``_xla_decoder``) around
@@ -47,14 +53,26 @@ from msig_tpu_torch.ops.norm import adain_modulate, instance_norm
 Q = Dict[str, torch.Tensor]
 
 
+def _env_choice(name: str, default: str, choices: Tuple[str, ...]) -> str:
+    """An environment setting that takes one of ``choices``; anything else raises."""
+    v = os.environ.get(name, default)
+    if v not in choices:
+        raise ValueError(f"{name}={v!r} is not one of {', '.join(choices)}: unset it or "
+                         f"set it to one of them")
+    return v
+
+
 def _trunk_hifi_mode() -> int:
-    """MSIG_TRUNK_HIFI: only the stock int8 + scale residual carry (0) is ported."""
-    v = os.environ.get("MSIG_TRUNK_HIFI", "0")
-    if v != "0":
-        raise ValueError(
-            f"MSIG_TRUNK_HIFI={v!r} is not supported by msig_tpu_torch: only mode 0 "
-            "(int8 + per-sample scale residual carry) is ported; unset it or set it to 0")
-    return 0
+    """MSIG_TRUNK_HIFI: the trunk's residual carry between resblocks. 0 (default)
+    int8 + per-sample scale, 1 bf16, 2 two int8 planes under one scale. The JAX
+    package reads any other value as 1; here it raises."""
+    return int(_env_choice("MSIG_TRUNK_HIFI", "0", ("0", "1", "2")))
+
+
+def _stage_mode() -> str:
+    """MSIG_STAGE_FP16: how the staged 512² sites pass their accumulator on:
+    "0" (default) as int32, "1" as fp16 x 2^-12 (``fc.STAGES``)."""
+    return fc.STAGES[int(_env_choice("MSIG_STAGE_FP16", "0", ("0", "1")))]
 
 
 def _quantize_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -204,8 +222,13 @@ def _fused_encoder(q: Q, img_u8: torch.Tensor):
     """uint8 NHWC image -> (int8 trunk input [B, H/4, W/4, 256], residual scale [B, 1]).
 
     Dense counterpart of ``msig_tpu/infer/quantized.py::_fused_encoder``: the
-    three encoder sites chained on int8, enc2's inverse scale as it comes."""
-    h0 = fe.enc0_in_relu_requant(img_u8, q["enc0_p"])
+    three encoder sites chained on int8, enc2's inverse scale as it comes.
+    Where the grid of 4x4-pixel cells is wider than 64 (a 512² input), enc0
+    is the staged site (``msig_tpu/ops/fused_enc_int8.py:617``)."""
+    if img_u8.shape[1] // 4 > 64:
+        h0 = fe.enc0_hbm(img_u8, q["enc0_p"], stage=_stage_mode())
+    else:
+        h0 = fe.enc0_in_relu_requant(img_u8, q["enc0_p"])
     h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"])
     return fe.enc2_in_relu_requant(h1, q["enc2_p"])
 
@@ -213,13 +236,30 @@ def _fused_encoder(q: Q, img_u8: torch.Tensor):
 def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Tensor,
                       n_res: int) -> torch.Tensor:
     """int8 trunk input and its inverse scale [B, 1] -> int8 trunk output with an
-    absorbed per-sample scale (the stock int8 + scale residual carry)."""
+    absorbed per-sample scale.
+
+    The residual crosses resblocks as ``MSIG_TRUNK_HIFI`` says
+    (``msig_tpu/infer/quantized.py:220-251``): 0, int8 + scale; 1, bf16,
+    starting from the bf16 product of the int8 map and its scale; 2, two int8
+    planes under one scale, the second starting at zero."""
     gammas, betas = _style_affines(q, style, n_res)
+    hifi = _trunk_hifi_mode()
+    if hifi == 1:
+        carry = (hq.to(torch.bfloat16) * hs.reshape(-1, 1, 1, 1).to(torch.bfloat16),)
+        site = fc.conv3x3_adain_residual_hifi
+    elif hifi == 2:
+        carry = (hq, torch.zeros_like(hq), hs)
+        site = fc.conv3x3_adain_residual_hifi2
+    else:
+        carry = (hq, hs)
+        site = fc.conv3x3_adain_residual_requant
     for i in range(n_res):
         y1q = fc.conv3x3_adain_relu_requant(hq, q[f"res{i}_conv1_p"], gammas[2 * i],
                                             betas[2 * i])
-        hq, hs = fc.conv3x3_adain_residual_requant(y1q, hq, hs, q[f"res{i}_conv2_p"],
-                                                   gammas[2 * i + 1], betas[2 * i + 1])
+        # Every carry's first output is the int8 map that the next conv1 reads;
+        # modes 0 and 2 carry it on, mode 1 carries only the bf16 map.
+        hq, *rest = site(y1q, *carry, q[f"res{i}_conv2_p"], gammas[2 * i + 1], betas[2 * i + 1])
+        carry = tuple(rest) if hifi == 1 else (hq, *rest)
     return hq
 
 
@@ -285,12 +325,16 @@ def _fused_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
 
     Dense counterpart of ``msig_tpu/infer/quantized.py::_fused_decoder``
     (:290-329). uint8 output: up0, up1 and the fused final conv7 + tanh +
-    uint8, three launches. Float output: the ConvT site for up0 and up1,
-    then the unfused final conv on up1's int8 output and its inverse scale,
-    with no second requant."""
+    uint8, three launches; where the cell grid is wider than 64 (a 512²
+    image) up1 is the staged site (:308-309). Float output: the ConvT site
+    for up0 and up1, then the unfused final conv on up1's int8 output and its
+    inverse scale, with no second requant."""
     y0, _ = fc.convt4x4s2_in_relu_requant_ps(hq, q["up0_ps"])
     if out_dtype == torch.uint8:
-        y1, inv_s = fd.up1_s2d16(y0, q["up1_ps"])
+        if hq.shape[1] > 64:
+            y1, inv_s = fd.up1_s2d16_hbm(y0, q["up1_ps"], stage=_stage_mode())
+        else:
+            y1, inv_s = fd.up1_s2d16(y0, q["up1_ps"])
         return fd.final7_tanh_u8(y1, q["out_kernel_i8"], q["out_wscale"], q["out_bias"], inv_s)
     return _final_conv_i8(q, *fc.convt4x4s2_in_relu_requant_ps(y0, q["up1_ps"]), out_dtype)
 
@@ -311,7 +355,7 @@ def quantized_generator_apply_staged(q: Q, img_u8: torch.Tensor, style: torch.Te
     unknown = set(pallas) - set(ALL_STAGES)
     if unknown:
         raise ValueError(f"unknown stages {sorted(unknown)}: pallas takes a subset of {ALL_STAGES}")
-    _trunk_hifi_mode()
+    _trunk_hifi_mode(), _stage_mode()  # a bad setting raises before any work
     if "enc" in pallas:
         hq, hs = _fused_encoder(q, img_u8)
         h = hq if "trunk" in pallas else _rows_to_spatial(hq, hs)
@@ -333,9 +377,16 @@ def quantized_generator_apply(q: Q, img_u8: torch.Tensor, style: torch.Tensor, n
                               out_dtype=torch.uint8) -> torch.Tensor:
     """uint8 NHWC image + style [B, S] -> image (uint8, or [-1,1] float).
 
-    At 256² input, the JAX package's all-kernel chain (``quantized.py:352-368``,
-    ``pallas=("enc", "trunk", "dec")``): 3 + 2*n_res + 3 kernel-site calls. At
-    any other size ``pallas=("trunk",)``, the unfused encoder and decoder
-    around the kernel trunk (the choice is by shape)."""
-    stages = ALL_STAGES if tuple(img_u8.shape[1:3]) == (256, 256) else ("trunk",)
-    return quantized_generator_apply_staged(q, img_u8, style, n_res, out_dtype, pallas=stages)
+    The JAX package's choice of chain by shape and output type
+    (``quantized.py:352-400``): at 256² input the all-kernel chain
+    ``pallas=("enc", "trunk", "dec")``, 3 + 2*n_res + 3 kernel-site calls; at
+    512² the same for uint8 output unless ``MSIG_512_FUSED=0``, with enc0 and
+    up1 as their staged sites; at 512² float output and at any other size
+    ``pallas=("trunk",)``, the unfused encoder and decoder around the kernel
+    trunk."""
+    fused_512 = _env_choice("MSIG_512_FUSED", "1", ("0", "1")) == "1"
+    side = tuple(img_u8.shape[1:3])
+    all_kernels = side == (256, 256) or (
+        side == (512, 512) and out_dtype == torch.uint8 and fused_512)
+    return quantized_generator_apply_staged(q, img_u8, style, n_res, out_dtype,
+                                            pallas=ALL_STAGES if all_kernels else ("trunk",))

@@ -9,6 +9,10 @@ matmuls on that slab. Here both sites take and give dense NHWC:
 * ``up1_s2d16``: the ConvT 4x4/s2 + IN + ReLU + requant site of
   ``fused_conv_int8_v2.convt4x4s2_in_relu_requant_ps`` (same CUDA kernel),
   applied to up0's dense output; returns the int8 map and its inverse scale;
+* ``up1_s2d16_hbm``: up1 as the chain runs it on a 512² input, where the TPU
+  splits the site into a staged pair of kernels: the same CUDA source, with
+  the accumulator staged as int32 or as fp16 x 2^-12 (``stage``), counted
+  under its own name;
 * ``final7_tanh_u8``: ReflectionPad2d(3) by index, exact int8 7x7 conv,
   dequant by ``wscale * inv_s``, bias, tanh, uint8.
 
@@ -30,9 +34,10 @@ from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 _EPS = 1e-5
 
 UP1_SITE = "up1_s2d16"
+UP1_HBM_SITE = "up1_s2d16_hbm"
 FINAL7_SITE = "final7_tanh_u8"
-KERNELS = (UP1_SITE, FINAL7_SITE)
-# csrc sources built for this module; up1 runs fc.CONVT_SOURCE.
+KERNELS = (UP1_SITE, UP1_HBM_SITE, FINAL7_SITE)
+# csrc sources built for this module; both up1 sites run fc.CONVT_SOURCE.
 SOURCES = (FINAL7_SITE,)
 
 # Launches per wrapper on CUDA tensors (one per call; the plain versions and
@@ -52,6 +57,7 @@ def reset_launch_counts() -> None:
 
 
 up1_s2d16_plain = fc.convt4x4s2_in_relu_requant_ps_plain
+up1_s2d16_hbm_plain = fc.convt4x4s2_in_relu_requant_ps_plain
 
 
 def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
@@ -102,6 +108,22 @@ def up1_s2d16(x_i8, w_ps, eps: float = _EPS):
         return up1_s2d16_plain(x_i8, w_ps, eps)
     out = fc.convt4x4s2_kernel(x_i8, w_ps, eps)
     LAUNCHES[UP1_SITE] += 1
+    return out
+
+
+def up1_s2d16_hbm(x_i8, w_ps, eps: float = _EPS, stage: str = "int32"):
+    """Decoder up1 site as the chain runs it on maps wider than 128 pixels; returns
+    (int8 [B, 2H, 2W, Cout], inv_scale [B, 1]).
+
+    ``stage`` is how the accumulator crosses device memory: "int32", the
+    arithmetic of ``up1_s2d16``, or "fp16" (``fc.STAGES``). The TPU kernel's
+    reflect fill of the slab's guard cells has no dense counterpart:
+    ``final7_tanh_u8`` reflects by index.
+    """
+    if x_i8.device.type == "cpu":
+        return up1_s2d16_hbm_plain(x_i8, w_ps, eps, stage)
+    out = fc.convt4x4s2_kernel(x_i8, w_ps, eps, stage)
+    LAUNCHES[UP1_HBM_SITE] += 1
     return out
 
 

@@ -20,6 +20,11 @@ ReLU and the per-sample requant to int8 of the other relu sites
 on dense maps it is a single K = 16*Cin product, which is also what the TPU's
 ``enc1_in_relu_requant_im2col`` computes.
 
+``enc0_hbm`` is enc0 as the all-kernel chain runs it on a 512² input, where
+the TPU splits the site into a staged pair of kernels (``_enc0_hbm``): the
+same CUDA source, with the accumulator staged as int32 or as fp16 x 2^-12
+(``stage``), counted under its own name.
+
 Each site has a wrapper that launches the kernel for CUDA tensors and adds
 one to its entry of ``LAUNCHES``, or raises, and a plain PyTorch version that
 the wrapper runs for CPU tensors.
@@ -42,7 +47,8 @@ _EPS = 1e-5
 ENC0_SITE = "enc0_in_relu_requant"
 ENC1_SITE = "enc1_in_relu_requant"
 ENC2_SITE = "enc2_in_relu_requant"
-KERNELS = (ENC0_SITE, ENC1_SITE, ENC2_SITE)
+ENC0_HBM_SITE = "enc0_hbm"
+KERNELS = (ENC0_SITE, ENC0_HBM_SITE, ENC1_SITE, ENC2_SITE)
 
 # csrc sources, one shared library each; enc1 and enc2 run CONV_S2_SOURCE.
 CONV_S2_SOURCE = "conv4x4s2_in_relu_requant"
@@ -54,7 +60,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    ENC0_SITE: [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, _P],
+    ENC0_SITE: [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
     CONV_S2_SOURCE: [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P],
 }
 
@@ -111,9 +117,13 @@ def conv4x4s2_i64(x_i8: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(torch.int64).contiguous()
 
 
-def enc0_in_relu_requant_plain(img_u8, w_packed, eps: float = _EPS):
-    """enc0: conv7 on the recentred, reflected image -> IN -> ReLU -> requant (``_kernel_enc0``)."""
-    return fc.in_relu_requant_i64(enc0_i64(img_u8, w_packed), eps)[0]
+def enc0_in_relu_requant_plain(img_u8, w_packed, eps: float = _EPS, stage: str = "int32"):
+    """enc0: conv7 on the recentred, reflected image -> IN -> ReLU -> requant
+    (``_kernel_enc0``; with ``stage``, the staged pair of ``_enc0_hbm``)."""
+    return fc.in_relu_requant_i64(enc0_i64(img_u8, w_packed), eps, stage)[0]
+
+
+enc0_hbm_plain = enc0_in_relu_requant_plain
 
 
 def enc1_in_relu_requant_plain(x_i8, w_packed, eps: float = _EPS):
@@ -143,10 +153,7 @@ def _check_conv4x4s2(x: torch.Tensor, w_packed: torch.Tensor) -> Tuple[int, int,
     if cin % 64 or cout % 64 or h % 2 or w % 2 or (h // 2 * (w // 2)) % 128:
         raise ValueError(f"the CUDA kernel needs Cin % 64 == 0, Cout % 64 == 0, H and W even "
                          f"and (H/2)*(W/2) % 128 == 0, got x {tuple(x.shape)}, Cout {cout}")
-    # Each output sums 16*Cin products of magnitude <= 128*127: the int64 sum
-    # of squares over a channel's outputs is exact while it stays below 2^63.
-    if (h // 2) * (w // 2) * (128 * 127 * 16 * cin) ** 2 >= 2 ** 63:
-        raise ValueError(f"map {tuple(x.shape)} too large for the exact int64 statistics")
+    fc.check_statistics(x.shape, (h // 2) * (w // 2), 16 * cin)
     fc._check("x", x, torch.int8, tuple(x.shape))
     fc._check("weights", w_packed, torch.int8, (16 * cin, cout))
     _same_device(x, w_packed)
@@ -167,30 +174,49 @@ def _conv4x4s2_kernel(x_i8: torch.Tensor, w_packed: torch.Tensor, eps: float):
     return out, out_scale
 
 
-def enc0_in_relu_requant(img_u8, w_packed, eps: float = _EPS):
-    """First encoder site: uint8 image [B, H, W, 3] -> int8 [B, H, W, 64].
-
-    w_packed [160, 64] int8 from ``pack_enc0``."""
-    if img_u8.device.type == "cpu":
-        return enc0_in_relu_requant_plain(img_u8, w_packed, eps)
+def _enc0_kernel(img_u8: torch.Tensor, w_packed: torch.Tensor, eps: float, stage: str):
+    """Launch enc0's CUDA kernel; returns int8 [B, H, W, 64]. Counts no launch."""
     if img_u8.dim() != 4:
         raise ValueError(f"expected NHWC [B, H, W, 3], got shape {tuple(img_u8.shape)}")
     b, h, w, c = img_u8.shape
     if c != 3 or h % 8 or w % 16:
         raise ValueError(f"the CUDA kernel needs C == 3, H % 8 == 0 and W % 16 == 0, "
                          f"got {tuple(img_u8.shape)}")
-    if h * w * (128 * 127 * ENC0_K) ** 2 >= 2 ** 63:
-        raise ValueError(f"map {tuple(img_u8.shape)} too large for the exact int64 statistics")
+    fc.check_statistics(img_u8.shape, h * w, ENC0_K)
     fc._check("image", img_u8, torch.uint8, (b, h, w, c))
     fc._check("weights", w_packed, torch.int8, (ENC0_K_PADDED, 64))
     _same_device(img_u8, w_packed)
     fn = _build.load(ENC0_SITE, _ARGTYPES[ENC0_SITE])
-    y, stats = fc._scratch(img_u8, b, h * w, 64)
+    y, stats = fc._scratch(img_u8, b, h * w, 64, stage)
     out = torch.empty((b, h, w, 64), dtype=torch.int8, device=img_u8.device)
     err = fn(img_u8.data_ptr(), w_packed.data_ptr(), y.data_ptr(), stats.data_ptr(),
-             out.data_ptr(), b, h, w, eps, torch.cuda.current_stream(img_u8.device).cuda_stream)
+             out.data_ptr(), b, h, w, eps, int(stage == "fp16"),
+             torch.cuda.current_stream(img_u8.device).cuda_stream)
     _build.check(ENC0_SITE, err)
+    return out
+
+
+def enc0_in_relu_requant(img_u8, w_packed, eps: float = _EPS):
+    """First encoder site: uint8 image [B, H, W, 3] -> int8 [B, H, W, 64].
+
+    w_packed [160, 64] int8 from ``pack_enc0``."""
+    if img_u8.device.type == "cpu":
+        return enc0_in_relu_requant_plain(img_u8, w_packed, eps)
+    out = _enc0_kernel(img_u8, w_packed, eps, "int32")
     LAUNCHES[ENC0_SITE] += 1
+    return out
+
+
+def enc0_hbm(img_u8, w_packed, eps: float = _EPS, stage: str = "int32"):
+    """First encoder site as the chain runs it on inputs wider than 256 pixels:
+    uint8 image [B, H, W, 3] -> int8 [B, H, W, 64].
+
+    ``stage`` is how the accumulator crosses device memory: "int32", the
+    arithmetic of ``enc0_in_relu_requant``, or "fp16" (``fc.STAGES``)."""
+    if img_u8.device.type == "cpu":
+        return enc0_hbm_plain(img_u8, w_packed, eps, stage)
+    out = _enc0_kernel(img_u8, w_packed, eps, stage)
+    LAUNCHES[ENC0_HBM_SITE] += 1
     return out
 
 

@@ -3,10 +3,14 @@
 The tests in tests/test_torch_port_*.py assert bars; this script prints the
 values behind them, so the records can quote them:
 
-    JAX_PLATFORMS=cpu python tests/port_parity_report.py
+    JAX_PLATFORMS=cpu python tests/port_parity_report.py [section ...]
 
 It runs the JAX side on the CPU, eagerly (Pallas in interpret mode), and the
-port on the CPU (its kernels' plain versions), and takes about six minutes.
+port on the CPU (its kernels' plain versions). With no arguments it runs every
+section (about a quarter of an hour); with the names of sections
+(``kernel_sites``, ``float_networks``, ``int8_slice``, ``decoder_slice``,
+``encoder_slice``, ``styles``, ``int8_fidelity_on_leaves``, ``hifi_sites``,
+``hifi_fidelity_on_leaves``, ``chain_512``) only those.
 """
 
 import os
@@ -344,6 +348,129 @@ def int8_fidelity_on_leaves():
           + ", ".join(f"pallas={p} {psnr_u8(tint8[p], tfp32):.2f} dB" for p in tint8)
           + f"; port int8 vs JAX int8, both pallas={served}: "
           f"{psnr_u8(tint8[served], jint8[served]):.2f} dB")
+    # How far the reference's own chains lie from each other on this checkpoint.
+    print(f"JAX int8, pallas={served} vs pallas=('trunk',), same photos: "
+          f"{psnr_u8(jint8[served], jint8[('trunk',)]):.2f} dB")
+
+
+def _bf16_ordered(bits):
+    bits = bits.astype(np.int32)
+    return np.where(bits >= 0, bits, -(bits & 0x7FFF))
+
+
+def hifi_sites():
+    """The two hi-fi conv2 sites and the trunk in modes 1 and 2, 16 x 16 maps."""
+    rng = np.random.default_rng(3)
+    b, w_img, c = 2, 16, 256
+    shape = (b, w_img, w_img, c)
+    x = rng.integers(-127, 128, shape, dtype=np.int8)
+    wp = np.array(jfc.pack_weights(jnp.asarray(rng.integers(-32, 33, (3, 3, c, c), dtype=np.int8))))
+    gamma = rng.normal(1.0, 0.5, (b, c)).astype(np.float32)
+    beta = rng.normal(0.0, 0.5, (b, c)).astype(np.float32)
+    h = rng.normal(0, 1.5, shape).astype(np.float32)
+    hs = (np.abs(h).max(axis=(1, 2, 3)) / 127.0).astype(np.float32).reshape(b, 1)
+    ht = h / hs.reshape(b, 1, 1, 1)
+    h1 = np.clip(np.round(ht), -127, 127)
+    h2 = np.clip(np.round((ht - h1) * 254.0), -127, 127).astype(np.int8)
+    h1 = h1.astype(np.int8)
+    rows = lambda a: jf2.to_padded_rows(jnp.asarray(a))  # noqa: E731
+    dense = lambda r: tf2.from_padded_rows(torch.from_numpy(np.array(r)), w_img).numpy()  # noqa: E731
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    tail = (jnp.asarray(wp), jnp.asarray(gamma), jnp.asarray(beta))
+    wq, wh = jf2.conv3x3_adain_residual_hifi(rows(x), rows(jnp.asarray(h).astype(jnp.bfloat16)),
+                                             *tail, w_img=w_img)
+    gq, gh = tf2.conv3x3_adain_residual_hifi(t(x), t(h).to(torch.bfloat16), t(wp), t(gamma),
+                                             t(beta))
+    d = np.abs(gq.numpy().astype(int) - dense(wq).astype(int))
+    wbits = dense(jax.lax.bitcast_convert_type(wh, jnp.int16))
+    ulps = np.abs(_bf16_ordered(gh.view(torch.int16).numpy()) - _bf16_ordered(wbits))
+    print(f"(i) hifi site (bf16 carry) C={c}: int8 max step {d.max()}, differing share "
+          f"{(d > 0).mean():.2e}; carry max {ulps.max()} ulp, differing share "
+          f"{(ulps > 0).mean():.2e}")
+    want = jf2.conv3x3_adain_residual_hifi2(rows(x), rows(h1), rows(h2),
+                                            jnp.asarray(hs).reshape(-1, 1, 1), *tail, w_img=w_img)
+    got = tf2.conv3x3_adain_residual_hifi2(t(x), t(h1), t(h2), t(hs), t(wp), t(gamma), t(beta))
+    d1 = np.abs(got[0].numpy().astype(int) - dense(want[0]).astype(int))
+    d2 = np.abs(got[1].numpy().astype(int) - dense(want[1]).astype(int))
+    srel = np.abs(got[2].numpy().ravel() / np.asarray(want[2]).ravel() - 1).max()
+    print(f"(i) hifi2 site (two planes) C={c}: plane 1 max step {d1.max()}, differing share "
+          f"{(d1 > 0).mean():.2e}; plane 2 max step {d2.max()}, differing share "
+          f"{(d2 > 0).mean():.2e}; scale rel err {srel:.2e}")
+    jqp, q = _random_int8_gen(2, 4)
+    hq = rng.integers(0, 128, (2, w_img, w_img, 256), dtype=np.int8)
+    hs = rng.uniform(0.02, 0.04, (2, 1)).astype(np.float32)
+    style = rng.normal(0, 1, (2, 64)).astype(np.float32)
+    for mode in (0, 1, 2):
+        want = jq._fused_trunk_rows(jqp, rows(hq), jnp.asarray(hs), jnp.asarray(style), 2,
+                                    w_img=w_img, hifi=mode)
+        os.environ["MSIG_TRUNK_HIFI"] = str(mode)
+        got = tq._fused_trunk_rows(q, t(hq), t(hs), t(style), 2).numpy()
+        del os.environ["MSIG_TRUNK_HIFI"]
+        d = np.abs(got.astype(int) - dense(want).astype(int))
+        print(f"(i) trunk, n_res 2, MSIG_TRUNK_HIFI={mode}: max step {d.max()}, differing share "
+              f"{(d > 0).mean():.2e}")
+
+
+def hifi_fidelity_on_leaves():
+    """int8 vs fp32 on the demo checkpoint, the four leaf photos of
+    ``int8_fidelity_on_leaves``, all-kernel chain, MSIG_TRUNK_HIFI 0, 1, 2."""
+    gen, se, meta, _ = _load_npz(DEMO, 10)
+    sheets = sorted(glob.glob(os.path.join(ROOT, "docs", "quality", "samples_*.jpg")))
+    imgs = np.stack(leaf_tiles(sheets[0], 0)[:2] + leaf_tiles(sheets[3], 0)[:2])
+    refs = np.stack(leaf_tiles(sheets[1], 1))
+    st = JStyleEncoder(style_dim=256, num_domains=10).apply(
+        se, jnp.asarray(refs.astype(np.float32) / 127.5 - 1), jnp.full((len(refs),), 2))
+    style = jnp.broadcast_to(st.mean(0), (len(imgs), 256))
+    jfp32 = to_u8(JGenerator(style_dim=256, n_residual_blocks=8).apply(
+        gen, jnp.asarray(imgs.astype(np.float32) / 127.5 - 1), style))
+    jqp = jq.quantize_generator_params(gen, 8)
+    sd = generator_state_dict(gen, 8)
+    tg = StyleCycleGANGenerator(style_dim=256, n_residual_blocks=8)
+    tg.load_state_dict(sd)
+    ts = torch.from_numpy(np.array(style))
+    with torch.no_grad():
+        tfp32 = to_u8(tg(torch.from_numpy(imgs.astype(np.float32) / 127.5 - 1), ts).numpy())
+    tq8 = tq.quantize_generator_params(sd, 8)
+    for mode in ("0", "1", "2"):
+        os.environ["MSIG_TRUNK_HIFI"] = mode
+        jint8 = np.asarray(jq.quantized_generator_apply_staged(
+            jqp, jnp.asarray(imgs), style, n_res=8, out_dtype=jnp.uint8))
+        tint8 = tq.quantized_generator_apply(tq8, torch.from_numpy(imgs), ts, n_res=8).numpy()
+        del os.environ["MSIG_TRUNK_HIFI"]
+        print(f"(i) int8 vs fp32, demo checkpoint, 4 leaf photos at 256², all-kernel chain, "
+              f"MSIG_TRUNK_HIFI={mode}: JAX {psnr_u8(jint8, jfp32):.2f} dB, port "
+              f"{psnr_u8(tint8, tfp32):.2f} dB; port int8 vs JAX int8 "
+              f"{psnr_u8(tint8, jint8):.2f} dB")
+
+
+def chain_512():
+    """The all-kernel chain at 512², one resblock, B = 1, both stagings, against
+    the JAX function with the same ``pallas`` (its staged pairs on the 128-cell grid)."""
+    jqp, q = _random_int8_gen(1, 2)
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    style = rng.normal(0, 1, (1, 64)).astype(np.float32)
+    for fp16 in ("0", "1"):
+        os.environ["MSIG_STAGE_FP16"] = fp16
+        want = np.asarray(jq.quantized_generator_apply_staged(
+            jqp, jnp.asarray(img), jnp.asarray(style), n_res=1, out_dtype=jnp.uint8))
+        got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
+                                           n_res=1).numpy()
+        del os.environ["MSIG_STAGE_FP16"]
+        d = np.abs(got.astype(int) - want.astype(int))
+        print(f"(j) int8 generator 512², n_res 1, MSIG_STAGE_FP16={fp16}, vs staged(pallas=('enc', "
+              f"'trunk', 'dec')): PSNR {psnr_u8(got, want):.2f} dB, within 1: "
+              f"{(d <= 1).mean():.4f}, within 2: {(d <= 2).mean():.4f}, max {d.max()}")
+        if fp16 == "0":
+            ref = got
+    d = np.abs(got.astype(int) - ref.astype(int))
+    print(f"(j) port at 512², fp16 staging vs int32 staging: PSNR {psnr_u8(got, ref):.2f} dB, "
+          f"within 1: {(d <= 1).mean():.4f}")
+    float_out = to_u8(tq.quantized_generator_apply(
+        q, torch.from_numpy(img), torch.from_numpy(style), n_res=1,
+        out_dtype=torch.float32).numpy())
+    print(f"(j) port at 512², all-kernel uint8 vs pallas=('trunk',) float output: PSNR "
+          f"{psnr_u8(ref, float_out):.2f} dB")
 
 
 def styles():
@@ -368,11 +495,13 @@ def styles():
         print(f"(f) style mode {mode}: max abs diff {np.abs(got - want).max():.2e}")
 
 
+SECTIONS = (kernel_sites, float_networks, int8_slice, decoder_slice, encoder_slice, styles,
+            int8_fidelity_on_leaves, hifi_sites, hifi_fidelity_on_leaves, chain_512)
+
 if __name__ == "__main__":
-    kernel_sites()
-    float_networks()
-    int8_slice()
-    decoder_slice()
-    encoder_slice()
-    styles()
-    int8_fidelity_on_leaves()
+    by_name = {fn.__name__: fn for fn in SECTIONS}
+    unknown = [a for a in sys.argv[1:] if a not in by_name]
+    if unknown:
+        sys.exit(f"unknown sections {unknown}; choose from {sorted(by_name)}")
+    for fn in ([by_name[a] for a in sys.argv[1:]] or SECTIONS):
+        fn()

@@ -31,11 +31,15 @@ def _inputs(b, side, c, dev, seed=0):
     w = rng.integers(-32, 33, (3, 3, c, c), dtype=np.int8)
     h = rng.normal(0, 1.5, (b, side, side, c)).astype(np.float32)
     hs = (np.abs(h).max(axis=(1, 2, 3)) / 127.0).astype(np.float32).reshape(b, 1)
+    ht = h / hs.reshape(b, 1, 1, 1)
+    hq = np.clip(np.round(ht), -127, 127)
     t = dict(x=x, gamma=rng.normal(1.0, 0.5, (b, c)).astype(np.float32),
-             beta=rng.normal(0.0, 0.5, (b, c)).astype(np.float32), hs=hs,
-             hq=np.clip(np.round(h / hs.reshape(b, 1, 1, 1)), -127, 127).astype(np.int8))
+             beta=rng.normal(0.0, 0.5, (b, c)).astype(np.float32), hs=hs, h=h,
+             hq=hq.astype(np.int8),
+             h2=np.clip(np.round((ht - hq) * 254.0), -127, 127).astype(np.int8))
     t = {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
     t["w"] = fc.pack_weights(torch.from_numpy(w)).to(dev)
+    t["hb"] = t.pop("h").to(torch.bfloat16)
     return t
 
 
@@ -69,6 +73,124 @@ def test_residual_site_kernel_matches_plain(cuda_device, b, side, c):
     torch.cuda.synchronize()
     torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
     _assert_int8_close(got_q, want_q)
+
+
+def _bf16_ulps(a, b):
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits >= 0, bits, -(bits & 0x7FFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c", [(1, 16, 128), (2, 16, 256), (8, 64, 256)])
+def test_hifi_site_kernel_matches_plain(cuda_device, b, side, c):
+    """bf16 carry: int8 within 1 step and the carry within 1 ulp, each on < 1%."""
+    t = _inputs(b, side, c, cuda_device, seed=6)
+    args = (t["x"], t["hb"], t["w"], t["gamma"], t["beta"])
+    before = fc.LAUNCHES[fc.HIFI_SITE]
+    got_q, got_h = fc.conv3x3_adain_residual_hifi(*args)
+    assert fc.LAUNCHES[fc.HIFI_SITE] == before + 1
+    want_q, want_h = fc.conv3x3_adain_residual_hifi_plain(*args)
+    torch.cuda.synchronize()
+    assert got_h.dtype == torch.bfloat16 and got_h.shape == t["x"].shape
+    ulps = _bf16_ulps(got_h, want_h)
+    assert int(ulps.max()) <= 1 and float((ulps > 0).float().mean()) < 0.01
+    _assert_int8_close(got_q, want_q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c", [(1, 16, 128), (2, 16, 256), (8, 64, 256)])
+def test_hifi2_site_kernel_matches_plain(cuda_device, b, side, c):
+    """Two-plane carry: both planes within 1 step on < 1%, the scale within rtol 1e-5."""
+    t = _inputs(b, side, c, cuda_device, seed=7)
+    args = (t["x"], t["hq"], t["h2"], t["hs"], t["w"], t["gamma"], t["beta"])
+    before = fc.LAUNCHES[fc.HIFI2_SITE]
+    got = fc.conv3x3_adain_residual_hifi2(*args)
+    assert fc.LAUNCHES[fc.HIFI2_SITE] == before + 1
+    want = fc.conv3x3_adain_residual_hifi2_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    _assert_int8_close(got[0], want[0])
+    _assert_int8_close(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_sum_of_squares_past_one_int64_word(cuda_device):
+    """The new limit of the statistics guard. Blocks of 16 x 16 pixels of +127
+    and -127 under all-positive weights near 127 put nearly every output at
+    +-9 * C * 127 * 127: a channel's sum of squares is about 2e19 > 2^63, both
+    signs occur in every channel, and kernel and plain version still agree; a
+    map past the two words is refused."""
+    b, side, c = 1, 256, 128
+    i = torch.arange(side, device=cuda_device) // 16
+    sign = ((i[:, None] + i[None, :]) % 2 * 2 - 1).to(torch.int8)
+    x = (127 * sign)[None, :, :, None].expand(b, side, side, c).contiguous()
+    w = (127 - torch.arange(c, device=cuda_device) % 5).to(torch.int8).expand(9 * c, c).contiguous()
+    gamma = torch.ones((b, c), device=cuda_device)
+    beta = torch.zeros((b, c), device=cuda_device)
+    y = fc.conv3x3_i64(x, w)
+    assert int((y * y).double().sum(dim=(1, 2)).min()) > 2 ** 63
+    got = fc.conv3x3_adain_relu_requant(x, w, gamma, beta)
+    want = fc.conv3x3_adain_relu_requant_plain(x, w, gamma, beta)
+    torch.cuda.synchronize()
+    assert int(got.max()) == 127 and 0.3 < float((got > 100).float().mean()) < 0.6
+    _assert_int8_close(got, want)
+    with pytest.raises(ValueError, match="two-word statistics"):
+        fc.conv3x3_adain_relu_requant(
+            torch.empty((1, 8, 16, 3712), dtype=torch.int8, device=cuda_device),
+            torch.empty((9 * 3712, 3712), dtype=torch.int8, device=cuda_device),
+            torch.empty((1, 3712), device=cuda_device), torch.empty((1, 3712), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", fc.STAGES)
+@pytest.mark.parametrize("b,side", [(1, 64), (2, 128), (8, 512)])
+def test_staged_sites_kernel_matches_plain(cuda_device, b, side, stage):
+    """enc0_hbm on a side² image and up1_s2d16_hbm onto a side² map, in both
+    stagings, each against the plain version that narrows the same way; the
+    last shape is the 512² path's."""
+    e = _enc_inputs(b, side, cuda_device, seed=8)
+    x, w = _convt_inputs(b, side // 2, 128, 64, cuda_device, seed=9)
+    before = fe.LAUNCHES[fe.ENC0_HBM_SITE], fd.LAUNCHES[fd.UP1_HBM_SITE]
+    got0 = fe.enc0_hbm(e["img"], e["w0"], stage=stage)
+    got1, got_s = fd.up1_s2d16_hbm(x, w, stage=stage)
+    assert (fe.LAUNCHES[fe.ENC0_HBM_SITE], fd.LAUNCHES[fd.UP1_HBM_SITE]) == \
+        (before[0] + 1, before[1] + 1)
+    want1, want_s = fd.up1_s2d16_hbm_plain(x, w, stage=stage)
+    torch.cuda.synchronize()
+    assert got0.shape == (b, side, side, 64) and got1.shape == (b, side, side, 64)
+    _assert_int8_close(got0, fe.enc0_hbm_plain(e["img"], e["w0"], stage=stage))
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+    _assert_int8_close(got1, want1)
+    if stage == "int32":  # the arithmetic of the unstaged sites
+        assert torch.equal(got0, fe.enc0_in_relu_requant(e["img"], e["w0"]))
+        assert torch.equal(got1, fd.up1_s2d16(x, w)[0])
+
+
+@pytest.mark.cuda
+def test_new_sites_reject_bad_inputs(cuda_device):
+    t = _inputs(1, 16, 128, cuda_device)
+    tail = (t["w"], t["gamma"], t["beta"])
+    with pytest.raises(ValueError, match="bfloat16"):
+        fc.conv3x3_adain_residual_hifi(t["x"], t["hb"].float(), *tail)
+    with pytest.raises(ValueError, match="shape"):
+        fc.conv3x3_adain_residual_hifi(t["x"], t["hb"][:, :8].contiguous(), *tail)
+    with pytest.raises(ValueError, match="int8"):
+        fc.conv3x3_adain_residual_hifi2(t["x"], t["hq"], t["h2"].to(torch.int32), t["hs"], *tail)
+    with pytest.raises(ValueError, match="shape"):
+        fc.conv3x3_adain_residual_hifi2(t["x"], t["hq"], t["h2"], t["hs"].reshape(-1), *tail)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fc.conv3x3_adain_residual_hifi2(t["x"], t["hq"].cpu(), t["h2"], t["hs"], *tail)
+    e = _enc_inputs(1, 64, cuda_device)
+    x, w = _convt_inputs(1, 16, 64, 64, cuda_device)
+    for stage in ("float16", "bf16", None):
+        with pytest.raises(ValueError, match="stage must be one of"):
+            fe.enc0_hbm(e["img"], e["w0"], stage=stage)
+        with pytest.raises(ValueError, match="stage must be one of"):
+            fd.up1_s2d16_hbm(x, w, stage=stage)
+    with pytest.raises(ValueError, match="W % 16"):
+        fe.enc0_hbm(e["img"][:, :, :56].contiguous(), e["w0"], stage="fp16")
 
 
 @pytest.mark.cuda
@@ -178,7 +300,7 @@ def test_encoder_sites_kernel_matches_plain(cuda_device, b, side):
     got0 = fe.enc0_in_relu_requant(t["img"], t["w0"])
     got1 = fe.enc1_in_relu_requant(t["x1"], t["w1"])
     got2, got_s = fe.enc2_in_relu_requant(t["x2"], t["w2"])
-    assert fe.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert fe.LAUNCHES == {k: v + (k != fe.ENC0_HBM_SITE) for k, v in before.items()}
     want2, want_s = fe.enc2_in_relu_requant_plain(t["x2"], t["w2"])
     torch.cuda.synchronize()
     assert got0.shape == (b, side, side, 64) and got1.shape == (b, side // 2, side // 2, 128)
@@ -226,8 +348,14 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
     x, w = _convt_inputs(1, 16, 64, 64, cuda_device)
     x7 = _final7_inputs(1, 32, cuda_device)
     e = _enc_inputs(1, 64, cuda_device)
+    t = _inputs(1, 16, 128, cuda_device)
+    tail = (t["w"], t["gamma"], t["beta"])
     with mock.patch.object(fc, "convt4x4s2_in_relu_requant_ps_plain") as p0, \
             mock.patch.object(fd, "up1_s2d16_plain") as p1, \
+            mock.patch.object(fd, "up1_s2d16_hbm_plain") as p1h, \
+            mock.patch.object(fe, "enc0_hbm_plain") as e0h, \
+            mock.patch.object(fc, "conv3x3_adain_residual_hifi_plain") as h1, \
+            mock.patch.object(fc, "conv3x3_adain_residual_hifi2_plain") as h2, \
             mock.patch.object(fd, "final7_tanh_u8_plain") as p7, \
             mock.patch.object(fe, "enc0_in_relu_requant_plain") as e0, \
             mock.patch.object(fe, "enc1_in_relu_requant_plain") as e1, \
@@ -238,6 +366,11 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
         fe.enc0_in_relu_requant(e["img"], e["w0"])
         fe.enc1_in_relu_requant(e["x1"], e["w1"])
         fe.enc2_in_relu_requant(e["x2"], e["w2"])
+        for stage in fc.STAGES:
+            fd.up1_s2d16_hbm(x, w, stage=stage)
+            fe.enc0_hbm(e["img"], e["w0"], stage=stage)
+        fc.conv3x3_adain_residual_hifi(t["x"], t["hb"], *tail)
+        fc.conv3x3_adain_residual_hifi2(t["x"], t["hq"], t["h2"], t["hs"], *tail)
         torch.cuda.synchronize()
-    for plain in (p0, p1, p7, e0, e1, e2):
+    for plain in (p0, p1, p7, e0, e1, e2, p1h, e0h, h1, h2):
         plain.assert_not_called()

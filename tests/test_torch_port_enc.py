@@ -313,7 +313,8 @@ def test_cpu_wrappers_count_no_launches():
     x = torch.from_numpy(c["h0"][:, :16, :16]).contiguous()
     tfe.enc1_in_relu_requant(x, tfe.pack_conv4x4(torch.from_numpy(c["w1"])))
     tfe.enc2_in_relu_requant(x, tfe.pack_conv4x4(torch.from_numpy(c["w1"])))
-    assert tfe.LAUNCHES == {tfe.ENC0_SITE: 0, tfe.ENC1_SITE: 0, tfe.ENC2_SITE: 0}
+    assert tfe.LAUNCHES == {tfe.ENC0_SITE: 0, tfe.ENC0_HBM_SITE: 0, tfe.ENC1_SITE: 0,
+                            tfe.ENC2_SITE: 0}
 
 
 def _fake_cuda(shape, dtype):
@@ -375,12 +376,29 @@ def test_shapes_the_kernels_do_not_take_raise(site, shape, match):
            _fake_cuda(w, torch.int8))
 
 
-def test_int64_statistics_guard():
-    """Exact integers: the main path's shapes fit the int64 sum of squares, a
-    512² enc1 does not (max |y| = 128 * 127 * K per output)."""
-    for hw, k in ((256 * 256, 147), (128 * 128, 16 * 64), (64 * 64, 16 * 128)):
-        assert hw * (128 * 127 * k) ** 2 < 2 ** 63
+def test_int64_statistics_guard(monkeypatch):
+    """Exact integers (max |y| = 128 * 127 * K per output): a 512² enc1 passes
+    one int64 word for the sum of squares and is taken all the same, since
+    the sum is kept in two words; the guard holds max |y| below 2^29 and the
+    sum below 2^94, which every site's maps of a 1024² input meet."""
     assert 256 * 256 * (128 * 127 * 16 * 64) ** 2 >= 2 ** 63
-    with pytest.raises(ValueError, match="too large for the exact int64"):
-        tfe.enc1_in_relu_requant(_fake_cuda((1, 512, 512, 64), torch.int8),
-                                 _fake_cuda((1024, 128), torch.int8))
+    for n_out, k in ((1024 * 1024, 147), (512 * 512, 16 * 64), (256 * 256, 16 * 128),
+                     (256 * 256, 9 * 256), (512 * 512, 4 * 256), (1024 * 1024, 4 * 128)):
+        assert 128 * 127 * k < 2 ** 29 and n_out * (128 * 127 * k) ** 2 < 2 ** 94
+        tfe.fc.check_statistics((1, 1, n_out, k), n_out, k)
+    launched = []
+    monkeypatch.setattr(_build, "load", lambda name, _: launched.append(name) or (lambda *a: 0))
+    monkeypatch.setattr(tfe.fc, "_scratch", lambda *a: (mock.Mock(), mock.Mock()))
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: mock.Mock())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda _: mock.Mock(cuda_stream=0))
+    tfe.enc1_in_relu_requant(_fake_cuda((1, 512, 512, 64), torch.int8),
+                             _fake_cuda((1024, 128), torch.int8))
+    assert launched == [tfe.CONV_S2_SOURCE]
+    # max |y| reaches 2^29 at K = 33027; the sum reaches 2^94 first on no real map.
+    tfe.fc.check_statistics((1,), 1, 33026)
+    for n_out, k in ((1, 33027), (2 ** 38, 33026)):
+        with pytest.raises(ValueError, match="too large for the exact two-word statistics"):
+            tfe.fc.check_statistics((1,), n_out, k)
+    with pytest.raises(ValueError, match="too large for the exact two-word statistics"):
+        tfe.enc1_in_relu_requant(_fake_cuda((1, 64, 64, 2112), torch.int8),
+                                 _fake_cuda((16 * 2112, 128), torch.int8))

@@ -203,11 +203,25 @@ def test_trunk_hands_the_kernels_dense_contiguous_tensors(slice_inputs, monkeypa
 
 
 @pytest.mark.parametrize("value", ["1", "2", "yes"])
-def test_trunk_hifi_modes_are_refused(value, monkeypatch):
+def test_trunk_hifi_modes_are_refused(value, monkeypatch, slice_inputs):
+    """Junk values are refused (the JAX package reads them as 1); 1 and 2 are
+    taken and run the trunk on their conv2 site, N_RES launches of it."""
     monkeypatch.setenv("MSIG_TRUNK_HIFI", value)
-    with pytest.raises(ValueError, match="MSIG_TRUNK_HIFI"):
-        tq.quantized_generator_apply({}, torch.zeros((1, 64, 64, 3), dtype=torch.uint8),
-                                     torch.zeros((1, SDIM)))
+    if value not in ("1", "2"):
+        with pytest.raises(ValueError, match="MSIG_TRUNK_HIFI"):
+            tq.quantized_generator_apply({}, torch.zeros((1, 64, 64, 3), dtype=torch.uint8),
+                                         torch.zeros((1, SDIM)))
+        return
+    _, q, img, style = slice_inputs
+    name = {"1": "conv3x3_adain_residual_hifi", "2": "conv3x3_adain_residual_hifi2"}[value]
+    real, calls = getattr(tq.fc, name), []
+    monkeypatch.setattr(tq.fc, name, lambda *a: calls.append(name) or real(*a))
+    monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant",
+                        lambda *a: pytest.fail("the stock carry ran"))
+    out = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
+                                       n_res=N_RES)
+    assert calls == [name] * N_RES
+    assert out.dtype == torch.uint8 and out.shape == (2, 64, 64, 3)
 
 
 # ---------------------------------------------------------- (f) styles
