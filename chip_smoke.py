@@ -5,9 +5,9 @@
 
 Phases, each reported on its own line:
 
-1. build: compiles the eight CUDA sources of the serving path from
-   ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and prints the
-   card's name and power limit as nvidia-smi reports them;
+1. build: compiles the eleven CUDA sources of the serving and training paths
+   from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and prints
+   the card's name and power limit as nvidia-smi reports them;
 2. kernels: each of the twelve kernel sites against its plain PyTorch version
    on the card, with seeded random inputs, batch 8. At the shapes of a 256²
    input: enc0 uint8 [8, 256, 256, 3] -> [8, 256, 256, 64], enc1 ->
@@ -39,8 +39,28 @@ Phases, each reported on its own line:
    weights with 2 resblocks and a noise image (the configuration in which the
    JAX package's tests hold that bar); time per batch and per stage, with
    both stagings;
-4. a ``{"kernels": [...]}`` line, then the card line, then the last line
-   ``{"ok": true, "device": {...}}``.
+4. train kernels: the four training kernels (the fused AdaIN forward and
+   backward, ``conv3x3_bwd`` and ``conv3x3_adain_bwd``, each with and without
+   the relu input) against their plain versions at the trunk shapes of a 256²
+   train step, [8, 64, 64, 256] and [4, 64, 64, 256], fp32 with TF32 off.
+   Bars: every output within rtol 1e-4 and atol 1e-5 x max|plain|; dgamma and
+   dbeta within rtol 1e-5 and atol 1e-6 x max|plain|; dx exactly 0 under the
+   relu mask; a second call gives bit-identical dW. Times by CUDA events, and
+   for ``conv3x3_bwd`` cuDNN's ``convolution_backward`` (dx and dW) beside it;
+5. train: ``make_train_step`` at full width (256², batch 4, 8 resblocks,
+   style_dim 256, 10 domains, a seeded random VGG) from the same parameters
+   and batch in three configurations: stock autograd (``MSIG_CONV_VJP=0``),
+   ``MSIG_CONV_VJP=1`` with ``use_pallas`` and ``MSIG_CONV_VJP=2``. Step 1's
+   losses agree within rtol 1e-4 and its pre-clip grad norms within 1e-3
+   across the three; each configuration launches each of its kernels 48 times
+   a step and no other kernel; 5 more steps stay finite; ms per step, median of
+   5 after a warm-up step, by CUDA events. Then ``python -m
+   msig_tpu_torch.train --device cuda --allow_random_vgg --epochs 1`` on a
+   synthetic tree of 8 sources and 9 target domains, and
+   ``python -m msig_tpu_torch.inference --quantize int8`` on the checkpoint it
+   wrote (``MSIG_SKIP_EPOCH_ART=1`` where matplotlib is missing);
+6. a ``{"kernels": [...]}`` line of the sixteen kernels, then the card line,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero without the last line. It
 also exits non-zero when no CUDA device is visible, and outside a checkout of
@@ -68,6 +88,19 @@ PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 B, SIDE, C = 8, 64, 256            # trunk shape of the main path: 256² input, batch 8
+TRAIN_B, N_DOMAINS = 4, 10         # train step: batch 4 (the default), 10 domains, full width
+TRAIN_SIZE = 256
+TRAIN_CONFIGS = (("stock", "0", False), ("level1+pallas", "1", True), ("level2", "2", False))
+TRAIN_STEPS = 5                    # timed steps per configuration, after step 1 and a warm-up
+GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4  # step-1 gradients: rtol, atol x max|reference| of the group
+FT, FV = "msig_tpu/ops/adain_pallas.py", "msig_tpu/ops/conv3x3_vjp.py"
+# training kernel -> (TPU kernel it replaces, CUDA source, the train configuration that runs it)
+TRAIN_KERNELS = {
+    "adain_pallas_fwd": (f"{FT}:93", "adain_pallas.cu", "level1+pallas"),
+    "adain_pallas_bwd": (f"{FT}:111", "adain_pallas.cu", "level1+pallas"),
+    "conv3x3_bwd": (f"{FV}:145", "conv3x3_bwd.cu", "level1+pallas"),
+    "conv3x3_adain_bwd": (f"{FV}:303", "conv3x3_adain_bwd.cu", "level2"),
+}
 N_RES = 8                          # resblocks of the demo checkpoint
 N_INPUTS, TARGET = 20, "dom3"     # 3 batches of 8, the last one padded
 FE, FC, FD = "msig_tpu/ops/fused_enc_int8.py", "msig_tpu/ops/fused_conv_int8_v2.py", \
@@ -612,6 +645,338 @@ def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
     return result
 
 
+def train_bound(name: str, b: int) -> tuple:
+    """(bound_ms, bound_by) of one call of a training kernel on the [b, 64, 64, 256] trunk.
+
+    Bytes: each fp32 input read once, each output written once. Operations:
+    the conv backward's two products, dx and dW, 2 * 2 * (B*H*W) * C * 9*Co
+    FMA-counted flops at the fp32 rate (TF32 is off), and per element of the
+    map about 8 flops for an instance-norm pass (statistics, normalisation,
+    modulation; the backward's two sums and its dx)."""
+    px, vec = b * SIDE * SIDE, 4 * b * C
+    elems = px * C
+    if name == "adain_pallas_fwd":
+        nbytes, flops = 2 * 4 * elems + 4 * vec, 8 * elems       # x -> y; gamma, beta, mean, rstd
+    elif name == "adain_pallas_bwd":
+        nbytes, flops = 3 * 4 * elems + 5 * vec, 8 * elems       # x, dy -> dx
+    else:
+        conv = 2 * 2 * px * C * 9 * C
+        w = 2 * 4 * 9 * C * C                                     # W read, dW written
+        if name == "conv3x3_bwd":
+            nbytes, flops = 3 * 4 * elems + w, conv               # x, dy -> dx
+        else:
+            nbytes, flops = 4 * 4 * elems + w + 5 * vec, conv + 8 * elems  # x, y, g -> dx
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def close(torch, name: str, got, want, rtol: float = 1e-4, atol_rel: float = 1e-5) -> float:
+    """Hold a float output against the plain version's; returns the max abs error."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    atol = atol_rel * float(want.abs().max())
+    check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+          f"{name}: max abs err {err:.3e} beyond rtol {rtol} / atol {atol:.3e}")
+    return err
+
+
+def train_kernel_phase(torch, ap, cv, dev) -> dict:
+    """The four training kernels against their plain versions at both train shapes."""
+    results = {}
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    for b in (2 * TRAIN_B, TRAIN_B):
+        shape = (b, SIDE, SIDE, C)
+        rng = np.random.default_rng(b)
+        x = t(rng.normal(0, 1, shape))
+        w = t(rng.uniform(-1, 1, (3, 3, C, C)) / np.sqrt(9 * C))
+        gamma, beta = t(rng.normal(1.0, 0.5, (b, C))), t(rng.normal(0.0, 0.5, (b, C)))
+        g = t(rng.normal(0, 1, shape))
+        x3, g3 = x.reshape(b, SIDE * SIDE, C), g.reshape(b, SIDE * SIDE, C)
+        y, mean, rstd = ap.adain_fwd_plain(x3, gamma, beta)
+        nchw = lambda v: v.permute(0, 3, 1, 2)  # noqa: E731  (channels_last views for cuDNN)
+        library = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            nchw(g), nchw(x), w.permute(3, 2, 0, 1).contiguous(), None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1, [True, True, False])
+        cases = [("adain_pallas_fwd", "", lambda: ap.adain_fwd(x3, gamma, beta),
+                  lambda: ap.adain_fwd_plain(x3, gamma, beta), None)]
+        cases.append(("adain_pallas_bwd", "", lambda: ap.adain_bwd(x3, gamma, mean, rstd, g3),
+                      lambda: ap.adain_bwd_plain(x3, gamma, mean, rstd, g3), None))
+        for relu in (False, True):
+            tag = ", relu input" if relu else ""
+            cases.append(("conv3x3_bwd", tag,
+                          lambda relu=relu: cv.conv3x3_bwd(x, w, g, relu_input=relu),
+                          lambda relu=relu: cv.conv3x3_bwd_plain(x, w, g, relu_input=relu),
+                          library))
+            _, (yy, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
+            cases.append(("conv3x3_adain_bwd", tag,
+                          lambda relu=relu, yy=yy, mu=mu, r=r: cv.conv3x3_adain_bwd(
+                              x, w, yy, mu, r, gamma, g, relu_input=relu),
+                          lambda relu=relu, yy=yy, mu=mu, r=r: cv.conv3x3_adain_bwd_plain(
+                              x, w, yy, mu, r, gamma, g, relu_input=relu),
+                          None))
+        for name, tag, kernel, plain, lib in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs = []
+            for k, (gt, wt) in enumerate(zip(got, want)):
+                stat = (name.endswith("_bwd") and gt.dim() == 2 and name != "conv3x3_bwd"
+                        and k >= 1)  # dgamma, dbeta: sums over a whole image
+                errs.append(close(torch, f"{name} output {k}", gt, wt,
+                                  *((1e-5, 1e-6) if stat else ())))
+            report = f"max abs err {max(errs):.3e}"
+            if name.startswith("conv3x3"):
+                if tag:
+                    check(bool((got[0][x <= 0] == 0).all()), f"{name}: dx is 0 where x <= 0")
+                    report += ", dx exactly 0 under the relu mask"
+                again = kernel()
+                check(torch.equal(again[1], got[1]), f"{name}: a second call gives the same dW")
+                report += ", dW bit-identical over two calls"
+            del got, want
+            ms = cuda_ms(torch, kernel, reps=20 if name.startswith("conv") else 50)
+            plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+            library_ms = cuda_ms(torch, lib, reps=20) if lib is not None else None
+            bound_ms, bound_by = train_bound(name, b)
+            row = dict(case=f"[{b}, {SIDE}, {SIDE}, {C}]{tag}", ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            if name in results:
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], max(errs))
+                results[name]["also"].append(row)
+            else:
+                results[name] = dict(row, max_abs_err=max(errs), also=[])
+            lib_txt = f", cuDNN convolution_backward {library_ms:.4f} ms" if lib is not None else ""
+            print(f"[train kernel] {name} ({row['case']}): {report}; {ms:.4f} ms (median of "
+                  f"{20 if name.startswith('conv') else 50}, CUDA events), plain {plain_ms:.3f} ms"
+                  f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        del x, w, g, y
+        torch.cuda.empty_cache()
+    check(set(results) == set(TRAIN_KERNELS), f"train kernel cases cover {sorted(results)}")
+    return results
+
+
+def step1_grads(state, cfg, g_norm: float) -> list:
+    """The G group's pre-clip step-1 gradients, leaf by leaf, from Adam's first
+    moment after step 1: mu = (1 - b1) * g * min(1, max_norm / norm)."""
+    scale = max(g_norm / cfg.grad_clip_norm, 1.0) / (1.0 - cfg.adam_b1)
+    return [m * scale for m in state.opt_g.mu]
+
+
+class deterministic_cudnn:
+    """cuDNN restricted to deterministic algorithms for the length of a ``with``
+    block, so that two runs of a step compute the same forward to the bit."""
+
+    def __init__(self, torch):
+        self.flags = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved, self.flags.deterministic = self.flags.deterministic, True
+
+    def __exit__(self, *exc):
+        self.flags.deterministic = self.saved
+
+
+class plain_backwards:
+    """The backward kernels' wrappers swapped for their plain versions for the
+    length of a ``with`` block; the forward (stock convs, the AdaIN forward
+    kernel) stays as it is, so a step computes the same forward to the bit."""
+
+    def __init__(self, ap, cv):
+        self.names = [(cv, "conv3x3_bwd"), (cv, "conv3x3_adain_bwd"), (ap, "adain_bwd")]
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.names]
+        for m, n in self.names:
+            setattr(m, n, getattr(m, n + "_plain"))
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.names, self.saved):
+            setattr(m, n, fn)
+
+
+def compare_grads(label: str, names, got, want) -> None:
+    """Hold a configuration's step-1 gradients against those of the same step with
+    the backward kernels' plain versions, leaf by leaf:
+    |got - want| <= GRAD_RTOL * |want| + GRAD_ATOL_REL * max|want over the group|."""
+    atol = GRAD_ATOL_REL * max(float(w.abs().max()) for w in want)
+    worst, bad = (0.0, ""), []
+    for name, g, w in zip(names, got, want):
+        ratio = float(((g - w).abs() / (GRAD_RTOL * w.abs() + atol)).max())
+        worst = max(worst, (ratio, name))
+        if ratio > 1.0:
+            bad.append(f"{name} ({ratio:.2f})")
+    zero = [n for n, g in zip(names, got) if ".conv" in n and n.endswith(".bias")
+            and n.split(".")[1] == "decoder" and not bool(g.any())]
+    print(f"[train {label}] step-1 gradients vs the same step with the plain backwards, "
+          f"{len(names)} leaves of the G group: rtol {GRAD_RTOL} / atol {GRAD_ATOL_REL} x "
+          f"max|plain| = {atol:.3e}; worst leaf "
+          f"{worst[1]} at {worst[0]:.3f} of its bar; {len(bad)} beyond; resblock conv biases "
+          f"with an exactly zero gradient: {len(zero)}", flush=True)
+    check(not bad, f"[train {label}] step-1 gradients within their bars (beyond: {bad[:8]})")
+    if label == "level2":  # the unit skips the bias, which instance norm removes
+        check(len(zero) == 4 * N_RES,
+              f"[train level2] all {4 * N_RES} resblock conv biases have a zero gradient")
+
+
+def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
+    """The train step at full width in the three configurations, from the same
+    parameters and batch. Step 1's losses and grad norms are held against the
+    stock step's, and the step-1 gradients of each kernel configuration, leaf by
+    leaf, against a rerun of its step 1 with the backward kernels' plain versions.
+    (Not against the stock step's: at random init the generators' tanh saturates,
+    and its backward, 1 - y^2, turns last-bit differences of the forward into
+    relative differences of the gradients of up to 3e-3 of a leaf's norm, as
+    the CPU, where no kernel runs, shows at 32². For the same reason both runs
+    of step 1 restrict cuDNN to deterministic algorithms: with its default
+    choice two runs of the same step differ in the last bit of the forward.)
+    Returns {config: launches of step 1} and the step times."""
+    from msig_tpu_torch.config import TrainConfig
+    from msig_tpu_torch.losses import init_random_vgg
+    from msig_tpu_torch.train import create_train_state, make_train_step
+    from msig_tpu_torch.train.state import G_KEYS
+
+    rng = np.random.default_rng(4)
+    shape = (TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3)
+    batch = {"source": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
+             "target": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
+             "source_domain": torch.zeros(TRAIN_B, dtype=torch.int32, device=dev),
+             "target_domain": torch.from_numpy(rng.integers(1, N_DOMAINS, TRAIN_B,
+                                                            dtype=np.int32)).to(dev)}
+    vgg = init_random_vgg(1234, device=dev)
+    weights = [1.0, 10.0, 5.0, 1.0, 1.0]  # the default loss weights, gan..style, at full warmup
+    first, launches, step_ms = {}, {}, {}
+    for label, level, pallas in TRAIN_CONFIGS:
+        cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
+                          style_dim=256, use_pallas=pallas, device=dev.type)
+        with env(MSIG_CONV_VJP=level):
+            state = create_train_state(cfg, N_DOMAINS)  # the same seed: the same parameters
+            step = make_train_step(cfg.ema_beta)
+            for mod in (ap, cv) + int8_mods:
+                mod.reset_launch_counts()
+            with deterministic_cudnn(torch):
+                metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+            torch.cuda.synchronize()
+            counts = {**ap.LAUNCHES, **cv.LAUNCHES}
+            int8 = sum(v for m in int8_mods for v in m.LAUNCHES.values())
+            copies = {**ap.COPIES, **cv.COPIES}
+            first[label] = {k: float(v) for k, v in metrics.items()}
+            grads = step1_grads(state, cfg, first[label]["g_grad_norm"])
+            want = {k: (2 * N_RES * 3 if TRAIN_KERNELS[k][2] == label else 0) for k in counts}
+            check(counts == want and int8 == 0,
+                  f"[train {label}] launches per step {counts} (int8 {int8}), want {want}")
+            launches[label] = counts
+            step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)  # warm-up
+            events, finite = [], []
+            for _ in range(TRAIN_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                end.record()
+                events.append((start, end))
+                finite.append(torch.stack(list(m.values())))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(torch.stack(finite)).all()),
+                  f"[train {label}] {TRAIN_STEPS} more steps stay finite")
+            step_ms[label] = float(np.median([a.elapsed_time(b) for a, b in events]))
+            mem = torch.cuda.max_memory_allocated() / 2**30
+            if label != "stock":  # step 1 again, from the same parameters, plain backwards
+                names = [f"{k}.{n}" for k in G_KEYS for n, _ in state.models.nets[k].named_parameters()]
+                del state
+                state = create_train_state(cfg, N_DOMAINS)
+                for mod in (ap, cv):
+                    mod.reset_launch_counts()
+                with plain_backwards(ap, cv), deterministic_cudnn(torch):
+                    m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                bwd = {k: v for k, v in {**ap.LAUNCHES, **cv.LAUNCHES}.items() if k != ap.FWD}
+                check(not any(bwd.values()), f"[train {label}] no backward kernel in the plain rerun {bwd}")
+                losses = [k for k in m if not k.endswith("grad_norm")]
+                check(all(float(m[k]) == first[label][k] for k in losses),
+                      f"[train {label}] the plain rerun's step-1 losses equal the kernel run's to the "
+                      f"bit: {[(k, float(m[k]), first[label][k]) for k in losses]}")
+                compare_grads(label, names, grads, step1_grads(state, cfg, float(m["g_grad_norm"])))
+            del grads
+        share = ""
+        for k, n in counts.items():
+            if n:
+                also = {r["case"]: r["ms"] for r in [kernels[k]] + kernels[k]["also"]}
+                t8, t4 = (also[f"[{bb}, {SIDE}, {SIDE}, {C}]"] for bb in (2 * TRAIN_B, TRAIN_B))
+                est = 2 * N_RES * (2 * t8 + t4)  # the 2B, 2B and B generator launches
+                share += f"; {k} x{n}: ~{est:.1f} ms ({100 * est / step_ms[label]:.0f}%)"
+        print(f"[train {label}] {TRAIN_SIZE}², batch {TRAIN_B}, {N_RES} resblocks, {N_DOMAINS} domains: "
+              f"step 1 losses {json.dumps({k: round(v, 6) for k, v in first[label].items()})}; "
+              f"{step_ms[label]:.2f} ms per step (median of {TRAIN_STEPS} after a warm-up step, "
+              f"CUDA events); launches per step {({k: v for k, v in counts.items() if v})}, "
+              f"layout copies {({k: v for k, v in copies.items() if v})}{share}; peak memory "
+              f"{mem:.1f} GiB", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = first["stock"]
+    for label, m in first.items():
+        for k, v in m.items():
+            rtol = 1e-3 if k.endswith("grad_norm") else 1e-4
+            check(abs(v - base[k]) <= rtol * abs(base[k]),
+                  f"[train {label}] step 1 {k} {v} vs stock {base[k]} (rtol {rtol})")
+    print(f"[train] step 1 agrees across {', '.join(first)}: losses within rtol 1e-4, grad norms "
+          f"within 1e-3 (largest relative difference "
+          f"{max(abs(m[k] - base[k]) / abs(base[k]) for m in first.values() for k in m):.2e})",
+          flush=True)
+    return dict(launches=launches, step_ms=step_ms)
+
+
+def train_cli_phase(torch, work: str, device: str = "cuda", extra=()) -> None:
+    """``python -m msig_tpu_torch.train`` on a synthetic tree, then serving its checkpoint."""
+    import importlib.util
+
+    from PIL import Image
+
+    from msig_tpu_torch import inference as infer_cli
+    from msig_tpu_torch.train import cli
+
+    rng = np.random.default_rng(5)
+    src, ref = os.path.join(work, "train_src"), os.path.join(work, "train_ref")
+    os.makedirs(src)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (300, 280, 3), dtype=np.uint8)).save(
+            os.path.join(src, f"s{i}.png"))
+    for d in range(N_DOMAINS - 1):
+        os.makedirs(os.path.join(ref, f"dom{d}"))
+        for i in range(2):
+            Image.fromarray(rng.integers(0, 256, (280, 300, 3), dtype=np.uint8)).save(
+                os.path.join(ref, f"dom{d}", f"r{i}.png"))
+    art = importlib.util.find_spec("matplotlib") is not None
+    if not art:
+        print("[train cli] matplotlib is not installed here: MSIG_SKIP_EPOCH_ART=1 (no sample "
+              "grids, no loss plots)", flush=True)
+    out = os.path.join(work, "train_results")
+    args = cli.build_arg_parser().parse_args([
+        "--source_dir", src, "--target_dir", ref, "--save_dir_base", out, "--exp_name", "smoke",
+        "--device", device, "--allow_random_vgg", "--epochs", "1", *extra])
+    with env(MSIG_SKIP_EPOCH_ART="0" if art else "1"):
+        t0 = time.perf_counter()
+        rc = cli.main(cli.config_from_args(args))
+        train_s = time.perf_counter() - t0
+    ckpt = os.path.join(out, "smoke", "checkpoints", "epoch_1")
+    check(rc == 0, f"python -m msig_tpu_torch.train exit code {rc} == 0")
+    check(all(os.path.exists(os.path.join(ckpt, f)) for f in ("checkpoint.pth",
+                                                              "ema_checkpoint.pth")),
+          "the train CLI wrote checkpoint.pth and ema_checkpoint.pth")
+    served = os.path.join(work, "train_served")
+    args = infer_cli.build_arg_parser().parse_args([
+        "--input_dir", src, "--ref_domains_dir", ref, "--checkpoint_dir", ckpt, "--output_dir",
+        served, "--target_domain", "dom2", "--style_mode", "average", "--quantize", "int8",
+        "--batch_size", "8", "--compute_dtype", "float32", "--device", device, *extra])
+    rc = infer_cli.main(infer_cli.config_from_args(args))
+    check(rc == 0 and len(os.listdir(served)) == 8,
+          f"the inference CLI on the trained checkpoint: exit {rc}, {len(os.listdir(served))} images")
+    print(f"[train cli] python -m msig_tpu_torch.train --device cuda --allow_random_vgg --epochs 1: "
+          f"rc 0 in {train_s:.1f} s (8 sources, {N_DOMAINS - 1} target domains, 256², batch "
+          f"{TRAIN_B}: 2 steps + checkpoint); python -m msig_tpu_torch.inference --quantize int8 "
+          f"on its checkpoint: rc 0, 8 images", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -621,6 +986,8 @@ def main() -> int:
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from msig_tpu_torch.ops import _build
+    from msig_tpu_torch.ops import adain_pallas as ap
+    from msig_tpu_torch.ops import conv3x3_vjp as cv
     from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
     from msig_tpu_torch.ops import fused_dec_int8 as fd
     from msig_tpu_torch.ops import fused_enc_int8 as fe
@@ -628,7 +995,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = t0 = time.perf_counter()
-    sources = fe.SOURCES + fc.SOURCES + fd.SOURCES
+    sources = fe.SOURCES + fc.SOURCES + fd.SOURCES + (ap.SOURCE,) + cv.SOURCES
     logs = _build.build(sources)
     print(f"[build] {len(logs)} of {len(sources)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)", flush=True)
@@ -645,6 +1012,9 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
         e2e = e2e_phase(torch, fc, fd, fe, work)
+        train_kernels = train_kernel_phase(torch, ap, cv, dev)
+        train = train_phase(torch, ap, cv, (fc, fd, fe), dev, train_kernels)
+        train_cli_phase(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -658,6 +1028,15 @@ def main() -> int:
                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
                  path=SITES[name][2], also=k["also"])
             for name, k in kernels.items()]
+    # the training rows: launches from step 1 of the configuration that runs them.
+    rows += [dict(name=name, route="cuda", source=f"msig_tpu_torch/csrc/{TRAIN_KERNELS[name][1]}",
+                  replaces=TRAIN_KERNELS[name][0],
+                  launches=train["launches"][TRAIN_KERNELS[name][2]][name],
+                  max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
+                  path=f"train/{TRAIN_KERNELS[name][2]}", also=k["also"])
+             for name, k in train_kernels.items()]
+    check(len(rows) == len(SITES) + len(TRAIN_KERNELS), f"{len(rows)} kernel rows")
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} was launched on its path {row['path']}")
     print(json.dumps({"kernels": rows}))

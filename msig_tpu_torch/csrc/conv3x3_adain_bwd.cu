@@ -1,0 +1,45 @@
+// Backward of the resblock unit z = gamma * IN(conv3x3([relu](x), W)) + beta
+// in fp32 on dense NHWC: dx, dW, dgamma and dbeta from the saved conv output
+// y, its IN statistics (mu, r) and the cotangent g of z.
+//
+// Replaces the TPU kernel msig_tpu/ops/conv3x3_vjp.py::conv3x3_adain_bwd
+// (_bwd_adain_kernel, MSIG_CONV_VJP=2), which holds one image in VMEM: it
+// reduces sg = sum(g) and sgy = sum(g * yhat), yhat = (y - mu) * r, over the
+// image, forms dy = gamma * r * (g - sg/N - yhat * sgy/N) into its padded
+// slab, and runs the conv backward core on it; dgamma = sgy, dbeta = sg.
+//
+// Here the per-(sample, channel) sums need the whole image before any dy
+// exists, which on the card is a reduction across CTAs. This first version
+// runs it as the instance-norm backward kernel of in_norm.cuh (one CTA per
+// sample and 32 channels), which writes dy to a device scratch, then the conv
+// backward of conv3x3_bwd.cuh on that dy. Bound on an H100 at [8, 64, 64,
+// 256]: the conv's 77.3 GFLOP, 1.15 ms at 67 TFLOP/s (the function's bytes,
+// x, y, g read and dx written, are 134 MB, 0.04 ms). The dy scratch costs
+// 33.6 MB written and read back; forming dy as the conv's tiles are loaded
+// would remove it.
+#include "conv3x3_bwd.cuh"
+#include "in_norm.cuh"
+
+// x [B, H, W, C], y and g [B, H, W, Co] fp32; mu, r, gamma [B, Co] fp32; wt
+// [9, Co, C]; outputs dx [B, H, W, C], dw [9, C, Co], dgamma and dbeta
+// [B, Co]; dy_scratch [B, H, W, Co]; part as for msig_conv3x3_bwd.
+// Returns cudaGetLastError() (0 = success); launches on `stream`, does not synchronise.
+extern "C" int msig_conv3x3_adain_bwd(const void* x, const void* y, const void* g, const void* mu,
+                                      const void* r, const void* gamma, const void* wt, void* dx,
+                                      void* dw, void* dgamma, void* dbeta, void* dy_scratch,
+                                      void* part, int B, int H, int W, int C, int Co, int relu,
+                                      void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  msig_in::in_bwd_kernel<float><<<msig_in::grid_of(B, Co), msig_in::block_of(), 0, st>>>(
+      static_cast<const float*>(y), static_cast<const float*>(g), static_cast<const float*>(mu),
+      static_cast<const float*>(r), static_cast<const float*>(gamma),
+      static_cast<float*>(dy_scratch), static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      H * W, Co);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const msig_f32::Map geom{B, H, W, C, Co};
+  return (int)msig_f32::conv3x3_bwd_launch(
+      static_cast<const float*>(x), static_cast<const float*>(dy_scratch),
+      static_cast<const float*>(wt), static_cast<float*>(dx), static_cast<float*>(dw),
+      static_cast<float*>(part), geom, relu != 0, st);
+}

@@ -3,6 +3,7 @@
 from msig_tpu_torch.models.networks import (  # noqa: F401
     AdaIN,
     AdaINResBlock,
+    MultiDomainDiscriminator,
     MultiDomainStyleEncoder,
     StyleCycleGANGenerator,
 )

@@ -1,7 +1,7 @@
 """Build the CUDA kernels of ``msig_tpu_torch/csrc`` with nvcc and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C entry point
-``msig_<name>``. It is compiled at first use for ``sm_90a`` into
+Each ``csrc/<name>.cu`` becomes one shared library with plain C entry points,
+``msig_<name>`` unless the source names others. It is compiled at first use for ``sm_90a`` into
 ``build/msig_kernels/`` at the repository root (listed in ``.gitignore``), under
 a file name that carries a hash of the sources and flags, so a changed source
 is rebuilt. Several sources build in parallel, one nvcc process each.
@@ -90,15 +90,16 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             tmp.unlink(missing_ok=True)
 
 
-def load(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry point ``msig_<name>``, building its library if needed."""
+def load(name: str, argtypes: Sequence, entry: str = "") -> ctypes._CFuncPtr:
+    """The C entry point ``entry`` (default ``msig_<name>``) of ``csrc/<name>.cu``,
+    building its library if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
-    fn = getattr(lib, f"msig_{name}")
+    fn = getattr(lib, entry or f"msig_{name}")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -27,8 +27,17 @@ def instance_norm(x: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
 
 
 def adain_modulate(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   eps: float = _EPS) -> torch.Tensor:
-    """``gamma * IN(x) + beta`` over NHWC; gamma and beta are ``[B, C]``."""
+                   eps: float = _EPS, use_pallas: bool = False) -> torch.Tensor:
+    """``gamma * IN(x) + beta`` over NHWC; gamma and beta are ``[B, C]``.
+
+    ``use_pallas`` routes an x in the fused kernel's domain to
+    ``ops/adain_pallas.py`` (forward and backward kernels), as
+    ``msig_tpu/ops/norm.py:67-71`` routes to the Pallas kernel."""
+    if use_pallas:
+        from msig_tpu_torch.ops import adain_pallas
+
+        if adain_pallas.supported(x):
+            return adain_pallas.adain_pallas(x, gamma, beta, eps=eps)
     xf, mean, inv = _stats(x, eps)
     scale = gamma.to(torch.float32)[:, None, None, :] * inv
     shift = beta.to(torch.float32)[:, None, None, :] - mean * scale

@@ -1,0 +1,150 @@
+"""The training kernels of msig_tpu_torch against their plain PyTorch versions, on the card.
+
+Rows 22-24 of the kernel table in PERF.md: the fused AdaIN forward and
+backward (``ops/adain_pallas.py``), the 3x3 conv backward (``conv3x3_bwd``)
+and the conv + IN + AdaIN unit backward (``conv3x3_adain_bwd``), at the trunk
+shapes of a 256² train step ([8, 64, 64, 256] and [4, 64, 64, 256]) and a small
+one. Needs an NVIDIA GPU and nvcc; skipped without a card. Imports neither JAX
+nor msig_tpu:
+
+    python -m pytest --noconftest tests/test_torch_port_train_cuda.py
+
+Bars, fp32 with TF32 off: every output within rtol 1e-4 and atol 1e-5 x
+max|plain| (the two sum in other orders); dx exactly 0 under the relu mask;
+dgamma and dbeta within rtol 1e-5 and atol 1e-6 x max|plain|; dW bit-identical
+over two calls (its reduction is deterministic).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from msig_tpu_torch.ops import adain_pallas as ap
+from msig_tpu_torch.ops import conv3x3_vjp as cv
+
+SHAPES = [(2, 8, 256), (4, 64, 256), (8, 64, 256)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, name, rtol=1e-4, atol_rel=1e-5):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    scale = float(want.abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    print(f"{name}: max abs err {err:.3e}, max|plain| {scale:.3e}")
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol_rel * scale, msg=name)
+
+
+def _unit_inputs(b, side, c, dev, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = t(rng.normal(0, 1, (b, side, side, c)))
+    w = t(rng.uniform(-1, 1, (3, 3, c, c)) / np.sqrt(9 * c))
+    gamma = t(rng.normal(1.0, 0.5, (b, c)))
+    g = t(rng.normal(0, 1, (b, side, side, c)))
+    return x, w, gamma, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_kernels_match_plain(cuda_device, b, side, c, dtype):
+    rng = np.random.default_rng(side + b)
+    x = torch.from_numpy(rng.normal(0.3, 2.0, (b, side * side, c)).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    gamma, beta = (torch.from_numpy(rng.normal(m, 0.5, (b, c)).astype(np.float32)).to(cuda_device)
+                   for m in (1.0, 0.0))
+    dy = torch.from_numpy(rng.normal(0, 1, (b, side * side, c)).astype(np.float32))
+    dy = dy.to(cuda_device, dtype)
+    before = dict(ap.LAUNCHES)
+    got = ap.adain_fwd(x, gamma, beta)
+    want = ap.adain_fwd_plain(x, gamma, beta)
+    tol = {} if dtype == torch.float32 else dict(rtol=2e-2, atol_rel=2e-2)  # one bf16 rounding
+    for name, g_, w_ in zip(("y", "mean", "rstd"), got, want):
+        _close(g_, w_, f"fwd {name}", **(tol if name == "y" else {}))
+    gb = ap.adain_bwd(x, gamma, want[1], want[2], dy)
+    wb = ap.adain_bwd_plain(x, gamma, want[1], want[2], dy)
+    _close(gb[0], wb[0], "bwd dx", **tol)
+    _close(gb[1], wb[1], "bwd dgamma", rtol=1e-5, atol_rel=1e-6)
+    _close(gb[2], wb[2], "bwd dbeta", rtol=1e-5, atol_rel=1e-6)
+    assert ap.LAUNCHES[ap.FWD] == before[ap.FWD] + 1
+    assert ap.LAUNCHES[ap.BWD] == before[ap.BWD] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c", SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_bwd_matches_plain(cuda_device, b, side, c, relu):
+    x, w, _, dy = _unit_inputs(b, side, c, cuda_device, seed=side + b)
+    before = cv.LAUNCHES[cv.BWD]
+    dx, dw = cv.conv3x3_bwd(x, w, dy, relu_input=relu)
+    assert cv.LAUNCHES[cv.BWD] == before + 1
+    dx_p, dw_p = cv.conv3x3_bwd_plain(x, w, dy, relu_input=relu)
+    _close(dx, dx_p, "dx")
+    _close(dw, dw_p, "dw")
+    if relu:
+        assert bool((dx[x <= 0] == 0).all()), "dx must be exactly 0 where x <= 0"
+    dx2, dw2 = cv.conv3x3_bwd(x, w, dy, relu_input=relu)
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2), "two calls must give the same bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c", SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_adain_bwd_matches_plain(cuda_device, b, side, c, relu):
+    x, w, gamma, g = _unit_inputs(b, side, c, cuda_device, seed=3 * side + b)
+    beta = torch.zeros_like(gamma)
+    _, (y, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
+    before = cv.LAUNCHES[cv.ADAIN_BWD]
+    got = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input=relu)
+    assert cv.LAUNCHES[cv.ADAIN_BWD] == before + 1
+    want = cv.conv3x3_adain_bwd_plain(x, w, y, mu, r, gamma, g, relu_input=relu)
+    _close(got[0], want[0], "dx")
+    _close(got[1], want[1], "dw")
+    _close(got[2], want[2], "dgamma", rtol=1e-5, atol_rel=1e-6)
+    _close(got[3], want[3], "dbeta", rtol=1e-5, atol_rel=1e-6)
+    if relu:
+        assert bool((got[0][x <= 0] == 0).all())
+    again = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input=relu)
+    assert torch.equal(got[1], again[1]), "dW must be bit-identical over two calls"
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_their_kernels(cuda_device):
+    x, w, gamma, g = _unit_inputs(2, 8, 256, cuda_device, seed=7)
+    beta = torch.zeros_like(gamma)
+    x, w, gamma, beta = (t.requires_grad_() for t in (x, w, gamma, beta))
+    cv.reset_launch_counts()
+    ap.reset_launch_counts()
+    z = cv.relu_conv3x3_adain(x, w, gamma, beta)
+    z.backward(g)
+    assert cv.LAUNCHES == {cv.BWD: 0, cv.ADAIN_BWD: 1}
+    y = ap.adain_pallas(cv.conv3x3_same(x, w), gamma, beta)
+    y.backward(g)
+    assert cv.LAUNCHES == {cv.BWD: 1, cv.ADAIN_BWD: 1}
+    assert ap.LAUNCHES == {ap.FWD: 1, ap.BWD: 1}
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    x, w, gamma, g = _unit_inputs(2, 8, 256, cuda_device, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        cv.conv3x3_bwd(x.double(), w, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3_bwd(x, w, g.transpose(1, 2))
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cv.conv3x3_bwd(x[..., :64].contiguous(), w[:, :, :64].contiguous(), g)
+    with pytest.raises(ValueError, match="must be on"):
+        cv.conv3x3_adain_bwd(x, w, g, gamma, gamma, gamma, g.cpu())  # g on the CPU
+    with pytest.raises(ValueError):
+        ap.adain_fwd(x.reshape(2, 64, 256).double(), gamma, gamma)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = g.reshape(2, 64, 256).transpose(1, 2).contiguous().transpose(1, 2)
+        ap.adain_bwd(x.reshape(2, 64, 256), gamma, gamma, gamma, strided)
