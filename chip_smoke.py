@@ -5,16 +5,20 @@
 
 Phases, each reported on its own line:
 
-1. build: compiles the eleven CUDA sources of the serving and training paths
+1. build: compiles the thirteen CUDA sources of the serving and training paths
    from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and prints
    the card's name and power limit as nvidia-smi reports them;
-2. kernels: each of the twelve kernel sites against its plain PyTorch version
+2. kernels: each of the fifteen kernel sites against its plain PyTorch version
    on the card, with seeded random inputs, batch 8. At the shapes of a 256²
    input: enc0 uint8 [8, 256, 256, 3] -> [8, 256, 256, 64], enc1 ->
    [8, 128, 128, 128], enc2 -> [8, 64, 64, 256], the four trunk sites (conv1,
    and conv2 with its int8, bf16 and two-plane residual carries) at
    [8, 64, 64, 256], up0 -> [8, 128, 128, 128], up1 -> [8, 256, 256, 64],
-   final7 -> [8, 256, 256, 3]. At the shapes of a 512² input: the staged
+   final7 -> [8, 256, 256, 3], and the three sites of the opt-in compositions:
+   ``fused_trunk_blocks`` (all 8 resblocks in one launch) at [8, 64, 64, 256],
+   ``enc1_in_relu_requant_im2col`` at enc1's shapes (and equal to enc1's
+   kernel to the bit), ``adain_relu_requant_chunked`` at [8, 4096, 256] int32.
+   At the shapes of a 512² input: the staged
    sites enc0_hbm [8, 512, 512, 3] and up1_s2d16_hbm [8, 256, 256, 128] ->
    [8, 512, 512, 64], each staged as int32 and as fp16 (held against the
    plain version that narrows the same way), and every other site at its map
@@ -31,6 +35,14 @@ Phases, each reported on its own line:
    against the port's fp32 float path on the same inputs and style at least
    30 dB; the generators' steady-state time per batch in each mode and the
    int8 generator's stages;
+   at 256² with ``MSIG_TRUNK_V3=1`` (``256/v3``: one ``fused_trunk_blocks``
+   launch per batch in place of the 16 trunk calls) and with
+   ``MSIG_ENC1_IM2COL=1`` (``256/enc1_im2col``: the dense enc1 in place of
+   enc1, the served images equal to ``256/hifi0``'s), each at least 30 dB
+   from the fp32 path; ``quantized_generator_apply(..., fused_trunk=False,
+   fused_epilogue=True)`` (``256/unfused+epilogue``: 8 launches of
+   ``adain_relu_requant_chunked`` per batch and no other kernel site), its
+   PSNR printed; time per batch of each and of the trunk alone under v3;
    at 512²: enc0_hbm, enc1, enc2, 8 + 8 trunk calls, up0, up1_s2d16_hbm and
    final7 per batch; the all-kernel uint8 output and the port's
    ``pallas=("trunk",)`` float output against each other and against the fp32
@@ -54,12 +66,13 @@ Phases, each reported on its own line:
    losses agree within rtol 1e-4 and its pre-clip grad norms within 1e-3
    across the three; each configuration launches each of its kernels 48 times
    a step and no other kernel; 5 more steps stay finite; ms per step, median of
-   5 after a warm-up step, by CUDA events. Then ``python -m
+   5 after a warm-up step, by CUDA events, with cuDNN held to its
+   deterministic algorithms as the Trainer holds it. Then ``python -m
    msig_tpu_torch.train --device cuda --allow_random_vgg --epochs 1`` on a
    synthetic tree of 8 sources and 9 target domains, and
    ``python -m msig_tpu_torch.inference --quantize int8`` on the checkpoint it
    wrote (``MSIG_SKIP_EPOCH_ART=1`` where matplotlib is missing);
-6. a ``{"kernels": [...]}`` line of the sixteen kernels, then the card line,
+6. a ``{"kernels": [...]}`` line of the nineteen kernels, then the card line,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero without the last line. It
@@ -120,6 +133,12 @@ SITES = {
     "up1_s2d16": (f"{FD}:237", "convt4x4s2_in_relu_requant.cu", "256/hifi0"),
     "up1_s2d16_hbm": (f"{FD}:384", "convt4x4s2_in_relu_requant.cu", "512"),
     "final7_tanh_u8": (f"{FD}:612", "final7_tanh_u8.cu", "256/hifi0"),
+    "fused_trunk_blocks": ("msig_tpu/ops/fused_trunk_v3.py:175", "fused_trunk_blocks.cu",
+                           "256/v3"),
+    "enc1_in_relu_requant_im2col": (f"{FE}:631", "conv4x4s2_in_relu_requant.cu",
+                                    "256/enc1_im2col"),
+    "adain_relu_requant_chunked": ("msig_tpu/ops/int8_epilogue_chunked.py:97",
+                                   "adain_relu_requant_chunked.cu", "256/unfused+epilogue"),
 }
 _COMMON = {"enc1_in_relu_requant": 1, "enc2_in_relu_requant": 1,
            "conv3x3_adain_relu_requant": N_RES, "convt4x4s2_in_relu_requant_ps": 1,
@@ -131,6 +150,12 @@ PATHS = {
     "256/hifi1": {**_AT_256, "conv3x3_adain_residual_hifi": N_RES},
     "256/hifi2": {**_AT_256, "conv3x3_adain_residual_hifi2": N_RES},
     "512": {**_COMMON, "enc0_hbm": 1, "up1_s2d16_hbm": 1, "conv3x3_adain_residual_requant": N_RES},
+    "256/v3": {"enc0_in_relu_requant": 1, "enc1_in_relu_requant": 1, "enc2_in_relu_requant": 1,
+               "fused_trunk_blocks": 1, "convt4x4s2_in_relu_requant_ps": 1, "up1_s2d16": 1,
+               "final7_tanh_u8": 1},
+    "256/enc1_im2col": {**_AT_256, "enc1_in_relu_requant": 0, "enc1_in_relu_requant_im2col": 1,
+                        "conv3x3_adain_residual_requant": N_RES},
+    "256/unfused+epilogue": {"adain_relu_requant_chunked": N_RES},
 }
 
 
@@ -169,8 +194,25 @@ def bound(kind: str, b: int, side: int, cin: int) -> tuple:
     affine + ReLU + clip + round (5) at the relu, ConvT and encoder sites; at
     the conv2 sites hn (4; 6 with two planes) + max|hn| (2) + scale, clip,
     round (4), + the bf16 rounding (1) or the second plane (5); at final7,
-    dequant, bias, tanh (counted as 20), scale, round, clip (26)."""
+    dequant, bias, tanh (counted as 20), scale, round, clip (26). The whole
+    trunk (``trunk_v3``): N_RES blocks of a relu and a residual site, its int8
+    map and scale read and written once, all 2*N_RES weights and affines read
+    once. The chunked epilogue (``epilogue``, side = S rows): int32 in, int8
+    out, statistics and affine + ReLU + requant (8 per element)."""
     px = b * side * side
+    if kind == "trunk_v3":
+        out = px * cin
+        int8_ops = N_RES * 2 * (2 * out * 9 * cin)
+        nbytes = (2 * out + 2 * N_RES * (9 * cin * cin + 2 * b * cin * 4) + 2 * b * 4)
+        fp_ops = N_RES * (8 + 13) * out
+        t_ops = int8_ops / PEAK_INT8_OPS + fp_ops / PEAK_FP32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    if kind == "epilogue":
+        out = b * side * cin
+        nbytes, fp_ops = 5 * out + 2 * b * cin * 4, 8 * out
+        t_ops, t_bytes = fp_ops / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
     if kind in ("relu", "residual", "hifi", "hifi2"):
         out = px * cin
         int8_ops = 2 * out * 9 * cin
@@ -236,7 +278,7 @@ def compare(torch, name: str, got, want) -> tuple:
     return max_step, "; ".join(report)
 
 
-def kernel_cases(torch, fc, fd, fe, dev):
+def kernel_cases(torch, fc, fd, fe, f3, ec, dev):
     """(site, label, kind, (b, side, cin), make) per case; ``make()`` builds the
     inputs on the card and returns (kernel call, plain call). The first case
     of a site is the one the JSON line reports."""
@@ -307,6 +349,50 @@ def kernel_cases(torch, fc, fd, fe, dev):
             return (lambda: fd.final7_tanh_u8(*args)), (lambda: fd.final7_tanh_u8_plain(*args))
         return make
 
+    def trunk_v3():
+        def make():
+            rng = np.random.default_rng(SIDE + 1)
+            x = t(rng.integers(-127, 128, (B, SIDE, SIDE, C), dtype=np.int8))
+            w = torch.cat([fc.pack_weights(torch.from_numpy(
+                rng.integers(-32, 33, (3, 3, C, C), dtype=np.int8))) for _ in range(2 * N_RES)])
+            args = (x, t(rng.uniform(0.5, 2.0, (B, 1)).astype(np.float32)), w.to(dev),
+                    t(rng.normal(1.0, 0.5, (B, 2 * N_RES, C)).astype(np.float32)),
+                    t(rng.normal(0.0, 0.5, (B, 2 * N_RES, C)).astype(np.float32)), N_RES)
+            first = f3.fused_trunk_blocks(*args)
+            again = f3.fused_trunk_blocks(*args)
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  "fused_trunk_blocks: a second call gives the same bits")
+            print(f"[kernel] fused_trunk_blocks: two calls bit-identical; cooperative grid of "
+                  f"{f3.LAST_GRID[f3.SITE]} CTAs", flush=True)
+            return (lambda: f3.fused_trunk_blocks(*args)), (lambda: f3.fused_trunk_blocks_plain(*args))
+        return make
+
+    def enc1_im2col(side):
+        def make():
+            rng = np.random.default_rng(side + 64)
+            x = t(rng.integers(0, 128, (B, side, side, 64), dtype=np.int8))
+            w = torch.from_numpy(rng.integers(-127, 128, (4, 4, 64, 128), dtype=np.int8))
+            w4, w1 = fe.pack_enc1_im2col(w).to(dev), fe.pack_conv4x4(w).to(dev)
+            check(torch.equal(fe.enc1_in_relu_requant_im2col(x, w4),
+                              fe.enc1_in_relu_requant(x, w1)),
+                  "enc1_in_relu_requant_im2col equals enc1_in_relu_requant to the bit")
+            print("[kernel] enc1_in_relu_requant_im2col: equal to enc1_in_relu_requant's kernel "
+                  "to the bit", flush=True)
+            return (lambda: fe.enc1_in_relu_requant_im2col(x, w4)), \
+                (lambda: fe.enc1_in_relu_requant_im2col_plain(x, w4))
+        return make
+
+    def epilogue():
+        def make():
+            # int32 of the size of a trunk conv's outputs (|y| < 2^20)
+            rng = np.random.default_rng(7)
+            args = (t(rng.integers(-2 ** 20, 2 ** 20, (B, SIDE * SIDE, C), dtype=np.int32)),
+                    t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32)),
+                    t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32)))
+            return (lambda: ec.adain_relu_requant_chunked(*args)), \
+                (lambda: ec.adain_relu_requant_chunked_plain(*args))
+        return make
+
     cases = []
     for grid, label in ((SIDE, "256² input"), (2 * SIDE, "512² input")):
         if grid == SIDE:
@@ -339,18 +425,26 @@ def kernel_cases(torch, fc, fd, fe, dev):
                              stage=stage))
                       for stage in fc.STAGES]
         cases += [("final7_tanh_u8", label, "final7", (B, 4 * grid, 64), final7(4 * grid))]
+    label = "256² input"
+    cases += [("fused_trunk_blocks", f"{label}, {N_RES} resblocks", "trunk_v3", (B, SIDE, C),
+               trunk_v3()),
+              ("enc1_in_relu_requant_im2col", label, "conv4x4s2", (B, 4 * SIDE, C // 4),
+               enc1_im2col(4 * SIDE)),
+              ("adain_relu_requant_chunked", f"{label}, int32 [{B}, {SIDE * SIDE}, {C}]",
+               "epilogue", (B, SIDE * SIDE, C), epilogue())]
     return cases
 
 
-def kernel_phase(torch, fc, fd, fe, dev) -> dict:
+def kernel_phase(torch, fc, fd, fe, f3, ec, dev) -> dict:
     results = {}
-    for name, label, kind, dims, make in kernel_cases(torch, fc, fd, fe, dev):
+    for name, label, kind, dims, make in kernel_cases(torch, fc, fd, fe, f3, ec, dev):
         kernel, plain = make()
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         max_step, report = compare(torch, name, got, want)
         del got, want
-        large = dims[1] * dims[1] * dims[2] > 256 * 256 * 64
+        large = kind == "trunk_v3" or (kind != "epilogue"
+                                       and dims[1] * dims[1] * dims[2] > 256 * 256 * 64)
         reps = 10 if large else 30
         ms = cuda_ms(torch, kernel, reps=reps)
         plain_ms = cuda_ms(torch, plain, reps=2 if large else 3, warmup=1)
@@ -361,7 +455,9 @@ def kernel_phase(torch, fc, fd, fe, dev) -> dict:
             results[name]["also"].append(row)
         else:
             results[name] = dict(row, max_abs_err=max_step, also=[])
-        print(f"[kernel] {name} ({label}) in [{dims[0]}, {dims[1]}, {dims[1]}, {dims[2]}]: "
+        shape = [dims[0], dims[1], dims[2]] if kind == "epilogue" else \
+            [dims[0], dims[1], dims[1], dims[2]]
+        print(f"[kernel] {name} ({label}) in {shape}: "
               f"{report}; {ms:.4f} ms (median of {reps}, CUDA events), plain {plain_ms:.2f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         del kernel, plain
@@ -414,7 +510,16 @@ class env:
                 os.environ[k] = v
 
 
-def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
+def reset_counts(mods) -> None:
+    for mod in mods:
+        mod.reset_launch_counts()
+
+
+def read_counts(mods) -> dict:
+    return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+
+def e2e_phase(torch, mods, work: str) -> dict:
     from PIL import Image
 
     from msig_tpu_torch import inference as cli
@@ -431,7 +536,15 @@ def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
     check(n_res == N_RES, f"demo checkpoint has {n_res} resblocks, want {N_RES}")
     path_launches = {}
 
-    def serve(path: str, size: int, hifi: str) -> dict:
+    def check_launches(path: str, launches: dict) -> None:
+        check(set(launches) == set(SITES), f"launch counters {sorted(launches)}")
+        for name, n in launches.items():
+            per_batch = PATHS[path].get(name, 0)
+            check(n == per_batch * n_batches,
+                  f"[{path}] {name} launched {n} times, want {per_batch} x {n_batches} batches")
+        path_launches[path] = launches
+
+    def serve(path: str, size: int, hifi: str, **settings) -> dict:
         """The CLI on the 20 inputs; returns {file name: uint8 image}."""
         out = os.path.join(work, "out_" + path.replace("/", "_"))
         args = cli.build_arg_parser().parse_args([
@@ -439,23 +552,17 @@ def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
             "--output_dir", out, "--target_domain", TARGET, "--style_mode", "average",
             "--quantize", "int8", "--image_size", str(size), "--batch_size", str(B),
             "--compute_dtype", "float32", "--device", "cuda"])
-        with env(MSIG_TRUNK_HIFI=hifi):
-            for mod in (fc, fd, fe):
-                mod.reset_launch_counts()
+        with env(MSIG_TRUNK_HIFI=hifi, **settings):
+            reset_counts(mods)
             t0 = time.perf_counter()
             rc = cli.main(cli.config_from_args(args))
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
-            launches = {**fe.LAUNCHES, **fc.LAUNCHES, **fd.LAUNCHES}
+            launches = read_counts(mods)
         check(rc == 0, f"[{path}] inference main exit code {rc} == 0")
         names = sorted(os.listdir(out))
         check(len(names) == N_INPUTS, f"[{path}] {len(names)} outputs for {N_INPUTS} inputs")
-        check(set(launches) == set(SITES), f"launch counters {sorted(launches)}")
-        for name, n in launches.items():
-            per_batch = PATHS[path].get(name, 0)
-            check(n == per_batch * n_batches,
-                  f"[{path}] {name} launched {n} times, want {per_batch} x {n_batches} batches")
-        path_launches[path] = launches
+        check_launches(path, launches)
         print(f"[e2e {path}] inference main: rc 0, {len(names)} images of {size}² in {cli_s:.2f} s "
               f"(load + style bank + build + generate + save: {N_INPUTS / cli_s:.2f} images/s), "
               f"launches {({k: v for k, v in launches.items() if v})}", flush=True)
@@ -553,6 +660,70 @@ def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
               f"{B}: {ms:.2f} ms per batch, {B / (ms / 1e3):.1f} images/s (median of 10, CUDA "
               f"events)", flush=True)
     stage_times(q8.q, imgs, styles, "256/hifi0")
+
+    # ---- 256²: the three opt-in compositions of the JAX package.
+    for path, setting in (("256/v3", "MSIG_TRUNK_V3"), ("256/enc1_im2col", "MSIG_ENC1_IM2COL")):
+        served = serve(path, 256, "0", **{setting: "1"})
+        total, lo, hi = total_psnr(served, want)
+        check(total >= 30.0, f"[{path}] int8 vs fp32 PSNR {total:.2f} dB >= 30")
+        same = total_psnr(served, served_256)[0]
+        if path == "256/enc1_im2col":
+            check(same == float("inf"), f"[{path}] served images equal 256/hifi0's ({same:.2f} dB)")
+        with env(**{setting: "1"}):
+            q_opt = engine(256, "int8")  # quantized under the setting: its weights are built
+            ms = cuda_ms(torch, lambda: q_opt.generate(imgs, styles), reps=10, warmup=2)
+        result["psnr"][path], result["ms"][path] = total, ms
+        print(f"[e2e {path}] int8 output vs fp32 float path: PSNR {total:.2f} dB over "
+              f"{N_INPUTS} images (per image min {lo:.2f}, max {hi:.2f}); vs 256/hifi0's output "
+              f"{same:.2f} dB; int8 generator, batch {B}: {ms:.2f} ms per batch, "
+              f"{B / (ms / 1e3):.1f} images/s (median of 10, CUDA events)", flush=True)
+        if path == "256/v3":
+            with torch.inference_mode(), env(MSIG_TRUNK_V3="1"):
+                hq_in, hs_in = tq._fused_encoder(q_opt.q, imgs)
+                trunk = {label: cuda_ms(torch, lambda qq=qq: tq._fused_trunk_rows(
+                    qq, hq_in, hs_in, styles, n_res), reps=10, warmup=2)
+                    for label, qq in (("v3, 1 launch", q_opt.q), ("chain, 16 calls", q8.q))}
+            result["ms"]["256/v3 trunk"] = trunk["v3, 1 launch"]
+            result["ms"]["256/hifi0 trunk"] = trunk["chain, 16 calls"]
+            print(f"[e2e 256/v3] int8 stage trunk, batch {B}: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in trunk.items()) + " (median of 10, CUDA events; "
+                f"one cooperative grid of {mods[3].LAST_GRID['fused_trunk_blocks']} CTAs)",
+                flush=True)
+        del q_opt
+    path, unfused = "256/unfused+epilogue", {}
+    for fused_epilogue in (True, False):
+        reset_counts(mods)
+        images = {}
+        for batch, names in q8.iter_input_batches(inp):
+            x = torch.from_numpy(batch).cuda()
+            with torch.inference_mode():
+                y = tq.quantized_generator_apply(
+                    q8.q, x, bank.mean(dim=0, keepdim=True).expand(len(names), -1).contiguous(),
+                    n_res=n_res, out_dtype=torch.uint8, fused_trunk=False,
+                    fused_epilogue=fused_epilogue)
+            images.update(zip(names, y.cpu().numpy()))
+        if fused_epilogue:
+            check_launches(path, read_counts(mods))
+        else:
+            ran = {k: v for k, v in read_counts(mods).items() if v}
+            check(not ran, f"[256/unfused] no kernel site: {ran}")
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: tq.quantized_generator_apply(
+                q8.q, imgs, styles, n_res=n_res, out_dtype=torch.uint8, fused_trunk=False,
+                fused_epilogue=fused_epilogue), reps=5, warmup=1)
+        unfused[fused_epilogue] = images
+        label = path if fused_epilogue else "256/unfused"
+        result["psnr"][label], lo, hi = total_psnr(images, want)
+        result["ms"][label] = ms
+        print(f"[e2e {label}] quantized_generator_apply(fused_trunk=False, fused_epilogue="
+              f"{fused_epilogue}): int8 vs fp32 float path PSNR {result['psnr'][label]:.2f} dB "
+              f"(per image min {lo:.2f}, max {hi:.2f}); {ms:.2f} ms per batch of {B} (median of "
+              f"5, CUDA events)", flush=True)
+    result["psnr"]["256/unfused+epilogue vs 256/unfused"] = total_psnr(unfused[True],
+                                                                       unfused[False])[0]
+    print(f"[e2e 256/unfused+epilogue] vs 256/unfused: PSNR "
+          f"{result['psnr']['256/unfused+epilogue vs 256/unfused']:.2f} dB", flush=True)
+
     trunk_only = {}  # at 256² the entry point takes the all-kernel chain: name the stages
     for batch, names in q8.iter_input_batches(inp):
         x = torch.from_numpy(batch).cuda()
@@ -573,10 +744,9 @@ def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
     served = serve("512", 512, "0")
     fl, q8, q8_float = engine(512, None), engine(512, "int8"), engine(512, "int8", False)
     bank = fl.preload_style_bank(os.path.join(ref, TARGET), int(TARGET[3:]) + 1)
-    for mod in (fc, fd, fe):
-        mod.reset_launch_counts()
+    reset_counts(mods)
     trunk_only = reference(q8_float, bank)
-    ran = {k: v for k, v in {**fe.LAUNCHES, **fc.LAUNCHES, **fd.LAUNCHES}.items() if v}
+    ran = {k: v for k, v in read_counts(mods).items() if v}
     check(ran == {"conv3x3_adain_relu_requant": N_RES * n_batches,
                   "conv3x3_adain_residual_requant": N_RES * n_batches},
           f"float output at 512² runs pallas=('trunk',): launches {ran}")
@@ -606,11 +776,10 @@ def e2e_phase(torch, fc, fd, fe, work: str) -> dict:
           f"the JAX package's test_full_uint8_decoder_512_end_to_end): all-kernel uint8 vs "
           f"pallas=('trunk',) float PSNR {total:.2f} dB", flush=True)
     for hifi, site in (("1", "conv3x3_adain_residual_hifi"), ("2", "conv3x3_adain_residual_hifi2")):
-        for mod in (fc, fd, fe):
-            mod.reset_launch_counts()
+        reset_counts(mods)
         with env(MSIG_TRUNK_HIFI=hifi):
             total, lo, hi = total_psnr(reference(q8, bank), want)
-        ran = {k: v for k, v in {**fe.LAUNCHES, **fc.LAUNCHES, **fd.LAUNCHES}.items() if v}
+        ran = {k: v for k, v in read_counts(mods).items() if v}
         expect = {**PATHS["512"], site: N_RES}
         del expect["conv3x3_adain_residual_requant"]
         check(ran == {k: v * n_batches for k, v in expect.items()},
@@ -764,20 +933,6 @@ def step1_grads(state, cfg, g_norm: float) -> list:
     return [m * scale for m in state.opt_g.mu]
 
 
-class deterministic_cudnn:
-    """cuDNN restricted to deterministic algorithms for the length of a ``with``
-    block, so that two runs of a step compute the same forward to the bit."""
-
-    def __init__(self, torch):
-        self.flags = torch.backends.cudnn
-
-    def __enter__(self):
-        self.saved, self.flags.deterministic = self.flags.deterministic, True
-
-    def __exit__(self, *exc):
-        self.flags.deterministic = self.saved
-
-
 class plain_backwards:
     """The backward kernels' wrappers swapped for their plain versions for the
     length of a ``with`` block; the forward (stock convs, the AdaIN forward
@@ -828,9 +983,10 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
     (Not against the stock step's: at random init the generators' tanh saturates,
     and its backward, 1 - y^2, turns last-bit differences of the forward into
     relative differences of the gradients of up to 3e-3 of a leaf's norm, as
-    the CPU, where no kernel runs, shows at 32². For the same reason both runs
-    of step 1 restrict cuDNN to deterministic algorithms: with its default
-    choice two runs of the same step differ in the last bit of the forward.)
+    the CPU, where no kernel runs, shows at 32². For the same reason cuDNN is
+    held to its deterministic algorithms, as the Trainer holds it: with its
+    default choice the decoders' ConvTranspose2d, and so two runs of the same
+    step, differ in the last bit of the forward.)
     Returns {config: launches of step 1} and the step times."""
     from msig_tpu_torch.config import TrainConfig
     from msig_tpu_torch.losses import init_random_vgg
@@ -847,6 +1003,7 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
     vgg = init_random_vgg(1234, device=dev)
     weights = [1.0, 10.0, 5.0, 1.0, 1.0]  # the default loss weights, gan..style, at full warmup
     first, launches, step_ms = {}, {}, {}
+    torch.backends.cudnn.deterministic = True
     for label, level, pallas in TRAIN_CONFIGS:
         cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
                           style_dim=256, use_pallas=pallas, device=dev.type)
@@ -855,8 +1012,7 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
             step = make_train_step(cfg.ema_beta)
             for mod in (ap, cv) + int8_mods:
                 mod.reset_launch_counts()
-            with deterministic_cudnn(torch):
-                metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+            metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
             torch.cuda.synchronize()
             counts = {**ap.LAUNCHES, **cv.LAUNCHES}
             int8 = sum(v for m in int8_mods for v in m.LAUNCHES.values())
@@ -887,7 +1043,7 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
                 state = create_train_state(cfg, N_DOMAINS)
                 for mod in (ap, cv):
                     mod.reset_launch_counts()
-                with plain_backwards(ap, cv), deterministic_cudnn(torch):
+                with plain_backwards(ap, cv):
                     m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
                 bwd = {k: v for k, v in {**ap.LAUNCHES, **cv.LAUNCHES}.items() if k != ap.FWD}
                 check(not any(bwd.values()), f"[train {label}] no backward kernel in the plain rerun {bwd}")
@@ -991,11 +1147,14 @@ def main() -> int:
     from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
     from msig_tpu_torch.ops import fused_dec_int8 as fd
     from msig_tpu_torch.ops import fused_enc_int8 as fe
+    from msig_tpu_torch.ops import fused_trunk_v3 as f3
+    from msig_tpu_torch.ops import int8_epilogue_chunked as ec
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = t0 = time.perf_counter()
-    sources = fe.SOURCES + fc.SOURCES + fd.SOURCES + (ap.SOURCE,) + cv.SOURCES
+    sources = fe.SOURCES + fc.SOURCES + fd.SOURCES + f3.SOURCES + ec.SOURCES + (ap.SOURCE,) + \
+        cv.SOURCES
     logs = _build.build(sources)
     print(f"[build] {len(logs)} of {len(sources)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)", flush=True)
@@ -1007,20 +1166,22 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
 
     dev = torch.device("cuda")
-    kernels = kernel_phase(torch, fc, fd, fe, dev)
+    int8_mods = (fc, fd, fe, f3, ec)
+    kernels = kernel_phase(torch, fc, fd, fe, f3, ec, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
-        e2e = e2e_phase(torch, fc, fd, fe, work)
+        e2e = e2e_phase(torch, int8_mods, work)
         train_kernels = train_kernel_phase(torch, ap, cv, dev)
-        train = train_phase(torch, ap, cv, (fc, fd, fe), dev, train_kernels)
+        train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # library_ms is null: no single PyTorch call computes conv + IN (+ AdaIN)
-    # + requant, or conv7 + dequant + tanh + uint8, and int8 ConvT is no cuDNN op.
+    # + requant, or conv7 + dequant + tanh + uint8, int8 ConvT is no cuDNN op,
+    # and none runs IN + AdaIN + ReLU + requant from int32 or a whole trunk.
     # launches: from the run of the path that SITES names for the row.
     rows = [dict(name=name, route="cuda", source=f"msig_tpu_torch/csrc/{SITES[name][1]}",
                  replaces=SITES[name][0], launches=e2e["launches"][name],

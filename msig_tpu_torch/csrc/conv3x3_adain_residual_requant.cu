@@ -18,14 +18,7 @@
 
 namespace msig {
 
-// hn = y*a + d + h*hs, in the order of fused_conv_int8_v2.py:175-176. The
-// two kernels below evaluate it with the same rounded operations, so the
-// requant sees exactly the values whose max it took.
-__device__ __forceinline__ float residual_hn(int v, signed char h, float a, float d, float hs) {
-  const float hf = __fmul_rn((float)h, hs);
-  return __fadd_rn(__fadd_rn(__fmul_rn((float)v, a), d), hf);
-}
-
+// hn: residual_hn of conv_int8.cuh.
 __global__ void __launch_bounds__(kEpiThreads)
 residual_amax_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h,
                      const float* __restrict__ h_scale, long long* __restrict__ stats,

@@ -30,6 +30,11 @@
 // stays below 2^94 (the wrappers check): a [B, 256, 256, 256] trunk map can
 // reach 2^66, past one int64. Integer sums make the statistics independent
 // of the order of the CTAs.
+//
+// In the true-extremes mode (kTrueExtremes, the single-kernel trunk
+// msig_tpu/ops/fused_trunk_v3.py:99-118 and the chunked epilogue
+// int8_epilogue_chunked.py:64-69) blocks 2 and 3 hold the true min y and
+// max y instead; the caller initialises them to INT64_MAX and INT64_MIN.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -130,6 +135,15 @@ struct ConvT4x4s2Geom {
   }
 };
 
+// A load that bypasses L1 (ld.global.cg) where kCg: data written earlier in
+// the same launch (the single-kernel trunk) must not be read through L1 or the
+// read-only path, which are not coherent with other SMs' writes.
+template <bool kCg, class T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (kCg) return __ldcg(p);
+  else return *p;
+}
+
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -143,10 +157,11 @@ __device__ __forceinline__ int reflect_index(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-// acc += As * Bs^T over one staged K chunk of KC bytes. As: [kBM pixels][k],
-// Bs: [BN channels][k], both with a row pitch of LDS bytes. Warp (wm, wn) owns
-// rows wm*32 .. +31 and columns wn*BN/2 .. +BN/2-1; g = lane / 4, t4 = lane % 4.
-template <int BN, int KC, int LDS>
+// acc += As * Bs^T over one staged K chunk of KC bytes. As: [kBM pixels][k]
+// with a row pitch of LDS bytes, Bs: [BN channels][k] with a pitch of LDB.
+// Warp (wm, wn) owns rows wm*32 .. +31 and columns wn*BN/2 .. +BN/2-1;
+// g = lane / 4, t4 = lane % 4.
+template <int BN, int KC, int LDS, int LDB = LDS>
 __device__ __forceinline__ void mma_chunk(const int8_t* As, const int8_t* Bs,
                                           int (&acc)[2][BN / 16][4], int wm, int wn, int g,
                                           int t4) {
@@ -165,8 +180,8 @@ __device__ __forceinline__ void mma_chunk(const int8_t* As, const int8_t* Bs,
 #pragma unroll
     for (int ni = 0; ni < NI; ++ni) {
       const int n = wn * (BN / 2) + ni * 8 + g;
-      bf[ni][0] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + ks + t4 * 4);
-      bf[ni][1] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + ks + 16 + t4 * 4);
+      bf[ni][0] = *reinterpret_cast<const uint32_t*>(Bs + n * LDB + ks + t4 * 4);
+      bf[ni][1] = *reinterpret_cast<const uint32_t*>(Bs + n * LDB + ks + 16 + t4 * 4);
     }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -181,12 +196,16 @@ __device__ __forceinline__ void mma_chunk(const int8_t* As, const int8_t* Bs,
 // The warps first meet in shared memory (the four warps along M share their
 // columns), so the tile costs kStatBlocks global atomics per column. Every
 // thread of the CTA must call it.
-template <int BN>
+template <int BN, bool kTrueExtremes = false>
 __device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4], long long* st,
                                                   size_t BC, int wn, int g, int t4) {
-  // Zero is the neutral value of all five: min and max are zero-masked.
+  // Zero is the neutral value of the sums, and of min and max where they are
+  // zero-masked; the true extremes start from the ends of the range.
+  constexpr int kMin0 = kTrueExtremes ? 0x7fffffff : 0;
+  constexpr int kMax0 = kTrueExtremes ? (-0x7fffffff - 1) : 0;
   __shared__ long long cta[kStatBlocks][BN];
-  for (int i = threadIdx.x; i < kStatBlocks * BN; i += blockDim.x) (&cta[0][0])[i] = 0;
+  for (int i = threadIdx.x; i < kStatBlocks * BN; i += blockDim.x)
+    (&cta[0][0])[i] = i / BN == 2 ? kMin0 : (i / BN == 3 ? kMax0 : 0);
   __syncthreads();
 #pragma unroll
   for (int ni = 0; ni < BN / 16; ++ni)
@@ -194,7 +213,7 @@ __device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4
     for (int e = 0; e < 2; ++e) {
       long long s = 0;
       unsigned long long sq = 0;  // 32 rows of v*v < 2^58 each
-      int mn = 0, mx = 0;
+      int mn = kMin0, mx = kMax0;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -237,18 +256,49 @@ __device__ __forceinline__ void reduce_tile_stats(const int (&acc)[2][BN / 16][4
   }
 }
 
-// Pass A. With GHW = (H / kStride) * (W / kStride) grid pixels per sample:
-// grid = (B * Geom::kPhases * (GHW / kBM), Cout / BN), block = kConvThreads.
-// x: [B, H, W, Cin] int8; w: [(number of blocks)*Cin, Cout] int8, row
-// blk*Cin + ci, column co; y: [B, kPhases*GHW, Cout] int32, rows in
-// output-pixel order, int32 or __half (see StageOf). Needs Cin % kBK == 0,
-// Cout % BN == 0, GHW % kBM == 0, H and W multiples of kStride (the wrappers
-// check).
-template <class Geom, int BN, class Stage = int32_t>
-__global__ void __launch_bounds__(kConvThreads)
-conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                     Stage* __restrict__ y, long long* __restrict__ stats,
-                     int B, int H, int W, int Cin, int Cout) {
+// Writes a CTA tile's accumulator to the scratch (GEMM row m of phase q lands
+// at its output pixel) and adds the tile's share to the statistics block.
+// acc[mi][ni][r] holds GEMM row wm*32 + mi*16 + g (+8 for r >= 2) and column
+// wn*BN/2 + ni*8 + t4*2 + (r & 1) of the tile. Every thread must call it.
+template <class Geom, int BN, class Stage, bool kTrueExtremes>
+__device__ __forceinline__ void store_tile(const int (&acc)[2][BN / 16][4], Stage* __restrict__ y,
+                                           long long* __restrict__ stats, int B, int b, int q,
+                                           int m0, int n0, int GW, int GHW, int Cout) {
+  constexpr int NI = BN / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  Stage* yb = y + (size_t)b * Geom::kPhases * GHW * Cout + n0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mi * 16 + g + h * 8;
+      const size_t row = Geom::out_pixel(q, m / GW, m % GW, GW);
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = wn * (BN / 2) + ni * 8 + t4 * 2;
+        StageOf<Stage>::store2(yb + row * Cout + col, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+  reduce_tile_stats<BN, kTrueExtremes>(acc, stats + (size_t)b * Cout + n0, (size_t)B * Cout, wn,
+                                       g, t4);
+}
+
+// Pass A on one CTA tile. With GHW = (H / kStride) * (W / kStride) grid pixels
+// per sample, tile (tm, tn) with tm < B * Geom::kPhases * (GHW / kBM) and
+// tn < Cout / BN covers kBM GEMM rows of one phase of one sample and BN output
+// channels; block = kConvThreads. x: [B, H, W, Cin] int8; w: [(number of
+// blocks)*Cin, Cout] int8, row blk*Cin + ci, column co; y: [B, kPhases*GHW,
+// Cout], rows in output-pixel order, int32 or __half (see StageOf). Needs
+// Cin % kBK == 0, Cout % BN == 0, GHW % kBM == 0, H and W multiples of
+// kStride (the wrappers check). kCg reads x past L1 (see ld).
+template <class Geom, int BN, class Stage = int32_t, bool kTrueExtremes = false,
+          bool kCg = false>
+__device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x,
+                                          const int8_t* __restrict__ w, Stage* __restrict__ y,
+                                          long long* __restrict__ stats, int B, int H, int W,
+                                          int Cin, int Cout, int tm, int tn) {
   constexpr int NI = BN / 16;  // n-tiles of 8 per warp
   __shared__ __align__(16) int8_t As[kBM * kLds];  // [pixel][k]
   __shared__ __align__(16) int8_t Bs[BN * kLds];   // [co][k]: the "col" operand of mma
@@ -256,10 +306,10 @@ conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int GW = W / Geom::kStride;
   const int GHW = (H / Geom::kStride) * GW;
   const int tiles = GHW / kBM;
-  const int m0 = (blockIdx.x % tiles) * kBM;
-  const int q = (blockIdx.x / tiles) % Geom::kPhases;
-  const int b = blockIdx.x / (tiles * Geom::kPhases);
-  const int n0 = blockIdx.y * BN;
+  const int m0 = (tm % tiles) * kBM;
+  const int q = (tm / tiles) % Geom::kPhases;
+  const int b = tm / (tiles * Geom::kPhases);
+  const int n0 = tn * BN;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wm = warp & 3, wn = warp >> 2;
@@ -286,7 +336,7 @@ conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const int yy = (m / GW) * Geom::kStride + dy, xx = (m % GW) * Geom::kStride + dx;
         int4 v = make_int4(0, 0, 0, 0);
         if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-          v = *reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16);
+          v = ld<kCg>(reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16));
         *reinterpret_cast<int4*>(As + p * kLds + j * 16) = v;
       }
       // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][n0 + co].
@@ -303,25 +353,17 @@ conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       __syncthreads();
     }
   }
+  store_tile<Geom, BN, Stage, kTrueExtremes>(acc, y, stats, B, b, q, m0, n0, GW, GHW, Cout);
+}
 
-  // acc[mi][ni][r] holds GEMM row wm*32 + mi*16 + g (+8 for r >= 2) and
-  // column wn*BN/2 + ni*8 + t4*2 + (r & 1) of the CTA tile; a GEMM row is a
-  // grid pixel, which the geometry maps to its output pixel.
-  Stage* yb = y + (size_t)b * Geom::kPhases * GHW * Cout + n0;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 32 + mi * 16 + g + h * 8;
-      const size_t row = Geom::out_pixel(q, m / GW, m % GW, GW);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = wn * (BN / 2) + ni * 8 + t4 * 2;
-        StageOf<Stage>::store2(yb + row * Cout + col, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-
-  reduce_tile_stats<BN>(acc, stats + (size_t)b * Cout + n0, (size_t)B * Cout, wn, g, t4);
+// Pass A as a kernel: grid = (B * Geom::kPhases * (GHW / kBM), Cout / BN),
+// block = kConvThreads, one tile per CTA (see conv_tile).
+template <class Geom, int BN, class Stage = int32_t>
+__global__ void __launch_bounds__(kConvThreads)
+conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                     Stage* __restrict__ y, long long* __restrict__ stats,
+                     int B, int H, int W, int Cin, int Cout) {
+  conv_tile<Geom, BN, Stage>(x, w, y, stats, B, H, W, Cin, Cout, blockIdx.x, blockIdx.y);
 }
 
 // The exact sum of squares hi * 2^32 + lo of a statistics block's two words,
@@ -358,6 +400,8 @@ __device__ __forceinline__ void store_amax(long long* stats, int B, int C, int b
 // the plain IN of the ConvT sites (:627-631): 1 * r and 0 - m * a give the
 // bits of r and -m * a. Explicit _rn intrinsics keep nvcc from contracting
 // into FMAs, so the plain PyTorch version can repeat the arithmetic.
+// kCg reads the statistics past L1 (see ld).
+template <bool kCg = false>
 __device__ __forceinline__ void channel_affine(const long long* __restrict__ stats,
                                                const float* __restrict__ gamma,
                                                const float* __restrict__ beta, int b, int B,
@@ -366,9 +410,9 @@ __device__ __forceinline__ void channel_affine(const long long* __restrict__ sta
   const size_t BC = (size_t)B * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const size_t i = (size_t)b * C + c;
-    const float mean = __fdiv_rn((float)stats[i], n);
-    const float sumsq = sumsq_to_float((unsigned long long)stats[BC + i],
-                                       (unsigned long long)stats[4 * BC + i]);
+    const float mean = __fdiv_rn((float)ld<kCg>(&stats[i]), n);
+    const float sumsq = sumsq_to_float((unsigned long long)ld<kCg>(&stats[BC + i]),
+                                       (unsigned long long)ld<kCg>(&stats[4 * BC + i]));
     const float var = fmaxf(__fsub_rn(__fdiv_rn(sumsq, n), __fmul_rn(mean, mean)), 0.f);
     const float a = __fmul_rn(gamma ? gamma[i] : 1.f, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
     a_s[c] = a;
@@ -393,6 +437,40 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   const float r = red[0];
   __syncthreads();
   return r;
+}
+
+// The true-extremes relu epilogue (fused_trunk_v3.py:112-124,
+// int8_epilogue_chunked.py:79-95). amax is the largest of the channels'
+// max(a*max y, a*min y) + d and 0, over the true extremes (exact: the affine
+// is monotone in y per channel); then q = clip(round(max(y*a + d, 0) * s), +-127)
+// with s = 127/amax, unfolded as the TPU kernels compute it. Every thread of
+// the block calls true_relu_amax; a_s, d_s hold sample b's affine.
+template <bool kCg = false>
+__device__ __forceinline__ float true_relu_amax(const long long* __restrict__ stats,
+                                                const float* a_s, const float* d_s, int b, int B,
+                                                int C, float* red) {
+  const size_t BC = (size_t)B * C;
+  float local = 0.f;  // max(hi, 0)
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float cmin = (float)ld<kCg>(&stats[2 * BC + (size_t)b * C + c]);
+    const float cmax = (float)ld<kCg>(&stats[3 * BC + (size_t)b * C + c]);
+    local = fmaxf(local, __fadd_rn(fmaxf(__fmul_rn(a_s[c], cmax), __fmul_rn(a_s[c], cmin)), d_s[c]));
+  }
+  return block_max(local, red);
+}
+
+__device__ __forceinline__ signed char relu_requant_unfolded(float v, float a, float d, float s) {
+  const float t = __fmul_rn(fmaxf(__fadd_rn(__fmul_rn(v, a), d), 0.f), s);
+  return (signed char)min(max(__float2int_rn(t), -127), 127);
+}
+
+// hn = y*a + d + h*hs of the residual sites, in the order of
+// fused_conv_int8_v2.py:175-176 and fused_trunk_v3.py:153-154, :162-163. The amax pass
+// and the requant pass evaluate it with the same rounded operations, so the
+// requant sees exactly the values whose max it took.
+__device__ __forceinline__ float residual_hn(int v, signed char h, float a, float d, float hs) {
+  const float hf = __fmul_rn((float)h, hs);
+  return __fadd_rn(__fadd_rn(__fmul_rn((float)v, a), d), hf);
 }
 
 // Epilogue CTAs per sample: each walks a contiguous share of the sample's

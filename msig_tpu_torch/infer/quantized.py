@@ -23,6 +23,15 @@ the JAX package (``quantized_generator_apply_staged(..., pallas=("enc",
 The staged sites pass their accumulator as int32, or as fp16 x 2^-12 with
 ``MSIG_STAGE_FP16=1``. ``MSIG_512_FUSED=0`` keeps 512² off the all-kernel chain.
 
+Two opt-in compositions of the JAX package, each read when the weights are
+quantized (which builds their weights) and again when the generator runs:
+``MSIG_TRUNK_V3=1`` runs the trunk on the 64-grid (256² input) as one kernel,
+``fused_trunk_blocks`` of ``ops/fused_trunk_v3.py``, instead of 2*n_res site
+calls; ``MSIG_ENC1_IM2COL=1`` runs enc1 as ``fe.enc1_in_relu_requant_im2col``.
+``quantized_generator_apply(..., fused_trunk=False)`` runs the unfused chain,
+whose relu sites take ``adain_relu_requant_chunked`` of
+``ops/int8_epilogue_chunked.py`` with ``fused_epilogue=True``.
+
 At any other input size it runs the composition ``pallas=("trunk",)``: the
 unfused int8 encoder and decoder (``_xla_encoder``, ``_xla_decoder``) around
 the kernel trunk. The JAX package leaves the unfused chain's convolutions to
@@ -40,6 +49,7 @@ conv biases, so no dequantization appears until the final RGB conv.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -48,6 +58,8 @@ import torch.nn.functional as F
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 from msig_tpu_torch.ops import fused_dec_int8 as fd
 from msig_tpu_torch.ops import fused_enc_int8 as fe
+from msig_tpu_torch.ops import fused_trunk_v3 as f3
+from msig_tpu_torch.ops import int8_epilogue_chunked as ec
 from msig_tpu_torch.ops.norm import adain_modulate, instance_norm
 
 Q = Dict[str, torch.Tensor]
@@ -67,6 +79,20 @@ def _trunk_hifi_mode() -> int:
     int8 + per-sample scale, 1 bf16, 2 two int8 planes under one scale. The JAX
     package reads any other value as 1; here it raises."""
     return int(_env_choice("MSIG_TRUNK_HIFI", "0", ("0", "1", "2")))
+
+
+def _trunk_v3() -> bool:
+    """MSIG_TRUNK_V3: "1" runs the trunk on the 64-grid as one kernel
+    (``fused_trunk_blocks``), "0" (default) as 2*n_res site calls. The JAX
+    package reads any value but "1" as off; here others raise."""
+    return _env_choice("MSIG_TRUNK_V3", "0", ("0", "1")) == "1"
+
+
+def _enc1_im2col() -> bool:
+    """MSIG_ENC1_IM2COL: "1" runs enc1 in its dense K = 1024 form
+    (``fe.enc1_in_relu_requant_im2col``), "0" (default) as ``fe.enc1_in_relu_requant``.
+    The JAX package reads any value but "1" as off; here others raise."""
+    return _env_choice("MSIG_ENC1_IM2COL", "0", ("0", "1")) == "1"
 
 
 def _stage_mode() -> str:
@@ -98,8 +124,14 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     [K, Cout] for their sites), ``up{0,1}_ps`` (the ConvT kernels packed
     [16*Cin, Cout] by phase), ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
     ``res{i}_adain{1,2}_{k,b}`` (style affine, fp32), ``out_kernel_i8``,
-    ``out_wscale``, ``out_bias`` (final conv, with a true dequant).
+    ``out_wscale``, ``out_bias`` (final conv, with a true dequant). Under
+    ``MSIG_TRUNK_V3=1`` also ``trunk_w_stack`` (the 2*n packed trunk weights
+    stacked, 9.4 MB at C = 256, n = 8), and under ``MSIG_ENC1_IM2COL=1`` with
+    enc1's [4, 4, 64, 128] kernel ``enc1_i2c_p`` (``fe.pack_enc1_im2col``), as
+    the JAX package builds them (``quantized.py:72-75, 97-100``): only then do
+    the generator's branches find them.
     """
+    v3, enc1_im2col = _trunk_v3(), _enc1_im2col()
     sd = {k: v.detach().to(torch.float32) for k, v in gen_sd.items()}
     n = n_residual_blocks
     q: Q = {
@@ -122,6 +154,11 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
         for a in ("adain1", "adain2"):
             q[f"res{i}_{a}_k"] = sd[f"decoder.{i}.{a}.style_modulation.weight"].t().contiguous()
             q[f"res{i}_{a}_b"] = sd[f"decoder.{i}.{a}.style_modulation.bias"]
+    if v3:
+        q["trunk_w_stack"] = f3.pack_trunk_weights(q, n)
+    w_enc1 = q["enc_conv1"].permute(2, 3, 1, 0)
+    if enc1_im2col and tuple(w_enc1.shape) == (4, 4, 64, 128):
+        q["enc1_i2c_p"] = fe.pack_enc1_im2col(w_enc1)
     # The final conv is not IN-followed: per-output-channel scales are kept
     # for a true dequant before tanh.
     wout = sd[f"decoder.{n + 6}.weight"]
@@ -208,11 +245,15 @@ def _xla_encoder(q: Q, img_u8: torch.Tensor) -> torch.Tensor:
     return _in_relu(_conv_i8(_requant(h), q["enc_conv2"], 2, 1))
 
 
+def _affine_weights(q: Q, n_res: int):
+    """The 2n resblock style-affine kernels [2n, S, 2C] and biases [2n, 2C], site-major."""
+    names = [f"res{i}_{a}" for i in range(n_res) for a in ("adain1", "adain2")]
+    return torch.stack([q[f"{m}_k"] for m in names]), torch.stack([q[f"{m}_b"] for m in names])
+
+
 def _style_affines(q: Q, style: torch.Tensor, n_res: int):
     """All 2n resblock affines in one batched product: (gammas, betas), [2n, B, C]."""
-    names = [f"res{i}_{a}" for i in range(n_res) for a in ("adain1", "adain2")]
-    ks = torch.stack([q[f"{m}_k"] for m in names])   # [2n, S, 2C]
-    bs = torch.stack([q[f"{m}_b"] for m in names])   # [2n, 2C]
+    ks, bs = _affine_weights(q, n_res)
     params = torch.einsum("bs,nsc->nbc", style.to(torch.float32), ks) + bs[:, None, :]
     gammas, betas = params.chunk(2, dim=-1)
     return gammas.contiguous(), betas.contiguous()
@@ -229,7 +270,10 @@ def _fused_encoder(q: Q, img_u8: torch.Tensor):
         h0 = fe.enc0_hbm(img_u8, q["enc0_p"], stage=_stage_mode())
     else:
         h0 = fe.enc0_in_relu_requant(img_u8, q["enc0_p"])
-    h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"])
+    if _enc1_im2col() and "enc1_i2c_p" in q:  # msig_tpu/infer/quantized.py:280-282
+        h1 = fe.enc1_in_relu_requant_im2col(h0, q["enc1_i2c_p"])
+    else:
+        h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"])
     return fe.enc2_in_relu_requant(h1, q["enc2_p"])
 
 
@@ -241,9 +285,25 @@ def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Ten
     The residual crosses resblocks as ``MSIG_TRUNK_HIFI`` says
     (``msig_tpu/infer/quantized.py:220-251``): 0, int8 + scale; 1, bf16,
     starting from the bf16 product of the int8 map and its scale; 2, two int8
-    planes under one scale, the second starting at zero."""
-    gammas, betas = _style_affines(q, style, n_res)
+    planes under one scale, the second starting at zero.
+
+    With ``MSIG_TRUNK_V3=1`` on the 64-grid, and ``trunk_w_stack`` in ``q``,
+    the whole trunk is one ``f3.fused_trunk_blocks`` call (:175-200). It has no
+    hi-fi carry: with ``MSIG_TRUNK_HIFI`` also set it warns and runs the hi-fi
+    chain, as the JAX package does."""
     hifi = _trunk_hifi_mode()
+    v3 = hq.shape[2] == 64 and _trunk_v3()
+    if v3 and hifi:
+        warnings.warn("MSIG_TRUNK_V3=1 and MSIG_TRUNK_HIFI are both set; the v3 trunk has no "
+                      "hi-fi residual carry, so MSIG_TRUNK_V3 is being IGNORED in favor of the "
+                      "quality mode.", stacklevel=2)
+        v3 = False
+    if v3 and "trunk_w_stack" in q:
+        ks, bs = _affine_weights(q, n_res)
+        params = torch.einsum("bs,nsc->bnc", style.to(torch.float32), ks) + bs[None]
+        gammas, betas = (t.contiguous() for t in params.chunk(2, dim=-1))  # [B, 2n, C]
+        return f3.fused_trunk_blocks(hq, hs, q["trunk_w_stack"], gammas, betas, n_res)[0]
+    gammas, betas = _style_affines(q, style, n_res)
     if hifi == 1:
         carry = (hq.to(torch.bfloat16) * hs.reshape(-1, 1, 1, 1).to(torch.bfloat16),)
         site = fc.conv3x3_adain_residual_hifi
@@ -269,17 +329,29 @@ def _fused_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int) -> torc
     return _fused_trunk_rows(q, hq, inv_s.reshape(h.shape[0], 1).to(torch.float32), style, n_res)
 
 
-def _xla_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int) -> torch.Tensor:
-    """bf16 trunk input -> bf16 trunk output on the unfused int8 chain
-    (``_xla_trunk`` without ``fused_epilogue``), the residual carried in bf16."""
+def _xla_trunk(q: Q, h: torch.Tensor, style: torch.Tensor, n_res: int,
+               fused_epilogue: bool = False) -> torch.Tensor:
+    """bf16 trunk input -> bf16 trunk output on the unfused int8 chain, the
+    residual carried in bf16.
+
+    With ``fused_epilogue`` and a shape ``ec.supported`` takes, each relu
+    site's int32 conv output goes through ``ec.adain_relu_requant_chunked``
+    and its int8 straight into conv2, with no bf16 step and no second requant
+    (``quantized.py:416-435``); conv2's AdaIN and the residual stay unfused."""
     gammas, betas = _style_affines(q, style, n_res)
+    b, hh, ww, ch = h.shape
+    use_fused = fused_epilogue and ec.supported((b, hh * ww, ch))
     for i in range(n_res):
         # OIHW kernels back from the packed [9C, C] rows (ky*3 + kx)*C + ci.
-        w1, w2 = (q[f"res{i}_{c}_p"].reshape(3, 3, h.shape[-1], -1).permute(3, 2, 0, 1)
+        w1, w2 = (q[f"res{i}_{c}_p"].reshape(3, 3, ch, -1).permute(3, 2, 0, 1)
                   for c in ("conv1", "conv2"))
         y = _conv_i8(_requant(h), w1, 1, 1)
-        y = torch.relu(adain_modulate(_bf16(y), gammas[2 * i], betas[2 * i]))
-        y = _conv_i8(_requant(y), w2, 1, 1)
+        if use_fused:
+            y = ec.adain_relu_requant_chunked(y.reshape(b, hh * ww, ch), gammas[2 * i],
+                                              betas[2 * i]).reshape(b, hh, ww, ch)
+        else:
+            y = _requant(torch.relu(adain_modulate(_bf16(y), gammas[2 * i], betas[2 * i])))
+        y = _conv_i8(y, w2, 1, 1)
         h = adain_modulate(_bf16(y), gammas[2 * i + 1], betas[2 * i + 1]) + h
     return h
 
@@ -355,7 +427,7 @@ def quantized_generator_apply_staged(q: Q, img_u8: torch.Tensor, style: torch.Te
     unknown = set(pallas) - set(ALL_STAGES)
     if unknown:
         raise ValueError(f"unknown stages {sorted(unknown)}: pallas takes a subset of {ALL_STAGES}")
-    _trunk_hifi_mode(), _stage_mode()  # a bad setting raises before any work
+    _trunk_hifi_mode(), _stage_mode(), _trunk_v3(), _enc1_im2col()  # bad settings raise first
     if "enc" in pallas:
         hq, hs = _fused_encoder(q, img_u8)
         h = hq if "trunk" in pallas else _rows_to_spatial(hq, hs)
@@ -374,16 +446,23 @@ def quantized_generator_apply_staged(q: Q, img_u8: torch.Tensor, style: torch.Te
 
 
 def quantized_generator_apply(q: Q, img_u8: torch.Tensor, style: torch.Tensor, n_res: int = 8,
-                              out_dtype=torch.uint8) -> torch.Tensor:
+                              out_dtype=torch.uint8, fused_epilogue: bool = False,
+                              fused_trunk=None) -> torch.Tensor:
     """uint8 NHWC image + style [B, S] -> image (uint8, or [-1,1] float).
 
     The JAX package's choice of chain by shape and output type
     (``quantized.py:352-400``): at 256² input the all-kernel chain
-    ``pallas=("enc", "trunk", "dec")``, 3 + 2*n_res + 3 kernel-site calls; at
-    512² the same for uint8 output unless ``MSIG_512_FUSED=0``, with enc0 and
-    up1 as their staged sites; at 512² float output and at any other size
-    ``pallas=("trunk",)``, the unfused encoder and decoder around the kernel
-    trunk."""
+    ``pallas=("enc", "trunk", "dec")``, 3 + 2*n_res + 3 kernel-site calls
+    (one trunk call under ``MSIG_TRUNK_V3=1``); at 512² the same for uint8
+    output unless ``MSIG_512_FUSED=0``, with enc0 and up1 as their staged
+    sites; at 512² float output and at any other size ``pallas=("trunk",)``,
+    the unfused encoder and decoder around the kernel trunk. That is
+    ``fused_trunk`` None (the JAX package's choice on its accelerator) or True;
+    False runs the unfused chain throughout, ``_xla_trunk(fused_epilogue)``
+    between the unfused encoder and decoder."""
+    if fused_trunk is False:
+        h = _xla_trunk(q, _xla_encoder(q, img_u8), style, n_res, fused_epilogue)
+        return _xla_decoder(q, h, out_dtype)
     fused_512 = _env_choice("MSIG_512_FUSED", "1", ("0", "1")) == "1"
     side = tuple(img_u8.shape[1:3])
     all_kernels = side == (256, 256) or (

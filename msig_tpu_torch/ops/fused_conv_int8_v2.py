@@ -139,6 +139,13 @@ def div_rn(numerator: float, t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, numerator) / t
 
 
+def div_by(t: torch.Tensor, denominator: float) -> torch.Tensor:
+    """``t / denominator`` rounded once, as the kernels' ``__fdiv_rn``. On the
+    card PyTorch evaluates ``Tensor / float`` as ``t * (1 / denominator)``,
+    which is one ulp off for some inputs where the reciprocal is inexact."""
+    return t / torch.full_like(t, denominator)
+
+
 def conv3x3_i64(x_i8: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     """Exact int8 3x3 "same" conv, NHWC -> int64 NHWC."""
     c = x_i8.shape[-1]
@@ -186,8 +193,8 @@ def _channel_affine(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, ep
     n = float(y.shape[1] * y.shape[2])
     sums = y.sum(dim=(1, 2)).to(torch.float32)
     sumsq = words_to_f32(*sumsq_words(y))
-    mean = sums / n
-    var = torch.clamp(sumsq / n - mean * mean, min=0.0)
+    mean = div_by(sums, n)
+    var = torch.clamp(div_by(sumsq, n) - mean * mean, min=0.0)
     a = gamma.to(torch.float32) * torch.reciprocal(torch.sqrt(var + eps))
     d = beta.to(torch.float32) - mean * a
     return a, d
@@ -233,7 +240,25 @@ def _relu_requant(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor, stage: str 
         yf = (yf * STAGE_SCALE).to(torch.float16).to(torch.float32)
         a2 = a2 * (1.0 / STAGE_SCALE)
     t = torch.clamp(yf * a2 + d2, 0.0, 127.0)
-    return torch.round(t).to(torch.int8), torch.where(amax > 0, amax / 127.0, 1.0)
+    return torch.round(t).to(torch.int8), torch.where(amax > 0, div_by(amax, 127.0), 1.0)
+
+
+def relu_requant_true(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """IN affine -> ReLU -> per-sample requant with the true extremes, unfolded.
+
+    The epilogue of the single-kernel trunk's conv1 (``fused_trunk_v3.py:112-124``)
+    and of the chunked epilogue (``int8_epilogue_chunked.py:79-95``): amax is
+    the largest of max(a*max y, a*min y) + d and 0 over the channels, with the
+    true per-channel min and max, and q = clip(round(max(y*a + d, 0) * s), +-127),
+    s = 127/amax (``true_relu_amax`` and ``relu_requant_unfolded`` of
+    ``csrc/conv_int8.cuh``). y: exact int64 [B, H, W, C]; a, d: [B, C]."""
+    cmin = y.amin(dim=(1, 2)).to(torch.float32)
+    cmax = y.amax(dim=(1, 2)).to(torch.float32)
+    hi = torch.maximum(a * cmax, a * cmin) + d
+    amax = torch.clamp(hi, min=0.0).amax(dim=1, keepdim=True)
+    s = torch.where(amax > 0, div_rn(127.0, amax), 1.0)[:, :, None, None]
+    t = torch.clamp(y.to(torch.float32) * a[:, None, None, :] + d[:, None, None, :], min=0.0) * s
+    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
 
 
 def conv3x3_adain_relu_requant_plain(x_i8, w_packed, gamma, beta, eps: float = _EPS):
@@ -273,7 +298,7 @@ def conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma, 
     amax = hn.abs().amax(dim=(1, 2, 3)).reshape(-1, 1)
     s = torch.where(amax > 0, div_rn(127.0, amax), 1.0).reshape(-1, 1, 1, 1)
     q = torch.round(torch.clamp(hn * s, -127.0, 127.0)).to(torch.int8)
-    return q, torch.where(amax > 0, amax / 127.0, 1.0)
+    return q, torch.where(amax > 0, div_by(amax, 127.0), 1.0)
 
 
 def conv3x3_adain_residual_hifi_plain(y1_i8, h_bf16, w_packed, gamma, beta, eps: float = _EPS):
@@ -312,7 +337,7 @@ def conv3x3_adain_residual_hifi2_plain(y1_i8, h1_i8, h2_i8, h_scale, w_packed, g
     t = hn * torch.where(amax > 0, div_rn(127.0, amax), 1.0).reshape(-1, 1, 1, 1)
     q1 = torch.round(torch.clamp(t, -127.0, 127.0))
     q2 = torch.round(torch.clamp((t - q1) * 254.0, -127.0, 127.0))
-    return q1.to(torch.int8), q2.to(torch.int8), torch.where(amax > 0, amax / 127.0, 1.0)
+    return q1.to(torch.int8), q2.to(torch.int8), torch.where(amax > 0, div_by(amax, 127.0), 1.0)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -402,6 +427,16 @@ def _scratch(x: torch.Tensor, b: int, hw: int, c: int, stage: str = "int32"):
                     device=x.device)
     stats = torch.zeros(5 * b * c + b, dtype=torch.int64, device=x.device)
     return y, stats
+
+
+def true_extremes_stats(n_sites: int, b: int, c: int, device) -> torch.Tensor:
+    """``n_sites`` statistics blocks [n_sites, 5*b*c + b] for the true-extremes
+    mode of ``csrc/conv_int8.cuh``: zero, but the min block at INT64_MAX and
+    the max block at INT64_MIN."""
+    stats = torch.zeros((n_sites, 5 * b * c + b), dtype=torch.int64, device=device)
+    stats[:, 2 * b * c:3 * b * c] = torch.iinfo(torch.int64).max
+    stats[:, 3 * b * c:4 * b * c] = torch.iinfo(torch.int64).min
+    return stats
 
 
 def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS):

@@ -20,6 +20,13 @@ ReLU and the per-sample requant to int8 of the other relu sites
 on dense maps it is a single K = 16*Cin product, which is also what the TPU's
 ``enc1_in_relu_requant_im2col`` computes.
 
+``enc1_in_relu_requant_im2col`` is enc1 as the JAX package runs it under
+``MSIG_ENC1_IM2COL=1``: the dense K = 1024 product per output phase against
+that phase's own block of ``pack_enc1_im2col``'s [4 * 1024, 128] weights,
+from an im2col tile gathered once into shared memory (its own entry point
+of the 4x4/s2 source). With four equal blocks it is enc1's function bit
+for bit.
+
 ``enc0_hbm`` is enc0 as the all-kernel chain runs it on a 512² input, where
 the TPU splits the site into a staged pair of kernels (``_enc0_hbm``): the
 same CUDA source, with the accumulator staged as int32 or as fp16 x 2^-12
@@ -48,7 +55,8 @@ ENC0_SITE = "enc0_in_relu_requant"
 ENC1_SITE = "enc1_in_relu_requant"
 ENC2_SITE = "enc2_in_relu_requant"
 ENC0_HBM_SITE = "enc0_hbm"
-KERNELS = (ENC0_SITE, ENC0_HBM_SITE, ENC1_SITE, ENC2_SITE)
+ENC1_I2C_SITE = "enc1_in_relu_requant_im2col"
+KERNELS = (ENC0_SITE, ENC0_HBM_SITE, ENC1_SITE, ENC1_I2C_SITE, ENC2_SITE)
 
 # csrc sources, one shared library each; enc1 and enc2 run CONV_S2_SOURCE.
 CONV_S2_SOURCE = "conv4x4s2_in_relu_requant"
@@ -62,7 +70,9 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     ENC0_SITE: [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
     CONV_S2_SOURCE: [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P],
+    ENC1_I2C_SITE: [_P] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, _P],
 }
+ENC1_I2C_ENTRY = "msig_enc1_im2col_in_relu_requant"
 
 ENC0_K = 7 * 7 * 3      # 147 rows of the enc0 weight matrix
 ENC0_K_PADDED = 160     # zero rows up to 5 mma steps of 32
@@ -92,6 +102,16 @@ def pack_conv4x4(w_hwio: torch.Tensor) -> torch.Tensor:
     if w_hwio.dim() != 4 or tuple(w_hwio.shape[:2]) != (4, 4):
         raise ValueError(f"expected a [4, 4, Cin, Cout] kernel, got {tuple(w_hwio.shape)}")
     return w_hwio.to(torch.int8).reshape(16 * w_hwio.shape[2], w_hwio.shape[3]).contiguous()
+
+
+def pack_enc1_im2col(w_hwio: torch.Tensor) -> torch.Tensor:
+    """[4, 4, 64, 128] int8 kernel -> [4 * 1024, 128]: one block per output
+    phase q = 2*qy + qx, each ``pack_conv4x4(w)`` (row (4u + v)*64 + ci).
+
+    Bit-equal to ``msig_tpu/ops/fused_enc_int8.py::pack_enc1_im2col``."""
+    if tuple(w_hwio.shape) != (4, 4, 64, 128):
+        raise ValueError(f"expected a [4, 4, 64, 128] kernel, got {tuple(w_hwio.shape)}")
+    return pack_conv4x4(w_hwio).repeat(4, 1).contiguous()
 
 
 # ----------------------------------------------------------- plain versions
@@ -129,6 +149,28 @@ enc0_hbm_plain = enc0_in_relu_requant_plain
 def enc1_in_relu_requant_plain(x_i8, w_packed, eps: float = _EPS):
     """enc1: conv 4x4/s2 -> IN -> ReLU -> requant (``_kernel_enc1``, ``_kernel_enc1_im2col``)."""
     return fc.in_relu_requant_i64(conv4x4s2_i64(x_i8, w_packed), eps)[0]
+
+
+def conv4x4s2_phases_i64(x_i8: torch.Tensor, w_i2c: torch.Tensor) -> torch.Tensor:
+    """Exact int8 conv 4x4 / stride 2 / zero pad 1 whose output pixel
+    (2I + qy, 2J + qx) takes the weights of block q = 2*qy + qx of ``w_i2c``
+    [4 * 16*Cin, Cout]: per phase, a stride-4 conv of the padded input from
+    offset (2qy, 2qx), in float64. NHWC int8 -> int64 [B, H/2, W/2, Cout]."""
+    b, h, w, cin = x_i8.shape
+    k = 16 * cin
+    xp = F.pad(x_i8.permute(0, 3, 1, 2).to(torch.float64), (1, 1, 1, 1))
+    y = xp.new_empty((b, w_i2c.shape[1], h // 2, w // 2))
+    for q in range(4):
+        qy, qx = divmod(q, 2)
+        wq = w_i2c[q * k:(q + 1) * k].reshape(4, 4, cin, -1).permute(3, 2, 0, 1).to(torch.float64)
+        y[:, :, qy::2, qx::2] = F.conv2d(xp[:, :, 2 * qy:, 2 * qx:], wq, stride=4)
+    return y.permute(0, 2, 3, 1).to(torch.int64).contiguous()
+
+
+def enc1_in_relu_requant_im2col_plain(x_i8, w_i2c, eps: float = _EPS):
+    """enc1 with a weight block per output phase -> IN -> ReLU -> requant
+    (``_kernel_enc1_im2col``)."""
+    return fc.in_relu_requant_i64(conv4x4s2_phases_i64(x_i8, w_i2c), eps)[0]
 
 
 def enc2_in_relu_requant_plain(x_i8, w_packed, eps: float = _EPS):
@@ -237,4 +279,35 @@ def enc2_in_relu_requant(x_i8, w_packed, eps: float = _EPS):
         return enc2_in_relu_requant_plain(x_i8, w_packed, eps)
     out = _conv4x4s2_kernel(x_i8, w_packed, eps)
     LAUNCHES[ENC2_SITE] += 1
+    return out
+
+
+def enc1_in_relu_requant_im2col(x_i8, w_i2c, eps: float = _EPS):
+    """Second encoder site in the dense K = 1024 form: int8 [B, H, W, 64] ->
+    int8 [B, H/2, W/2, 128].
+
+    w_i2c [4 * 1024, 128] int8 from ``pack_enc1_im2col``."""
+    if x_i8.device.type == "cpu":
+        return enc1_in_relu_requant_im2col_plain(x_i8, w_i2c, eps)
+    if x_i8.dim() != 4 or w_i2c.dim() != 2:
+        raise ValueError(f"expected x [B, H, W, 64] and w [4096, Cout], got "
+                         f"{tuple(x_i8.shape)} and {tuple(w_i2c.shape)}")
+    b, h, w, cin = x_i8.shape
+    cout = w_i2c.shape[1]
+    if cin != 64 or cout % 128 or h % 4 or w % 4 or (h // 4 * (w // 4)) % 128:
+        raise ValueError(f"the CUDA kernel needs Cin == 64, Cout % 128 == 0, H and W multiples "
+                         f"of 4 and (H/4)*(W/4) % 128 == 0, got x {tuple(x_i8.shape)}, Cout {cout}")
+    fc.check_statistics(x_i8.shape, (h // 2) * (w // 2), 16 * cin)
+    fc._check("x", x_i8, torch.int8, tuple(x_i8.shape))
+    fc._check("weights", w_i2c, torch.int8, (4 * 16 * cin, cout))
+    _same_device(x_i8, w_i2c)
+    fn = _build.load(CONV_S2_SOURCE, _ARGTYPES[ENC1_I2C_SITE], ENC1_I2C_ENTRY)
+    y, stats = fc._scratch(x_i8, b, (h // 2) * (w // 2), cout)
+    out = torch.empty((b, h // 2, w // 2, cout), dtype=torch.int8, device=x_i8.device)
+    out_scale = torch.empty((b, 1), dtype=torch.float32, device=x_i8.device)
+    err = fn(x_i8.data_ptr(), w_i2c.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(),
+             out_scale.data_ptr(), b, h, w, cout, eps,
+             torch.cuda.current_stream(x_i8.device).cuda_stream)
+    _build.check(ENC1_I2C_ENTRY, err)
+    LAUNCHES[ENC1_I2C_SITE] += 1
     return out

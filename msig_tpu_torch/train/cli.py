@@ -173,6 +173,8 @@ def main(cfg: TrainConfig) -> int:
     # float32 on the card means fp32: by default cuDNN runs fp32 convolutions in TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # Two runs of a step give the same bits (the Trainer sets it too).
+    torch.backends.cudnn.deterministic = True
     from msig_tpu_torch.data import MultiDomainDataset
     from msig_tpu_torch.train.trainer import Trainer
 

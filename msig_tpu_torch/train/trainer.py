@@ -57,6 +57,10 @@ class Trainer:
         self.cfg = cfg
         self.dataset = dataset
         self.device = device = resolve_device(cfg.device)
+        # With cuDNN's default algorithms the decoders' ConvTranspose2d differs
+        # in its last bits from run to run on the card; the deterministic ones
+        # cost 0.5-3.3% of a step (tools/train_step_determinism_torch.py).
+        torch.backends.cudnn.deterministic = True
         self.num_domains = dataset.num_domains
         # first, so that an option not ported yet raises before any network is built
         self.train_step = make_train_step(

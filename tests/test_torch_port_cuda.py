@@ -16,6 +16,8 @@ import torch
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 from msig_tpu_torch.ops import fused_dec_int8 as fd
 from msig_tpu_torch.ops import fused_enc_int8 as fe
+from msig_tpu_torch.ops import fused_trunk_v3 as f3
+from msig_tpu_torch.ops import int8_epilogue_chunked as ec
 
 
 @pytest.fixture
@@ -300,7 +302,8 @@ def test_encoder_sites_kernel_matches_plain(cuda_device, b, side):
     got0 = fe.enc0_in_relu_requant(t["img"], t["w0"])
     got1 = fe.enc1_in_relu_requant(t["x1"], t["w1"])
     got2, got_s = fe.enc2_in_relu_requant(t["x2"], t["w2"])
-    assert fe.LAUNCHES == {k: v + (k != fe.ENC0_HBM_SITE) for k, v in before.items()}
+    assert fe.LAUNCHES == {k: v + (k not in (fe.ENC0_HBM_SITE, fe.ENC1_I2C_SITE))
+                           for k, v in before.items()}
     want2, want_s = fe.enc2_in_relu_requant_plain(t["x2"], t["w2"])
     torch.cuda.synchronize()
     assert got0.shape == (b, side, side, 64) and got1.shape == (b, side // 2, side // 2, 128)
@@ -373,4 +376,121 @@ def test_cuda_tensors_never_take_the_plain_path(cuda_device):
         fc.conv3x3_adain_residual_hifi2(t["x"], t["hq"], t["h2"], t["hs"], *tail)
         torch.cuda.synchronize()
     for plain in (p0, p1, p7, e0, e1, e2, p1h, e0h, h1, h2):
+        plain.assert_not_called()
+
+
+# ------------------------- the single-kernel trunk, the chunked epilogue, enc1 im2col
+
+
+def _trunk_inputs(b, side, c, n, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    ws = [fc.pack_weights(torch.from_numpy(rng.integers(-32, 33, (3, 3, c, c), dtype=np.int8)))
+          for _ in range(2 * n)]
+    t = dict(x=rng.integers(-127, 128, (b, side, side, c), dtype=np.int8),
+             hs=rng.uniform(0.5, 2.0, (b, 1)).astype(np.float32),
+             g=rng.normal(1.0, 0.5, (b, 2 * n, c)).astype(np.float32),
+             bb=rng.normal(0.0, 0.5, (b, 2 * n, c)).astype(np.float32))
+    t = {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+    return t["x"], t["hs"], torch.cat(ws).to(dev), t["g"], t["bb"], n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c,n", [(2, 16, 128, 1), (2, 16, 256, 3), (8, 64, 256, 8)])
+def test_trunk_v3_kernel_matches_plain(cuda_device, b, side, c, n):
+    """The last shape is the main path's (256², batch 8, 8 resblocks). The
+    statistics are integers, so a second call gives the same bits."""
+    args = _trunk_inputs(b, side, c, n, cuda_device)
+    before = f3.LAUNCHES[f3.SITE]
+    got, got_s = f3.fused_trunk_blocks(*args)
+    assert f3.LAUNCHES[f3.SITE] == before + 1 and f3.LAST_GRID[f3.SITE] > 0
+    want, want_s = f3.fused_trunk_blocks_plain(*args)
+    again, again_s = f3.fused_trunk_blocks(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, side, side, c) and got_s.shape == (b, 1)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+    _assert_int8_close(got, want)
+    assert torch.equal(again, got) and torch.equal(again_s, got_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lim", [((2, 64, 128), 3000), ((1, 1000, 384), 2 ** 31 - 1),
+                                       ((8, 4096, 256), 2 ** 20)])
+def test_chunked_epilogue_kernel_matches_plain(cuda_device, shape, lim):
+    """The last shape is the main path's; the second takes the whole int32
+    range and three channel tiles."""
+    rng = np.random.default_rng(shape[1])
+    b, _, c = shape
+    x = torch.from_numpy(rng.integers(-lim, lim, shape, dtype=np.int64).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((b, c)).astype(np.float32))
+    be = torch.from_numpy(rng.standard_normal((b, c)).astype(np.float32))
+    x, g, be = x.to(cuda_device), g.to(cuda_device), be.to(cuda_device)
+    before = ec.LAUNCHES[ec.SITE]
+    got = ec.adain_relu_requant_chunked(x, g, be)
+    assert ec.LAUNCHES[ec.SITE] == before + 1
+    want = ec.adain_relu_requant_chunked_plain(x, g, be)
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == torch.int8
+    _assert_int8_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side", [(1, 64), (2, 128), (8, 256)])
+def test_enc1_im2col_kernel_matches_plain_and_enc1(cuda_device, b, side):
+    """With four equal phase blocks, enc1's kernel to the bit; with four
+    different ones, the plain version's phase mapping."""
+    t = _enc_inputs(b, side, cuda_device)
+    w4 = t["w1"].repeat(4, 1).contiguous()
+    before = fe.LAUNCHES[fe.ENC1_I2C_SITE]
+    got = fe.enc1_in_relu_requant_im2col(t["x1"], w4)
+    assert fe.LAUNCHES[fe.ENC1_I2C_SITE] == before + 1
+    assert torch.equal(got, fe.enc1_in_relu_requant(t["x1"], t["w1"]))
+    rng = np.random.default_rng(side)
+    wq = torch.from_numpy(rng.integers(-127, 128, (4096, 128), dtype=np.int8)).to(cuda_device)
+    got = fe.enc1_in_relu_requant_im2col(t["x1"], wq)
+    want = fe.enc1_in_relu_requant_im2col_plain(t["x1"], wq)
+    torch.cuda.synchronize()
+    _assert_int8_close(got, want)
+
+
+@pytest.mark.cuda
+def test_v3_epilogue_im2col_wrappers_reject_bad_inputs(cuda_device):
+    x, hs, w, g, bb, n = _trunk_inputs(1, 16, 128, 1, cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        f3.fused_trunk_blocks(x.to(torch.int32), hs, w, g, bb, n)
+    with pytest.raises(ValueError, match="w_stack must have shape"):
+        f3.fused_trunk_blocks(x, hs, w[:-128].contiguous(), g, bb, n)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        f3.fused_trunk_blocks(x, hs.cpu(), w, g, bb, n)
+    with pytest.raises(ValueError, match="C % 128"):
+        f3.fused_trunk_blocks(x[..., :64].contiguous(), hs, w[:9 * 64 * 2, :64].contiguous(),
+                              g[..., :64].contiguous(), bb[..., :64].contiguous(), n)
+    xi = torch.zeros((1, 64, 128), dtype=torch.int32, device=cuda_device)
+    gb = torch.ones((1, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        ec.adain_relu_requant_chunked(xi.to(torch.int64), gb, gb)
+    with pytest.raises(ValueError, match="S % 8"):
+        ec.adain_relu_requant_chunked(xi[:, :60].contiguous(), gb, gb)
+    with pytest.raises(ValueError, match="contiguous"):
+        ec.adain_relu_requant_chunked(xi.reshape(1, 128, 64).transpose(1, 2), gb, gb)
+    e = _enc_inputs(1, 64, cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        fe.enc1_in_relu_requant_im2col(e["x1"], e["w1"])
+    with pytest.raises(ValueError, match="Cin == 64"):
+        fe.enc1_in_relu_requant_im2col(e["x2"], e["w1"].repeat(4, 1).contiguous())
+
+
+@pytest.mark.cuda
+def test_v3_epilogue_im2col_never_take_the_plain_path(cuda_device):
+    args = _trunk_inputs(1, 16, 128, 1, cuda_device)
+    e = _enc_inputs(1, 64, cuda_device)
+    xi = torch.ones((1, 64, 128), dtype=torch.int32, device=cuda_device)
+    gb = torch.ones((1, 128), device=cuda_device)
+    with mock.patch.object(f3, "fused_trunk_blocks_plain") as p3, \
+            mock.patch.object(ec, "adain_relu_requant_chunked_plain") as pe, \
+            mock.patch.object(fe, "enc1_in_relu_requant_im2col_plain") as pi:
+        f3.fused_trunk_blocks(*args)
+        ec.adain_relu_requant_chunked(xi, gb, gb)
+        fe.enc1_in_relu_requant_im2col(e["x1"], e["w1"].repeat(4, 1).contiguous())
+        torch.cuda.synchronize()
+    for plain in (p3, pe, pi):
         plain.assert_not_called()

@@ -38,13 +38,18 @@ SUBSETS = [tuple(s for s, keep in zip(tq.ALL_STAGES, mask) if keep)
 
 
 @pytest.fixture(scope="module")
-def qparams():
-    """int8 weights of one random generator at full width, in both packages."""
+def jparams():
+    """One random generator at full width, JAX parameters."""
     jgen = JGenerator(style_dim=SDIM, n_residual_blocks=N_RES, dtype=jnp.bfloat16)
-    params = jgen.init(jax.random.PRNGKey(2), jnp.zeros((1, 64, 64, 3), jnp.bfloat16),
-                       jnp.zeros((1, SDIM), jnp.bfloat16))
-    return (jq.quantize_generator_params(params, N_RES),
-            tq.quantize_generator_params(generator_state_dict(params, N_RES), N_RES))
+    return jgen.init(jax.random.PRNGKey(2), jnp.zeros((1, 64, 64, 3), jnp.bfloat16),
+                     jnp.zeros((1, SDIM), jnp.bfloat16))
+
+
+@pytest.fixture(scope="module")
+def qparams(jparams):
+    """int8 weights of one random generator at full width, in both packages."""
+    return (jq.quantize_generator_params(jparams, N_RES),
+            tq.quantize_generator_params(generator_state_dict(jparams, N_RES), N_RES))
 
 
 # ------------------------------------------------- unpacking the JAX slabs
@@ -195,6 +200,102 @@ def test_enc1_plain_matches_im2col_pallas():
     _assert_int8_close(got.numpy(), c["h1_i2c"])
 
 
+# ------------------------------------- enc1 in its dense K = 1024 form
+
+
+@pytest.mark.parametrize("w_cells", [16, 64])
+def test_enc1_im2col_plain_matches_pallas(w_cells):
+    """``enc1_in_relu_requant_im2col`` against its Pallas kernel, on the output
+    of the JAX enc0 and the packing of ``pack_enc1_im2col``."""
+    c = _jax_chain(w_cells)
+    w = tfe.pack_enc1_im2col(torch.from_numpy(c["w1"]))
+    got = tfe.enc1_in_relu_requant_im2col(torch.from_numpy(c["h0"]), w)
+    _assert_int8_close(got.numpy(), c["h1_i2c"])
+    # with four equal phase blocks, enc1's function to the bit
+    want = tfe.enc1_in_relu_requant(torch.from_numpy(c["h0"]),
+                                    tfe.pack_conv4x4(torch.from_numpy(c["w1"])))
+    assert torch.equal(got, want)
+
+
+def test_enc1_im2col_phase_blocks_follow_jax():
+    """Four different weight blocks: block q = 2*qy + qx must serve the output
+    pixels (2I + qy, 2J + qx), as ``_enc1_phase_slices`` maps them."""
+    c = _jax_chain(16)
+    rng = np.random.default_rng(11)
+    slab = np.concatenate([np.asarray(jfe.pack_enc1_im2col(
+        rng.integers(-127, 128, (4, 4, 64, 128), dtype=np.int8)))[1024 * q:1024 * (q + 1)]
+        for q in range(4)])
+    h0 = jfe.enc0_in_relu_requant(jfe.prep_s2d4_input(jnp.asarray(c["img"])),
+                                  jfe.pack_enc0(c["w0"]), w_cells=16)
+    want = _unlayout_enc1(jfe.enc1_in_relu_requant_im2col(h0, jnp.asarray(slab), w_cells=16), 16)
+    np.testing.assert_array_equal(_unlayout_enc0(h0, 16), c["h0"])
+    got = tfe.enc1_in_relu_requant_im2col(torch.from_numpy(c["h0"]), torch.from_numpy(slab))
+    _assert_int8_close(got.numpy(), want)
+    one_block = tfe.enc1_in_relu_requant_im2col(
+        torch.from_numpy(c["h0"]), torch.from_numpy(np.tile(slab[:1024], (4, 1))))
+    assert (one_block.numpy() != want).mean() > 0.1
+
+
+def test_enc1_i2c_p_bit_equal_to_jax(jparams, monkeypatch):
+    monkeypatch.setenv("MSIG_ENC1_IM2COL", "1")
+    want = np.asarray(jq.quantize_generator_params(jparams, N_RES)["enc1_i2c_p"])
+    q = tq.quantize_generator_params(generator_state_dict(jparams, N_RES), N_RES)
+    assert q["enc1_i2c_p"].shape == (4096, 128) == want.shape
+    np.testing.assert_array_equal(q["enc1_i2c_p"].numpy(), want)
+
+
+@pytest.mark.parametrize("side", [64, 256])
+def test_fused_encoder_takes_enc1_im2col_under_the_flag(jparams, monkeypatch, side):
+    """Weights built under the flag and the flag set when the encoder runs:
+    enc1 is the dense site, and the encoder's output and scale are those of
+    the phase-packed one to the bit. Set after quantization, the flag changes
+    nothing (``quantized.py:280``)."""
+    q = tq.quantize_generator_params(generator_state_dict(jparams, N_RES), N_RES)
+    monkeypatch.setenv("MSIG_ENC1_IM2COL", "1")
+    q_i2c = tq.quantize_generator_params(generator_state_dict(jparams, N_RES), N_RES)
+    img = torch.from_numpy(np.random.default_rng(side).integers(0, 256, (1, side, side, 3),
+                                                                dtype=np.uint8))
+    calls = []
+    for name in ("enc1_in_relu_requant", "enc1_in_relu_requant_im2col"):
+        real = getattr(tfe, name)
+        monkeypatch.setattr(tfe, name, lambda *a, real=real, name=name: calls.append(name)
+                            or real(*a))
+    got_q, got_s = tq._fused_encoder(q_i2c, img)
+    assert calls == ["enc1_in_relu_requant_im2col"]
+    want_q, want_s = tq._fused_encoder(q, img)
+    assert calls[1:] == ["enc1_in_relu_requant"]
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("value", ["true", "2"])
+def test_enc1_im2col_junk_values_raise(monkeypatch, value):
+    """The JAX package reads them as off; here they raise."""
+    monkeypatch.setenv("MSIG_ENC1_IM2COL", value)
+    with pytest.raises(ValueError, match="MSIG_ENC1_IM2COL"):
+        tq.quantize_generator_params({}, 1)
+
+
+def test_enc1_im2col_wrapper_raises_without_nvcc_or_on_bad_shapes(monkeypatch):
+    with pytest.raises(ValueError, match="Cin == 64"):
+        tfe.enc1_in_relu_requant_im2col(_fake_cuda((1, 256, 256, 128), torch.int8),
+                                        _fake_cuda((8192, 128), torch.int8))
+    with pytest.raises(ValueError, match=r"\(H/4\)\*\(W/4\) % 128"):
+        tfe.enc1_in_relu_requant_im2col(_fake_cuda((1, 32, 32, 64), torch.int8),
+                                        _fake_cuda((4096, 128), torch.int8))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "library_path", lambda name: mock.Mock(exists=lambda: False))
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda _: False)
+    monkeypatch.setenv("NVCC", "")
+    tfe.reset_launch_counts()
+    with mock.patch.object(tfe, "enc1_in_relu_requant_im2col_plain") as plain:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tfe.enc1_in_relu_requant_im2col(_fake_cuda((8, 256, 256, 64), torch.int8),
+                                            _fake_cuda((4096, 128), torch.int8))
+        plain.assert_not_called()
+    assert set(tfe.LAUNCHES.values()) == {0}
+
+
 # ------------------------------------------------ the encoder, the slice
 
 
@@ -314,7 +415,7 @@ def test_cpu_wrappers_count_no_launches():
     tfe.enc1_in_relu_requant(x, tfe.pack_conv4x4(torch.from_numpy(c["w1"])))
     tfe.enc2_in_relu_requant(x, tfe.pack_conv4x4(torch.from_numpy(c["w1"])))
     assert tfe.LAUNCHES == {tfe.ENC0_SITE: 0, tfe.ENC0_HBM_SITE: 0, tfe.ENC1_SITE: 0,
-                            tfe.ENC2_SITE: 0}
+                            tfe.ENC1_I2C_SITE: 0, tfe.ENC2_SITE: 0}
 
 
 def _fake_cuda(shape, dtype):
