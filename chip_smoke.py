@@ -5,10 +5,10 @@
 
 Phases, each reported on its own line:
 
-1. build: compiles the thirteen CUDA sources of the serving and training paths
-   from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and prints
-   the card's name and power limit as nvidia-smi reports them;
-2. kernels: each of the fifteen kernel sites against its plain PyTorch version
+1. build: compiles the fourteen CUDA sources of the serving, tool and training
+   paths from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and
+   prints the card's name and power limit as nvidia-smi reports them;
+2. kernels: each of the twenty-one kernel sites against its plain PyTorch version
    on the card, with seeded random inputs, batch 8. At the shapes of a 256²
    input: enc0 uint8 [8, 256, 256, 3] -> [8, 256, 256, 64], enc1 ->
    [8, 128, 128, 128], enc2 -> [8, 64, 64, 256], the four trunk sites (conv1,
@@ -17,14 +17,22 @@ Phases, each reported on its own line:
    final7 -> [8, 256, 256, 3], and the three sites of the opt-in compositions:
    ``fused_trunk_blocks`` (all 8 resblocks in one launch) at [8, 64, 64, 256],
    ``enc1_in_relu_requant_im2col`` at enc1's shapes (and equal to enc1's
-   kernel to the bit), ``adain_relu_requant_chunked`` at [8, 4096, 256] int32.
+   kernel to the bit), ``adain_relu_requant_chunked`` at [8, 4096, 256] int32;
+   the v1 sites of ``fused_conv_int8`` (conv1 and conv2 at [8, 64, 64, 256],
+   the ConvT on the 9-tap K-concat operand at up0's and up1's shapes), the
+   9-tap ConvT site of ``fused_conv_int8_v2`` at the same two (and equal to
+   ``convt4x4s2_in_relu_requant_ps``'s kernel to the bit), and the whole-slab
+   epilogues ``adain_relu_requant`` and ``adain_residual_requant`` (bf16
+   residual) at [8, 4096, 256] int32.
    At the shapes of a 512² input: the staged
    sites enc0_hbm [8, 512, 512, 3] and up1_s2d16_hbm [8, 256, 256, 128] ->
    [8, 512, 512, 64], each staged as int32 and as fp16 (held against the
    plain version that narrows the same way), and every other site at its map
    of four times the pixels. Bars: int8 outputs at most 1 step apart on under
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
-   on under 1%, uint8 at most 1 apart on under 1e-3; times by CUDA events;
+   on under 1%, uint8 at most 1 apart on under 1e-3; times by CUDA events
+   (the three epilogue rows also as three medians with L2 warm and three
+   with L2 flushed before each call);
 3. end to end, ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256), batch 8, over 20 seeded inputs, the launch
@@ -43,6 +51,9 @@ Phases, each reported on its own line:
    fused_epilogue=True)`` (``256/unfused+epilogue``: 8 launches of
    ``adain_relu_requant_chunked`` per batch and no other kernel site), its
    PSNR printed; time per batch of each and of the trunk alone under v3;
+   at 256² the fp32 float path with ``--pallas`` (``256/float+pallas``):
+   ``adain_pallas_fwd`` 16 times per generator call and no other kernel, at
+   least 40 dB from the float path without it; its time per batch;
    at 512²: enc0_hbm, enc1, enc2, 8 + 8 trunk calls, up0, up1_s2d16_hbm and
    final7 per batch; the all-kernel uint8 output and the port's
    ``pallas=("trunk",)`` float output against each other and against the fp32
@@ -51,7 +62,14 @@ Phases, each reported on its own line:
    weights with 2 resblocks and a noise image (the configuration in which the
    JAX package's tests hold that bar); time per batch and per stage, with
    both stagings;
-4. train kernels: the four training kernels (the fused AdaIN forward and
+4. tools/v1_v2: ``python -m msig_tpu_torch.tools.bench_v1_v2`` and
+   ``...profile_fused_stages`` at batch 8 (their ``main``), once with one call
+   of each site or stage and once timed, the launch counts set to 0 before
+   each tool and read after it: per pass one launch each of the v1 conv1 and
+   conv2 sites, two each of the v1 and 9-tap ConvT sites (and one each of v2's
+   conv1 and conv2) in the bench; in the profile, per stage, the sites it
+   names and no other;
+5. train kernels: the four training kernels (the fused AdaIN forward and
    backward, ``conv3x3_bwd`` and ``conv3x3_adain_bwd``, each with and without
    the relu input) against their plain versions at the trunk shapes of a 256²
    train step, [8, 64, 64, 256] and [4, 64, 64, 256], fp32 with TF32 off.
@@ -59,7 +77,7 @@ Phases, each reported on its own line:
    dbeta within rtol 1e-5 and atol 1e-6 x max|plain|; dx exactly 0 under the
    relu mask; a second call gives bit-identical dW. Times by CUDA events, and
    for ``conv3x3_bwd`` cuDNN's ``convolution_backward`` (dx and dW) beside it;
-5. train: ``make_train_step`` at full width (256², batch 4, 8 resblocks,
+6. train: ``make_train_step`` at full width (256², batch 4, 8 resblocks,
    style_dim 256, 10 domains, a seeded random VGG) from the same parameters
    and batch in three configurations: stock autograd (``MSIG_CONV_VJP=0``),
    ``MSIG_CONV_VJP=1`` with ``use_pallas`` and ``MSIG_CONV_VJP=2``. Step 1's
@@ -72,7 +90,9 @@ Phases, each reported on its own line:
    synthetic tree of 8 sources and 9 target domains, and
    ``python -m msig_tpu_torch.inference --quantize int8`` on the checkpoint it
    wrote (``MSIG_SKIP_EPOCH_ART=1`` where matplotlib is missing);
-6. a ``{"kernels": [...]}`` line of the nineteen kernels, then the card line,
+7. a ``{"kernels": [...]}`` line of the twenty-five kernels (the two
+   whole-slab epilogues with 0 launches: no path of the JAX package runs
+   them), then the card line,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero without the last line. It
@@ -118,6 +138,8 @@ N_RES = 8                          # resblocks of the demo checkpoint
 N_INPUTS, TARGET = 20, "dom3"     # 3 batches of 8, the last one padded
 FE, FC, FD = "msig_tpu/ops/fused_enc_int8.py", "msig_tpu/ops/fused_conv_int8_v2.py", \
     "msig_tpu/ops/fused_dec_int8.py"
+F1, FI = "msig_tpu/ops/fused_conv_int8.py", "msig_tpu/ops/int8_epilogue.py"
+TOOLS_PATH = "tools/v1_v2"
 # kernel site -> (TPU kernel it replaces, CUDA source, the path whose launches the JSON line reports)
 SITES = {
     "enc0_in_relu_requant": (f"{FE}:606", "enc0_in_relu_requant.cu", "256/hifi0"),
@@ -139,6 +161,15 @@ SITES = {
                                     "256/enc1_im2col"),
     "adain_relu_requant_chunked": ("msig_tpu/ops/int8_epilogue_chunked.py:97",
                                    "adain_relu_requant_chunked.cu", "256/unfused+epilogue"),
+    # the v1 sites and the 9-tap ConvT site, which the JAX package runs from its tools
+    "conv3x3_adain_relu_requant_v1": (f"{F1}:420", "conv3x3_adain_relu_requant.cu", TOOLS_PATH),
+    "conv3x3_adain_residual_requant_v1": (f"{F1}:369", "conv3x3_adain_residual_requant.cu",
+                                          TOOLS_PATH),
+    "convt4x4s2_in_relu_requant_v1": (f"{F1}:267", "convt4x4s2_in_relu_requant.cu", TOOLS_PATH),
+    "convt4x4s2_in_relu_requant": (f"{FC}:512", "convt4x4s2_in_relu_requant.cu", TOOLS_PATH),
+    # the whole-slab epilogues: nothing in the JAX package calls them but their tests
+    "adain_relu_requant": (f"{FI}:93", "int8_epilogue.cu", None),
+    "adain_residual_requant": (f"{FI}:106", "int8_epilogue.cu", None),
 }
 _COMMON = {"enc1_in_relu_requant": 1, "enc2_in_relu_requant": 1,
            "conv3x3_adain_relu_requant": N_RES, "convt4x4s2_in_relu_requant_ps": 1,
@@ -157,6 +188,26 @@ PATHS = {
                         "conv3x3_adain_residual_requant": N_RES},
     "256/unfused+epilogue": {"adain_relu_requant_chunked": N_RES},
 }
+# The tools/v1_v2 path: launches of one call of each site or stage, by kernel.
+_RELU1, _RES1, _UP1 = ("conv3x3_adain_relu_requant_v1", "conv3x3_adain_residual_requant_v1",
+                       "convt4x4s2_in_relu_requant_v1")
+BENCH_SITES = {
+    "relu site   v1": {_RELU1: 1}, "relu site   v2": {"conv3x3_adain_relu_requant": 1},
+    "res site    v1": {_RES1: 1}, "res site    v2": {"conv3x3_adain_residual_requant": 1},
+    "up0 site    v1": {_UP1: 1}, "up0 site    v2": {"convt4x4s2_in_relu_requant": 1},
+    "up1 site    v1": {_UP1: 1}, "up1 site    v2": {"convt4x4s2_in_relu_requant": 1},
+}
+_TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant": N_RES}
+PROFILE_STAGES = {
+    "encoder (3 convs)": {},
+    "fused trunk (16 sites)": _TRUNK,
+    "  conv1 site alone": {_RELU1: 1},
+    "  conv2 site alone": {_RES1: 1},
+    "fused decoder (2 ups+final)": {"convt4x4s2_in_relu_requant_ps": 2},
+    "  up0 kernel alone": {_UP1: 1},
+    "  up1 kernel alone": {_UP1: 1},
+    "full (one program)": {**_TRUNK, "convt4x4s2_in_relu_requant_ps": 2},
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -170,14 +221,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 3) -> float:
-    """Median of ``reps`` per-call times by CUDA events, after ``warmup`` calls."""
+def cuda_ms(torch, fn, reps: int, warmup: int = 3, flush=None) -> float:
+    """Median of ``reps`` per-call times by CUDA events, after ``warmup`` calls.
+    With ``flush`` (a tensor larger than the L2 cache), it is zeroed before
+    each timed call, outside the events, so every call starts with a cold L2."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
     for start, end in events:
+        if flush is not None:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -197,8 +252,10 @@ def bound(kind: str, b: int, side: int, cin: int) -> tuple:
     dequant, bias, tanh (counted as 20), scale, round, clip (26). The whole
     trunk (``trunk_v3``): N_RES blocks of a relu and a residual site, its int8
     map and scale read and written once, all 2*N_RES weights and affines read
-    once. The chunked epilogue (``epilogue``, side = S rows): int32 in, int8
-    out, statistics and affine + ReLU + requant (8 per element)."""
+    once. The epilogues on int32 (``epilogue``, side = S rows): int32 in, int8
+    out, statistics and affine + ReLU + requant (8 per element); with a bf16
+    residual (``epilogue_residual``) also the residual in and h out. The
+    K-concat ConvT sites count as ``convt``: the same MACs and outputs."""
     px = b * side * side
     if kind == "trunk_v3":
         out = px * cin
@@ -208,9 +265,10 @@ def bound(kind: str, b: int, side: int, cin: int) -> tuple:
         t_ops = int8_ops / PEAK_INT8_OPS + fp_ops / PEAK_FP32_FLOPS
         t_bytes = nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-    if kind == "epilogue":
+    if kind in ("epilogue", "epilogue_residual"):
         out = b * side * cin
-        nbytes, fp_ops = 5 * out + 2 * b * cin * 4, 8 * out
+        per_elem = 5 if kind == "epilogue" else 9  # int32 in, int8 out (+ bf16 residual, bf16 h)
+        nbytes, fp_ops = per_elem * out + 2 * b * cin * 4, 8 * out
         t_ops, t_bytes = fp_ops / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
     if kind in ("relu", "residual", "hifi", "hifi2"):
@@ -278,14 +336,14 @@ def compare(torch, name: str, got, want) -> tuple:
     return max_step, "; ".join(report)
 
 
-def kernel_cases(torch, fc, fd, fe, f3, ec, dev):
+def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
     """(site, label, kind, (b, side, cin), make) per case; ``make()`` builds the
     inputs on the card and returns (kernel call, plain call). The first case
     of a site is the one the JSON line reports."""
     def t(a):
         return torch.from_numpy(a).to(dev)
 
-    def trunk(kind, side):
+    def trunk(kind, side, mod=fc):
         def make():
             rng = np.random.default_rng(side)
             shape = (B, side, side, C)
@@ -306,17 +364,25 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, dev):
                     "hifi2": (x, hq, h2, hs, *tail)}[kind]
             fn = {"relu": "conv3x3_adain_relu_requant", "residual": "conv3x3_adain_residual_requant",
                   "hifi": "conv3x3_adain_residual_hifi", "hifi2": "conv3x3_adain_residual_hifi2"}[kind]
-            return (lambda: getattr(fc, fn)(*args)), (lambda: getattr(fc, fn + "_plain")(*args))
+            return (lambda: getattr(mod, fn)(*args)), (lambda: getattr(mod, fn + "_plain")(*args))
         return make
 
-    def convt(fn, plain, side, cin, **kw):
+    def convt(fn, plain, side, cin, pack=fc.pack_convt_weights_ps, **kw):
         def make():
             rng = np.random.default_rng(side + cin)
             lo = -127 if cin == C else 0      # up1 reads ReLU outputs
             x = t(rng.integers(lo, 128, (B, side, side, cin), dtype=np.int8))
-            w = fc.pack_convt_weights_ps(torch.from_numpy(
-                rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8)), cin, cin // 2).to(dev)
-            return (lambda: fn(x, w, **kw)), (lambda: plain(x, w, **kw))
+            w = torch.from_numpy(rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8))
+            wp = pack(w, cin, cin // 2).to(dev)
+            if fn is fc.convt4x4s2_in_relu_requant:  # row 6 is row 5's function
+                row5 = fc.convt4x4s2_in_relu_requant_ps(x, fc.pack_convt_weights_ps(
+                    w, cin, cin // 2).to(dev))
+                check(all(torch.equal(a, b) for a, b in zip(fn(x, wp), row5)),
+                      f"convt4x4s2_in_relu_requant equals row 5's kernel to the bit at {side}")
+                print(f"[kernel] convt4x4s2_in_relu_requant: equal to "
+                      f"convt4x4s2_in_relu_requant_ps's kernel to the bit at [{B}, {side}, "
+                      f"{side}, {cin}]", flush=True)
+            return (lambda: fn(x, wp, **kw)), (lambda: plain(x, wp, **kw))
         return make
 
     def enc0(fn, plain, side, **kw):
@@ -382,6 +448,20 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, dev):
                 (lambda: fe.enc1_in_relu_requant_im2col_plain(x, w4))
         return make
 
+    def slab(residual: bool):
+        def make():
+            rng = np.random.default_rng(8)
+            args = (t(rng.integers(-2 ** 20, 2 ** 20, (B, SIDE * SIDE, C), dtype=np.int32)),
+                    t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32)),
+                    t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32)))
+            if not residual:
+                return (lambda: ep.adain_relu_requant(*args)), \
+                    (lambda: ep.adain_relu_requant_plain(*args))
+            res = t(rng.normal(0, 1.5, (B, SIDE * SIDE, C)).astype(np.float32)).to(torch.bfloat16)
+            return (lambda: ep.adain_residual_requant(*args, res)), \
+                (lambda: ep.adain_residual_requant_plain(*args, res))
+        return make
+
     def epilogue():
         def make():
             # int32 of the size of a trunk conv's outputs (|y| < 2^20)
@@ -432,18 +512,36 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, dev):
                enc1_im2col(4 * SIDE)),
               ("adain_relu_requant_chunked", f"{label}, int32 [{B}, {SIDE * SIDE}, {C}]",
                "epilogue", (B, SIDE * SIDE, C), epilogue())]
+    cases += [("conv3x3_adain_relu_requant_v1", label, "relu", (B, SIDE, C),
+               trunk("relu", SIDE, v1)),
+              ("conv3x3_adain_residual_requant_v1", label, "residual", (B, SIDE, C),
+               trunk("residual", SIDE, v1))]
+    for fn, plain, name in ((v1.convt4x4s2_in_relu_requant, v1.convt4x4s2_in_relu_requant_plain,
+                             "convt4x4s2_in_relu_requant_v1"),
+                            (fc.convt4x4s2_in_relu_requant, fc.convt4x4s2_in_relu_requant_plain,
+                             "convt4x4s2_in_relu_requant")):
+        cases += [(name, f"{label}, up0", "convt", (B, SIDE, C),
+                   convt(fn, plain, SIDE, C, fc.pack_convt_weights)),
+                  (name, f"{label}, up1", "convt", (B, 2 * SIDE, C // 2),
+                   convt(fn, plain, 2 * SIDE, C // 2, fc.pack_convt_weights))]
+    cases += [("adain_relu_requant", f"{label}, int32 [{B}, {SIDE * SIDE}, {C}]", "epilogue",
+               (B, SIDE * SIDE, C), slab(False)),
+              ("adain_residual_requant", f"{label}, int32 [{B}, {SIDE * SIDE}, {C}], bf16 residual",
+               "epilogue_residual", (B, SIDE * SIDE, C), slab(True))]
     return cases
 
 
-def kernel_phase(torch, fc, fd, fe, f3, ec, dev) -> dict:
+def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
     results = {}
-    for name, label, kind, dims, make in kernel_cases(torch, fc, fd, fe, f3, ec, dev):
+    # 256 MiB, past the H100's 50 MB L2: the epilogue rows are also timed cold.
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    for name, label, kind, dims, make in kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
         kernel, plain = make()
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         max_step, report = compare(torch, name, got, want)
         del got, want
-        large = kind == "trunk_v3" or (kind != "epilogue"
+        large = kind == "trunk_v3" or (not kind.startswith("epilogue")
                                        and dims[1] * dims[1] * dims[2] > 256 * 256 * 64)
         reps = 10 if large else 30
         ms = cuda_ms(torch, kernel, reps=reps)
@@ -455,13 +553,22 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, dev) -> dict:
             results[name]["also"].append(row)
         else:
             results[name] = dict(row, max_abs_err=max_step, also=[])
-        shape = [dims[0], dims[1], dims[2]] if kind == "epilogue" else \
+        shape = [dims[0], dims[1], dims[2]] if kind.startswith("epilogue") else \
             [dims[0], dims[1], dims[1], dims[2]]
         print(f"[kernel] {name} ({label}) in {shape}: "
               f"{report}; {ms:.4f} ms (median of {reps}, CUDA events), plain {plain_ms:.2f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        if kind.startswith("epilogue"):
+            # Rows 16-18 read x several times over their launches, largely from
+            # L2: their spread, three medians each with L2 warm and flushed.
+            warm = [cuda_ms(torch, kernel, reps=30, warmup=1) for _ in range(3)]
+            cold = [cuda_ms(torch, kernel, reps=30, warmup=1, flush=flush) for _ in range(3)]
+            print(f"[kernel] {name} spread: warm-L2 medians "
+                  f"{', '.join(f'{v:.4f}' for v in warm)} ms; L2 flushed before each call "
+                  f"{', '.join(f'{v:.4f}' for v in cold)} ms", flush=True)
         del kernel, plain
         torch.cuda.empty_cache()
+    del flush
     check(set(results) == set(SITES), f"kernel cases cover {sorted(results)}")
     return results
 
@@ -519,7 +626,7 @@ def read_counts(mods) -> dict:
     return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
 
 
-def e2e_phase(torch, mods, work: str) -> dict:
+def e2e_phase(torch, mods, ap, work: str) -> dict:
     from PIL import Image
 
     from msig_tpu_torch import inference as cli
@@ -660,6 +767,43 @@ def e2e_phase(torch, mods, work: str) -> dict:
               f"{B}: {ms:.2f} ms per batch, {B / (ms / 1e3):.1f} images/s (median of 10, CUDA "
               f"events)", flush=True)
     stage_times(q8.q, imgs, styles, "256/hifi0")
+
+    # ---- 256²: the float path with --pallas, its AdaIN on the fused kernel.
+    out = os.path.join(work, "out_256_float_pallas")
+    args = cli.build_arg_parser().parse_args([
+        "--input_dir", inp, "--ref_domains_dir", ref, "--checkpoint_dir", DEMO,
+        "--output_dir", out, "--target_domain", TARGET, "--style_mode", "average",
+        "--image_size", "256", "--batch_size", str(B), "--compute_dtype", "float32",
+        "--device", "cuda", "--pallas"])
+    reset_counts(mods + (ap,))
+    rc = cli.main(cli.config_from_args(args))
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in read_counts(mods + (ap,)).items() if v}
+    check(rc == 0, f"[256/float+pallas] inference main exit code {rc} == 0")
+    check(ran == {ap.FWD: 2 * N_RES * n_batches},
+          f"[256/float+pallas] launches {ran}: want {ap.FWD} x {2 * N_RES} per generator call")
+    images = {}
+    for name in sorted(os.listdir(out)):
+        with Image.open(os.path.join(out, name)) as im:
+            images[name] = np.asarray(im)
+    total, lo, hi = total_psnr(images, want)
+    check(total >= 40.0, f"[256/float+pallas] vs the fp32 float path: PSNR {total:.2f} dB >= 40")
+    fl_pallas = InferenceEngine.build(
+        InferenceConfig(image_size=256, batch_size=B, device="cuda", compute_dtype="float32",
+                        use_pallas=True), 10, gen_sd, se_sd, n_res, meta["style_dim"])
+    reset_counts((ap,))
+    fl_pallas.generate(imgs, styles)
+    torch.cuda.synchronize()
+    check(ap.LAUNCHES[ap.FWD] == 2 * N_RES, f"[256/float+pallas] {ap.FWD} launched "
+                                            f"{ap.LAUNCHES[ap.FWD]} times in one generator call")
+    ms = cuda_ms(torch, lambda: fl_pallas.generate(imgs, styles), reps=5, warmup=2)
+    result["psnr"]["256/float+pallas"], result["ms"]["256/float+pallas"] = total, ms
+    print(f"[e2e 256/float+pallas] inference main --pallas (fp32): rc 0, {len(images)} images, "
+          f"{ap.FWD} {ran[ap.FWD]} launches ({2 * N_RES} per generator call); vs the fp32 float "
+          f"path: PSNR {total:.2f} dB (per image min {lo:.2f}, max {hi:.2f}); float32 generator "
+          f"with use_pallas, batch {B}: {ms:.2f} ms per batch (median of 5, CUDA events)",
+          flush=True)
+    del fl_pallas
 
     # ---- 256²: the three opt-in compositions of the JAX package.
     for path, setting in (("256/v3", "MSIG_TRUNK_V3"), ("256/enc1_im2col", "MSIG_ENC1_IM2COL")):
@@ -810,8 +954,56 @@ def e2e_phase(torch, mods, work: str) -> dict:
           f"{result['psnr']['512']:.2f}), vs the int32-staged output "
           f"{total_psnr(staged_fp16, served)[0]:.2f} dB", flush=True)
     stage_times(q8.q, imgs, styles, "512")
-    result["launches"] = {name: path_launches[path][name] for name, (_, _, path) in SITES.items()}
+    result["launches"] = {name: path_launches[path][name] for name, (_, _, path) in SITES.items()
+                          if path in PATHS}
     return result
+
+
+def tools_phase(torch, mods) -> dict:
+    """The tools/v1_v2 path: ``python -m msig_tpu_torch.tools.bench_v1_v2`` and
+    ``...profile_fused_stages`` at batch 8 on the card, once with one call of
+    each site or stage (the launch counts set to 0 before each tool and read
+    after it; returned as the path's launches) and once timed (3 warm-up and
+    10 timed calls; counted too). Each tool's launches, per site or stage and
+    in all, must be those the stages name, and no other kernel's."""
+    from msig_tpu_torch.tools import bench_v1_v2, profile_fused_stages
+
+    def total(per_call: dict, calls: int) -> dict:
+        out = {}
+        for d in per_call.values():
+            for k, v in d.items():
+                out[k] = out.get(k, 0) + v * calls
+        return {k: v for k, v in out.items() if v}
+
+    launches = {}
+    for tool, expect, key in ((bench_v1_v2, BENCH_SITES, "sites"),
+                              (profile_fused_stages, PROFILE_STAGES, "stages")):
+        name = tool.__name__.rsplit(".", 1)[1]
+        for one_pass in (True, False):
+            argv = ["--batch", str(B), "--device", "cuda"] + (
+                ["--warmup", "0", "--iters", "1"] if one_pass else [])
+            with env(MSIG_TRUNK_HIFI="0", MSIG_TRUNK_V3="0", MSIG_ENC1_IM2COL="0"):
+                reset_counts(mods)
+                t0 = time.perf_counter()
+                r = tool.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ran = {k: v for k, v in read_counts(mods).items() if v}
+            calls = r["calls"]
+            check(list(r[key]) == list(expect), f"[{TOOLS_PATH}] {name} {key} {list(r[key])}")
+            for stage, per_call in expect.items():
+                want = {k: v * calls for k, v in per_call.items()}
+                check(r[key][stage]["launches"] == want,
+                      f"[{TOOLS_PATH}] {name} {stage!r}: launches {r[key][stage]['launches']}, "
+                      f"want {want}")
+            check(ran == total(expect, calls),
+                  f"[{TOOLS_PATH}] {name}: launches {ran}, want {total(expect, calls)}")
+            if one_pass:
+                for k, v in ran.items():
+                    launches[k] = launches.get(k, 0) + v
+            print(f"[{TOOLS_PATH}] python -m msig_tpu_torch.tools.{name} {' '.join(argv)}: "
+                  f"{wall:.1f} s, {calls} call(s) of each {key[:-1]}, launches {ran}", flush=True)
+    return launches
 
 
 def train_bound(name: str, b: int) -> tuple:
@@ -1144,17 +1336,19 @@ def main() -> int:
     from msig_tpu_torch.ops import _build
     from msig_tpu_torch.ops import adain_pallas as ap
     from msig_tpu_torch.ops import conv3x3_vjp as cv
+    from msig_tpu_torch.ops import fused_conv_int8 as v1
     from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
     from msig_tpu_torch.ops import fused_dec_int8 as fd
     from msig_tpu_torch.ops import fused_enc_int8 as fe
     from msig_tpu_torch.ops import fused_trunk_v3 as f3
+    from msig_tpu_torch.ops import int8_epilogue as ep
     from msig_tpu_torch.ops import int8_epilogue_chunked as ec
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = t0 = time.perf_counter()
-    sources = fe.SOURCES + fc.SOURCES + fd.SOURCES + f3.SOURCES + ec.SOURCES + (ap.SOURCE,) + \
-        cv.SOURCES
+    sources = tuple(dict.fromkeys(fe.SOURCES + fc.SOURCES + fd.SOURCES + f3.SOURCES + ec.SOURCES
+                                  + v1.SOURCES + ep.SOURCES + (ap.SOURCE,) + cv.SOURCES))
     logs = _build.build(sources)
     print(f"[build] {len(logs)} of {len(sources)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)", flush=True)
@@ -1166,12 +1360,13 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
 
     dev = torch.device("cuda")
-    int8_mods = (fc, fd, fe, f3, ec)
-    kernels = kernel_phase(torch, fc, fd, fe, f3, ec, dev)
+    int8_mods = (fc, fd, fe, f3, ec, v1, ep)
+    kernels = kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
-        e2e = e2e_phase(torch, int8_mods, work)
+        e2e = e2e_phase(torch, int8_mods, ap, work)
+        tool_launches = tools_phase(torch, int8_mods)
         train_kernels = train_kernel_phase(torch, ap, cv, dev)
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
@@ -1182,9 +1377,12 @@ def main() -> int:
     # library_ms is null: no single PyTorch call computes conv + IN (+ AdaIN)
     # + requant, or conv7 + dequant + tanh + uint8, int8 ConvT is no cuDNN op,
     # and none runs IN + AdaIN + ReLU + requant from int32 or a whole trunk.
-    # launches: from the run of the path that SITES names for the row.
+    # launches: from the run of the path that SITES names for the row (0 for
+    # the two whole-slab epilogues, which no path of the JAX package runs).
+    launches = {**{name: 0 for name in SITES}, **e2e["launches"],
+                **{k: v for k, v in tool_launches.items() if SITES[k][2] == TOOLS_PATH}}
     rows = [dict(name=name, route="cuda", source=f"msig_tpu_torch/csrc/{SITES[name][1]}",
-                 replaces=SITES[name][0], launches=e2e["launches"][name],
+                 replaces=SITES[name][0], launches=launches[name],
                  max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
                  path=SITES[name][2], also=k["also"])
@@ -1199,7 +1397,8 @@ def main() -> int:
              for name, k in train_kernels.items()]
     check(len(rows) == len(SITES) + len(TRAIN_KERNELS), f"{len(rows)} kernel rows")
     for row in rows:
-        check(row["launches"] > 0, f"{row['name']} was launched on its path {row['path']}")
+        if row["path"] is not None:
+            check(row["launches"] > 0, f"{row['name']} was launched on its path {row['path']}")
     print(json.dumps({"kernels": rows}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@
 // requantizes. Blocks of a Hopper grid run in no order, so here the two
 // phases are two launches: exact integer statistics reduced across CTAs with
 // int64 atomics (order-free, as at every site of the port), then the
-// elementwise pass, in which each CTA rebuilds its sample's affine and scale.
+// elementwise pass (true_relu_requant_kernel of conv_int8.cuh), in which each
+// CTA rebuilds its sample's affine and scale.
 //
 // The input is any int32, not a conv output of known depth. So each square
 // (< 2^62 for |x| <= 2^31) is split at bit 32 element by element and the
@@ -69,34 +70,6 @@ chunk_stats_kernel(const int32_t* __restrict__ x, long long* __restrict__ stats,
   }
 }
 
-// grid = (epilogue_blocks(S, C), B), dynamic smem 2*C floats.
-__global__ void __launch_bounds__(kEpiThreads)
-chunk_requant_kernel(const int32_t* __restrict__ x, const long long* __restrict__ stats,
-                     const float* __restrict__ gamma, const float* __restrict__ beta,
-                     int8_t* __restrict__ out, int B, int S, int C, float eps) {
-  extern __shared__ float sh[];  // a[C], d[C]
-  __shared__ float red[32];
-  float* a_s = sh;
-  float* d_s = sh + C;
-  const int b = blockIdx.y;
-  channel_affine(stats, gamma, beta, b, B, C, S, eps, a_s, d_s);
-  __syncthreads();
-  const float amax = true_relu_amax(stats, a_s, d_s, b, B, C, red);
-  const float s = amax > 0.f ? __fdiv_rn(127.f, amax) : 1.f;
-  const size_t n4 = (size_t)S * C / 4;
-  const int4* x4 = reinterpret_cast<const int4*>(x + (size_t)b * S * C);
-  char4* o4 = reinterpret_cast<char4*>(out + (size_t)b * S * C);
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int4 v = x4[i];
-    const int c = (int)((i * 4) % C);
-    o4[i] = make_char4(relu_requant_unfolded((float)v.x, a_s[c], d_s[c], s),
-                       relu_requant_unfolded((float)v.y, a_s[c + 1], d_s[c + 1], s),
-                       relu_requant_unfolded((float)v.z, a_s[c + 2], d_s[c + 2], s),
-                       relu_requant_unfolded((float)v.w, a_s[c + 3], d_s[c + 3], s));
-  }
-}
-
 }  // namespace msig
 
 // Returns cudaGetLastError() after the launches (0 = success). Launches on
@@ -115,9 +88,9 @@ extern "C" int msig_adain_relu_requant_chunked(const void* x, const void* gamma,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b(epilogue_blocks(S, C), B);
-  chunk_requant_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
+  true_relu_requant_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
       static_cast<const int32_t*>(x), static_cast<const long long*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<int8_t*>(out), B, S, C, eps);
+      static_cast<int8_t*>(out), nullptr, B, S, C, eps);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,14 @@
 // conv_int8.cuh), in which every CTA first rebuilds its sample's per-channel
 // affine and the requant scale from the statistics (256 channels: cheaper
 // than a third launch).
+//
+// A second entry, msig_conv3x3_adain_relu_requant_v1, replaces the v1 TPU
+// kernel of the same function, msig_tpu/ops/fused_conv_int8.py::
+// conv3x3_adain_relu_requant (_kernel, the guard-row slab and a [1024, 9C]
+// im2col operand in VMEM). Its requant differs: the true per-channel extremes
+// (:125-126, :138-139) and the unfolded max(y*a + d, 0) * s (:154-157),
+// where v2 zero-masks the extremes and folds s into a and d. So it is pass A
+// in the true-extremes mode, then true_relu_requant_kernel; the same bound.
 #include "conv_int8.cuh"
 
 // Returns cudaGetLastError() after the launches (0 = success). Launches on
@@ -35,6 +43,29 @@ extern "C" int msig_conv3x3_adain_relu_requant(const void* x, const void* w, con
   if (err != cudaSuccess) return (int)err;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
+      static_cast<const int32_t*>(y_scratch), static_cast<const long long*>(stats),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<int8_t*>(out), nullptr, B, HW, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// The v1 site (see above). stats: int64 [5*B*C + B] in the true-extremes
+// mode (blocks 0, 1, 4 zeroed, block 2 at INT64_MAX, block 3 at INT64_MIN).
+extern "C" int msig_conv3x3_adain_relu_requant_v1(const void* x, const void* w, const void* gamma,
+                                                  const void* beta, void* y_scratch, void* stats,
+                                                  void* out, int B, int H, int W, int C,
+                                                  float eps, void* stream) {
+  using namespace msig;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int HW = H * W;
+  dim3 grid_a(B * (HW / kBM), C / 128);
+  conv_i8_stats_kernel<Conv3x3Geom, 128, int32_t, true><<<grid_a, kConvThreads, 0, st>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid_b(epilogue_blocks(HW, C), B);
+  true_relu_requant_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
       static_cast<const int32_t*>(y_scratch), static_cast<const long long*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<int8_t*>(out), nullptr, B, HW, C, eps);

@@ -31,9 +31,10 @@
 // reach 2^66, past one int64. Integer sums make the statistics independent
 // of the order of the CTAs.
 //
-// In the true-extremes mode (kTrueExtremes, the single-kernel trunk
-// msig_tpu/ops/fused_trunk_v3.py:99-118 and the chunked epilogue
-// int8_epilogue_chunked.py:64-69) blocks 2 and 3 hold the true min y and
+// In the true-extremes mode (kTrueExtremes: the single-kernel trunk
+// msig_tpu/ops/fused_trunk_v3.py:99-118, the chunked epilogue
+// int8_epilogue_chunked.py:64-69 and the v1 relu and ConvT sites
+// fused_conv_int8.py:125-126, :225-226) blocks 2 and 3 hold the true min y and
 // max y instead; the caller initialises them to INT64_MAX and INT64_MIN.
 #pragma once
 
@@ -87,13 +88,16 @@ template <> struct StageOf<__half> {
 // pixels (gy, gx) of a grid of H/kStride x W/kStride; tap t of phase q reads
 // input pixel (gy*kStride + dy, gx*kStride + dx), zero outside the map, against
 // weight block blk, and the row lands at output pixel out_pixel(q, gy, gx, GW),
-// GW the grid's width.
+// GW the grid's width. The weight operand is [(number of blocks)*Cin,
+// kWPhases*Cout]: with kWPhases = 1 every phase reads all its columns, with
+// kWPhases = 4 phase q reads columns q*Cout .. q*Cout + Cout - 1.
 
 // 3x3 "same" conv: one phase, 9 taps, weight block t = ky*3 + kx.
 struct Conv3x3Geom {
   static constexpr int kPhases = 1;
   static constexpr int kTaps = 9;
   static constexpr int kStride = 1;
+  static constexpr int kWPhases = 1;
   __device__ static void tap(int, int t, int& dy, int& dx, int& blk) {
     dy = t / 3 - 1;
     dx = t % 3 - 1;
@@ -108,6 +112,7 @@ struct Conv4x4s2Geom {
   static constexpr int kPhases = 1;
   static constexpr int kTaps = 16;
   static constexpr int kStride = 2;
+  static constexpr int kWPhases = 1;
   __device__ static void tap(int, int t, int& dy, int& dx, int& blk) {
     dy = (t >> 2) - 1;
     dx = (t & 3) - 1;
@@ -125,6 +130,7 @@ struct ConvT4x4s2Geom {
   static constexpr int kPhases = 4;
   static constexpr int kTaps = 4;
   static constexpr int kStride = 1;
+  static constexpr int kWPhases = 1;
   __device__ static void tap(int q, int t, int& dy, int& dx, int& blk) {
     dy = (t >> 1) - ((q >> 1) == 0);
     dx = (t & 1) - ((q & 1) == 0);
@@ -132,6 +138,25 @@ struct ConvT4x4s2Geom {
   }
   __device__ static int out_pixel(int q, int gy, int gx, int GW) {
     return (2 * gy + (q >> 1)) * (2 * GW) + 2 * gx + (q & 1);
+  }
+};
+
+// The same ConvT on the 9-tap K-concat operand [9*Cin, 4*Cout] of
+// msig_tpu/ops/fused_conv_int8.py::pack_convt_weights, read in place: tap
+// (dy, dx) of phase q takes row block (dy+1)*3 + dx+1 of column block q. Of
+// each phase's nine row blocks the five that hold zeros are never read, so
+// the MACs are ConvT4x4s2Geom's and the int32 sums are its, to the bit.
+struct ConvT4x4s2KcatGeom {
+  static constexpr int kPhases = 4;
+  static constexpr int kTaps = 4;
+  static constexpr int kStride = 1;
+  static constexpr int kWPhases = 4;
+  __device__ static void tap(int q, int t, int& dy, int& dx, int& blk) {
+    ConvT4x4s2Geom::tap(q, t, dy, dx, blk);
+    blk = (dy + 1) * 3 + dx + 1;
+  }
+  __device__ static int out_pixel(int q, int gy, int gx, int GW) {
+    return ConvT4x4s2Geom::out_pixel(q, gy, gx, GW);
   }
 };
 
@@ -289,7 +314,8 @@ __device__ __forceinline__ void store_tile(const int (&acc)[2][BN / 16][4], Stag
 // per sample, tile (tm, tn) with tm < B * Geom::kPhases * (GHW / kBM) and
 // tn < Cout / BN covers kBM GEMM rows of one phase of one sample and BN output
 // channels; block = kConvThreads. x: [B, H, W, Cin] int8; w: [(number of
-// blocks)*Cin, Cout] int8, row blk*Cin + ci, column co; y: [B, kPhases*GHW,
+// blocks)*Cin, Geom::kWPhases*Cout] int8, row blk*Cin + ci, column co (of
+// phase q's column block where kWPhases > 1); y: [B, kPhases*GHW,
 // Cout], rows in output-pixel order, int32 or __half (see StageOf). Needs
 // Cin % kBK == 0, Cout % BN == 0, GHW % kBM == 0, H and W multiples of
 // kStride (the wrappers check). kCg reads x past L1 (see ld).
@@ -339,11 +365,12 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x,
           v = ld<kCg>(reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16));
         *reinterpret_cast<int4*>(As + p * kLds + j * 16) = v;
       }
-      // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][n0 + co].
+      // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][wc + co].
+      const int wc = (Geom::kWPhases > 1 ? q * Cout : 0) + n0;
       for (int i = tid; i < kBK * BN / 16; i += kConvThreads) {
         const int k = i % kBK, j = i / kBK;
         const int4 v = *reinterpret_cast<const int4*>(
-            w + (size_t)(blk * Cin + c0 + k) * Cout + n0 + j * 16);
+            w + (size_t)(blk * Cin + c0 + k) * (Geom::kWPhases * Cout) + wc + j * 16);
         const int8_t* vb = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
         for (int e = 0; e < 16; ++e) Bs[(j * 16 + e) * kLds + k] = vb[e];
@@ -358,12 +385,13 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x,
 
 // Pass A as a kernel: grid = (B * Geom::kPhases * (GHW / kBM), Cout / BN),
 // block = kConvThreads, one tile per CTA (see conv_tile).
-template <class Geom, int BN, class Stage = int32_t>
+template <class Geom, int BN, class Stage = int32_t, bool kTrueExtremes = false>
 __global__ void __launch_bounds__(kConvThreads)
 conv_i8_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                      Stage* __restrict__ y, long long* __restrict__ stats,
                      int B, int H, int W, int Cin, int Cout) {
-  conv_tile<Geom, BN, Stage>(x, w, y, stats, B, H, W, Cin, Cout, blockIdx.x, blockIdx.y);
+  conv_tile<Geom, BN, Stage, kTrueExtremes>(x, w, y, stats, B, H, W, Cin, Cout, blockIdx.x,
+                                            blockIdx.y);
 }
 
 // The exact sum of squares hi * 2^32 + lo of a statistics block's two words,
@@ -540,6 +568,44 @@ relu_requant_kernel(const Stage* __restrict__ y, const long long* __restrict__ s
       qv[k] = (signed char)__float2int_rn(t);
     }
     o4[i] = make_char4(qv[0], qv[1], qv[2], qv[3]);
+  }
+}
+
+// Pass B of the true-extremes relu sites (the v1 sites
+// msig_tpu/ops/fused_conv_int8.py::_kernel :141-157 and _kernel_up :247-264,
+// the chunked epilogue int8_epilogue_chunked.py:79-95): the affine (gamma,
+// beta null for the plain IN of a ConvT site), amax by true_relu_amax, q by
+// relu_requant_unfolded. out_scale, where not null, gets amax/127, or 1 when
+// amax is 0. y: [B, HW, C] int32, HW the output pixels per sample; the
+// statistics block in the true-extremes mode. grid = (epilogue_blocks(HW, C),
+// B), dynamic smem 2*C floats.
+__global__ void __launch_bounds__(kEpiThreads)
+true_relu_requant_kernel(const int32_t* __restrict__ y, const long long* __restrict__ stats,
+                         const float* __restrict__ gamma, const float* __restrict__ beta,
+                         int8_t* __restrict__ out, float* __restrict__ out_scale, int B, int HW,
+                         int C, float eps) {
+  extern __shared__ float sh[];  // a[C], d[C]
+  __shared__ float red[32];
+  float* a_s = sh;
+  float* d_s = sh + C;
+  const int b = blockIdx.y;
+  channel_affine(stats, gamma, beta, b, B, C, HW, eps, a_s, d_s);
+  __syncthreads();
+  const float amax = true_relu_amax(stats, a_s, d_s, b, B, C, red);
+  const float s = amax > 0.f ? __fdiv_rn(127.f, amax) : 1.f;
+  if (out_scale != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    out_scale[b] = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+  const size_t n4 = (size_t)HW * C / 4;
+  const int4* y4 = reinterpret_cast<const int4*>(y + (size_t)b * HW * C);
+  char4* o4 = reinterpret_cast<char4*>(out + (size_t)b * HW * C);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int4 v = y4[i];
+    const int c = (int)((i * 4) % C);
+    o4[i] = make_char4(relu_requant_unfolded((float)v.x, a_s[c], d_s[c], s),
+                       relu_requant_unfolded((float)v.y, a_s[c + 1], d_s[c + 1], s),
+                       relu_requant_unfolded((float)v.z, a_s[c + 2], d_s[c + 2], s),
+                       relu_requant_unfolded((float)v.w, a_s[c + 3], d_s[c + 3], s));
   }
 }
 

@@ -32,6 +32,25 @@
 // the staged pair adds is kept: with stage_fp16 the accumulator crosses as
 // fp16 x 2^-12 (StageOf<__half>), 268 MB instead of 537 MB each way at B = 8,
 // the statistics still from the exact int32 values.
+//
+// A second entry, msig_convt4x4s2_kcat, takes the 9-tap K-concat weight
+// operand [9*Cin, 4*Cout] (msig_tpu/ops/fused_conv_int8.py::
+// pack_convt_weights) that two more TPU kernels read, and replaces both:
+//  - msig_tpu/ops/fused_conv_int8_v2.py::convt4x4s2_in_relu_requant
+//    (_kernel_up), this site's function with the same zero-masked
+//    statistics and folded requant (true_extremes = 0);
+//  - msig_tpu/ops/fused_conv_int8.py::convt4x4s2_in_relu_requant (v1,
+//    _kernel_up), the true per-channel extremes (:225-226) and the unfolded
+//    requant (:256-263) (true_extremes = 1).
+// The TPU kernels multiply all nine row blocks against all four phases'
+// columns, 20 of 36 blocks zero. Here ConvT4x4s2KcatGeom reads each phase's
+// four nonzero blocks where they lie, so the MACs, the bound and the int32
+// sums are those of the phase-split entry, and the operand is not repacked.
+// The four phases' lanes are folded into per-channel statistics by
+// construction (every phase adds to its channel's entries), as the TPU folds
+// them (fused_conv_int8.py:243-249); with a > 0 the max over the phase lanes of
+// a*max y + d is a*(max over phases of max y) + d, so the folded true extremes
+// give the TPU's amax.
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -59,6 +78,28 @@ int convt4x4s2_launch(const int8_t* x, const int8_t* w, Stage* y, long long* sta
   return (int)cudaGetLastError();
 }
 
+template <int BN, bool kTrueExtremes>
+int convt4x4s2_kcat_launch(const int8_t* x, const int8_t* w, int32_t* y, long long* stats,
+                           int8_t* out, float* out_scale, int B, int H, int W, int Cin, int Cout,
+                           float eps, cudaStream_t st) {
+  const int HW = H * W;
+  dim3 grid_a(B * ConvT4x4s2KcatGeom::kPhases * (HW / kBM), Cout / BN);
+  conv_i8_stats_kernel<ConvT4x4s2KcatGeom, BN, int32_t, kTrueExtremes>
+      <<<grid_a, kConvThreads, 0, st>>>(x, w, y, stats, B, H, W, Cin, Cout);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int HWo = 4 * HW;
+  dim3 grid_b(epilogue_blocks(HWo, Cout), B);
+  const size_t smem = 2 * Cout * sizeof(float);
+  if constexpr (kTrueExtremes)
+    true_relu_requant_kernel<<<grid_b, kEpiThreads, smem, st>>>(y, stats, nullptr, nullptr, out,
+                                                                out_scale, B, HWo, Cout, eps);
+  else
+    relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, smem, st>>>(
+        y, stats, nullptr, nullptr, out, out_scale, B, HWo, Cout, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace msig
 
 // Returns cudaGetLastError() after the launches (0 = success). Launches on
@@ -83,4 +124,34 @@ extern "C" int msig_convt4x4s2_in_relu_requant(const void* x, const void* w, voi
                              Cout, eps, st);
   return convt4x4s2_launch(xp, wp, static_cast<int32_t*>(y_scratch), sp, op, osp, B, H, W, Cin,
                            Cout, eps, st);
+}
+
+// The K-concat entry (see above). w: [9*Cin, 4*Cout] int8, phase q's block of
+// tap (dy, dx) at rows ((dy+1)*3 + dx+1)*Cin, columns q*Cout; y_scratch:
+// [B, 4*H*W, Cout] int32; stats: int64 [5*B*Cout + B], zeroed, or with
+// true_extremes != 0 in the true-extremes mode (block 2 at INT64_MAX, block 3
+// at INT64_MIN); out: [B, 2H, 2W, Cout] int8; out_scale: [B] float32. Needs
+// Cin % 64 == 0, Cout % 64 == 0, H*W % 128 == 0.
+extern "C" int msig_convt4x4s2_kcat(const void* x, const void* w, void* y_scratch, void* stats,
+                                    void* out, void* out_scale, int B, int H, int W, int Cin,
+                                    int Cout, float eps, int true_extremes, void* stream) {
+  using namespace msig;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const int8_t* wp = static_cast<const int8_t*>(w);
+  int32_t* yp = static_cast<int32_t*>(y_scratch);
+  long long* sp = static_cast<long long*>(stats);
+  int8_t* op = static_cast<int8_t*>(out);
+  float* osp = static_cast<float*>(out_scale);
+  if (Cout % 128 == 0)
+    return true_extremes
+               ? convt4x4s2_kcat_launch<128, true>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout,
+                                                   eps, st)
+               : convt4x4s2_kcat_launch<128, false>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout,
+                                                    eps, st);
+  return true_extremes
+             ? convt4x4s2_kcat_launch<64, true>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout, eps,
+                                                st)
+             : convt4x4s2_kcat_launch<64, false>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout, eps,
+                                                 st);
 }

@@ -9,7 +9,11 @@ Counterpart of ``msig_tpu/infer/engine.py``:
   - decodes input images in a thread pool on a producer thread, so decode
     overlaps device compute;
   - float path (the CLI default) or the int8 serving path
-    (``infer/quantized.py``, whose kernel sites run CUDA kernels on ``cuda``).
+    (``infer/quantized.py``, whose kernel sites run CUDA kernels on ``cuda``);
+  - ``use_pallas`` (``--pallas``), as ``msig_tpu/infer/engine.py:82-88`` reads
+    it: the float generator's AdaIN goes to the fused kernel
+    (``ops/adain_pallas.py``). The int8 path needs no switch for it: its chain
+    is already the kernel chain that JAX's ``force_fused`` (:196-200) selects.
 
 Data-parallel serving is not ported yet.
 """
@@ -77,7 +81,8 @@ class InferenceEngine:
         dtype = _DTYPES[cfg.compute_dtype]
         n_res = n_residual_blocks or cfg.n_residual_blocks
         sdim = style_dim or cfg.style_dim
-        gen = StyleCycleGANGenerator(style_dim=sdim, n_residual_blocks=n_res)
+        gen = StyleCycleGANGenerator(style_dim=sdim, n_residual_blocks=n_res,
+                                     use_pallas=cfg.use_pallas)
         gen.load_state_dict(gen_sd, strict=True)
         se = MultiDomainStyleEncoder(style_dim=sdim, num_domains=num_domains)
         se.load_state_dict(se_sd, strict=True)

@@ -73,7 +73,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="int8 generator for serving")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--pallas", dest="pallas", action="store_true", default=None,
-                        help="Accepted for parity; does nothing in the port")
+                        help="Route the float generator's AdaIN to the fused CUDA kernel "
+                             "(ops/adain_pallas.py) and run the int8 generator on its kernel trunk")
     parser.add_argument("--no_pallas", dest="pallas", action="store_false")
     parser.add_argument("--data_parallel", action="store_true",
                         help="Not ported yet")

@@ -51,13 +51,14 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that is not built yet, all nvcc processes at once.
+    """Compile every named source that is not built yet, all nvcc processes at once
+    (a name given twice is built once).
 
     Returns ``{name: compiler output}`` for the sources compiled by this call
     (``-Xptxas -v`` prints registers, shared memory and spills per kernel).
     Raises ``RuntimeError`` with the compiler's output if one fails.
     """
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()

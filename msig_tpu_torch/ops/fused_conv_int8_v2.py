@@ -1,8 +1,10 @@
 """The int8 conv sites that end in an instance norm: CUDA kernels and their plain versions.
 
 Counterpart of ``msig_tpu/ops/fused_conv_int8_v2.py``: the resblock trunk's
-3x3 sites (conv1, and conv2 with each of its three residual carries) and the
-decoder's phase-split ConvT 4x4/s2 site; the encoder's
+3x3 sites (conv1, and conv2 with each of its three residual carries), the
+decoder's phase-split ConvT 4x4/s2 site and its 9-tap K-concat form
+(``convt4x4s2_in_relu_requant``, the same function on the [9*Cin, 4*Cout]
+operand of ``fused_conv_int8.pack_convt_weights``); the encoder's
 sites (``fused_enc_int8.py``) share the epilogue and the checks here. The TPU
 kernels work on a guard-padded row slab (and the ConvT on a space-to-depth
 slab) shaped for VMEM; here every site takes and gives dense NHWC int8
@@ -13,7 +15,8 @@ Each site has:
 
 * a wrapper (``conv3x3_adain_relu_requant``, ``conv3x3_adain_residual_requant``,
   ``conv3x3_adain_residual_hifi``, ``conv3x3_adain_residual_hifi2``,
-  ``convt4x4s2_in_relu_requant_ps``) that, for CUDA tensors, launches the
+  ``convt4x4s2_in_relu_requant_ps``, ``convt4x4s2_in_relu_requant``) that,
+  for CUDA tensors, launches the
   kernel of ``msig_tpu_torch/csrc`` and adds one to its entry of
   ``LAUNCHES``, or raises;
 * a plain PyTorch version (``*_plain``) with the same arithmetic, which the
@@ -44,10 +47,14 @@ RESIDUAL_SITE = "conv3x3_adain_residual_requant"
 HIFI_SITE = "conv3x3_adain_residual_hifi"
 HIFI2_SITE = "conv3x3_adain_residual_hifi2"
 CONVT_SITE = "convt4x4s2_in_relu_requant_ps"
-KERNELS = (RELU_SITE, RESIDUAL_SITE, HIFI_SITE, HIFI2_SITE, CONVT_SITE)
+KCAT_SITE = "convt4x4s2_in_relu_requant"
+KERNELS = (RELU_SITE, RESIDUAL_SITE, HIFI_SITE, HIFI2_SITE, CONVT_SITE, KCAT_SITE)
 
 # csrc sources, one shared library each. The ConvT source also serves
-# ``fused_dec_int8.up1_s2d16`` and ``up1_s2d16_hbm``, which count their launches there.
+# ``fused_dec_int8.up1_s2d16`` and ``up1_s2d16_hbm``, which count their launches
+# there, and (entry ``msig_convt4x4s2_kcat``) the K-concat site here and the v1
+# ConvT site of ``fused_conv_int8``; the relu and residual sources also serve
+# the v1 trunk sites there.
 CONVT_SOURCE = "convt4x4s2_in_relu_requant"
 SOURCES = (RELU_SITE, RESIDUAL_SITE, HIFI_SITE, HIFI2_SITE, CONVT_SOURCE)
 
@@ -110,6 +117,26 @@ def pack_weights(w_hwio: torch.Tensor) -> torch.Tensor:
     if (kh, kw) != (3, 3):
         raise ValueError(f"expected a 3x3 kernel, got {tuple(w_hwio.shape)}")
     return w_hwio.to(torch.int8).reshape(9 * ci, co)
+
+
+def pack_convt_weights(w_hwio: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """ConvT 4x4/s2 kernel [4, 4, cin, cout] -> [9*cin, 4*cout] int8, the 9-tap K-concat.
+
+    Row block t = (dy+1)*3 + dx+1 (dy, dx in -1, 0, 1), column block q = 2*qy + qx
+    holds w[2dy+2-qy, 2dx+2-qx] where both indices lie in [0, 4), else zeros
+    (20 of the 36 blocks): bit-equal to ``msig_tpu/ops/fused_conv_int8.py::
+    pack_convt_weights``."""
+    if tuple(w_hwio.shape) != (4, 4, cin, cout):
+        raise ValueError(f"expected a [4, 4, {cin}, {cout}] kernel, got {tuple(w_hwio.shape)}")
+    w = w_hwio.to(torch.int8)
+    packed = torch.zeros((9 * cin, 4 * cout), dtype=torch.int8, device=w.device)
+    for t in range(9):
+        dy, dx = t // 3 - 1, t % 3 - 1
+        for q in range(4):
+            u, v = 2 * dy + 2 - q // 2, 2 * dx + 2 - q % 2
+            if 0 <= u < 4 and 0 <= v < 4:
+                packed[t * cin:(t + 1) * cin, q * cout:(q + 1) * cout] = w[u, v]
+    return packed
 
 
 def pack_convt_weights_ps(w_hwio: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
@@ -216,6 +243,23 @@ def convt4x4s2_i64(x_i8: torch.Tensor, w_ps: torch.Tensor) -> torch.Tensor:
     return y.to(torch.int64)
 
 
+def convt4x4s2_kcat_i64(x_i8: torch.Tensor, w_kcat: torch.Tensor) -> torch.Tensor:
+    """Exact int8 ConvT 4x4/s2/p1 from the 9-tap K-concat operand, NHWC
+    [B, H, W, Cin] -> int64 [B, 2H, 2W, Cout].
+
+    As the TPU kernels compute it: the nine shifted input maps concatenated
+    along channels times ``w_kcat`` [9*Cin, 4*Cout] give the four phases side
+    by side (space-to-depth), in float64, where every partial sum is an exact
+    integer; then each phase goes to its pixels."""
+    b, h, w, cin = x_i8.shape
+    cout = w_kcat.shape[1] // 4
+    xp = F.pad(x_i8.to(torch.float64), (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                      for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dim=3)
+    y = (cols @ w_kcat.to(torch.float64)).reshape(b, h, w, 2, 2, cout)
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, cout).to(torch.int64)
+
+
 def _relu_requant(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor, stage: str = "int32"):
     """IN affine -> ReLU -> per-sample requant of an exact int64 conv output.
 
@@ -243,6 +287,16 @@ def _relu_requant(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor, stage: str 
     return torch.round(t).to(torch.int8), torch.where(amax > 0, div_by(amax, 127.0), 1.0)
 
 
+def true_relu_amax(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The largest of max(a*max y, a*min y) + d and 0 over the channels, with the
+    true per-channel extremes of y [B, H, W, C] (``true_relu_amax`` of
+    ``csrc/conv_int8.cuh``); [B, 1]."""
+    cmin = y.amin(dim=(1, 2)).to(torch.float32)
+    cmax = y.amax(dim=(1, 2)).to(torch.float32)
+    hi = torch.maximum(a * cmax, a * cmin) + d
+    return torch.clamp(hi, min=0.0).amax(dim=1, keepdim=True)
+
+
 def relu_requant_true(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """IN affine -> ReLU -> per-sample requant with the true extremes, unfolded.
 
@@ -252,10 +306,7 @@ def relu_requant_true(y: torch.Tensor, a: torch.Tensor, d: torch.Tensor) -> torc
     true per-channel min and max, and q = clip(round(max(y*a + d, 0) * s), +-127),
     s = 127/amax (``true_relu_amax`` and ``relu_requant_unfolded`` of
     ``csrc/conv_int8.cuh``). y: exact int64 [B, H, W, C]; a, d: [B, C]."""
-    cmin = y.amin(dim=(1, 2)).to(torch.float32)
-    cmax = y.amax(dim=(1, 2)).to(torch.float32)
-    hi = torch.maximum(a * cmax, a * cmin) + d
-    amax = torch.clamp(hi, min=0.0).amax(dim=1, keepdim=True)
+    amax = true_relu_amax(y, a, d)
     s = torch.where(amax > 0, div_rn(127.0, amax), 1.0)[:, :, None, None]
     t = torch.clamp(y.to(torch.float32) * a[:, None, None, :] + d[:, None, None, :], min=0.0) * s
     return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
@@ -284,6 +335,13 @@ def convt4x4s2_in_relu_requant_ps_plain(x_i8, w_ps, eps: float = _EPS, stage: st
     IN statistics per output channel over all four phases. Returns (int8
     [B, 2H, 2W, Cout], inverse scale [B, 1])."""
     return in_relu_requant_i64(convt4x4s2_i64(x_i8, w_ps), eps, stage)
+
+
+def convt4x4s2_in_relu_requant_plain(x_i8, w_kcat, eps: float = _EPS):
+    """The K-concat ConvT -> IN -> ReLU -> per-sample requant (``_kernel_up``):
+    row 5's epilogue on the same int64 sums. Returns (int8 [B, 2H, 2W, Cout],
+    inverse scale [B, 1])."""
+    return in_relu_requant_i64(convt4x4s2_kcat_i64(x_i8, w_kcat), eps)
 
 
 def conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
@@ -400,6 +458,47 @@ def _check_convt(x: torch.Tensor, w_ps: torch.Tensor) -> Tuple[int, int, int, in
     return b, h, w, cin, cout
 
 
+def _check_convt_kcat(x: torch.Tensor, w_kcat: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """Checks of the K-concat ConvT sites on CUDA tensors; returns (b, h, w, cin, cout)."""
+    if x.dim() != 4 or w_kcat.dim() != 2 or w_kcat.shape[1] % 4:
+        raise ValueError(f"expected x [B, H, W, Cin] and w [9*Cin, 4*Cout], got "
+                         f"{tuple(x.shape)} and {tuple(w_kcat.shape)}")
+    b, h, w, cin = x.shape
+    cout = w_kcat.shape[1] // 4
+    if cin % 64 or cout % 64 or (h * w) % 128:
+        raise ValueError(f"the CUDA kernel needs Cin % 64 == 0, Cout % 64 == 0 and "
+                         f"H*W % 128 == 0, got x {tuple(x.shape)}, Cout {cout}")
+    check_statistics(x.shape, 4 * h * w, 4 * cin)
+    _check("x", x, torch.int8, tuple(x.shape))
+    _check("weights", w_kcat, torch.int8, (9 * cin, 4 * cout))
+    if w_kcat.device != x.device:
+        raise ValueError(f"all inputs must be on {x.device}, got {w_kcat.device}")
+    return b, h, w, cin, cout
+
+
+def convt4x4s2_kcat_kernel(x_i8: torch.Tensor, w_kcat: torch.Tensor, eps: float = _EPS,
+                           true_extremes: bool = False):
+    """Launch the K-concat ConvT kernel (entry ``msig_convt4x4s2_kcat``) on dense
+    NHWC int8; returns (int8 [B, 2H, 2W, Cout], inv_scale [B, 1]).
+
+    ``true_extremes`` picks the v1 statistics and requant (true per-channel
+    extremes, unfolded) over the v2 ones (zero-masked, folded). It counts no
+    launch: ``convt4x4s2_in_relu_requant`` here and the v1 site of
+    ``fused_conv_int8`` each count their own."""
+    b, h, w, _, cout = _check_convt_kcat(x_i8, w_kcat)
+    fn = _build.load(CONVT_SOURCE, _ARGTYPES[CONVT_SOURCE], entry="msig_convt4x4s2_kcat")
+    y = torch.empty((b, 4 * h * w, cout), dtype=torch.int32, device=x_i8.device)
+    stats = (true_extremes_stats(1, b, cout, x_i8.device)[0] if true_extremes
+             else torch.zeros(5 * b * cout + b, dtype=torch.int64, device=x_i8.device))
+    out = torch.empty((b, 2 * h, 2 * w, cout), dtype=torch.int8, device=x_i8.device)
+    out_scale = torch.empty((b, 1), dtype=torch.float32, device=x_i8.device)
+    err = fn(x_i8.data_ptr(), w_kcat.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(),
+             out_scale.data_ptr(), b, h, w, x_i8.shape[3], cout, eps, int(true_extremes),
+             torch.cuda.current_stream(x_i8.device).cuda_stream)
+    _build.check(CONVT_SOURCE, err)
+    return out, out_scale
+
+
 def convt4x4s2_kernel(x_i8: torch.Tensor, w_ps: torch.Tensor, eps: float = _EPS,
                       stage: str = "int32"):
     """Launch the ConvT site's CUDA kernel on dense NHWC int8; returns (int8, inv_scale).
@@ -469,6 +568,15 @@ def conv3x3_adain_residual_requant(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
     if y1_i8.device.type == "cpu":
         return conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma,
                                                     beta, eps)
+    out = residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps)
+    LAUNCHES[RESIDUAL_SITE] += 1
+    return out
+
+
+def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _EPS):
+    """Check the inputs of the residual site and launch its kernel; returns
+    (int8, scale [B, 1]). It counts no launch: ``conv3x3_adain_residual_requant``
+    here and the v1 site of ``fused_conv_int8`` each count their own."""
     _check("y1", y1_i8, torch.int8, tuple(y1_i8.shape))
     b, h, w, c = _check_site(y1_i8, w_packed, gamma, beta)
     _check("h", h_i8, torch.int8, tuple(y1_i8.shape))
@@ -484,7 +592,6 @@ def conv3x3_adain_residual_requant(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
              out.data_ptr(), out_scale.data_ptr(), b, h, w, c, eps,
              torch.cuda.current_stream(y1_i8.device).cuda_stream)
     _build.check(RESIDUAL_SITE, err)
-    LAUNCHES[RESIDUAL_SITE] += 1
     return out, out_scale
 
 
@@ -557,4 +664,25 @@ def convt4x4s2_in_relu_requant_ps(x_i8, w_ps, eps: float = _EPS):
         return convt4x4s2_in_relu_requant_ps_plain(x_i8, w_ps, eps)
     out = convt4x4s2_kernel(x_i8, w_ps, eps)
     LAUNCHES[CONVT_SITE] += 1
+    return out
+
+
+def convt4x4s2_in_relu_requant(x_i8, w_kcat, eps: float = _EPS):
+    """The 9-tap K-concat up site on dense NHWC int8; returns (int8 [B, 2H, 2W,
+    Cout], inv_scale [B, 1]).
+
+    x_i8 [B, H, W, Cin] int8 of a square map, H % 16 == 0 (the TPU kernel's
+    16-row chunks), w_kcat [9*Cin, 4*Cout] int8 from ``pack_convt_weights``.
+    The kernel reads the operand in place, skipping its zero blocks; the
+    result is ``convt4x4s2_in_relu_requant_ps``'s on the same weights."""
+    if x_i8.dim() != 4 or x_i8.shape[1] != x_i8.shape[2] or x_i8.shape[1] % 16:
+        raise ValueError(f"expected a square map [B, H, H, Cin] with H % 16 == 0, got "
+                         f"{tuple(x_i8.shape)}")
+    if w_kcat.dim() != 2 or w_kcat.shape[0] != 9 * x_i8.shape[3] or w_kcat.shape[1] % 4:
+        raise ValueError(f"expected weights [9*Cin, 4*Cout] for Cin {x_i8.shape[3]}, got "
+                         f"{tuple(w_kcat.shape)}")
+    if x_i8.device.type == "cpu":
+        return convt4x4s2_in_relu_requant_plain(x_i8, w_kcat, eps)
+    out = convt4x4s2_kcat_kernel(x_i8, w_kcat, eps)
+    LAUNCHES[KCAT_SITE] += 1
     return out

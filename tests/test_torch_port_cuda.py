@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from msig_tpu_torch.ops import fused_conv_int8 as v1
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 from msig_tpu_torch.ops import fused_dec_int8 as fd
 from msig_tpu_torch.ops import fused_enc_int8 as fe
 from msig_tpu_torch.ops import fused_trunk_v3 as f3
+from msig_tpu_torch.ops import int8_epilogue as ep
 from msig_tpu_torch.ops import int8_epilogue_chunked as ec
 
 
@@ -27,10 +29,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(b, side, c, dev, seed=0):
+def _inputs(b, side, c, dev, seed=0, one_sign=False):
     rng = np.random.default_rng(seed)
     x = rng.integers(-127, 128, (b, side, side, c), dtype=np.int8)
     w = rng.integers(-32, 33, (3, 3, c, c), dtype=np.int8)
+    if one_sign:  # gamma > 0 on the one-sign channels: below
+        x, w = _one_sign(x, w)
     h = rng.normal(0, 1.5, (b, side, side, c)).astype(np.float32)
     hs = (np.abs(h).max(axis=(1, 2, 3)) / 127.0).astype(np.float32).reshape(b, 1)
     ht = h / hs.reshape(b, 1, 1, 1)
@@ -39,6 +43,8 @@ def _inputs(b, side, c, dev, seed=0):
              beta=rng.normal(0.0, 0.5, (b, c)).astype(np.float32), hs=hs, h=h,
              hq=hq.astype(np.int8),
              h2=np.clip(np.round((ht - hq) * 254.0), -127, 127).astype(np.int8))
+    if one_sign:
+        t["gamma"][:, :4] = np.abs(t["gamma"][:, :4]) + 0.5
     t = {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
     t["w"] = fc.pack_weights(torch.from_numpy(w)).to(dev)
     t["hb"] = t.pop("h").to(torch.bfloat16)
@@ -50,6 +56,22 @@ def _assert_int8_close(got, want):
     where = torch.nonzero(diff > 1)
     assert where.numel() == 0, f"{where.shape[0]} elements off by >1, first at {where[:4].tolist()}"
     assert float((diff > 0).float().mean()) < 0.01
+
+
+def _assert_int8_apart(got, want):
+    """The negation of _assert_int8_close: the two part by more than its bar."""
+    diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(diff.max()) > 1 or float((diff > 0).float().mean()) >= 0.01
+
+
+def _one_sign(x, w, k=4):
+    """Non-negative input and non-positive weights for the first k output
+    channels (the last axis of w): those channels' conv outputs are all
+    negative, where v1's true extremes and v2's zero-masked ones set
+    different requant amax."""
+    w = w.copy()
+    w[..., :k] = -np.abs(w[..., :k])
+    return np.abs(x), w
 
 
 @pytest.mark.cuda
@@ -493,4 +515,143 @@ def test_v3_epilogue_im2col_never_take_the_plain_path(cuda_device):
         fe.enc1_in_relu_requant_im2col(e["x1"], e["w1"].repeat(4, 1).contiguous())
         torch.cuda.synchronize()
     for plain in (p3, pe, pi):
+        plain.assert_not_called()
+
+
+# ---------------- the v1 sites, the 9-tap ConvT site and the whole-slab epilogues
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,one_sign", [(1, 128, False), (8, 256, False), (2, 128, True)])
+def test_v1_trunk_sites_kernel_match_plain(cuda_device, b, c, one_sign):
+    """Rows 19-20 on the 64x64 map they take; (8, 256) is the main path's shape.
+    On one-sign channels row 19 also parts from row 1's kernel by more than
+    the bar, so the two rules are told apart."""
+    t = _inputs(b, 64, c, cuda_device, seed=5, one_sign=one_sign)
+    before = dict(v1.LAUNCHES)
+    got = v1.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"])
+    got_q, got_s = v1.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"],
+                                                     t["gamma"], t["beta"])
+    assert v1.LAUNCHES == {**before, v1.RELU_SITE: before[v1.RELU_SITE] + 1,
+                           v1.RESIDUAL_SITE: before[v1.RESIDUAL_SITE] + 1}
+    want = v1.conv3x3_adain_relu_requant_plain(t["x"], t["w"], t["gamma"], t["beta"])
+    want_q, want_s = v1.conv3x3_adain_residual_requant_plain(t["x"], t["hq"], t["hs"], t["w"],
+                                                             t["gamma"], t["beta"])
+    torch.cuda.synchronize()
+    _assert_int8_close(got, want)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
+    _assert_int8_close(got_q, want_q)
+    if one_sign:
+        _assert_int8_apart(fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"]),
+                           got)
+
+
+def _kcat_inputs(b, side, cin, cout, dev, seed=6, one_sign=False):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (b, side, side, cin), dtype=np.int8)
+    w = rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8)
+    if one_sign:
+        x, w = _one_sign(x, w)
+    x, w = torch.from_numpy(x).to(dev), torch.from_numpy(w)
+    return x, fc.pack_convt_weights(w, cin, cout).to(dev), fc.pack_convt_weights_ps(w, cin, cout).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,cin,cout,one_sign", [
+    (1, 16, 64, 64, False), (2, 16, 256, 128, False), (8, 64, 256, 128, False),
+    (8, 128, 128, 64, False), (2, 16, 64, 64, True), (8, 64, 256, 128, True)])
+def test_kcat_convt_sites_kernel_match_plain(cuda_device, b, side, cin, cout, one_sign):
+    """Rows 21 (v1) and 6 (v2) on the K-concat operand; (8, 64, 256, 128) and
+    (8, 128, 128, 64) are up0's and up1's shapes on the main path. Row 6 equals
+    row 5's kernel to the bit. On one-sign channels rows 21 and 6 part by
+    more than the bar, so the two rules are told apart."""
+    x, wk, wps = _kcat_inputs(b, side, cin, cout, cuda_device, one_sign=one_sign)
+    before1, before2 = v1.LAUNCHES[v1.CONVT_SITE], fc.LAUNCHES[fc.KCAT_SITE]
+    got1 = v1.convt4x4s2_in_relu_requant(x, wk)
+    got6 = fc.convt4x4s2_in_relu_requant(x, wk)
+    assert v1.LAUNCHES[v1.CONVT_SITE] == before1 + 1 and fc.LAUNCHES[fc.KCAT_SITE] == before2 + 1
+    want1 = v1.convt4x4s2_in_relu_requant_plain(x, wk)
+    want6 = fc.convt4x4s2_in_relu_requant_plain(x, wk)
+    got5 = fc.convt4x4s2_in_relu_requant_ps(x, wps)
+    torch.cuda.synchronize()
+    for got, want in ((got1, want1), (got6, want6)):
+        assert got[0].shape == (b, 2 * side, 2 * side, cout)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+        _assert_int8_close(got[0], want[0])
+    assert torch.equal(got6[0], got5[0]) and torch.equal(got6[1], got5[1])
+    if one_sign:
+        _assert_int8_apart(got6[0], got1[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lim", [((2, 64, 128), 2000), ((1, 1000, 384), 2 ** 27),
+                                       ((8, 4096, 256), 2 ** 20)])
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32])
+def test_slab_epilogues_kernel_match_plain(cuda_device, shape, lim, res_dtype):
+    """Rows 16-17; the last shape is the trunk slab at a 256² input, the second
+    takes conv-sized values (past 2^24, where the fp32 cast rounds), a
+    ragged last chunk and three channel tiles. Two calls give the same bits."""
+    rng = np.random.default_rng(shape[1])
+    b, _, c = shape
+    x = torch.from_numpy(rng.integers(-lim, lim, shape, dtype=np.int64).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((b, c)).astype(np.float32))
+    be = torch.from_numpy(rng.standard_normal((b, c)).astype(np.float32))
+    res = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(res_dtype)
+    x, g, be, res = (a.to(cuda_device) for a in (x, g, be, res))
+    before = dict(ep.LAUNCHES)
+    got = ep.adain_relu_requant(x, g, be)
+    got_h, got_q = ep.adain_residual_requant(x, g, be, res)
+    assert ep.LAUNCHES == {ep.RELU_SITE: before[ep.RELU_SITE] + 1,
+                           ep.RESIDUAL_SITE: before[ep.RESIDUAL_SITE] + 1}
+    want = ep.adain_relu_requant_plain(x, g, be)
+    want_h, want_q = ep.adain_residual_requant_plain(x, g, be, res)
+    again_h, again_q = ep.adain_residual_requant(x, g, be, res)
+    torch.cuda.synchronize()
+    _assert_int8_close(got, want)
+    _assert_int8_close(got_q, want_q)
+    assert got_h.dtype == res_dtype
+    if res_dtype == torch.bfloat16:
+        ulps = _bf16_ulps(got_h, want_h)
+        assert int(ulps.max()) <= 1 and float((ulps > 0).float().mean()) < 0.01
+    else:
+        torch.testing.assert_close(got_h, want_h, rtol=1e-5,
+                                   atol=1e-5 * float(want_h.abs().max()))
+    assert torch.equal(again_h, got_h) and torch.equal(again_q, got_q)
+
+
+@pytest.mark.cuda
+def test_new_sites_reject_bad_inputs_and_never_take_the_plain_path(cuda_device):
+    t = _inputs(1, 64, 128, cuda_device, seed=7)
+    with pytest.raises(ValueError, match="64, 64"):
+        v1.conv3x3_adain_relu_requant(t["x"][:, :32, :32].contiguous(), t["w"], t["gamma"],
+                                      t["beta"])
+    with pytest.raises(ValueError, match="int8"):
+        v1.conv3x3_adain_residual_requant(t["x"], t["hq"].to(torch.int32), t["hs"], t["w"],
+                                          t["gamma"], t["beta"])
+    x, wk, _ = _kcat_inputs(1, 16, 64, 64, cuda_device)
+    with pytest.raises(ValueError, match="Cin % 64"):
+        v1.convt4x4s2_in_relu_requant(x[..., :32].contiguous(), wk[:9 * 32])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fc.convt4x4s2_in_relu_requant(x, wk.cpu())
+    xi = torch.zeros((1, 64, 128), dtype=torch.int32, device=cuda_device)
+    gb = torch.ones((1, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="C % 128"):
+        ep.adain_relu_requant(xi[..., :64].contiguous(), gb[:, :64].contiguous(),
+                              gb[:, :64].contiguous())
+    with pytest.raises(ValueError, match="residual must be one of"):
+        ep.adain_residual_requant(xi, gb, gb, xi.to(torch.float16))
+    with mock.patch.object(v1, "conv3x3_adain_relu_requant_plain") as p19, \
+            mock.patch.object(v1, "conv3x3_adain_residual_requant_plain") as p20, \
+            mock.patch.object(v1, "convt4x4s2_in_relu_requant_plain") as p21, \
+            mock.patch.object(fc, "convt4x4s2_in_relu_requant_plain") as p6, \
+            mock.patch.object(ep, "adain_relu_requant_plain") as p16, \
+            mock.patch.object(ep, "adain_residual_requant_plain") as p17:
+        v1.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"])
+        v1.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"], t["beta"])
+        v1.convt4x4s2_in_relu_requant(x, wk)
+        fc.convt4x4s2_in_relu_requant(x, wk)
+        ep.adain_relu_requant(xi, gb, gb)
+        ep.adain_residual_requant(xi, gb, gb, xi.to(torch.bfloat16))
+        torch.cuda.synchronize()
+    for plain in (p19, p20, p21, p6, p16, p17):
         plain.assert_not_called()

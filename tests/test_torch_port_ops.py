@@ -122,7 +122,7 @@ def test_cpu_wrappers_count_no_launches():
     tf2.conv3x3_adain_relu_requant(torch.from_numpy(x), torch.from_numpy(wp),
                                    torch.from_numpy(gamma), torch.from_numpy(beta))
     assert tf2.LAUNCHES == {tf2.RELU_SITE: 0, tf2.RESIDUAL_SITE: 0, tf2.HIFI_SITE: 0,
-                            tf2.HIFI2_SITE: 0, tf2.CONVT_SITE: 0}
+                            tf2.HIFI2_SITE: 0, tf2.CONVT_SITE: 0, tf2.KCAT_SITE: 0}
 
 
 # ---------------------------------------------------- no silent fallback
