@@ -72,11 +72,17 @@ Phases, each reported on its own line:
 5. train kernels: the four training kernels (the fused AdaIN forward and
    backward, ``conv3x3_bwd`` and ``conv3x3_adain_bwd``, each with and without
    the relu input) against their plain versions at the trunk shapes of a 256²
-   train step, [8, 64, 64, 256] and [4, 64, 64, 256], fp32 with TF32 off.
-   Bars: every output within rtol 1e-4 and atol 1e-5 x max|plain|; dgamma and
-   dbeta within rtol 1e-5 and atol 1e-6 x max|plain|; dx exactly 0 under the
-   relu mask; a second call gives bit-identical dW. Times by CUDA events, and
-   for ``conv3x3_bwd`` cuDNN's ``convolution_backward`` (dx and dW) beside it;
+   train step, [8, 64, 64, 256] and [4, 64, 64, 256], fp32 with TF32 off, and
+   the two conv kernels at [1, 24, 24, 256] (a 96² trunk: 576 pixels, no
+   multiple of the 128-pixel tile). Bars: every output within rtol 1e-4 and
+   atol 1e-5 x max|plain|; dgamma and dbeta within rtol 1e-5 and atol 1e-6 x
+   max|plain|; dx exactly 0 under the relu mask; a second call gives
+   bit-identical dW. The conv core's tiles, ring and CTAs per SM (occupancy
+   API). Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
+   ``convolution_backward`` (dx and dW) beside it under its default and its
+   deterministic algorithms; after phase 6, the device time of each kernel of
+   a conv call (``torch.profiler``): row 24's IN backward, the conv core, the
+   reductions;
 6. train: ``make_train_step`` at full width (256², batch 4, 8 resblocks,
    style_dim 256, 10 domains, a seeded random VGG) from the same parameters
    and batch in three configurations: stock autograd (``MSIG_CONV_VJP=0``),
@@ -115,8 +121,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(ROOT, "results", "tomato_r3b", "demo_checkpoint")
 
-# NVIDIA H100 SXM data sheet, dense: int8 tensor cores, fp32 outside them, HBM3.
+# NVIDIA H100 SXM data sheet, dense: int8 and TF32 tensor cores, fp32 outside them, HBM3.
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -1007,115 +1014,207 @@ def tools_phase(torch, mods) -> dict:
 
 
 def train_bound(name: str, b: int) -> tuple:
-    """(bound_ms, bound_by) of one call of a training kernel on the [b, 64, 64, 256] trunk.
+    """(bound_ms, bound_by, fp32_fma_ms) of one call of a training kernel on
+    the [b, 64, 64, 256] trunk.
 
     Bytes: each fp32 input read once, each output written once. Operations:
-    the conv backward's two products, dx and dW, 2 * 2 * (B*H*W) * C * 9*Co
-    FMA-counted flops at the fp32 rate (TF32 is off), and per element of the
-    map about 8 flops for an instance-norm pass (statistics, normalisation,
-    modulation; the backward's two sums and its dx)."""
+    per element of the map about 8 flops for an instance-norm pass
+    (statistics, normalisation, modulation; the backward's two sums and its
+    dx) at the fp32 rate, and the conv backward's two products, dx and dW,
+    2 * 2 * (B*H*W) * C * 9*Co flops, as three TF32 tensor-core passes: at
+    fp32 accuracy (3xTF32, the conv kernels' route; one pass misses the bars)
+    the least time is 3x the products at the dense TF32 rate. fp32_fma_ms:
+    the same work with the products at the fp32 FMA rate of the CUDA cores
+    (TF32 off; the first version's route), None for the AdaIN rows."""
     px, vec = b * SIDE * SIDE, 4 * b * C
     elems = px * C
+    t_fma = None
     if name == "adain_pallas_fwd":
-        nbytes, flops = 2 * 4 * elems + 4 * vec, 8 * elems       # x -> y; gamma, beta, mean, rstd
+        nbytes, t_ops = 2 * 4 * elems + 4 * vec, 8 * elems / PEAK_FP32_FLOPS  # x -> y
     elif name == "adain_pallas_bwd":
-        nbytes, flops = 3 * 4 * elems + 5 * vec, 8 * elems       # x, dy -> dx
+        nbytes, t_ops = 3 * 4 * elems + 5 * vec, 8 * elems / PEAK_FP32_FLOPS  # x, dy -> dx
     else:
         conv = 2 * 2 * px * C * 9 * C
         w = 2 * 4 * 9 * C * C                                     # W read, dW written
         if name == "conv3x3_bwd":
-            nbytes, flops = 3 * 4 * elems + w, conv               # x, dy -> dx
+            nbytes, fp = 3 * 4 * elems + w, 0                     # x, dy -> dx
         else:
-            nbytes, flops = 4 * 4 * elems + w + 5 * vec, conv + 8 * elems  # x, y, g -> dx
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+            nbytes, fp = 4 * 4 * elems + w + 5 * vec, 8 * elems   # x, y, g -> dx
+        t_ops = 3 * conv / PEAK_TF32_FLOPS + fp / PEAK_FP32_FLOPS
+        t_fma = max((conv + fp) / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), t_fma
 
 
-def close(torch, name: str, got, want, rtol: float = 1e-4, atol_rel: float = 1e-5) -> float:
-    """Hold a float output against the plain version's; returns the max abs error."""
+def kernel_split(torch, fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches, by
+    ``torch.profiler`` over ``calls`` calls after one, grouped as row 24's
+    IN backward, the conv core, the in-order reductions and PyTorch's own
+    kernels (the taps' transposed copy); {} if the trace holds no device events."""
+    groups = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
+              ("reductions", "reduce_kernel"))
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = next((g for g, k in groups if k in e.name), "PyTorch kernels")
+            out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
+
+
+def close(torch, name: str, got, want, rtol: float = 1e-4, atol_rel: float = 1e-5) -> tuple:
+    """Hold a float output against the plain version's; returns the max abs
+    error and the worst share of the bar, max |got - want| / (atol + rtol |want|)."""
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
     err = float((got - want).abs().max())
     atol = atol_rel * float(want.abs().max())
     check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
           f"{name}: max abs err {err:.3e} beyond rtol {rtol} / atol {atol:.3e}")
-    return err
+    return err, float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def train_kernel_phase(torch, ap, cv, dev) -> dict:
-    """The four training kernels against their plain versions at both train shapes."""
-    results = {}
+def hold_train_kernel(torch, name: str, kernel, plain, x, relu: bool) -> tuple:
+    """One call of a training kernel against its plain version: every output
+    within its bar, dx exactly 0 under the relu mask, dW the same bits on a
+    second call. Returns (max abs error, report)."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    errs, shares = [], []
+    for k, (gt, wt) in enumerate(zip(got, want)):
+        stat = (name.endswith("_bwd") and gt.dim() == 2 and name != "conv3x3_bwd"
+                and k >= 1)  # dgamma, dbeta: sums over a whole image
+        err, share = close(torch, f"{name} output {k}", gt, wt, *((1e-5, 1e-6) if stat else ()))
+        errs.append(err)
+        shares.append(share)
+    report = (f"max abs err {max(errs):.3e}, worst share of the bar "
+              f"{', '.join(f'{v:.3f}' for v in shares)} (outputs in order)")
+    if name.startswith("conv3x3"):
+        if relu:
+            check(bool((got[0][x <= 0] == 0).all()), f"{name}: dx is 0 where x <= 0")
+            report += ", dx exactly 0 under the relu mask"
+        again = kernel()
+        check(torch.equal(again[1], got[1]), f"{name}: a second call gives the same dW")
+        report += ", dW bit-identical over two calls"
+    return max(errs), report
+
+
+def train_kernel_phase(torch, ap, cv, dev) -> tuple:
+    """The four training kernels against their plain versions at both train
+    shapes, and the two conv kernels at a ragged pixel count. Returns the
+    rows and, for ``split_phase``, (row, label, call) of each conv case
+    without the relu input."""
+    results, to_split = {}, []
 
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
 
-    for b in (2 * TRAIN_B, TRAIN_B):
-        shape = (b, SIDE, SIDE, C)
-        rng = np.random.default_rng(b)
-        x = t(rng.normal(0, 1, shape))
+    def unit(b, side, seed):
+        rng = np.random.default_rng(seed)
+        x = t(rng.normal(0, 1, (b, side, side, C)))
         w = t(rng.uniform(-1, 1, (3, 3, C, C)) / np.sqrt(9 * C))
         gamma, beta = t(rng.normal(1.0, 0.5, (b, C))), t(rng.normal(0.0, 0.5, (b, C)))
-        g = t(rng.normal(0, 1, shape))
+        return x, w, gamma, beta, t(rng.normal(0, 1, (b, side, side, C)))
+
+    def conv_cases(x, w, gamma, beta, g):
+        cases = []
+        for relu in (False, True):
+            cases.append(("conv3x3_bwd", relu,
+                          lambda relu=relu: cv.conv3x3_bwd(x, w, g, relu_input=relu),
+                          lambda relu=relu: cv.conv3x3_bwd_plain(x, w, g, relu_input=relu)))
+            _, (yy, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
+            cases.append(("conv3x3_adain_bwd", relu,
+                          lambda relu=relu, yy=yy, mu=mu, r=r: cv.conv3x3_adain_bwd(
+                              x, w, yy, mu, r, gamma, g, relu_input=relu),
+                          lambda relu=relu, yy=yy, mu=mu, r=r: cv.conv3x3_adain_bwd_plain(
+                              x, w, yy, mu, r, gamma, g, relu_input=relu)))
+        return cases
+
+    def cudnn_ms(lib, deterministic: bool) -> float:
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            return cuda_ms(torch, lib, reps=20)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+
+    cfg = cv.kernel_config()
+    check(cfg["max_k"] == cv._MAX_K and cfg["ctas_per_sm"] >= 1 and cfg["ctas_per_sm_relu"] >= 1,
+          f"conv core configuration {cfg} (max_k {cv._MAX_K} in ops/conv3x3_vjp.py)")
+    print(f"[train kernel] conv core: CTA tile {cfg['tile_m']} x {cfg['tile_n']}, "
+          f"{cfg['threads']} threads, K {cfg['tile_k']} a stage through a {cfg['stages']}-stage "
+          f"cp.async ring, {cfg['smem_bytes']} bytes of shared memory, at most {cfg['max_k']} of "
+          f"K a tile; {cfg['ctas_per_sm']} CTAs per SM resident ({cfg['ctas_per_sm_relu']} with "
+          f"the relu input; occupancy API)", flush=True)
+    for b in (2 * TRAIN_B, TRAIN_B):
+        x, w, gamma, beta, g = unit(b, SIDE, b)
         x3, g3 = x.reshape(b, SIDE * SIDE, C), g.reshape(b, SIDE * SIDE, C)
         y, mean, rstd = ap.adain_fwd_plain(x3, gamma, beta)
         nchw = lambda v: v.permute(0, 3, 1, 2)  # noqa: E731  (channels_last views for cuDNN)
         library = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
             nchw(g), nchw(x), w.permute(3, 2, 0, 1).contiguous(), None, [1, 1], [1, 1], [1, 1],
             False, [0, 0], 1, [True, True, False])
-        cases = [("adain_pallas_fwd", "", lambda: ap.adain_fwd(x3, gamma, beta),
-                  lambda: ap.adain_fwd_plain(x3, gamma, beta), None)]
-        cases.append(("adain_pallas_bwd", "", lambda: ap.adain_bwd(x3, gamma, mean, rstd, g3),
-                      lambda: ap.adain_bwd_plain(x3, gamma, mean, rstd, g3), None))
-        for relu in (False, True):
+        lib_ms = {False: cudnn_ms(library, False), True: cudnn_ms(library, True)}
+        cases = [("adain_pallas_fwd", False, lambda: ap.adain_fwd(x3, gamma, beta),
+                  lambda: ap.adain_fwd_plain(x3, gamma, beta))]
+        cases.append(("adain_pallas_bwd", False, lambda: ap.adain_bwd(x3, gamma, mean, rstd, g3),
+                      lambda: ap.adain_bwd_plain(x3, gamma, mean, rstd, g3)))
+        cases += conv_cases(x, w, gamma, beta, g)
+        for name, relu, kernel, plain in cases:
+            err, report = hold_train_kernel(torch, name, kernel, plain, x, relu)
             tag = ", relu input" if relu else ""
-            cases.append(("conv3x3_bwd", tag,
-                          lambda relu=relu: cv.conv3x3_bwd(x, w, g, relu_input=relu),
-                          lambda relu=relu: cv.conv3x3_bwd_plain(x, w, g, relu_input=relu),
-                          library))
-            _, (yy, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
-            cases.append(("conv3x3_adain_bwd", tag,
-                          lambda relu=relu, yy=yy, mu=mu, r=r: cv.conv3x3_adain_bwd(
-                              x, w, yy, mu, r, gamma, g, relu_input=relu),
-                          lambda relu=relu, yy=yy, mu=mu, r=r: cv.conv3x3_adain_bwd_plain(
-                              x, w, yy, mu, r, gamma, g, relu_input=relu),
-                          None))
-        for name, tag, kernel, plain, lib in cases:
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            errs = []
-            for k, (gt, wt) in enumerate(zip(got, want)):
-                stat = (name.endswith("_bwd") and gt.dim() == 2 and name != "conv3x3_bwd"
-                        and k >= 1)  # dgamma, dbeta: sums over a whole image
-                errs.append(close(torch, f"{name} output {k}", gt, wt,
-                                  *((1e-5, 1e-6) if stat else ())))
-            report = f"max abs err {max(errs):.3e}"
-            if name.startswith("conv3x3"):
-                if tag:
-                    check(bool((got[0][x <= 0] == 0).all()), f"{name}: dx is 0 where x <= 0")
-                    report += ", dx exactly 0 under the relu mask"
-                again = kernel()
-                check(torch.equal(again[1], got[1]), f"{name}: a second call gives the same dW")
-                report += ", dW bit-identical over two calls"
-            del got, want
             ms = cuda_ms(torch, kernel, reps=20 if name.startswith("conv") else 50)
             plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
-            library_ms = cuda_ms(torch, lib, reps=20) if lib is not None else None
-            bound_ms, bound_by = train_bound(name, b)
+            bound_ms, bound_by, fma_ms = train_bound(name, b)
             row = dict(case=f"[{b}, {SIDE}, {SIDE}, {C}]{tag}", ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                       bound_ms=bound_ms, bound_by=bound_by, bound_fp32_fma_ms=fma_ms,
+                       library_ms=lib_ms[False] if name == "conv3x3_bwd" else None,
+                       library_deterministic_ms=lib_ms[True] if name == "conv3x3_bwd" else None)
+            extra = ""
+            if name == "conv3x3_bwd":
+                faster = ms < min(lib_ms.values())
+                extra += (f", cuDNN convolution_backward {lib_ms[False]:.4f} ms (default "
+                          f"algorithms) / {lib_ms[True]:.4f} ms (deterministic): the kernel is "
+                          f"{'faster than' if faster else 'NOT faster than'} both")
+            if fma_ms is not None:
+                extra += f"; the same work at the fp32 FMA rate {fma_ms:.4f} ms"
             if name in results:
-                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], max(errs))
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
                 results[name]["also"].append(row)
             else:
-                results[name] = dict(row, max_abs_err=max(errs), also=[])
-            lib_txt = f", cuDNN convolution_backward {library_ms:.4f} ms" if lib is not None else ""
+                results[name] = row = dict(row, max_abs_err=err, also=[])
+            if name.startswith("conv") and not relu:
+                to_split.append((row, f"{name} ({row['case']})", kernel))
             print(f"[train kernel] {name} ({row['case']}): {report}; {ms:.4f} ms (median of "
-                  f"{20 if name.startswith('conv') else 50}, CUDA events), plain {plain_ms:.3f} ms"
-                  f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                  f"{20 if name.startswith('conv') else 50}, CUDA events), plain {plain_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}){extra}", flush=True)
         del x, w, g, y
         torch.cuda.empty_cache()
+    # a 96² trunk: 576 pixels, which the 128-pixel tiles cover with a ragged edge
+    x, w, gamma, beta, g = unit(1, 24, 24)
+    for name, relu, kernel, plain in conv_cases(x, w, gamma, beta, g):
+        err, report = hold_train_kernel(torch, name, kernel, plain, x, relu)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        print(f"[train kernel] {name} ([1, 24, 24, {C}]{', relu input' if relu else ''}; 576 "
+              f"pixels, a ragged edge): {report}", flush=True)
     check(set(results) == set(TRAIN_KERNELS), f"train kernel cases cover {sorted(results)}")
-    return results
+    return results, to_split
+
+
+def split_phase(torch, to_split) -> None:
+    """Each conv case's device time per call by kernel (``kernel_split``),
+    into its row as ``parts_ms``. Run last, so that the profiler cannot touch
+    the timed phases (the train step is bound by host dispatch)."""
+    for row, label, call in to_split:
+        row["parts_ms"] = parts = kernel_split(torch, call)
+        print(f"[train kernel] {label}: device ms per call by kernel (torch.profiler): " + (
+            ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            or "not measured (the trace holds no device events)"), flush=True)
 
 
 def step1_grads(state, cfg, g_norm: float) -> list:
@@ -1367,9 +1466,10 @@ def main() -> int:
     try:
         e2e = e2e_phase(torch, int8_mods, ap, work)
         tool_launches = tools_phase(torch, int8_mods)
-        train_kernels = train_kernel_phase(torch, ap, cv, dev)
+        train_kernels, to_split = train_kernel_phase(torch, ap, cv, dev)
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
+        split_phase(torch, to_split)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1387,13 +1487,13 @@ def main() -> int:
                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
                  path=SITES[name][2], also=k["also"])
             for name, k in kernels.items()]
-    # the training rows: launches from step 1 of the configuration that runs them.
-    rows += [dict(name=name, route="cuda", source=f"msig_tpu_torch/csrc/{TRAIN_KERNELS[name][1]}",
+    # the training rows: launches from step 1 of the configuration that runs them;
+    # the first case's bound_fp32_fma_ms, library_deterministic_ms and parts_ms beside.
+    rows += [dict(k, name=name, route="cuda",
+                  source=f"msig_tpu_torch/csrc/{TRAIN_KERNELS[name][1]}",
                   replaces=TRAIN_KERNELS[name][0],
                   launches=train["launches"][TRAIN_KERNELS[name][2]][name],
-                  max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
-                  path=f"train/{TRAIN_KERNELS[name][2]}", also=k["also"])
+                  path=f"train/{TRAIN_KERNELS[name][2]}")
              for name, k in train_kernels.items()]
     check(len(rows) == len(SITES) + len(TRAIN_KERNELS), f"{len(rows)} kernel rows")
     for row in rows:

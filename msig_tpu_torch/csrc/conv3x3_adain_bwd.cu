@@ -9,14 +9,18 @@
 // slab, and runs the conv backward core on it; dgamma = sgy, dbeta = sg.
 //
 // Here the per-(sample, channel) sums need the whole image before any dy
-// exists, which on the card is a reduction across CTAs. This first version
-// runs it as the instance-norm backward kernel of in_norm.cuh (one CTA per
-// sample and 32 channels), which writes dy to a device scratch, then the conv
-// backward of conv3x3_bwd.cuh on that dy. Bound on an H100 at [8, 64, 64,
-// 256]: the conv's 77.3 GFLOP, 1.15 ms at 67 TFLOP/s (the function's bytes,
-// x, y, g read and dx written, are 134 MB, 0.04 ms). The dy scratch costs
-// 33.6 MB written and read back; forming dy as the conv's tiles are loaded
-// would remove it.
+// exists, which on the card is a reduction across CTAs. So the IN backward
+// runs first as in_norm.cuh's in_bwd_kernel (one CTA per sample and 32
+// channels, shared with adain_pallas's backward, whose bits it keeps), which
+// writes dy to a device scratch; then the conv backward core of
+// conv3x3_bwd.cuh runs on that dy: dx and dW as 3xTF32 implicit GEMMs on
+// mma.sync, operands through a 3-stage cp.async ring, dW's partials added in
+// chunk order. Bound on an H100 at [8, 64, 64, 256]: the conv's 77.3 GFLOP as
+// three TF32 passes, 0.47 ms (1.15 ms at the fp32 FMA rate), plus the IN's
+// ~8 flops an element; the function's bytes (x, y, g read, dx written) are
+// 134 MB, 0.04 ms. The dy scratch costs 33.6 MB written and read back, and
+// in_bwd_kernel fills 64 CTAs at B = 8: forming dy in the core's loaders
+// would remove both (chip_smoke.py times the IN part alone).
 #include "conv3x3_bwd.cuh"
 #include "in_norm.cuh"
 

@@ -3,12 +3,18 @@
 //
 // Replaces the TPU kernel msig_tpu/ops/conv3x3_vjp.py::conv3x3_bwd
 // (_bwd_kernel -> _conv_bwd_core), the fused backward of conv3x3_same and
-// relu_conv3x3 at MSIG_CONV_VJP=1. Design and bound: conv3x3_bwd.cuh.
+// relu_conv3x3 at MSIG_CONV_VJP=1. Bound on an H100 at [8, 64, 64, 256]: 77.3
+// GFLOP, 0.47 ms as three TF32 tensor-core passes (1.15 ms at the fp32 FMA
+// rate of the CUDA cores, which the first version used). Design
+// (conv3x3_bwd.cuh): both products as 3xTF32 implicit GEMMs on mma.sync in
+// one launch, operands through a 3-stage cp.async ring, then the in-order
+// reduction of the partials.
 #include "conv3x3_bwd.cuh"
 
 // x, dy: [B, H, W, C] and [B, H, W, Co] fp32; wt: the taps transposed, [9, Co, C];
 // dx: [B, H, W, C]; dw: [9, C, Co] (HWIO); part: scratch of
-// ceil(B*H*W / 2048) * 9*C*Co floats. Needs B*H*W, C and Co multiples of 128.
+// ceil(B*H*W / 2304) * 9*C*Co floats, plus ceil(9*Co / 2304) * B*H*W*C where
+// 9*Co > 2304. Needs C and Co multiples of 128; any B*H*W.
 // Returns cudaGetLastError() (0 = success); launches on `stream`, does not synchronise.
 extern "C" int msig_conv3x3_bwd(const void* x, const void* dy, const void* wt, void* dx, void* dw,
                                 void* part, int B, int H, int W, int C, int Co, int relu,
@@ -18,4 +24,17 @@ extern "C" int msig_conv3x3_bwd(const void* x, const void* dy, const void* wt, v
       static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<const float*>(wt),
       static_cast<float*>(dx), static_cast<float*>(dw), static_cast<float*>(part), g, relu != 0,
       reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The core's configuration, into out[0 .. 8]: tile M, N, K per stage, ring
+// stages, threads, the most K a tile accumulates (dW's chunk of pixels),
+// dynamic shared memory (bytes), and the CTAs resident per SM without and with
+// the relu input (occupancy API).
+// Returns 0, or the CUDA error of the queries.
+extern "C" int msig_conv3x3_bwd_config(int* out) {
+  using namespace msig_f32;
+  const int v[9] = {kBM, kBN, kBK, kStages, kThreads, kMaxK, kSmemBytes, ctas_per_sm<false>(),
+                    ctas_per_sm<true>()};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ tap in PyTorch, which ``chip_smoke.py`` holds the kernels against on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from msig_tpu_torch.ops import _build
 
 _IN_EPS = 1e-5  # torch nn.InstanceNorm2d default (ops/norm.py)
-_DW_CHUNK = 2048  # pixels per dW partial (kDwChunk of csrc/conv3x3_bwd.cuh)
+_MAX_K = 2304  # the most K a kernel tile accumulates (kMaxK of csrc/conv3x3_bwd.cuh)
 
 BWD = "conv3x3_bwd"
 ADAIN_BWD = "conv3x3_adain_bwd"
@@ -47,6 +47,8 @@ _ARGTYPES = {
     BWD: [_P] * 6 + [ctypes.c_int] * 6 + [_P],
     ADAIN_BWD: [_P] * 13 + [ctypes.c_int] * 6 + [_P],
 }
+_CONFIG_KEYS = ("tile_m", "tile_n", "tile_k", "stages", "threads", "max_k", "smem_bytes",
+                "ctas_per_sm", "ctas_per_sm_relu")
 
 
 def reset_launch_counts() -> None:
@@ -153,17 +155,29 @@ def _check(name: str, t: torch.Tensor, shape, device, dense: bool = True) -> Non
         raise ValueError(f"{name} must be contiguous (dense NHWC)")
 
 
+def kernel_shape_error(x_shape, w_shape) -> Optional[str]:
+    """Why the CUDA kernels cannot take x of ``x_shape`` and w of ``w_shape``,
+    or None: x [B, H, W, C] and w [3, 3, C, Co] with C and Co multiples of 128
+    (a CTA's 128-wide tile of channels). Any B*H*W: the kernels mask the
+    ragged pixel edge."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return (f"expected x [B, H, W, C] and w [3, 3, C, Co], got {tuple(x_shape)} "
+                f"and {tuple(w_shape)}")
+    c, co = x_shape[-1], w_shape[-1]
+    if c % 128 or co % 128:
+        return (f"the CUDA kernel needs C and Co multiples of 128, got x {tuple(x_shape)}, "
+                f"Co {co}")
+    return None
+
+
 def _check_conv(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int, int]:
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {x.device}")
-    if x.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"expected x [B, H, W, C] and w [3, 3, C, Co], got {tuple(x.shape)} "
-                         f"and {tuple(w.shape)}")
+    err = kernel_shape_error(tuple(x.shape), tuple(w.shape))
+    if err:
+        raise ValueError(err)
     b, h, wd, c = x.shape
     co = w.shape[-1]
-    if c % 128 or co % 128 or (b * h * wd) % 128:
-        raise ValueError(f"the CUDA kernel needs C and Co multiples of 128 and B*H*W % 128 == 0, "
-                         f"got x {tuple(x.shape)}, Co {co}")
     _check("x", x, x.shape, x.device)
     _check("w", w, (3, 3, c, co), x.device, dense=False)  # any strides: _taps_t copies it
     return b, h, wd, c, co
@@ -175,9 +189,28 @@ def _taps_t(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(9, c, co).transpose(1, 2).contiguous()
 
 
+def scratch_floats(b: int, h: int, w: int, c: int, co: int) -> int:
+    """Floats of the kernels' scratch (``part_floats`` of csrc/conv3x3_bwd.cuh):
+    dW's partials over chunks of ``_MAX_K`` pixels, then dx's over parts of at
+    most ``_MAX_K`` of its K = 9*Co where 9*Co exceeds it."""
+    cdiv = lambda a, d: -(-a // d)  # noqa: E731
+    dx_splits = cdiv(9 * co, _MAX_K)
+    dx_part = dx_splits * b * h * w * c if dx_splits > 1 else 0
+    return cdiv(b * h * w, _MAX_K) * 9 * c * co + dx_part
+
+
 def _part(x: torch.Tensor, c: int, co: int) -> torch.Tensor:
-    chunks = -(-x.shape[0] * x.shape[1] * x.shape[2] // _DW_CHUNK)
-    return torch.empty((chunks, 9 * c, co), dtype=torch.float32, device=x.device)
+    return torch.empty(scratch_floats(*x.shape[:3], c, co), dtype=torch.float32, device=x.device)
+
+
+def kernel_config() -> Dict[str, int]:
+    """The conv core's tiles, ring stages, longest K a tile accumulates (dW's
+    chunk) and shared memory, and the CTAs the card keeps resident per SM
+    (occupancy API); builds the kernel."""
+    out = (ctypes.c_int * len(_CONFIG_KEYS))()
+    fn = _build.load(BWD, [_P], entry="msig_conv3x3_bwd_config")
+    _build.check(BWD, fn(ctypes.addressof(out)))
+    return dict(zip(_CONFIG_KEYS, out))
 
 
 def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, relu_input: bool = False):

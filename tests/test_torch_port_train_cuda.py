@@ -3,16 +3,19 @@
 Rows 22-24 of the kernel table in PERF.md: the fused AdaIN forward and
 backward (``ops/adain_pallas.py``), the 3x3 conv backward (``conv3x3_bwd``)
 and the conv + IN + AdaIN unit backward (``conv3x3_adain_bwd``), at the trunk
-shapes of a 256² train step ([8, 64, 64, 256] and [4, 64, 64, 256]) and a small
-one. Needs an NVIDIA GPU and nvcc; skipped without a card. Imports neither JAX
-nor msig_tpu:
+shapes of a 256² train step ([8, 64, 64, 256] and [4, 64, 64, 256]), a small
+one, and two whose B*H*W is no multiple of the kernels' 128-pixel tile
+([1, 24, 24, 256], the trunk of a 96² input, and [3, 8, 8, 256]). Needs an
+NVIDIA GPU and nvcc; skipped without a card. Imports neither JAX nor msig_tpu:
 
     python -m pytest --noconftest tests/test_torch_port_train_cuda.py
 
 Bars, fp32 with TF32 off: every output within rtol 1e-4 and atol 1e-5 x
 max|plain| (the two sum in other orders); dx exactly 0 under the relu mask;
 dgamma and dbeta within rtol 1e-5 and atol 1e-6 x max|plain|; dW bit-identical
-over two calls (its reduction is deterministic).
+over two calls (its reduction is deterministic). The conv kernels compute in
+3xTF32 on the tensor cores: a case with x x 1e3 and dy x 1e-3 holds them where
+the small halves of the split carry the digits that one TF32 pass would lose.
 """
 
 import numpy as np
@@ -22,7 +25,7 @@ import torch
 from msig_tpu_torch.ops import adain_pallas as ap
 from msig_tpu_torch.ops import conv3x3_vjp as cv
 
-SHAPES = [(2, 8, 256), (4, 64, 256), (8, 64, 256)]
+SHAPES = [(2, 8, 256), (4, 64, 256), (8, 64, 256), (1, 24, 256), (3, 8, 256)]
 
 
 @pytest.fixture
@@ -96,6 +99,46 @@ def test_conv3x3_bwd_matches_plain(cuda_device, b, side, c, relu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_bwd_matches_plain_at_large_and_small_magnitudes(cuda_device, relu):
+    x, w, _, dy = _unit_inputs(3, 24, 256, cuda_device, seed=11)
+    x, dy = x * 1e3, dy * 1e-3
+    dx, dw = cv.conv3x3_bwd(x, w, dy, relu_input=relu)
+    dx_p, dw_p = cv.conv3x3_bwd_plain(x, w, dy, relu_input=relu)
+    _close(dx, dx_p, "dx")
+    _close(dw, dw_p, "dw")
+    if relu:
+        assert bool((dx[x <= 0] == 0).all()), "dx must be exactly 0 where x <= 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_kernels_split_a_k_longer_than_a_tile_takes(cuda_device, relu):
+    """Co = 384: dx's K = 9 * 384 = 3456 runs as two parts added in order."""
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)  # noqa: E731
+    b, side, c, co = 3, 8, 128, 384
+    x = t(rng.normal(0, 1, (b, side, side, c)))
+    w = t(rng.uniform(-1, 1, (3, 3, c, co)) / np.sqrt(9 * c))
+    g = t(rng.normal(0, 1, (b, side, side, co)))
+    gamma, beta = t(rng.normal(1.0, 0.5, (b, co))), t(np.zeros((b, co)))
+    dx, dw = cv.conv3x3_bwd(x, w, g, relu_input=relu)
+    dx_p, dw_p = cv.conv3x3_bwd_plain(x, w, g, relu_input=relu)
+    _close(dx, dx_p, "dx")
+    _close(dw, dw_p, "dw")
+    if relu:
+        assert bool((dx[x <= 0] == 0).all()), "dx must be exactly 0 where x <= 0"
+    assert all(torch.equal(a, b_) for a, b_ in zip((dx, dw), cv.conv3x3_bwd(x, w, g, relu)))
+    _, (y, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
+    got = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input=relu)
+    want = cv.conv3x3_adain_bwd_plain(x, w, y, mu, r, gamma, g, relu_input=relu)
+    for name, a, b_ in zip(("dx", "dw"), got, want):
+        _close(a, b_, name)
+    _close(got[2], want[2], "dgamma", rtol=1e-5, atol_rel=1e-6)
+    _close(got[3], want[3], "dbeta", rtol=1e-5, atol_rel=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,side,c", SHAPES)
 @pytest.mark.parametrize("relu", [False, True])
 def test_conv3x3_adain_bwd_matches_plain(cuda_device, b, side, c, relu):
@@ -141,6 +184,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         cv.conv3x3_bwd(x, w, g.transpose(1, 2))
     with pytest.raises(ValueError, match="multiples of 128"):
         cv.conv3x3_bwd(x[..., :64].contiguous(), w[:, :, :64].contiguous(), g)
+    # B*H*W needs no multiple of 128: the kernels mask the ragged pixel edge
+    xr, gr = x[:1, :3, :5].contiguous(), g[:1, :3, :5].contiguous()
+    dx, dw = cv.conv3x3_bwd(xr, w, gr)
+    dx_p, dw_p = cv.conv3x3_bwd_plain(xr, w, gr)
+    _close(dx, dx_p, "dx [1, 3, 5, 256]")
+    _close(dw, dw_p, "dw [1, 3, 5, 256]")
     with pytest.raises(ValueError, match="must be on"):
         cv.conv3x3_adain_bwd(x, w, g, gamma, gamma, gamma, g.cpu())  # g on the CPU
     with pytest.raises(ValueError):
