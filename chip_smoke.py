@@ -6,8 +6,10 @@
 Phases, each reported on its own line:
 
 1. build: compiles the fourteen CUDA sources of the serving, tool and training
-   paths from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once) and
-   prints the card's name and power limit as nvidia-smi reports them;
+   paths from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once),
+   prints ptxas's registers and spills per kernel (named for the wgmma pass A
+   of rows 1-2), and the card's name and power limit as nvidia-smi reports
+   them;
 2. kernels: each of the twenty-one kernel sites against its plain PyTorch version
    on the card, with seeded random inputs, batch 8. At the shapes of a 256²
    input: enc0 uint8 [8, 256, 256, 3] -> [8, 256, 256, 64], enc1 ->
@@ -30,13 +32,22 @@ Phases, each reported on its own line:
    plain version that narrows the same way), and every other site at its map
    of four times the pixels. Bars: int8 outputs at most 1 step apart on under
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
-   on under 1%, uint8 at most 1 apart on under 1e-3; times by CUDA events
+   on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
+   the int8-carry conv2 and the v1 conv2 site, ``EXACT``) equal to their
+   plain versions to the bit, conv1 and conv2 timed with the K-major weight
+   copy given, as the served trunk calls them; times by CUDA events
    (the three epilogue rows also as three medians with L2 warm and three
-   with L2 flushed before each call);
+   with L2 flushed before each call). Then conv1 and conv2 at
+   ``WGMMA_SHAPES`` (down to [1, 16, 16, 128], up to [8, 128, 128, 256], and a
+   384² input's [1, 96, 96, 256]) with and without the K-major copy, twice,
+   and the v1 conv2 site at [1, 64, 64, 128] and [8, 64, 64, 256]: equal to
+   the plain versions to the bit, one launch per call;
 3. end to end, ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256), batch 8, over 20 seeded inputs, the launch
    counts set to 0 before each run and read after it:
+   each path's served images also as a sha256 (pixels by file name), so that
+   runs of two trees can be held equal byte for byte;
    at 256² with ``MSIG_TRUNK_HIFI`` 0, 1 and 2: one output per input, each
    encoder and decoder site launched once per batch, conv1 and the mode's
    conv2 site 8 times, no other site at all, and the int8 output's PSNR
@@ -82,7 +93,12 @@ Phases, each reported on its own line:
    ``convolution_backward`` (dx and dW) beside it under its default and its
    deterministic algorithms; after phase 6, the device time of each kernel of
    a conv call (``torch.profiler``): row 24's IN backward, the conv core, the
-   reductions;
+   reductions; and of conv1 and conv2 at [8, 64, 64, 256] and [8, 128, 128,
+   256]: the wgmma pass A, the epilogue kernels, the memset, with pass A's
+   int8 rate and share of 1,979 TOP/s, beside the call's time by CUDA events;
+   then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
+   engine in mode 0: the device's busy and idle share and the trunk's share
+   of the busy time;
 6. train: ``make_train_step`` at full width (256², batch 4, 8 resblocks,
    style_dim 256, 10 domains, a seeded random VGG) from the same parameters
    and batch in three configurations: stock autograd (``MSIG_CONV_VJP=0``),
@@ -108,6 +124,7 @@ the repository (the port is imported from beside this file).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -205,6 +222,20 @@ BENCH_SITES = {
     "up1 site    v1": {_UP1: 1}, "up1 site    v2": {"convt4x4s2_in_relu_requant": 1},
 }
 _TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant": N_RES}
+# Rows 1, 2 and 20 run the conv on wgmma (csrc/conv3x3_i8_wgmma.cuh): exact
+# integer sums and the plain versions' epilogue operations, so they are held
+# equal to their plain versions to the bit, at the kernel rows' shapes and at
+# WGMMA_SHAPES (b, side, c): small maps, both channel tiles, a 512² input's
+# trunk and a 384² input's (W = 96: tiles end inside image rows).
+EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
+         "conv3x3_adain_residual_requant_v1")
+WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256))
+# Device time of a trunk site's call by kernel (torch.profiler names).
+TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
+                ("relu epilogue", "relu_requant_kernel"), ("max|hn|", "residual_amax_kernel"),
+                ("residual requant", "residual_requant_kernel"), ("memset", "Memset"))
+TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
+                ("reductions", "reduce_kernel"))
 PROFILE_STAGES = {
     "encoder (3 convs)": {},
     "fused trunk (16 sites)": _TRUNK,
@@ -371,7 +402,11 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
                     "hifi2": (x, hq, h2, hs, *tail)}[kind]
             fn = {"relu": "conv3x3_adain_relu_requant", "residual": "conv3x3_adain_residual_requant",
                   "hifi": "conv3x3_adain_residual_hifi", "hifi2": "conv3x3_adain_residual_hifi2"}[kind]
-            return (lambda: getattr(mod, fn)(*args)), (lambda: getattr(mod, fn + "_plain")(*args))
+            # rows 1-2 as the served trunk calls them, with the K-major copy
+            kw = ({"w_kmajor": fc.pack_weights_kmajor(w)}
+                  if mod is fc and kind in ("relu", "residual") else {})
+            return (lambda: getattr(mod, fn)(*args, **kw)), \
+                (lambda: getattr(mod, fn + "_plain")(*args))
         return make
 
     def convt(fn, plain, side, cin, pack=fc.pack_convt_weights_ps, **kw):
@@ -547,6 +582,11 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         max_step, report = compare(torch, name, got, want)
+        if name in EXACT:
+            pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+            check(all(torch.equal(g, w) for g, w in pairs),
+                  f"{name} ({label}) equal to its plain version to the bit")
+            report += "; equal to the bit"
         del got, want
         large = kind == "trunk_v3" or (not kind.startswith("epilogue")
                                        and dims[1] * dims[1] * dims[2] > 256 * 256 * 64)
@@ -578,6 +618,67 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
     del flush
     check(set(results) == set(SITES), f"kernel cases cover {sorted(results)}")
     return results
+
+
+def wgmma_phase(torch, fc, v1, dev) -> None:
+    """Rows 1-2 at WGMMA_SHAPES, with and without the K-major copy and twice,
+    and row 20 (which makes the copy itself) at the 64x64 maps it takes: every
+    output equal to the plain version's to the bit, one launch per call."""
+    cfg = fc.wgmma_config()
+    print(f"[kernel] wgmma pass A of rows 1-2: {cfg['tile_m']} pixels x 256 (C % 256 == 0) or "
+          f"128 channels a tile, {cfg['tile_k_bytes']} bytes of K a stage through a "
+          f"{cfg['stages']}-stage ring; {cfg['threads']} threads (producer {cfg['producer_regs']}, "
+          f"consumers {cfg['consumer_regs']} registers after setmaxnreg); dynamic shared memory "
+          f"{cfg['smem_bytes_n256']} B (BN = 256), {cfg['smem_bytes_n128']} B (BN = 128)",
+          flush=True)
+
+    def inputs(b, side, c, seed):
+        rng = np.random.default_rng(seed)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        x = t(rng.integers(-127, 128, (b, side, side, c), dtype=np.int8))
+        hq = t(rng.integers(-127, 128, (b, side, side, c), dtype=np.int8))
+        hs = t(rng.uniform(0.01, 0.05, (b, 1)).astype(np.float32))
+        w = fc.pack_weights(torch.from_numpy(rng.integers(-32, 33, (3, 3, c, c),
+                                                          dtype=np.int8))).to(dev)
+        gamma = t(rng.normal(1.0, 0.5, (b, c)).astype(np.float32))
+        beta = t(rng.normal(0.0, 0.5, (b, c)).astype(np.float32))
+        return x, hq, hs, w, gamma, beta
+
+    def equal(name, got, want, what):
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple)
+                                                                   else (want,))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{name} {what} equal to its plain version to the bit")
+
+    for b, side, c in WGMMA_SHAPES:
+        x, hq, hs, w, gamma, beta = inputs(b, side, c, side + c)
+        wk = fc.pack_weights_kmajor(w)
+        want = (fc.conv3x3_adain_relu_requant_plain(x, w, gamma, beta),
+                fc.conv3x3_adain_residual_requant_plain(x, hq, hs, w, gamma, beta))
+        for kw in ({"w_kmajor": wk}, {}, {"w_kmajor": wk}):
+            before = dict(fc.LAUNCHES)
+            got = (fc.conv3x3_adain_relu_requant(x, w, gamma, beta, **kw),
+                   fc.conv3x3_adain_residual_requant(x, hq, hs, w, gamma, beta, **kw))
+            torch.cuda.synchronize()
+            check(fc.LAUNCHES == {**before, fc.RELU_SITE: before[fc.RELU_SITE] + 1,
+                                  fc.RESIDUAL_SITE: before[fc.RESIDUAL_SITE] + 1},
+                  f"rows 1-2 at {(b, side, side, c)}: one launch each per call")
+            what = f"at {[b, side, side, c]} ({'K-major copy given' if kw else 'copy made'})"
+            equal("conv3x3_adain_relu_requant", got[0], want[0], what)
+            equal("conv3x3_adain_residual_requant", got[1], want[1], what)
+        print(f"[kernel] rows 1-2 at {[b, side, side, c]}: equal to their plain versions to the "
+              f"bit, with the K-major copy given and made by the wrapper, over two calls",
+              flush=True)
+        del x, hq, w, want, got
+    for b, c in ((1, 128), (B, C)):
+        x, hq, hs, w, gamma, beta = inputs(b, 64, c, 9 + c)
+        equal("conv3x3_adain_residual_requant_v1",
+              v1.conv3x3_adain_residual_requant(x, hq, hs, w, gamma, beta),
+              v1.conv3x3_adain_residual_requant_plain(x, hq, hs, w, gamma, beta),
+              f"at {[b, 64, 64, c]}")
+        print(f"[kernel] row 20 at {[b, 64, 64, c]}: equal to its plain version to the bit",
+              flush=True)
+    torch.cuda.empty_cache()
 
 
 def write_inputs(work: str) -> tuple:
@@ -685,6 +786,13 @@ def e2e_phase(torch, mods, ap, work: str) -> dict:
             with Image.open(os.path.join(out, name)) as im:
                 images[name] = np.asarray(im)
                 check(images[name].shape == (size, size, 3), f"{name} is {images[name].shape}")
+        digest = hashlib.sha256()
+        for name in names:
+            digest.update(name.encode())
+            digest.update(images[name].tobytes())
+        result["sha256"][path] = digest.hexdigest()
+        print(f"[e2e {path}] served images sha256 {digest.hexdigest()} ({len(names)} images, "
+              f"pixels by file name)", flush=True)
         return images
 
     def engine(size: int, quantize, out_uint8: bool = True):
@@ -747,7 +855,7 @@ def e2e_phase(torch, mods, ap, work: str) -> dict:
                 q, img, style, n_res=2, out_dtype=torch.float32), torch.uint8)
         return psnr(got.cpu().numpy(), want.cpu().numpy())
 
-    result = dict(psnr={}, ms={})
+    result = dict(psnr={}, ms={}, sha256={})
     rng = np.random.default_rng(2)
 
     # ---- 256²: the three trunk modes against the fp32 float path.
@@ -1046,13 +1154,13 @@ def train_bound(name: str, b: int) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), t_fma
 
 
-def kernel_split(torch, fn, calls: int = 10) -> dict:
+def kernel_split(torch, fn, calls: int = 10, groups=TRAIN_GROUPS) -> dict:
     """Device ms per call of each kernel that ``fn`` launches, by
-    ``torch.profiler`` over ``calls`` calls after one, grouped as row 24's
-    IN backward, the conv core, the in-order reductions and PyTorch's own
-    kernels (the taps' transposed copy); {} if the trace holds no device events."""
-    groups = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
-              ("reductions", "reduce_kernel"))
+    ``torch.profiler`` over ``calls`` calls after one, grouped by the first
+    (label, name part) of ``groups`` whose part the kernel's name holds, else
+    as PyTorch's own kernels (for the conv backwards, ``TRAIN_GROUPS``: row
+    24's IN backward, the conv core, the in-order reductions, and the taps'
+    transposed copy); {} if the trace holds no device events."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1204,6 +1312,109 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
               f"pixels, a ragged edge): {report}", flush=True)
     check(set(results) == set(TRAIN_KERNELS), f"train kernel cases cover {sorted(results)}")
     return results, to_split
+
+
+def trunk_split_phase(torch, fc, kernels: dict) -> None:
+    """Rows 1-2 at the trunk shapes of a 256² and a 512² input: the time per
+    call by CUDA events (median of 30) and by ``torch.profiler`` device time per
+    kernel (``kernel_split`` with ``TRUNK_GROUPS``), pass A's int8 rate and its
+    share of the card's 1,979 TOP/s, and which of the two the row's time
+    follows. The parts go into the row as ``parts_ms``. Run last, as
+    ``split_phase``."""
+    for grid in (SIDE, 2 * SIDE):
+        rng = np.random.default_rng(grid)
+        t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+        x = t(rng.integers(-127, 128, (B, grid, grid, C), dtype=np.int8))
+        hq = t(rng.integers(-127, 128, (B, grid, grid, C), dtype=np.int8))
+        hs = t(rng.uniform(0.01, 0.05, (B, 1)).astype(np.float32))
+        w = fc.pack_weights(torch.from_numpy(rng.integers(-32, 33, (3, 3, C, C), dtype=np.int8)))
+        w, wk = w.cuda(), fc.pack_weights_kmajor(w).cuda()
+        gamma = t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32))
+        beta = t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32))
+        ops = 2 * B * grid * grid * C * 9 * C
+        for name, call in (
+                ("conv3x3_adain_relu_requant",
+                 lambda: fc.conv3x3_adain_relu_requant(x, w, gamma, beta, w_kmajor=wk)),
+                ("conv3x3_adain_residual_requant",
+                 lambda: fc.conv3x3_adain_residual_requant(x, hq, hs, w, gamma, beta,
+                                                           w_kmajor=wk))):
+            ms = cuda_ms(torch, call, reps=30)
+            parts = kernel_split(torch, call, groups=TRUNK_GROUPS)
+            device = sum(parts.values())
+            row = kernels[name] if grid == SIDE else next(
+                r for r in kernels[name]["also"] if r["case"] == "512² input")
+            row["parts_ms"] = parts
+            a = parts.get("pass A (wgmma)")
+            rate = (f"pass A {ops / (a * 1e-3) / 1e12:.1f} TOP/s, "
+                    f"{ops / (a * 1e-3) / PEAK_INT8_OPS:.1%} of 1,979" if a else
+                    "pass A not measured (the trace holds no device events)")
+            follows = ("not measured" if not device else
+                       "the device (events within 10% of the kernels' sum)" if ms <= 1.1 * device
+                       else "the host (events exceed the kernels' sum by more than 10%)")
+            print(f"[kernel] {name} ({[B, grid, grid, C]}, K-major copy given): {ms:.4f} ms per "
+                  f"call by CUDA events (median of 30), {device:.4f} ms of device time by "
+                  f"torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                  + f"; {rate}; the row's time follows {follows}", flush=True)
+        del x, hq, w, wk
+        torch.cuda.empty_cache()
+
+
+def serve_profile_phase(torch) -> None:
+    """``torch.profiler`` over 5 steady batches of the int8 engine at 256² in
+    ``MSIG_TRUNK_HIFI=0`` (demo checkpoint, batch 8, seeded images and styles,
+    each batch copied to the host as the engine's batches are): the device's
+    busy and idle share of the span from the first batch's start to the last
+    device event, and the trunk's share of the busy time. The trunk's kernels
+    are told by adjacency in stream order: the wgmma pass A and the memset
+    before it, the relu epilogue after it, and the residual epilogues. Run
+    last, as ``split_phase``."""
+    from msig_tpu_torch.config import InferenceConfig
+    from msig_tpu_torch.infer.engine import InferenceEngine
+    from msig_tpu_torch.infer.loading import load_inference_params
+
+    cfg = InferenceConfig(image_size=256, batch_size=B, device="cuda", compute_dtype="float32",
+                          quantize="int8")
+    gen_sd, se_sd, meta, _ = load_inference_params(DEMO, cfg, 10)
+    eng = InferenceEngine.build(cfg, 10, gen_sd, se_sd, meta["n_residual_blocks"],
+                                meta["style_dim"])
+    eng.out_uint8 = True  # as the CLI serves: the all-kernel chain, uint8 out
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8)).cuda()
+    styles = torch.from_numpy(rng.normal(size=(B, meta["style_dim"])).astype(np.float32)).cuda()
+    act = torch.profiler.ProfilerActivity
+    with env(MSIG_TRUNK_HIFI="0"):
+        for _ in range(3):
+            eng.generate(imgs, styles).cpu()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(5):
+                with torch.profiler.record_function("serve batch"):
+                    eng.generate(imgs, styles).cpu()
+    events = prof.events()
+    dev = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda v: v[0])
+    batches = [e for e in events if e.name == "serve batch"]
+    if not dev or not batches:
+        print("[profile 256/hifi0] not measured (the trace holds no device events)", flush=True)
+        return
+    t0, t1 = min(e.time_range.start for e in batches), max(max(e.time_range.end for e in batches),
+                                                           dev[-1][1])
+    busy, end = 0.0, t0
+    for start, stop, _ in dev:  # the union of the device intervals
+        start, stop = max(start, end), min(stop, t1)
+        if stop > start:
+            busy, end = busy + stop - start, stop
+    wg = ["conv3x3_i8_wgmma_kernel" in n for _, _, n in dev]
+    trunk = sum(stop - start for i, (start, stop, n) in enumerate(dev)
+                if wg[i] or "residual_amax_kernel" in n or "residual_requant_kernel" in n
+                or ("relu_requant_kernel" in n and i > 0 and wg[i - 1])
+                or ("Memset" in n and i + 1 < len(dev) and wg[i + 1]))
+    n_wg = sum(wg)
+    check(n_wg == 5 * 2 * N_RES, f"[profile 256/hifi0] {n_wg} wgmma launches in 5 batches")
+    span = t1 - t0
+    print(f"[profile 256/hifi0] 5 steady batches of {B} (torch.profiler): span {span / 1e3:.3f} ms "
+          f"({span / 5e3:.3f} per batch), device busy {busy / 1e3:.3f} ms ({busy / span:.1%}), "
+          f"idle {1 - busy / span:.1%}; trunk kernels {trunk / 5e3:.3f} ms per batch, "
+          f"{trunk / busy:.1%} of the busy time ({n_wg} wgmma launches)", flush=True)
 
 
 def split_phase(torch, to_split) -> None:
@@ -1452,15 +1663,21 @@ def main() -> int:
     print(f"[build] {len(logs)} of {len(sources)} kernel sources compiled in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)", flush=True)
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+                # the wgmma pass A of rows 1-2: registers, barriers, spills by kernel
+                tag = f" ({entry})" if "wgmma" in entry else ""
+                print(f"[build] {name}{tag}: {line.strip()}")
     card = card_line()
     print(f"[card] {card}", flush=True)
 
     dev = torch.device("cuda")
     int8_mods = (fc, fd, fe, f3, ec, v1, ep)
     kernels = kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev)
+    wgmma_phase(torch, fc, v1, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
@@ -1470,6 +1687,8 @@ def main() -> int:
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
         split_phase(torch, to_split)
+        trunk_split_phase(torch, fc, kernels)
+        serve_profile_phase(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1485,7 +1704,8 @@ def main() -> int:
                  replaces=SITES[name][0], launches=launches[name],
                  max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
-                 path=SITES[name][2], also=k["also"])
+                 path=SITES[name][2], also=k["also"],
+                 **({"parts_ms": k["parts_ms"]} if "parts_ms" in k else {}))
             for name, k in kernels.items()]
     # the training rows: launches from step 1 of the configuration that runs them;
     # the first case's bound_fp32_fma_ms, library_deterministic_ms and parts_ms beside.

@@ -12,8 +12,12 @@
 // twice (once for max|hn|, once to store) instead of keeping it; a later pass
 // can fuse them.
 //
-// Three launches: conv + statistics (conv_int8.cuh), max|hn| per sample
-// (float atomicMax on the bit pattern of a non-negative float), requant.
+// Launches: a memset of the statistics block, the conv + statistics on wgmma
+// (conv3x3_i8_wgmma.cuh, K-major weights), max|hn| per sample (float
+// atomicMax on the bit pattern of a non-negative float), requant. The v1
+// conv2 site (msig_tpu/ops/fused_conv_int8.py::conv3x3_adain_residual_requant)
+// computes the same function and runs this entry too.
+#include "conv3x3_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -89,11 +93,12 @@ residual_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict_
 
 }  // namespace msig
 
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. h_scale: [B] float32; out_scale: [B]
-// float32; y_scratch: [B, H*W, C] int32; stats: int64 [5*B*C + B], zeroed.
+// Returns a CUDA error code (0 = success) after the launches. Launches on
+// `stream` and does not synchronise. wk: [C, 9*C] int8, K-major (the
+// transpose of the [9*C, C] packing); h_scale: [B] float32; out_scale: [B]
+// float32; y_scratch: [B, H*W, C] int32; stats: int64 [5*B*C + B], zeroed here.
 extern "C" int msig_conv3x3_adain_residual_requant(const void* y1, const void* h,
-                                                   const void* h_scale, const void* w,
+                                                   const void* h_scale, const void* wk,
                                                    const void* gamma, const void* beta,
                                                    void* y_scratch, void* stats, void* out,
                                                    void* out_scale, int B, int H, int W, int C,
@@ -101,19 +106,15 @@ extern "C" int msig_conv3x3_adain_residual_requant(const void* y1, const void* h
   using namespace msig;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  dim3 grid_a(B * (HW / kBM), C / 128);
-  conv_i8_stats_kernel<Conv3x3Geom, 128><<<grid_a, kConvThreads, 0, st>>>(
-      static_cast<const int8_t*>(y1), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err_a = wgmma3x3::conv3x3_i8_stats(y1, wk, y_scratch, stats, B, H, W, C, st);
+  if (err_a != 0) return err_a;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   const size_t smem = 2 * C * sizeof(float);
   residual_amax_kernel<<<grid_b, kEpiThreads, smem, st>>>(
       static_cast<const int32_t*>(y_scratch), static_cast<const int8_t*>(h),
       static_cast<const float*>(h_scale), static_cast<long long*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta), B, HW, C, eps);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   residual_requant_kernel<<<grid_b, kEpiThreads, smem, st>>>(
       static_cast<const int32_t*>(y_scratch), static_cast<const int8_t*>(h),

@@ -123,8 +123,10 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     OIHW of the forward conv), ``enc{0,1,2}_p`` (the encoder kernels packed
     [K, Cout] for their sites), ``up{0,1}_ps`` (the ConvT kernels packed
     [16*Cin, Cout] by phase), ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
-    ``res{i}_adain{1,2}_{k,b}`` (style affine, fp32), ``out_kernel_i8``,
-    ``out_wscale``, ``out_bias`` (final conv, with a true dequant). Under
+    with the port's ``res{i}_conv{1,2}_pk`` beside them (their K-major [C, 9C]
+    transposes, which the wgmma trunk sites read), ``res{i}_adain{1,2}_{k,b}``
+    (style affine, fp32), ``out_kernel_i8``, ``out_wscale``, ``out_bias``
+    (final conv, with a true dequant). Under
     ``MSIG_TRUNK_V3=1`` also ``trunk_w_stack`` (the 2*n packed trunk weights
     stacked, 9.4 MB at C = 256, n = 8), and under ``MSIG_ENC1_IM2COL=1`` with
     enc1's [4, 4, 64, 128] kernel ``enc1_i2c_p`` (``fe.pack_enc1_im2col``), as
@@ -151,6 +153,7 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
         for c in ("conv1", "conv2"):
             w_i8 = _quantize_kernel(sd[f"decoder.{i}.{c}.weight"])
             q[f"res{i}_{c}_p"] = fc.pack_weights(w_i8.permute(2, 3, 1, 0))
+            q[f"res{i}_{c}_pk"] = fc.pack_weights_kmajor(q[f"res{i}_{c}_p"])
         for a in ("adain1", "adain2"):
             q[f"res{i}_{a}_k"] = sd[f"decoder.{i}.{a}.style_modulation.weight"].t().contiguous()
             q[f"res{i}_{a}_b"] = sd[f"decoder.{i}.{a}.style_modulation.bias"]
@@ -315,10 +318,13 @@ def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Ten
         site = fc.conv3x3_adain_residual_requant
     for i in range(n_res):
         y1q = fc.conv3x3_adain_relu_requant(hq, q[f"res{i}_conv1_p"], gammas[2 * i],
-                                            betas[2 * i])
+                                            betas[2 * i], w_kmajor=q.get(f"res{i}_conv1_pk"))
+        # The wgmma sites (conv1, mode 0's conv2) read the K-major copy.
+        kw = {} if hifi else {"w_kmajor": q.get(f"res{i}_conv2_pk")}
         # Every carry's first output is the int8 map that the next conv1 reads;
         # modes 0 and 2 carry it on, mode 1 carries only the bf16 map.
-        hq, *rest = site(y1q, *carry, q[f"res{i}_conv2_p"], gammas[2 * i + 1], betas[2 * i + 1])
+        hq, *rest = site(y1q, *carry, q[f"res{i}_conv2_p"], gammas[2 * i + 1], betas[2 * i + 1],
+                         **kw)
         carry = tuple(rest) if hifi == 1 else (hq, *rest)
     return hq
 

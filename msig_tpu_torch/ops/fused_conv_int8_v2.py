@@ -23,6 +23,12 @@ Each site has:
   wrapper runs for CPU tensors and which ``chip_smoke.py`` holds the kernel
   against on the card.
 
+The conv1 and int8-carry conv2 sites run their conv on ``wgmma``
+(``csrc/conv3x3_i8_wgmma.cuh``), which reads the weights K-major: their
+wrappers take the ``[C, 9C]`` copy of ``pack_weights_kmajor`` as the keyword
+``w_kmajor`` (made once at quantization) and make it themselves when a caller
+passes only ``[9C, C]``.
+
 The int8 convolution is exact in both: the plain version convolves in float64,
 where every partial sum of int8 products is an exact integer, and reduces the
 instance-norm statistics in integers: the sum in int64, the sum of squares in
@@ -117,6 +123,15 @@ def pack_weights(w_hwio: torch.Tensor) -> torch.Tensor:
     if (kh, kw) != (3, 3):
         raise ValueError(f"expected a 3x3 kernel, got {tuple(w_hwio.shape)}")
     return w_hwio.to(torch.int8).reshape(9 * ci, co)
+
+
+def pack_weights_kmajor(w_packed: torch.Tensor) -> torch.Tensor:
+    """[9C, Co] packed int8 weights -> [Co, 9C], the transpose: row co holds
+    the K = (ky*3 + kx)*C + ci of output channel co contiguous, as ``wgmma``
+    takes an 8-bit B operand (K-major only)."""
+    if w_packed.dim() != 2 or w_packed.shape[0] % 9:
+        raise ValueError(f"expected packed weights [9C, Co], got {tuple(w_packed.shape)}")
+    return w_packed.to(torch.int8).t().contiguous()
 
 
 def pack_convt_weights(w_hwio: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
@@ -441,6 +456,27 @@ def _check_site(x: torch.Tensor, w_packed, gamma, beta) -> Tuple[int, int, int, 
     return b, h, w, c
 
 
+def _kmajor(w_packed: torch.Tensor, w_kmajor, c: int) -> torch.Tensor:
+    """The K-major weights of the wgmma sites on the card: ``w_kmajor`` checked
+    ([c, 9c] int8, contiguous, on ``w_packed``'s device), or the copy made
+    from ``w_packed`` where it is None."""
+    if w_kmajor is None:
+        return pack_weights_kmajor(w_packed)
+    _check("w_kmajor", w_kmajor, torch.int8, (c, 9 * c))
+    if w_kmajor.device != w_packed.device:
+        raise ValueError(f"all inputs must be on {w_packed.device}, got {w_kmajor.device}")
+    return w_kmajor
+
+
+def _check_kmajor_shape(w_kmajor, c: int) -> None:
+    """The CPU side of ``_kmajor``: the plain versions read ``w_packed``, so a
+    K-major copy given with CPU tensors is only checked for dtype and shape."""
+    if w_kmajor is not None and (w_kmajor.dtype != torch.int8
+                                 or tuple(w_kmajor.shape) != (c, 9 * c)):
+        raise ValueError(f"w_kmajor must be int8 of shape {(c, 9 * c)}, got {w_kmajor.dtype} "
+                         f"{tuple(w_kmajor.shape)}")
+
+
 def _check_convt(x: torch.Tensor, w_ps: torch.Tensor) -> Tuple[int, int, int, int, int]:
     if x.dim() != 4 or w_ps.dim() != 2:
         raise ValueError(f"expected x [B, H, W, Cin] and w [16*Cin, Cout], got "
@@ -518,13 +554,29 @@ def convt4x4s2_kernel(x_i8: torch.Tensor, w_ps: torch.Tensor, eps: float = _EPS,
     return out, out_scale
 
 
-def _scratch(x: torch.Tensor, b: int, hw: int, c: int, stage: str = "int32"):
-    """Pass A's accumulator scratch [b, hw, c] and the zeroed statistics block."""
+def wgmma_config() -> Dict[str, int]:
+    """The trunk sites' wgmma pass A as built (entry ``msig_conv3x3_i8_wgmma_config``
+    of the relu source): tile, ring, threads, registers after ``setmaxnreg`` and
+    dynamic shared memory per CTA at each channel tile. Builds the source."""
+    fn = _build.load(RELU_SITE, [ctypes.POINTER(ctypes.c_int)],
+                     entry="msig_conv3x3_i8_wgmma_config")
+    out = (ctypes.c_int * 8)()
+    _build.check(RELU_SITE, fn(out))
+    keys = ("tile_m", "tile_k_bytes", "stages", "threads", "producer_regs", "consumer_regs",
+            "smem_bytes_n256", "smem_bytes_n128")
+    return dict(zip(keys, out))
+
+
+def _scratch(x: torch.Tensor, b: int, hw: int, c: int, stage: str = "int32",
+             zeroed: bool = True):
+    """Pass A's accumulator scratch [b, hw, c] and the statistics block, zeroed
+    unless ``zeroed`` is False (the wgmma sites' C entries zero it on the stream)."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     y = torch.empty((b, hw, c), dtype=torch.float16 if stage == "fp16" else torch.int32,
                     device=x.device)
-    stats = torch.zeros(5 * b * c + b, dtype=torch.int64, device=x.device)
+    stats = (torch.zeros if zeroed else torch.empty)(5 * b * c + b, dtype=torch.int64,
+                                                     device=x.device)
     return y, stats
 
 
@@ -538,19 +590,23 @@ def true_extremes_stats(n_sites: int, b: int, c: int, device) -> torch.Tensor:
     return stats
 
 
-def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS):
+def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS, *,
+                               w_kmajor=None):
     """Resblock conv1 site on dense NHWC int8; see the module docstring.
 
-    x_i8 [B, H, W, C] int8, w_packed [9C, C] int8, gamma/beta [B, C] float32.
+    x_i8 [B, H, W, C] int8, w_packed [9C, C] int8, gamma/beta [B, C] float32;
+    w_kmajor, optional, ``pack_weights_kmajor(w_packed)``, which the kernel reads.
     """
     if x_i8.device.type == "cpu":
+        _check_kmajor_shape(w_kmajor, x_i8.shape[-1])
         return conv3x3_adain_relu_requant_plain(x_i8, w_packed, gamma, beta, eps)
     _check("x", x_i8, torch.int8, tuple(x_i8.shape))
     b, h, w, c = _check_site(x_i8, w_packed, gamma, beta)
+    wk = _kmajor(w_packed, w_kmajor, c)
     fn = _build.load(RELU_SITE, _ARGTYPES[RELU_SITE])
-    y, stats = _scratch(x_i8, b, h * w, c)
+    y, stats = _scratch(x_i8, b, h * w, c, zeroed=False)
     out = torch.empty_like(x_i8)
-    err = fn(x_i8.data_ptr(), w_packed.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+    err = fn(x_i8.data_ptr(), wk.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
              y.data_ptr(), stats.data_ptr(), out.data_ptr(), b, h, w, c, eps,
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(RELU_SITE, err)
@@ -559,21 +615,24 @@ def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS):
 
 
 def conv3x3_adain_residual_requant(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
-                                   eps: float = _EPS):
+                                   eps: float = _EPS, *, w_kmajor=None):
     """Resblock conv2 site on dense NHWC int8; returns (int8, scale [B, 1]).
 
     y1_i8, h_i8 [B, H, W, C] int8, h_scale [B, 1] float32, w_packed [9C, C]
-    int8, gamma/beta [B, C] float32.
+    int8, gamma/beta [B, C] float32; w_kmajor, optional,
+    ``pack_weights_kmajor(w_packed)``, which the kernel reads.
     """
     if y1_i8.device.type == "cpu":
+        _check_kmajor_shape(w_kmajor, y1_i8.shape[-1])
         return conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma,
                                                     beta, eps)
-    out = residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps)
+    out = residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps, w_kmajor=w_kmajor)
     LAUNCHES[RESIDUAL_SITE] += 1
     return out
 
 
-def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _EPS):
+def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _EPS, *,
+                    w_kmajor=None):
     """Check the inputs of the residual site and launch its kernel; returns
     (int8, scale [B, 1]). It counts no launch: ``conv3x3_adain_residual_requant``
     here and the v1 site of ``fused_conv_int8`` each count their own."""
@@ -583,11 +642,12 @@ def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _E
     _check("h_scale", h_scale, torch.float32, (b, 1))
     if h_i8.device != y1_i8.device or h_scale.device != y1_i8.device:
         raise ValueError(f"all inputs must be on {y1_i8.device}")
+    wk = _kmajor(w_packed, w_kmajor, c)
     fn = _build.load(RESIDUAL_SITE, _ARGTYPES[RESIDUAL_SITE])
-    y, stats = _scratch(y1_i8, b, h * w, c)
+    y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
     out = torch.empty_like(y1_i8)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=y1_i8.device)
-    err = fn(y1_i8.data_ptr(), h_i8.data_ptr(), h_scale.data_ptr(), w_packed.data_ptr(),
+    err = fn(y1_i8.data_ptr(), h_i8.data_ptr(), h_scale.data_ptr(), wk.data_ptr(),
              gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), stats.data_ptr(),
              out.data_ptr(), out_scale.data_ptr(), b, h, w, c, eps,
              torch.cuda.current_stream(y1_i8.device).cuda_stream)

@@ -99,6 +99,72 @@ def test_residual_site_kernel_matches_plain(cuda_device, b, side, c):
     _assert_int8_close(got_q, want_q)
 
 
+# Rows 1-2 on wgmma (csrc/conv3x3_i8_wgmma.cuh): the conv is exact integer
+# arithmetic and the epilogues are the plain versions' operations, so both
+# sites equal their plain versions to the bit. (8, 128, 256) is a 512² input's
+# trunk, (1, 96, 256) a 384² input's: W = 96, no 128-pixel tile a whole row.
+WGMMA_SHAPES = [(1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256)]
+
+
+def _wgmma_sites(t, **kw):
+    relu = fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"], **kw)
+    res = fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
+                                            t["beta"], **kw)
+    return relu, *res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c", WGMMA_SHAPES)
+def test_wgmma_sites_equal_plain_to_the_bit(cuda_device, b, side, c):
+    """Rows 1-2 with and without the K-major copy, twice: every output equal
+    to the plain version's, and one launch counted per call."""
+    t = _inputs(b, side, c, cuda_device, seed=8)
+    wk = fc.pack_weights_kmajor(t["w"])
+    want = (fc.conv3x3_adain_relu_requant_plain(t["x"], t["w"], t["gamma"], t["beta"]),
+            *fc.conv3x3_adain_residual_requant_plain(t["x"], t["hq"], t["hs"], t["w"],
+                                                     t["gamma"], t["beta"]))
+    for kw in ({"w_kmajor": wk}, {}, {"w_kmajor": wk}):
+        before = dict(fc.LAUNCHES)
+        got = _wgmma_sites(t, **kw)
+        assert fc.LAUNCHES == {**before, fc.RELU_SITE: before[fc.RELU_SITE] + 1,
+                               fc.RESIDUAL_SITE: before[fc.RESIDUAL_SITE] + 1}
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w), f"{int((g != w).sum())} of {g.numel()} differ ({kw})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(1, 128), (8, 256), (2, 256)])
+def test_v1_residual_site_equals_plain_to_the_bit(cuda_device, b, c):
+    """Row 20 runs row 2's entry on the 64x64 maps its gate admits; it makes
+    the K-major copy itself."""
+    t = _inputs(b, 64, c, cuda_device, seed=9)
+    before = v1.LAUNCHES[v1.RESIDUAL_SITE]
+    got = v1.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
+                                            t["beta"])
+    assert v1.LAUNCHES[v1.RESIDUAL_SITE] == before + 1
+    want = v1.conv3x3_adain_residual_requant_plain(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
+                                                   t["beta"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_wgmma_sites_reject_a_bad_kmajor_copy(cuda_device):
+    t = _inputs(1, 16, 128, cuda_device)
+    wk = fc.pack_weights_kmajor(t["w"])
+    bad = [("shape", wk[:, :-128].contiguous()), ("shape", t["w"]), ("int8", wk.to(torch.int32)),
+           ("CUDA tensor", wk.cpu()), ("contiguous", t["w"].t())]
+    for match, w_kmajor in bad:
+        with pytest.raises(ValueError, match=match):
+            fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"],
+                                          w_kmajor=w_kmajor)
+        with pytest.raises(ValueError):
+            fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
+                                              t["beta"], w_kmajor=w_kmajor)
+
+
 def _bf16_ulps(a, b):
     def ordered(t):
         bits = t.view(torch.int16).to(torch.int32)

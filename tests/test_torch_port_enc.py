@@ -395,7 +395,7 @@ def test_encoder_hands_trunk_enc2_scale_without_requant(qparams, monkeypatch):
     seen = []
     real = tq.fc.conv3x3_adain_residual_requant
     monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant",
-                        lambda y1, h, s, *a: seen.append((h, s)) or real(y1, h, s, *a))
+                        lambda y1, h, s, *a, **k: seen.append((h, s)) or real(y1, h, s, *a, **k))
     monkeypatch.setattr(tq, "_requant_with_inv_scale", mock.Mock(side_effect=AssertionError))
     tq.quantized_generator_apply_staged(q, img, torch.zeros((1, SDIM)), n_res=N_RES,
                                         out_dtype=torch.uint8, pallas=tq.ALL_STAGES)

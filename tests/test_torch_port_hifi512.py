@@ -475,8 +475,9 @@ def test_generator_512_runs_the_staged_sites_end_to_end(monkeypatch):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
             seen.append((_n, tuple(a[0].shape), k)), _r(*a, **k))[1])
-    monkeypatch.setattr(tq.fc, "conv3x3_adain_relu_requant", lambda x, *a: x)
-    monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant", lambda y1, h, hs, *a: (h, hs))
+    monkeypatch.setattr(tq.fc, "conv3x3_adain_relu_requant", lambda x, *a, **k: x)
+    monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant",
+                        lambda y1, h, hs, *a, **k: (h, hs))
     img = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (1, 512, 512, 3),
                                                              dtype=np.uint8))
     out = tq.quantized_generator_apply(q, img, torch.zeros((1, SDIM)), n_res=1)

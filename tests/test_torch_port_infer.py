@@ -187,11 +187,11 @@ def test_trunk_hands_the_kernels_dense_contiguous_tensors(slice_inputs, monkeypa
     seen = []
 
     def spy(real):
-        def call(*args):
-            for a in args:
+        def call(*args, **kw):  # kw: the K-major weight copy, which the kernels read
+            for a in (*args, *kw.values()):
                 assert a.is_contiguous() and a.device.type == "cpu"
             seen.append(tuple(args[0].shape))
-            return real(*args)
+            return real(*args, **kw)
         return call
 
     monkeypatch.setattr(tq.fc, "conv3x3_adain_relu_requant",

@@ -240,10 +240,10 @@ def stub_sites(monkeypatch):
     """Records which trunk route ran, with no convolution computed."""
     calls = []
     monkeypatch.setattr(tq.fc, "conv3x3_adain_relu_requant",
-                        lambda x, *a: calls.append("relu") or x)
+                        lambda x, *a, **k: calls.append("relu") or x)
     for name in ("conv3x3_adain_residual_requant", "conv3x3_adain_residual_hifi",
                  "conv3x3_adain_residual_hifi2"):
-        monkeypatch.setattr(tq.fc, name, lambda y1, *a, name=name: calls.append(name) or (
+        monkeypatch.setattr(tq.fc, name, lambda y1, *a, name=name, **k: calls.append(name) or (
             y1, *a[:(2 if name.endswith("hifi2") else 1)]))
     monkeypatch.setattr(tq.f3, "fused_trunk_blocks",
                         lambda x, hs, *a: calls.append("v3") or (x, hs))
