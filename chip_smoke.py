@@ -7,9 +7,9 @@ Phases, each reported on its own line:
 
 1. build: compiles the fourteen CUDA sources of the serving, tool and training
    paths from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once),
-   prints ptxas's registers and spills per kernel (named for the wgmma pass A
-   of rows 1-2), and the card's name and power limit as nvidia-smi reports
-   them;
+   prints ptxas's registers and spills per kernel (named for the wgmma
+   kernels: rows 1-2's pass A, the ConvT site's pass S and pass Q), and the
+   card's name and power limit as nvidia-smi reports them;
 2. kernels: each of the twenty-one kernel sites against its plain PyTorch version
    on the card, with seeded random inputs, batch 8. At the shapes of a 256²
    input: enc0 uint8 [8, 256, 256, 3] -> [8, 256, 256, 64], enc1 ->
@@ -33,15 +33,21 @@ Phases, each reported on its own line:
    of four times the pixels. Bars: int8 outputs at most 1 step apart on under
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
    on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
-   the int8-carry conv2 and the v1 conv2 site, ``EXACT``) equal to their
-   plain versions to the bit, conv1 and conv2 timed with the K-major weight
-   copy given, as the served trunk calls them; times by CUDA events
+   the int8-carry conv2, the v1 conv2 site, and the ConvT site's rows 5, 12
+   and 13, ``EXACT``) equal to their plain versions to the bit, conv1, conv2
+   and the ConvT rows timed with the K-major weight copy given, as the served
+   trunk and decoder call them; times by CUDA events
    (the three epilogue rows also as three medians with L2 warm and three
    with L2 flushed before each call). Then conv1 and conv2 at
    ``WGMMA_SHAPES`` (down to [1, 16, 16, 128], up to [8, 128, 128, 256], and a
    384² input's [1, 96, 96, 256]) with and without the K-major copy, twice,
    and the v1 conv2 site at [1, 64, 64, 128] and [8, 64, 64, 256]: equal to
-   the plain versions to the bit, one launch per call;
+   the plain versions to the bit, one launch per call; then rows 5, 12 and 13
+   at ``CONVT_SHAPES`` ([8, 64, 64, 256] -> 128, [8, 128, 128, 128] -> 64,
+   [2, 256, 256, 128] -> 64 in both stagings, [1, 16, 16, 64] -> 64,
+   [1, 96, 96, 256] -> 128) with and without the K-major copy: equal to the
+   plain versions to the bit, one launch per call, and the passes' rings and
+   shared memory as built;
 3. end to end, ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256), batch 8, over 20 seeded inputs, the launch
@@ -96,6 +102,9 @@ Phases, each reported on its own line:
    reductions; and of conv1 and conv2 at [8, 64, 64, 256] and [8, 128, 128,
    256]: the wgmma pass A, the epilogue kernels, the memset, with pass A's
    int8 rate and share of 1,979 TOP/s, beside the call's time by CUDA events;
+   the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
+   input's in both stagings: the memset, pass S and pass Q, each pass's int8
+   rate;
    then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
    engine in mode 0: the device's busy and idle share and the trunk's share
    of the busy time;
@@ -222,18 +231,29 @@ BENCH_SITES = {
     "up1 site    v1": {_UP1: 1}, "up1 site    v2": {"convt4x4s2_in_relu_requant": 1},
 }
 _TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant": N_RES}
-# Rows 1, 2 and 20 run the conv on wgmma (csrc/conv3x3_i8_wgmma.cuh): exact
-# integer sums and the plain versions' epilogue operations, so they are held
-# equal to their plain versions to the bit, at the kernel rows' shapes and at
+# Rows 1, 2 and 20 (the trunk's 3x3) and rows 5, 12 and 13 (the ConvT site's
+# two passes) run the conv on wgmma (csrc/conv_i8_wgmma.cuh): exact integer
+# sums and the plain versions' epilogue operations, so they are held equal to
+# their plain versions to the bit, at the kernel rows' shapes and at
 # WGMMA_SHAPES (b, side, c): small maps, both channel tiles, a 512² input's
-# trunk and a 384² input's (W = 96: tiles end inside image rows).
+# trunk and a 384² input's (W = 96: tiles end inside image rows); and at
+# CONVT_SHAPES (b, side, cin, cout, stages): up0's and up1's main-path shapes,
+# a 512² input's up1 in both stagings, Cin 64 (two taps a 128-byte K block)
+# and a 384² input's up0 (W = 96).
 EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
-         "conv3x3_adain_residual_requant_v1")
+         "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
+         "up1_s2d16_hbm")
 WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256))
+CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
+                (2, 256, 128, 64, ("int32", "fp16")), (1, 16, 64, 64, ("int32",)),
+                (1, 96, 256, 128, ("int32",)))
 # Device time of a trunk site's call by kernel (torch.profiler names).
 TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
                 ("relu epilogue", "relu_requant_kernel"), ("max|hn|", "residual_amax_kernel"),
                 ("residual requant", "residual_requant_kernel"), ("memset", "Memset"))
+# ... and of a ConvT site's call: the statistics' memset, pass S, pass Q.
+CONVT_GROUPS = (("pass S (wgmma)", "convt_i8_wgmma_stats_kernel"),
+                ("pass Q (wgmma)", "convt_i8_wgmma_requant_kernel"), ("memset", "Memset"))
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
                 ("reductions", "reduce_kernel"))
 PROFILE_STAGES = {
@@ -416,6 +436,10 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
             x = t(rng.integers(lo, 128, (B, side, side, cin), dtype=np.int8))
             w = torch.from_numpy(rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8))
             wp = pack(w, cin, cin // 2).to(dev)
+            # rows 5, 12, 13 as the served decoder calls them, with the K-major copy
+            kk = ({"w_kmajor": fc.pack_convt_weights_ps_kmajor(wp)}
+                  if fn in (fc.convt4x4s2_in_relu_requant_ps, fd.up1_s2d16, fd.up1_s2d16_hbm)
+                  else {})
             if fn is fc.convt4x4s2_in_relu_requant:  # row 6 is row 5's function
                 row5 = fc.convt4x4s2_in_relu_requant_ps(x, fc.pack_convt_weights_ps(
                     w, cin, cin // 2).to(dev))
@@ -424,7 +448,7 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
                 print(f"[kernel] convt4x4s2_in_relu_requant: equal to "
                       f"convt4x4s2_in_relu_requant_ps's kernel to the bit at [{B}, {side}, "
                       f"{side}, {cin}]", flush=True)
-            return (lambda: fn(x, wp, **kw)), (lambda: plain(x, wp, **kw))
+            return (lambda: fn(x, wp, **kw, **kk)), (lambda: plain(x, wp, **kw))
         return make
 
     def enc0(fn, plain, side, **kw):
@@ -679,6 +703,49 @@ def wgmma_phase(torch, fc, v1, dev) -> None:
         print(f"[kernel] row 20 at {[b, 64, 64, c]}: equal to its plain version to the bit",
               flush=True)
     torch.cuda.empty_cache()
+
+
+def convt_phase(torch, fc, fd, dev) -> None:
+    """Rows 5, 12 and 13 (one entry, the ConvT site's two wgmma passes) at
+    CONVT_SHAPES, with the K-major copy given and made by the wrapper: every
+    output equal to the plain version's to the bit, one launch per call; and
+    the two passes' configuration as built."""
+    cfg = fc.convt_wgmma_config()
+    print("[kernel] wgmma passes of rows 5, 12, 13: tiles of " f"{cfg['tile_m']} pixels; " + "; ".join(
+        f"{p} at BN = {bn}: {cfg[f'k_bytes_{p}_n{bn}']} bytes of K a stage, "
+        f"{cfg[f'stages_{p}_n{bn}']} stages, {cfg[f'smem_bytes_{p}_n{bn}']} B of shared memory"
+        for bn in (128, 64) for p in ("stats", "requant")), flush=True)
+    sites = ((fc.convt4x4s2_in_relu_requant_ps, fc.LAUNCHES, fc.CONVT_SITE),
+             (fd.up1_s2d16, fd.LAUNCHES, fd.UP1_SITE))
+    for b, side, cin, cout, stages in CONVT_SHAPES:
+        rng = np.random.default_rng(side + cin + cout)
+        x = torch.from_numpy(rng.integers(-127 if cin == C else 0, 128, (b, side, side, cin),
+                                          dtype=np.int8)).to(dev)
+        w = fc.pack_convt_weights_ps(torch.from_numpy(
+            rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8)), cin, cout).to(dev)
+        wk = fc.pack_convt_weights_ps_kmajor(w)
+        for stage in stages:
+            want = fd.up1_s2d16_hbm_plain(x, w, stage=stage)
+            calls = [(lambda kw, stage=stage: fd.up1_s2d16_hbm(x, w, stage=stage, **kw),
+                      fd.LAUNCHES, fd.UP1_HBM_SITE)]
+            if stage == "int32":  # the other two sites read the accumulator as int32
+                calls += [(lambda kw, fn=fn: fn(x, w, **kw), counts, name)
+                          for fn, counts, name in sites]
+            for call, counts, name in calls:
+                for kw in ({"w_kmajor": wk}, {}):
+                    before = counts[name]
+                    got = call(kw)
+                    torch.cuda.synchronize()
+                    check(counts[name] == before + 1, f"{name} at {[b, side, side, cin]}: one launch")
+                    check(all(torch.equal(g, v) for g, v in zip(got, want)),
+                          f"{name} at {[b, side, side, cin]} -> {cout}, {stage} "
+                          f"({'K-major copy given' if kw else 'copy made'}) equal to its plain "
+                          f"version to the bit")
+        print(f"[kernel] rows 5, 12, 13 at {[b, side, side, cin]} -> {cout} "
+              f"({', '.join(stages)}): equal to their plain versions to the bit, with the "
+              f"K-major copy given and made by the wrapper", flush=True)
+        del x, w, wk, want
+        torch.cuda.empty_cache()
 
 
 def write_inputs(work: str) -> tuple:
@@ -1160,19 +1227,22 @@ def kernel_split(torch, fn, calls: int = 10, groups=TRAIN_GROUPS) -> dict:
     (label, name part) of ``groups`` whose part the kernel's name holds, else
     as PyTorch's own kernels (for the conv backwards, ``TRAIN_GROUPS``: row
     24's IN backward, the conv core, the in-order reductions, and the taps'
-    transposed copy); {} if the trace holds no device events."""
+    transposed copy); {} if the trace holds no device events, or holds a
+    kernel's launches in a number that is no multiple of ``calls`` (a trace
+    that lost events, which would read as a rate past the card's peak)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             key = next((g for g, k in groups if k in e.name), "PyTorch kernels")
             out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
-    return out
+            count[e.name] = count.get(e.name, 0) + 1
+    return out if all(n % calls == 0 for n in count.values()) else {}
 
 
 def close(torch, name: str, got, want, rtol: float = 1e-4, atol_rel: float = 1e-5) -> tuple:
@@ -1356,6 +1426,47 @@ def trunk_split_phase(torch, fc, kernels: dict) -> None:
                   f"torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
                   + f"; {rate}; the row's time follows {follows}", flush=True)
         del x, hq, w, wk
+        torch.cuda.empty_cache()
+
+
+def convt_split_phase(torch, fc, fd, kernels: dict) -> None:
+    """Rows 5 and 12 at their main-path shapes, and row 13 at a 512² input's
+    in both stagings, with the K-major copy given: the time per call by CUDA
+    events (median of 30) and by ``torch.profiler`` device time per kernel
+    (``kernel_split`` with ``CONVT_GROUPS``: memset, pass S, pass Q), each
+    pass's int8 rate (the conv's operations, once per pass) and its share of
+    the card's 1,979 TOP/s. The parts go into the row as ``parts_ms``. Run
+    last, as ``split_phase``."""
+    for name, side, cin, stage, case in (
+            ("convt4x4s2_in_relu_requant_ps", SIDE, C, "int32", "256² input"),
+            ("up1_s2d16", 2 * SIDE, C // 2, "int32", "256² input"),
+            ("up1_s2d16_hbm", 4 * SIDE, C // 2, "int32", "512² input, staged int32"),
+            ("up1_s2d16_hbm", 4 * SIDE, C // 2, "fp16", "512² input, staged fp16")):
+        rng = np.random.default_rng(side + cin)
+        x = torch.from_numpy(rng.integers(-127 if cin == C else 0, 128, (B, side, side, cin),
+                                          dtype=np.int8)).cuda()
+        w = fc.pack_convt_weights_ps(torch.from_numpy(
+            rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8)), cin, cin // 2).cuda()
+        wk = fc.pack_convt_weights_ps_kmajor(w)
+        call = {"convt4x4s2_in_relu_requant_ps":
+                lambda: fc.convt4x4s2_in_relu_requant_ps(x, w, w_kmajor=wk),
+                "up1_s2d16": lambda: fd.up1_s2d16(x, w, w_kmajor=wk),
+                "up1_s2d16_hbm": lambda: fd.up1_s2d16_hbm(x, w, stage=stage, w_kmajor=wk)}[name]
+        ops = 2 * B * 4 * side * side * (cin // 2) * 4 * cin
+        ms = cuda_ms(torch, call, reps=30)
+        parts = kernel_split(torch, call, groups=CONVT_GROUPS)
+        device = sum(parts.values())
+        row = next(r for r in [kernels[name], *kernels[name]["also"]] if r["case"] == case)
+        row["parts_ms"] = parts
+        rates = ", ".join(
+            f"{k} {ops / (v * 1e-3) / 1e12:.1f} TOP/s ({ops / (v * 1e-3) / PEAK_INT8_OPS:.1%})"
+            for k, v in parts.items() if k.startswith("pass")) or \
+            "not measured (the trace holds no device events)"
+        print(f"[kernel] {name} ({[B, side, side, cin]} -> {cin // 2}, {stage}, K-major copy "
+              f"given): {ms:.4f} ms per call by CUDA events (median of 30), {device:.4f} ms of "
+              f"device time by torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f"; {rates} of 1,979", flush=True)
+        del x, w, wk
         torch.cuda.empty_cache()
 
 
@@ -1678,6 +1789,7 @@ def main() -> int:
     int8_mods = (fc, fd, fe, f3, ec, v1, ep)
     kernels = kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev)
     wgmma_phase(torch, fc, v1, dev)
+    convt_phase(torch, fc, fd, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
@@ -1688,6 +1800,7 @@ def main() -> int:
         train_cli_phase(torch, work)
         split_phase(torch, to_split)
         trunk_split_phase(torch, fc, kernels)
+        convt_split_phase(torch, fc, fd, kernels)
         serve_profile_phase(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -12,7 +12,7 @@
 // written and read back at B = 8): a sample's is 4 MB, past an SM's 227 KB.
 //
 // Launches: a memset of the statistics block, the conv + statistics on
-// wgmma (conv3x3_i8_wgmma.cuh, K-major weights), then the relu epilogue
+// wgmma (conv_i8_wgmma.cuh, K-major weights), then the relu epilogue
 // (conv_int8.cuh), in which every CTA first rebuilds its sample's per-channel
 // affine and the requant scale from the statistics (256 channels: cheaper
 // than a third kernel).
@@ -25,7 +25,7 @@
 // where v2 zero-masks the extremes and folds s into a and d. So it is
 // conv_int8.cuh's mma.sync pass A in the true-extremes mode on the [9C, C]
 // weights, then true_relu_requant_kernel; the same bound.
-#include "conv3x3_i8_wgmma.cuh"
+#include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 // Returns a CUDA error code (0 = success) after the launches. Launches on
@@ -39,7 +39,7 @@ extern "C" int msig_conv3x3_adain_relu_requant(const void* x, const void* wk, co
   using namespace msig;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  const int err = wgmma3x3::conv3x3_i8_stats(x, wk, y_scratch, stats, B, H, W, C, st);
+  const int err = wgmma::conv3x3_i8_stats(x, wk, y_scratch, stats, B, H, W, C, st);
   if (err != 0) return err;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
@@ -54,8 +54,8 @@ extern "C" int msig_conv3x3_adain_relu_requant(const void* x, const void* wk, co
 // setmaxnreg, and the dynamic shared memory of a CTA at BN = 256 and 128.
 // Returns 0.
 extern "C" int msig_conv3x3_i8_wgmma_config(int* out) {
-  using namespace msig::wgmma3x3;
-  const int v[] = {kBM, kBK, kStages, kThreads, kProducerRegs, kConsumerRegs,
+  using namespace msig::wgmma;
+  const int v[] = {kBM, kBK, Layout<256>::kStages, kThreads, kProducerRegs, kConsumerRegs,
                    Layout<256>::kBytes, Layout<128>::kBytes};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;

@@ -13,11 +13,11 @@
 // can fuse them.
 //
 // Launches: a memset of the statistics block, the conv + statistics on wgmma
-// (conv3x3_i8_wgmma.cuh, K-major weights), max|hn| per sample (float
+// (conv_i8_wgmma.cuh, K-major weights), max|hn| per sample (float
 // atomicMax on the bit pattern of a non-negative float), requant. The v1
 // conv2 site (msig_tpu/ops/fused_conv_int8.py::conv3x3_adain_residual_requant)
 // computes the same function and runs this entry too.
-#include "conv3x3_i8_wgmma.cuh"
+#include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -106,7 +106,7 @@ extern "C" int msig_conv3x3_adain_residual_requant(const void* y1, const void* h
   using namespace msig;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  const int err_a = wgmma3x3::conv3x3_i8_stats(y1, wk, y_scratch, stats, B, H, W, C, st);
+  const int err_a = wgmma::conv3x3_i8_stats(y1, wk, y_scratch, stats, B, H, W, C, st);
   if (err_a != 0) return err_a;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   const size_t smem = 2 * C * sizeof(float);

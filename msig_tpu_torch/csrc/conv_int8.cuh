@@ -8,7 +8,10 @@
 // while exact per-(sample, channel) statistics are reduced across CTAs with
 // int64 atomics. A site's geometry (which input pixel and which weight block
 // each tap reads, and where an output row lands) is a small struct; the tile
-// loop is shared.
+// loop is shared. The trunk's conv1 and int8-carry conv2 sites and the
+// phase-split ConvT site run that conv on wgmma instead (conv_i8_wgmma.cuh,
+// over the same geometries and statistics block), the ConvT without the
+// scratch.
 //
 // Why two passes: the TPU kernels (msig_tpu/ops/fused_conv_int8_v2.py,
 // fused_dec_int8.py) run one whole sample per program and keep its int32
@@ -68,6 +71,8 @@ template <> struct StageOf<int32_t> {
     const int4 v = *reinterpret_cast<const int4*>(p);
     f[0] = (float)v.x, f[1] = (float)v.y, f[2] = (float)v.z, f[3] = (float)v.w;
   }
+  // v as the epilogue reads it back from the scratch, without the scratch.
+  __device__ static float through(int v) { return (float)v; }
 };
 template <> struct StageOf<__half> {
   static constexpr float kUnscale = 4096.f;
@@ -81,6 +86,9 @@ template <> struct StageOf<__half> {
     const __half2 lo = *reinterpret_cast<const __half2*>(&v.x);
     const __half2 hi = *reinterpret_cast<const __half2*>(&v.y);
     f[0] = __low2float(lo), f[1] = __high2float(lo), f[2] = __low2float(hi), f[3] = __high2float(hi);
+  }
+  __device__ static float through(int v) {
+    return __half2float(__float2half_rn(__fmul_rn((float)v, kStageScale)));
   }
 };
 
@@ -422,7 +430,8 @@ __device__ __forceinline__ void store_amax(long long* stats, int B, int C, int b
             (unsigned long long)__float_as_uint(v));
 }
 
-// Per-channel IN (+ AdaIN) affine of sample b, in the order of the TPU kernel
+// IN (+ AdaIN) affine of entry i = b*C + c of the statistics block (BC =
+// B*C, n outputs per (sample, channel)), in the order of the TPU kernel
 // (fused_conv_int8_v2.py:121-126): mean = sum/n, var = max(sumsq/n - mean^2, 0),
 // a = gamma * rsqrt(var + eps), d = beta - mean * a. A null gamma / beta is
 // the plain IN of the ConvT sites (:627-631): 1 * r and 0 - m * a give the
@@ -430,22 +439,60 @@ __device__ __forceinline__ void store_amax(long long* stats, int B, int C, int b
 // into FMAs, so the plain PyTorch version can repeat the arithmetic.
 // kCg reads the statistics past L1 (see ld).
 template <bool kCg = false>
+__device__ __forceinline__ void in_affine(const long long* __restrict__ stats,
+                                          const float* __restrict__ gamma,
+                                          const float* __restrict__ beta, size_t i, size_t BC,
+                                          float n, float eps, float& a, float& d) {
+  const float mean = __fdiv_rn((float)ld<kCg>(&stats[i]), n);
+  const float sumsq = sumsq_to_float((unsigned long long)ld<kCg>(&stats[BC + i]),
+                                     (unsigned long long)ld<kCg>(&stats[4 * BC + i]));
+  const float var = fmaxf(__fsub_rn(__fdiv_rn(sumsq, n), __fmul_rn(mean, mean)), 0.f);
+  a = __fmul_rn(gamma ? gamma[i] : 1.f, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
+  d = __fsub_rn(beta ? beta[i] : 0.f, __fmul_rn(mean, a));
+}
+
+// The per-channel affine of sample b (in_affine) into a_s[C], d_s[C], by the
+// threads of the block; HW is the number of outputs per (sample, channel).
+template <bool kCg = false>
 __device__ __forceinline__ void channel_affine(const long long* __restrict__ stats,
                                                const float* __restrict__ gamma,
                                                const float* __restrict__ beta, int b, int B,
                                                int C, int HW, float eps, float* a_s, float* d_s) {
-  const float n = (float)HW;
   const size_t BC = (size_t)B * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const size_t i = (size_t)b * C + c;
-    const float mean = __fdiv_rn((float)ld<kCg>(&stats[i]), n);
-    const float sumsq = sumsq_to_float((unsigned long long)ld<kCg>(&stats[BC + i]),
-                                       (unsigned long long)ld<kCg>(&stats[4 * BC + i]));
-    const float var = fmaxf(__fsub_rn(__fdiv_rn(sumsq, n), __fmul_rn(mean, mean)), 0.f);
-    const float a = __fmul_rn(gamma ? gamma[i] : 1.f, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
-    a_s[c] = a;
-    d_s[c] = __fsub_rn(beta ? beta[i] : 0.f, __fmul_rn(mean, a));
-  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x)
+    in_affine<kCg>(stats, gamma, beta, (size_t)b * C + c, BC, (float)HW, eps, a_s[c], d_s[c]);
+}
+
+// The relu sites' requant, shared by relu_requant_kernel and the ConvT site's
+// pass Q (conv_i8_wgmma.cuh), so that both give the same bits by construction.
+// relu_hi: channel i's part of the amax, the affine image of its zero-masked
+// min and max (fused_conv_int8_v2.py:127-131, :634-637); amax is the largest of
+// them and 0 over the sample's channels (max is exact, so in any order).
+__device__ __forceinline__ float relu_hi(const long long* __restrict__ stats, size_t BC, size_t i,
+                                         float a, float d) {
+  const float cmin = (float)stats[2 * BC + i];
+  const float cmax = (float)stats[3 * BC + i];
+  return __fadd_rn(fmaxf(__fmul_rn(a, cmax), __fmul_rn(a, cmin)), d);
+}
+// The requant scale s = 127/amax and the inverse scale amax/127 (1 for amax 0).
+__device__ __forceinline__ float relu_scale(float amax) {
+  return amax > 0.f ? __fdiv_rn(127.f, amax) : 1.f;
+}
+__device__ __forceinline__ float relu_inv_scale(float amax) {
+  return amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+}
+// a2 = a*s*unscale, d2 = d*s: the affine with the scale folded in; unscale
+// (StageOf::kUnscale) undoes the fp16 staging's 2^-12 after the product a*s,
+// as the TPU's staged sites fold it (fused_dec_int8.py:425-428).
+__device__ __forceinline__ void fold_relu(float a, float d, float s, float unscale, float& a2,
+                                          float& d2) {
+  a2 = __fmul_rn(__fmul_rn(a, s), unscale);
+  d2 = __fmul_rn(d, s);
+}
+// One value: round(min(max(v*a2 + d2, 0), 127)).
+__device__ __forceinline__ signed char relu_requant_folded(float v, float a2, float d2) {
+  const float t = fminf(fmaxf(__fadd_rn(__fmul_rn(v, a2), d2), 0.f), 127.f);
+  return (signed char)__float2int_rn(t);
 }
 
 // Max of non-negative per-thread values over the block.
@@ -536,20 +583,13 @@ relu_requant_kernel(const Stage* __restrict__ y, const long long* __restrict__ s
 
   const size_t BC = (size_t)B * C;
   float local = 0.f;  // max(hi, 0)
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float cmin = (float)stats[2 * BC + (size_t)b * C + c];
-    const float cmax = (float)stats[3 * BC + (size_t)b * C + c];
-    const float hi = __fadd_rn(fmaxf(__fmul_rn(a_s[c], cmax), __fmul_rn(a_s[c], cmin)), d_s[c]);
-    local = fmaxf(local, hi);
-  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x)
+    local = fmaxf(local, relu_hi(stats, BC, (size_t)b * C + c, a_s[c], d_s[c]));
   const float amax = block_max(local, red);
-  const float s = amax > 0.f ? __fdiv_rn(127.f, amax) : 1.f;
-  if (out_scale != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
-    out_scale[b] = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    a_s[c] = __fmul_rn(__fmul_rn(a_s[c], s), StageOf<Stage>::kUnscale);
-    d_s[c] = __fmul_rn(d_s[c], s);
-  }
+  const float s = relu_scale(amax);
+  if (out_scale != nullptr && blockIdx.x == 0 && threadIdx.x == 0) out_scale[b] = relu_inv_scale(amax);
+  for (int c = threadIdx.x; c < C; c += blockDim.x)
+    fold_relu(a_s[c], d_s[c], s, StageOf<Stage>::kUnscale, a_s[c], d_s[c]);
   __syncthreads();
 
   const size_t n4 = (size_t)HW * C / 4;
@@ -560,14 +600,10 @@ relu_requant_kernel(const Stage* __restrict__ y, const long long* __restrict__ s
     float vals[4];
     StageOf<Stage>::load4(yb + i * 4, vals);
     const int c = (int)((i * 4) % C);
-    signed char qv[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float t = __fadd_rn(__fmul_rn(vals[k], a_s[c + k]), d_s[c + k]);
-      t = fminf(fmaxf(t, 0.f), 127.f);
-      qv[k] = (signed char)__float2int_rn(t);
-    }
-    o4[i] = make_char4(qv[0], qv[1], qv[2], qv[3]);
+    o4[i] = make_char4(relu_requant_folded(vals[0], a_s[c], d_s[c]),
+                       relu_requant_folded(vals[1], a_s[c + 1], d_s[c + 1]),
+                       relu_requant_folded(vals[2], a_s[c + 2], d_s[c + 2]),
+                       relu_requant_folded(vals[3], a_s[c + 3], d_s[c + 3]));
   }
 }
 

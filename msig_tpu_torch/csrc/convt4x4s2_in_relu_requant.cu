@@ -17,21 +17,29 @@
 // [8, 128, 128, 128] and up1 [8, 128, 128, 128] -> [8, 256, 256, 64] are each
 // 2 * outputs * 4 * Cin = 34.4 G int8 operations (17.4 us at 1,979 TOP/s),
 // against 25 MB (up0) or 50 MB (up1) that must move (7.5 or 15 us at
-// 3.35 TB/s), so operations bound both. This design adds the int32 round trip
-// (67 or 134 MB at B = 8) and uses mma.sync, not wgmma.
+// 3.35 TB/s), so operations bound both.
 //
-// Two launches, both from conv_int8.cuh: conv + exact statistics over all
-// four phases, then the relu epilogue with gamma = 1, beta = 0, which also
-// writes the inverse scale.
+// The requant scale of a sample needs all its conv outputs, and the epilogue
+// needs nothing of an output but to map it: so the conv runs twice on the
+// wgmma main loop of conv_i8_wgmma.cuh, with K-major weights [4, Cout, 4*Cin]
+// (fused_conv_int8_v2.py::pack_convt_weights_ps_kmajor), and the int32
+// accumulator (67 MB at up0, 134 MB at up1, B = 8, each way) never reaches
+// device memory. Three launches: a memset of the statistics block; pass S,
+// the conv and the exact statistics over all four phases, storing nothing
+// else; pass Q, the conv again, each CTA first rebuilding its sample's affine,
+// amax and scale from the finished block (gamma = 1, beta = 0), then mapping
+// its accumulator registers to int8 as relu_requant_kernel does (the shared
+// helpers of conv_int8.cuh), writing the int8 map and the inverse scale. Twice
+// the conv caps the design at half of the one-pass ops bound.
 //
 // At the 512-pixel map, up1 [B, 256, 256, 128] -> [B, 512, 512, 64], the TPU
 // runs this site as the staged pair msig_tpu/ops/fused_dec_int8.py::
 // up1_s2d16_hbm (_kernel_up1_conv_hbm, _kernel_up1_rq_hbm), because there the
-// accumulator no longer fits VMEM; here it goes through device memory at
-// every size, so the staged site is these two launches at that shape. What
-// the staged pair adds is kept: with stage_fp16 the accumulator crosses as
-// fp16 x 2^-12 (StageOf<__half>), 268 MB instead of 537 MB each way at B = 8,
-// the statistics still from the exact int32 values.
+// accumulator no longer fits VMEM; here it is the same two passes at that
+// shape. The staging type is kept, applied in registers: with stage_fp16 pass
+// Q reads each value as fp16(v * 2^-12) (StageOf<__half>::through) and folds
+// 2^12 into the multiplier, the statistics still from the exact int32 values,
+// so both stagings keep their bits without 268 or 537 MB crossing each way.
 //
 // A second entry, msig_convt4x4s2_kcat, takes the 9-tap K-concat weight
 // operand [9*Cin, 4*Cout] (msig_tpu/ops/fused_conv_int8.py::
@@ -46,37 +54,16 @@
 // columns, 20 of 36 blocks zero. Here ConvT4x4s2KcatGeom reads each phase's
 // four nonzero blocks where they lie, so the MACs, the bound and the int32
 // sums are those of the phase-split entry, and the operand is not repacked.
+// This entry keeps conv_int8.cuh's mma.sync pass A and the int32 scratch.
 // The four phases' lanes are folded into per-channel statistics by
 // construction (every phase adds to its channel's entries), as the TPU folds
 // them (fused_conv_int8.py:243-249); with a > 0 the max over the phase lanes of
 // a*max y + d is a*(max over phases of max y) + d, so the folded true extremes
 // give the TPU's amax.
+#include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 namespace msig {
-
-template <class Stage>
-int convt4x4s2_launch(const int8_t* x, const int8_t* w, Stage* y, long long* stats, int8_t* out,
-                      float* out_scale, int B, int H, int W, int Cin, int Cout, float eps,
-                      cudaStream_t st) {
-  const int HW = H * W;
-  if (Cout % 128 == 0) {
-    dim3 grid_a(B * ConvT4x4s2Geom::kPhases * (HW / kBM), Cout / 128);
-    conv_i8_stats_kernel<ConvT4x4s2Geom, 128, Stage><<<grid_a, kConvThreads, 0, st>>>(
-        x, w, y, stats, B, H, W, Cin, Cout);
-  } else {
-    dim3 grid_a(B * ConvT4x4s2Geom::kPhases * (HW / kBM), Cout / 64);
-    conv_i8_stats_kernel<ConvT4x4s2Geom, 64, Stage><<<grid_a, kConvThreads, 0, st>>>(
-        x, w, y, stats, B, H, W, Cin, Cout);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int HWo = 4 * HW;
-  dim3 grid_b(epilogue_blocks(HWo, Cout), B);
-  relu_requant_kernel<Stage><<<grid_b, kEpiThreads, 2 * Cout * sizeof(float), st>>>(
-      y, stats, nullptr, nullptr, out, out_scale, B, HWo, Cout, eps);
-  return (int)cudaGetLastError();
-}
 
 template <int BN, bool kTrueExtremes>
 int convt4x4s2_kcat_launch(const int8_t* x, const int8_t* w, int32_t* y, long long* stats,
@@ -102,28 +89,38 @@ int convt4x4s2_kcat_launch(const int8_t* x, const int8_t* w, int32_t* y, long lo
 
 }  // namespace msig
 
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. w: [16*Cin, Cout] int8 from
-// pack_convt_weights_ps; y_scratch: [B, 4*H*W, Cout], int32 or (stage_fp16
-// != 0) fp16; stats: int64 [5*B*Cout + B], zero-initialised; out:
-// [B, 2H, 2W, Cout] int8; out_scale: [B] float32. Needs Cin % 64 == 0,
-// Cout % 64 == 0, H*W % 128 == 0.
-extern "C" int msig_convt4x4s2_in_relu_requant(const void* x, const void* w, void* y_scratch,
-                                               void* stats, void* out, void* out_scale, int B,
-                                               int H, int W, int Cin, int Cout, float eps,
-                                               int stage_fp16, void* stream) {
-  using namespace msig;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  long long* sp = static_cast<long long*>(stats);
-  int8_t* op = static_cast<int8_t*>(out);
-  float* osp = static_cast<float*>(out_scale);
-  if (stage_fp16)
-    return convt4x4s2_launch(xp, wp, static_cast<__half*>(y_scratch), sp, op, osp, B, H, W, Cin,
-                             Cout, eps, st);
-  return convt4x4s2_launch(xp, wp, static_cast<int32_t*>(y_scratch), sp, op, osp, B, H, W, Cin,
-                           Cout, eps, st);
+// Returns a CUDA error code (0 = success) after the launches. Launches on
+// `stream` and does not synchronise. wk: [4, Cout, 4*Cin] int8 from
+// pack_convt_weights_ps_kmajor (phase q's [Cout, 4*Cin] block is the
+// transpose of its block of pack_convt_weights_ps); stats: int64
+// [5*B*Cout + B], zeroed here; out: [B, 2H, 2W, Cout] int8; out_scale: [B]
+// float32; stage_fp16 != 0 reads the accumulator as fp16 x 2^-12. Needs
+// Cin % 64 == 0, Cout % 64 == 0, H*W % 128 == 0.
+extern "C" int msig_convt4x4s2_in_relu_requant(const void* x, const void* wk, void* stats,
+                                               void* out, void* out_scale, int B, int H, int W,
+                                               int Cin, int Cout, float eps, int stage_fp16,
+                                               void* stream) {
+  return msig::wgmma::convt4x4s2_i8(x, wk, stats, out, out_scale, B, H, W, Cin, Cout, eps,
+                                    stage_fp16 != 0, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The two passes' configuration, for reports: out[0] = tile pixels, then for
+// pass S and pass Q at BN = 128 and at BN = 64 (in that order) the bytes of K
+// a stage, the stages of the ring and the dynamic shared memory of a CTA.
+// Returns 0.
+extern "C" int msig_convt_i8_wgmma_config(int* out) {
+  using namespace msig::wgmma;
+  using G = msig::ConvT4x4s2Geom;
+  using S128 = LayoutOf<G, 128, Epi::kStats>;
+  using Q128 = LayoutOf<G, 128, Epi::kRequant>;
+  using S64 = LayoutOf<G, 64, Epi::kStats>;
+  using Q64 = LayoutOf<G, 64, Epi::kRequant>;
+  const int v[] = {kBM,
+                   S128::kKBytes, S128::kStages, S128::kBytes, Q128::kKBytes, Q128::kStages,
+                   Q128::kBytes, S64::kKBytes, S64::kStages, S64::kBytes, Q64::kKBytes,
+                   Q64::kStages, Q64::kBytes};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The K-concat entry (see above). w: [9*Cin, 4*Cout] int8, phase q's block of

@@ -122,7 +122,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     Keys as in the JAX package: ``enc_conv{0,1,2}`` and ``dec_up{0,1}`` (int8
     OIHW of the forward conv), ``enc{0,1,2}_p`` (the encoder kernels packed
     [K, Cout] for their sites), ``up{0,1}_ps`` (the ConvT kernels packed
-    [16*Cin, Cout] by phase), ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
+    [16*Cin, Cout] by phase) with the port's ``up{0,1}_ps_pk`` beside them
+    (their K-major [4, Cout, 4*Cin] copies, which the wgmma ConvT site reads),
+    ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
     with the port's ``res{i}_conv{1,2}_pk`` beside them (their K-major [C, 9C]
     transposes, which the wgmma trunk sites read), ``res{i}_adain{1,2}_{k,b}``
     (style affine, fp32), ``out_kernel_i8``, ``out_wscale``, ``out_bias``
@@ -149,6 +151,7 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     for i in (0, 1):
         w_hwio = q[f"dec_up{i}"].permute(2, 3, 1, 0)
         q[f"up{i}_ps"] = fc.pack_convt_weights_ps(w_hwio, *w_hwio.shape[2:])
+        q[f"up{i}_ps_pk"] = fc.pack_convt_weights_ps_kmajor(q[f"up{i}_ps"])
     for i in range(n):
         for c in ("conv1", "conv2"):
             w_i8 = _quantize_kernel(sd[f"decoder.{i}.{c}.weight"])
@@ -406,15 +409,17 @@ def _fused_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
     uint8, three launches; where the cell grid is wider than 64 (a 512²
     image) up1 is the staged site (:308-309). Float output: the ConvT site
     for up0 and up1, then the unfused final conv on up1's int8 output and its
-    inverse scale, with no second requant."""
-    y0, _ = fc.convt4x4s2_in_relu_requant_ps(hq, q["up0_ps"])
+    inverse scale, with no second requant. Every ConvT call gets its K-major
+    weight copy (``up{i}_ps_pk``, None where ``q`` lacks it)."""
+    k0, k1 = ({"w_kmajor": q.get(f"up{i}_ps_pk")} for i in (0, 1))
+    y0, _ = fc.convt4x4s2_in_relu_requant_ps(hq, q["up0_ps"], **k0)
     if out_dtype == torch.uint8:
         if hq.shape[1] > 64:
-            y1, inv_s = fd.up1_s2d16_hbm(y0, q["up1_ps"], stage=_stage_mode())
+            y1, inv_s = fd.up1_s2d16_hbm(y0, q["up1_ps"], stage=_stage_mode(), **k1)
         else:
-            y1, inv_s = fd.up1_s2d16(y0, q["up1_ps"])
+            y1, inv_s = fd.up1_s2d16(y0, q["up1_ps"], **k1)
         return fd.final7_tanh_u8(y1, q["out_kernel_i8"], q["out_wscale"], q["out_bias"], inv_s)
-    return _final_conv_i8(q, *fc.convt4x4s2_in_relu_requant_ps(y0, q["up1_ps"]), out_dtype)
+    return _final_conv_i8(q, *fc.convt4x4s2_in_relu_requant_ps(y0, q["up1_ps"], **k1), out_dtype)
 
 
 ALL_STAGES = ("enc", "trunk", "dec")

@@ -23,11 +23,14 @@ Each site has:
   wrapper runs for CPU tensors and which ``chip_smoke.py`` holds the kernel
   against on the card.
 
-The conv1 and int8-carry conv2 sites run their conv on ``wgmma``
-(``csrc/conv3x3_i8_wgmma.cuh``), which reads the weights K-major: their
-wrappers take the ``[C, 9C]`` copy of ``pack_weights_kmajor`` as the keyword
-``w_kmajor`` (made once at quantization) and make it themselves when a caller
-passes only ``[9C, C]``.
+The conv1 and int8-carry conv2 sites and the phase-split ConvT site run their
+conv on ``wgmma`` (``csrc/conv_i8_wgmma.cuh``), which reads the weights
+K-major: their wrappers take the ``[C, 9C]`` copy of ``pack_weights_kmajor``
+(the ConvT's ``[4, Cout, 4*Cin]`` copy of ``pack_convt_weights_ps_kmajor``) as
+the keyword ``w_kmajor`` (made once at quantization) and make it themselves
+when a caller passes only the packed weights. The ConvT site runs its conv
+twice, once for the statistics and once to write int8, and allocates no
+accumulator scratch.
 
 The int8 convolution is exact in both: the plain version convolves in float64,
 where every partial sum of int8 products is an exact integer, and reduces the
@@ -66,7 +69,9 @@ SOURCES = (RELU_SITE, RESIDUAL_SITE, HIFI_SITE, HIFI2_SITE, CONVT_SOURCE)
 
 # How pass A's accumulator crosses device memory to the epilogue: as int32,
 # or as fp16 holding y * 2^-12 (``STAGE_SCALE`` of
-# ``msig_tpu/ops/fused_dec_int8.py``), which the staged 512² sites may take.
+# ``msig_tpu/ops/fused_dec_int8.py``), which the staged 512² sites may take
+# (the ConvT site, which keeps its accumulator on chip, rounds it the same way
+# in registers).
 STAGES = ("int32", "fp16")
 STAGE_SCALE = float(2.0 ** -12)
 
@@ -80,8 +85,10 @@ _ARGTYPES = {
     RESIDUAL_SITE: [_P] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, _P],
     HIFI_SITE: [_P] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, _P],
     HIFI2_SITE: [_P] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float, _P],
-    CONVT_SOURCE: [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P],
+    CONVT_SOURCE: [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P],
 }
+# entry msig_convt4x4s2_kcat of CONVT_SOURCE
+_KCAT_ARGTYPES = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P]
 
 # Per-phase (dy, dx) taps of the phase-split ConvT, phase q = 2*qy + qx, in
 # the block order of ``pack_convt_weights_ps``.
@@ -169,6 +176,17 @@ def pack_convt_weights_ps(w_hwio: torch.Tensor, cin: int, cout: int) -> torch.Te
     blocks = [w[2 * dy + 2 - q // 2, 2 * dx + 2 - q % 2]
               for q, taps in enumerate(PS_TAPS) for dy, dx in taps]
     return torch.cat(blocks, dim=0).contiguous()
+
+
+def pack_convt_weights_ps_kmajor(w_ps: torch.Tensor) -> torch.Tensor:
+    """[16*Cin, Cout] phase-major ConvT weights (``pack_convt_weights_ps``) ->
+    [4, Cout, 4*Cin]: each phase's [4*Cin, Cout] block transposed, so that row
+    co of phase q holds its K = t*Cin + ci contiguous, as ``wgmma`` takes an
+    8-bit B operand (K-major only)."""
+    if w_ps.dim() != 2 or w_ps.shape[0] % 16:
+        raise ValueError(f"expected packed ConvT weights [16*Cin, Cout], got {tuple(w_ps.shape)}")
+    return w_ps.to(torch.int8).reshape(4, w_ps.shape[0] // 4, w_ps.shape[1]).transpose(1, 2) \
+        .contiguous()
 
 
 # ----------------------------------------------------------- plain versions
@@ -456,24 +474,25 @@ def _check_site(x: torch.Tensor, w_packed, gamma, beta) -> Tuple[int, int, int, 
     return b, h, w, c
 
 
-def _kmajor(w_packed: torch.Tensor, w_kmajor, c: int) -> torch.Tensor:
+def _kmajor(w_packed: torch.Tensor, w_kmajor, pack, shape) -> torch.Tensor:
     """The K-major weights of the wgmma sites on the card: ``w_kmajor`` checked
-    ([c, 9c] int8, contiguous, on ``w_packed``'s device), or the copy made
-    from ``w_packed`` where it is None."""
+    (int8 of ``shape``, contiguous, on ``w_packed``'s device), or the copy
+    ``pack(w_packed)`` where it is None."""
     if w_kmajor is None:
-        return pack_weights_kmajor(w_packed)
-    _check("w_kmajor", w_kmajor, torch.int8, (c, 9 * c))
+        return pack(w_packed)
+    _check("w_kmajor", w_kmajor, torch.int8, shape)
     if w_kmajor.device != w_packed.device:
         raise ValueError(f"all inputs must be on {w_packed.device}, got {w_kmajor.device}")
     return w_kmajor
 
 
-def _check_kmajor_shape(w_kmajor, c: int) -> None:
-    """The CPU side of ``_kmajor``: the plain versions read ``w_packed``, so a
-    K-major copy given with CPU tensors is only checked for dtype and shape."""
+def _check_kmajor_shape(w_kmajor, shape) -> None:
+    """The CPU side of ``_kmajor``: the plain versions read the packed
+    weights, so a K-major copy given with CPU tensors is only checked for
+    dtype and shape."""
     if w_kmajor is not None and (w_kmajor.dtype != torch.int8
-                                 or tuple(w_kmajor.shape) != (c, 9 * c)):
-        raise ValueError(f"w_kmajor must be int8 of shape {(c, 9 * c)}, got {w_kmajor.dtype} "
+                                 or tuple(w_kmajor.shape) != tuple(shape)):
+        raise ValueError(f"w_kmajor must be int8 of shape {tuple(shape)}, got {w_kmajor.dtype} "
                          f"{tuple(w_kmajor.shape)}")
 
 
@@ -522,7 +541,7 @@ def convt4x4s2_kcat_kernel(x_i8: torch.Tensor, w_kcat: torch.Tensor, eps: float 
     launch: ``convt4x4s2_in_relu_requant`` here and the v1 site of
     ``fused_conv_int8`` each count their own."""
     b, h, w, _, cout = _check_convt_kcat(x_i8, w_kcat)
-    fn = _build.load(CONVT_SOURCE, _ARGTYPES[CONVT_SOURCE], entry="msig_convt4x4s2_kcat")
+    fn = _build.load(CONVT_SOURCE, _KCAT_ARGTYPES, entry="msig_convt4x4s2_kcat")
     y = torch.empty((b, 4 * h * w, cout), dtype=torch.int32, device=x_i8.device)
     stats = (true_extremes_stats(1, b, cout, x_i8.device)[0] if true_extremes
              else torch.zeros(5 * b * cout + b, dtype=torch.int64, device=x_i8.device))
@@ -535,20 +554,32 @@ def convt4x4s2_kcat_kernel(x_i8: torch.Tensor, w_kcat: torch.Tensor, eps: float 
     return out, out_scale
 
 
+def convt_kmajor_shape(w_ps: torch.Tensor) -> Tuple[int, int, int]:
+    """The shape [4, Cout, 4*Cin] of ``pack_convt_weights_ps_kmajor(w_ps)``."""
+    return 4, w_ps.shape[1], w_ps.shape[0] // 4
+
+
 def convt4x4s2_kernel(x_i8: torch.Tensor, w_ps: torch.Tensor, eps: float = _EPS,
-                      stage: str = "int32"):
+                      stage: str = "int32", *, w_kmajor=None):
     """Launch the ConvT site's CUDA kernel on dense NHWC int8; returns (int8, inv_scale).
 
-    Checks its inputs and raises on what the kernel does not take. It counts
-    no launch: the sites that run it (``convt4x4s2_in_relu_requant_ps`` here,
-    ``fused_dec_int8.up1_s2d16`` and ``up1_s2d16_hbm``) each count their own."""
-    b, h, w, _, cout = _check_convt(x_i8, w_ps)
+    The kernel reads the K-major weights: ``w_kmajor``
+    (``pack_convt_weights_ps_kmajor(w_ps)``), checked, or the copy made here
+    where it is None. Checks its inputs and raises on what the kernel does not
+    take. It counts no launch: the sites that run it
+    (``convt4x4s2_in_relu_requant_ps`` here, ``fused_dec_int8.up1_s2d16`` and
+    ``up1_s2d16_hbm``) each count their own."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    b, h, w, cin, cout = _check_convt(x_i8, w_ps)
+    wk = _kmajor(w_ps, w_kmajor, pack_convt_weights_ps_kmajor, convt_kmajor_shape(w_ps))
     fn = _build.load(CONVT_SOURCE, _ARGTYPES[CONVT_SOURCE])
-    y, stats = _scratch(x_i8, b, 4 * h * w, cout, stage)
+    # the statistics block only: the C entry zeroes it on the stream
+    stats = torch.empty(5 * b * cout + b, dtype=torch.int64, device=x_i8.device)
     out = torch.empty((b, 2 * h, 2 * w, cout), dtype=torch.int8, device=x_i8.device)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=x_i8.device)
-    err = fn(x_i8.data_ptr(), w_ps.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(),
-             out_scale.data_ptr(), b, h, w, x_i8.shape[3], cout, eps, int(stage == "fp16"),
+    err = fn(x_i8.data_ptr(), wk.data_ptr(), stats.data_ptr(), out.data_ptr(),
+             out_scale.data_ptr(), b, h, w, cin, cout, eps, int(stage == "fp16"),
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(CONVT_SOURCE, err)
     return out, out_scale
@@ -564,6 +595,20 @@ def wgmma_config() -> Dict[str, int]:
     _build.check(RELU_SITE, fn(out))
     keys = ("tile_m", "tile_k_bytes", "stages", "threads", "producer_regs", "consumer_regs",
             "smem_bytes_n256", "smem_bytes_n128")
+    return dict(zip(keys, out))
+
+
+def convt_wgmma_config() -> Dict[str, int]:
+    """The ConvT site's two wgmma passes as built (entry
+    ``msig_convt_i8_wgmma_config`` of the ConvT source): tile pixels, and for
+    pass S and pass Q at each channel tile the bytes of K a stage, the stages
+    of the ring and the dynamic shared memory per CTA. Builds the source."""
+    fn = _build.load(CONVT_SOURCE, [ctypes.POINTER(ctypes.c_int)],
+                     entry="msig_convt_i8_wgmma_config")
+    out = (ctypes.c_int * 13)()
+    _build.check(CONVT_SOURCE, fn(out))
+    keys = ["tile_m"] + [f"{what}_{p}_n{bn}" for bn in (128, 64) for p in ("stats", "requant")
+                         for what in ("k_bytes", "stages", "smem_bytes")]
     return dict(zip(keys, out))
 
 
@@ -598,11 +643,11 @@ def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS, *
     w_kmajor, optional, ``pack_weights_kmajor(w_packed)``, which the kernel reads.
     """
     if x_i8.device.type == "cpu":
-        _check_kmajor_shape(w_kmajor, x_i8.shape[-1])
+        _check_kmajor_shape(w_kmajor, (x_i8.shape[-1], 9 * x_i8.shape[-1]))
         return conv3x3_adain_relu_requant_plain(x_i8, w_packed, gamma, beta, eps)
     _check("x", x_i8, torch.int8, tuple(x_i8.shape))
     b, h, w, c = _check_site(x_i8, w_packed, gamma, beta)
-    wk = _kmajor(w_packed, w_kmajor, c)
+    wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(RELU_SITE, _ARGTYPES[RELU_SITE])
     y, stats = _scratch(x_i8, b, h * w, c, zeroed=False)
     out = torch.empty_like(x_i8)
@@ -623,7 +668,7 @@ def conv3x3_adain_residual_requant(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
     ``pack_weights_kmajor(w_packed)``, which the kernel reads.
     """
     if y1_i8.device.type == "cpu":
-        _check_kmajor_shape(w_kmajor, y1_i8.shape[-1])
+        _check_kmajor_shape(w_kmajor, (y1_i8.shape[-1], 9 * y1_i8.shape[-1]))
         return conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma,
                                                     beta, eps)
     out = residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps, w_kmajor=w_kmajor)
@@ -642,7 +687,7 @@ def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _E
     _check("h_scale", h_scale, torch.float32, (b, 1))
     if h_i8.device != y1_i8.device or h_scale.device != y1_i8.device:
         raise ValueError(f"all inputs must be on {y1_i8.device}")
-    wk = _kmajor(w_packed, w_kmajor, c)
+    wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(RESIDUAL_SITE, _ARGTYPES[RESIDUAL_SITE])
     y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
     out = torch.empty_like(y1_i8)
@@ -714,15 +759,17 @@ def conv3x3_adain_residual_hifi2(y1_i8, h1_i8, h2_i8, h_scale, w_packed, gamma, 
     return out1, out2, out_scale
 
 
-def convt4x4s2_in_relu_requant_ps(x_i8, w_ps, eps: float = _EPS):
+def convt4x4s2_in_relu_requant_ps(x_i8, w_ps, eps: float = _EPS, *, w_kmajor=None):
     """Decoder up0 site on dense NHWC int8; returns (int8 [B, 2H, 2W, Cout], inv_scale [B, 1]).
 
     x_i8 [B, H, W, Cin] int8, w_ps [16*Cin, Cout] int8 from
-    ``pack_convt_weights_ps``.
+    ``pack_convt_weights_ps``; w_kmajor, optional,
+    ``pack_convt_weights_ps_kmajor(w_ps)``, which the kernel reads.
     """
     if x_i8.device.type == "cpu":
+        _check_kmajor_shape(w_kmajor, convt_kmajor_shape(w_ps))
         return convt4x4s2_in_relu_requant_ps_plain(x_i8, w_ps, eps)
-    out = convt4x4s2_kernel(x_i8, w_ps, eps)
+    out = convt4x4s2_kernel(x_i8, w_ps, eps, w_kmajor=w_kmajor)
     LAUNCHES[CONVT_SITE] += 1
     return out
 

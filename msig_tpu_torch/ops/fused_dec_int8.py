@@ -11,14 +11,16 @@ matmuls on that slab. Here both sites take and give dense NHWC:
   applied to up0's dense output; returns the int8 map and its inverse scale;
 * ``up1_s2d16_hbm``: up1 as the chain runs it on a 512² input, where the TPU
   splits the site into a staged pair of kernels: the same CUDA source, with
-  the accumulator staged as int32 or as fp16 x 2^-12 (``stage``), counted
+  the accumulator read as int32 or as fp16 x 2^-12 (``stage``), counted
   under its own name;
 * ``final7_tanh_u8``: ReflectionPad2d(3) by index, exact int8 7x7 conv,
   dequant by ``wscale * inv_s``, bias, tanh, uint8.
 
 Each has a wrapper that launches the kernel for CUDA tensors and adds one to
 its entry of ``LAUNCHES``, or raises, and a plain PyTorch version that the
-wrapper runs for CPU tensors.
+wrapper runs for CPU tensors. The up1 sites take the K-major weight copy of
+``fc.pack_convt_weights_ps_kmajor`` as the keyword ``w_kmajor``, as
+``fc.convt4x4s2_in_relu_requant_ps`` does.
 """
 
 from __future__ import annotations
@@ -96,33 +98,37 @@ def final7_tanh_u8_plain(x_i8, w_i8, wscale, bias, inv_s):
 # ------------------------------------------------------------------ wrappers
 
 
-def up1_s2d16(x_i8, w_ps, eps: float = _EPS):
+def up1_s2d16(x_i8, w_ps, eps: float = _EPS, *, w_kmajor=None):
     """Decoder up1 site on up0's dense NHWC int8 output; returns (int8 [B, 2H, 2W, Cout],
     inv_scale [B, 1]).
 
     The ConvT site of ``fc.convt4x4s2_in_relu_requant_ps`` (the TPU's s2d-16
     layout and reflect guards have no dense counterpart); its launches count
-    here, under this site's name.
+    here, under this site's name. w_kmajor, optional,
+    ``fc.pack_convt_weights_ps_kmajor(w_ps)``, which the kernel reads.
     """
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, fc.convt_kmajor_shape(w_ps))
         return up1_s2d16_plain(x_i8, w_ps, eps)
-    out = fc.convt4x4s2_kernel(x_i8, w_ps, eps)
+    out = fc.convt4x4s2_kernel(x_i8, w_ps, eps, w_kmajor=w_kmajor)
     LAUNCHES[UP1_SITE] += 1
     return out
 
 
-def up1_s2d16_hbm(x_i8, w_ps, eps: float = _EPS, stage: str = "int32"):
+def up1_s2d16_hbm(x_i8, w_ps, eps: float = _EPS, stage: str = "int32", *, w_kmajor=None):
     """Decoder up1 site as the chain runs it on maps wider than 128 pixels; returns
     (int8 [B, 2H, 2W, Cout], inv_scale [B, 1]).
 
-    ``stage`` is how the accumulator crosses device memory: "int32", the
-    arithmetic of ``up1_s2d16``, or "fp16" (``fc.STAGES``). The TPU kernel's
-    reflect fill of the slab's guard cells has no dense counterpart:
-    ``final7_tanh_u8`` reflects by index.
+    ``stage`` is how the requant reads the accumulator, as the TPU's staged
+    pair passes it on: "int32", the arithmetic of ``up1_s2d16``, or "fp16"
+    (``fc.STAGES``). The TPU kernel's reflect fill of the slab's guard cells
+    has no dense counterpart: ``final7_tanh_u8`` reflects by index. w_kmajor,
+    optional, ``fc.pack_convt_weights_ps_kmajor(w_ps)``, which the kernel reads.
     """
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, fc.convt_kmajor_shape(w_ps))
         return up1_s2d16_hbm_plain(x_i8, w_ps, eps, stage)
-    out = fc.convt4x4s2_kernel(x_i8, w_ps, eps, stage)
+    out = fc.convt4x4s2_kernel(x_i8, w_ps, eps, stage, w_kmajor=w_kmajor)
     LAUNCHES[UP1_HBM_SITE] += 1
     return out
 

@@ -99,7 +99,7 @@ def test_residual_site_kernel_matches_plain(cuda_device, b, side, c):
     _assert_int8_close(got_q, want_q)
 
 
-# Rows 1-2 on wgmma (csrc/conv3x3_i8_wgmma.cuh): the conv is exact integer
+# Rows 1-2 on wgmma (csrc/conv_i8_wgmma.cuh): the conv is exact integer
 # arithmetic and the epilogues are the plain versions' operations, so both
 # sites equal their plain versions to the bit. (8, 128, 256) is a 512² input's
 # trunk, (1, 96, 256) a 384² input's: W = 96, no 128-pixel tile a whole row.
@@ -327,6 +327,73 @@ def test_convt_sites_kernel_matches_plain(cuda_device, b, side, cin, cout):
         assert got_q.shape == (b, 2 * side, 2 * side, cout) and got_s.shape == (b, 1)
         torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
         _assert_int8_close(got_q, want_q)
+
+
+# Rows 5, 12 and 13 on wgmma (csrc/conv_i8_wgmma.cuh, two passes): exact
+# integer sums and the plain version's epilogue operations, so equal to the
+# bit: up0's and up1's main-path shapes, a 512² input's up1 in both stagings,
+# Cin 64 (two taps a 128-byte K block) and a 384² input's up0 (W = 96).
+CONVT_WGMMA_SHAPES = [(8, 64, 256, 128, "int32"), (8, 128, 128, 64, "int32"),
+                      (2, 256, 128, 64, "int32"), (2, 256, 128, 64, "fp16"),
+                      (1, 16, 64, 64, "int32"), (1, 96, 256, 128, "int32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,cin,cout,stage", CONVT_WGMMA_SHAPES)
+def test_convt_wgmma_sites_equal_plain_to_the_bit(cuda_device, b, side, cin, cout, stage):
+    """Rows 5, 12 and 13 (one entry) with and without the K-major copy: every
+    output equal to the plain version's, one launch counted per call; the
+    staged site in its staging, the other two (int32) where it is int32."""
+    x, w = _convt_inputs(b, side, cin, cout, cuda_device, seed=11)
+    wk = fc.pack_convt_weights_ps_kmajor(w)
+    want = fd.up1_s2d16_hbm_plain(x, w, stage=stage)
+    sites = [(lambda **kw: fd.up1_s2d16_hbm(x, w, stage=stage, **kw), fd.LAUNCHES,
+              fd.UP1_HBM_SITE)]
+    if stage == "int32":
+        sites += [(lambda **kw: fc.convt4x4s2_in_relu_requant_ps(x, w, **kw), fc.LAUNCHES,
+                   fc.CONVT_SITE),
+                  (lambda **kw: fd.up1_s2d16(x, w, **kw), fd.LAUNCHES, fd.UP1_SITE)]
+    for call, counts, name in sites:
+        for kw in ({"w_kmajor": wk}, {}):
+            before = counts[name]
+            got = call(**kw)
+            assert counts[name] == before + 1
+            torch.cuda.synchronize()
+            for g, v in zip(got, want):
+                assert g.dtype == v.dtype and g.shape == v.shape
+                assert torch.equal(g, v), f"{name}: {int((g != v).sum())} of {g.numel()} differ ({kw})"
+
+
+@pytest.mark.cuda
+def test_convt_sites_reject_a_bad_kmajor_copy(cuda_device):
+    x, w = _convt_inputs(1, 16, 64, 64, cuda_device)
+    wk = fc.pack_convt_weights_ps_kmajor(w)
+    bad = [("shape", wk[:, :32].contiguous()), ("shape", w), ("int8", wk.to(torch.int32)),
+           ("CUDA tensor", wk.cpu()), ("contiguous", wk.transpose(1, 2).contiguous().transpose(1, 2))]
+    for match, w_kmajor in bad:
+        with pytest.raises(ValueError, match=match):
+            fc.convt4x4s2_in_relu_requant_ps(x, w, w_kmajor=w_kmajor)
+        with pytest.raises(ValueError, match=match):
+            fd.up1_s2d16(x, w, w_kmajor=w_kmajor)
+        with pytest.raises(ValueError, match=match):
+            fd.up1_s2d16_hbm(x, w, stage="fp16", w_kmajor=w_kmajor)
+
+
+@pytest.mark.cuda
+def test_convt_site_allocates_no_accumulator_scratch(cuda_device):
+    """At up1's main-path shape, [8, 128, 128, 128] -> 64, a call's peak memory
+    beyond its inputs (its int8 output, 33.5 MB, and the statistics block)
+    stays below the 134 MB of the int32 accumulator scratch it no longer has."""
+    x, w = _convt_inputs(8, 128, 128, 64, cuda_device)
+    wk = fc.pack_convt_weights_ps_kmajor(w)
+    fd.up1_s2d16(x, w, w_kmajor=wk)  # built and warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fd.up1_s2d16(x, w, w_kmajor=wk)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 8 * (4 * 128 * 128) * 64 * 4
+    del out
 
 
 @pytest.mark.cuda

@@ -448,10 +448,11 @@ def test_staged_sites_are_chosen_by_the_cell_grid(side, fp16, enc0, up1, monkeyp
                         lambda *a, stage: calls.append(f"enc0_hbm:{stage}") or small)
     monkeypatch.setattr(tq.fe, "enc1_in_relu_requant", lambda *a: small)
     monkeypatch.setattr(tq.fe, "enc2_in_relu_requant", lambda *a: (small, None))
-    monkeypatch.setattr(tq.fc, "convt4x4s2_in_relu_requant_ps", lambda *a: (small, None))
-    monkeypatch.setattr(tq.fd, "up1_s2d16", lambda *a: calls.append("up1_s2d16") or (small, None))
-    monkeypatch.setattr(tq.fd, "up1_s2d16_hbm",
-                        lambda *a, stage: calls.append(f"up1_s2d16_hbm:{stage}") or (small, None))
+    monkeypatch.setattr(tq.fc, "convt4x4s2_in_relu_requant_ps", lambda *a, **k: (small, None))
+    monkeypatch.setattr(tq.fd, "up1_s2d16",
+                        lambda *a, **k: calls.append("up1_s2d16") or (small, None))
+    monkeypatch.setattr(tq.fd, "up1_s2d16_hbm", lambda *a, stage, **k: calls.append(
+        f"up1_s2d16_hbm:{stage}") or (small, None))
     monkeypatch.setattr(tq.fd, "final7_tanh_u8", lambda *a: None)
     q = dict.fromkeys(("enc0_p", "enc1_p", "enc2_p", "up0_ps", "up1_ps", "out_kernel_i8",
                        "out_wscale", "out_bias"))
@@ -483,5 +484,7 @@ def test_generator_512_runs_the_staged_sites_end_to_end(monkeypatch):
     out = tq.quantized_generator_apply(q, img, torch.zeros((1, SDIM)), n_res=1)
     assert out.dtype == torch.uint8 and out.shape == (1, 512, 512, 3)
     assert len(np.unique(out.numpy())) > 50
+    # up1 gets its K-major weight copy (the ConvT sites' w_kmajor)
+    assert seen[1][2].pop("w_kmajor") is q["up1_ps_pk"]
     assert seen == [("enc0_hbm", (1, 512, 512, 3), {"stage": "int32"}),
                     ("up1_s2d16_hbm", (1, 256, 256, 128), {"stage": "int32"})]

@@ -1,7 +1,7 @@
 """The trunk's wgmma sites (rows 1-2) on the CPU: the K-major weights, the
 sites with and without them, and the kernel's tile schedule emulated in numpy.
 
-``csrc/conv3x3_i8_wgmma.cuh`` runs the int8 3x3 conv of the conv1 site and of
+``csrc/conv_i8_wgmma.cuh`` runs the int8 3x3 conv of the conv1 site and of
 the int8-carry conv2 site on ``wgmma``, which reads the weights K-major
 (``fc.pack_weights_kmajor``). The kernel cannot run here; its arithmetic is
 exact integer arithmetic, so what can go wrong is the schedule: which pixels a
@@ -23,7 +23,7 @@ from msig_tpu.ops import fused_conv_int8_v2 as jf2
 from msig_tpu_torch.infer import quantized as tq
 from msig_tpu_torch.ops import fused_conv_int8_v2 as fc
 
-# csrc/conv3x3_i8_wgmma.cuh: pixels a tile, bytes (channels) of K a stage,
+# csrc/conv_i8_wgmma.cuh: pixels a tile, bytes (channels) of K a stage,
 # consumer warps, and the channel tile: 256 where C % 256 == 0, else 128.
 BM, BK, WARPS = 128, 128, 8
 

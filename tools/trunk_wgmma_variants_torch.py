@@ -3,7 +3,7 @@
 
     python3 tools/trunk_wgmma_variants_torch.py [--reps 5] [--calls 20]
 
-Builds ``msig_tpu_torch/csrc/conv3x3_i8_wgmma.cuh`` as it is and in variants
+Builds ``msig_tpu_torch/csrc/conv_i8_wgmma.cuh`` as it is and in variants
 made by editing its text (each variant one nvcc, all at once, into
 ``build/msig_kernels/variants/``), and times the pass A kernel alone, launched
 back to back ``--calls`` times between two CUDA events, median of ``--reps``,
@@ -36,41 +36,38 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_INT8_OPS = 1979e12
 SHAPES = ((8, 64, 256), (8, 128, 256))  # (batch, side, channels)
 
-_NO_B = ("          cp_async16(sb + n * kBK", "          if (0) cp_async16(sb + n * kBK")
-_NO_A = ("          cp_async16(sa + p * kBK", "          if (0) cp_async16(sa + p * kBK")
-_STORE_LOOP = "for (int j = 0; j < BN / 8; ++j) {\n        *reinterpret_cast<int2*>(y0 + 8 * j)"
+_NO_B = ("cp_async16(sb + n * kBK", "if (0) cp_async16(sb + n * kBK")
+_NO_A = ("cp_async16(sa + row * kBK", "if (0) cp_async16(sa + row * kBK")
+_NO_STATS = ("warp_stats<BN>(acc[mb], cta, lane);", "(void)0;")
+_NO_STORES = ("*reinterpret_cast<int2*>(yr + 8 * j) =", "if (0) *reinterpret_cast<int2*>(yr + 8 * j) =")
 # name -> edits (old text, new text) of the header; each old text occurs once
 VARIANTS = {
     "as built": [],
-    "3 stages": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
+    "3 stages": [("constexpr int kMaxStages = 8;", "constexpr int kMaxStages = 3;"),
+                 ("static_assert(Layout<256>::kStages == 4,", "static_assert(Layout<256>::kStages == 3,")],
     "no B loads": [_NO_B],
     "no A loads": [_NO_A],
     "no loads": [_NO_B, _NO_A],
-    "no statistics": [("      warp_stats<BN>(acc, cta, lane);", "")],
-    "no statistics, no stores": [("      warp_stats<BN>(acc, cta, lane);", ""),
-                                 (_STORE_LOOP, _STORE_LOOP.replace("j < BN / 8", "j < 0"))],
+    "no statistics": [_NO_STATS],
+    "no statistics, no stores": [_NO_STATS, _NO_STORES],
 }
 
 # pass A alone on a given grid; the kernel of the header in the same directory
 ENTRY = r'''
-#include "conv3x3_i8_wgmma.cuh"
-using namespace msig::wgmma3x3;
+#include "conv_i8_wgmma.cuh"
+using namespace msig::wgmma;
 extern "C" int variant_pass_a(const void* x, const void* wk, void* y, void* stats, int B, int H,
                               int W, int C, int grid, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_i8_wgmma_kernel<256>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Layout<256>::kBytes);
-  if (err != cudaSuccess) return (int)err;
-  conv3x3_i8_wgmma_kernel<256><<<grid, kThreads, Layout<256>::kBytes, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)wk, (int32_t*)y, (long long*)stats, B, H, W, C);
-  return (int)cudaGetLastError();
+  const Args p{(const int8_t*)x, (const int8_t*)wk, y, (long long*)stats, nullptr, B, H, W, C, C,
+               0.f};
+  return launch<msig::Conv3x3Geom, 256, Epi::kInt32>(p, (cudaStream_t)stream, grid);
 }
 '''
 
 
 def build_variants(_build) -> dict:
     """{name: ctypes library} of every variant, compiled in parallel."""
-    header = open(os.path.join(_build.CSRC, "conv3x3_i8_wgmma.cuh")).read()
+    header = open(os.path.join(_build.CSRC, "conv_i8_wgmma.cuh")).read()
     procs = {}
     for i, (name, edits) in enumerate(VARIANTS.items()):
         text = header
@@ -80,7 +77,7 @@ def build_variants(_build) -> dict:
             text = text.replace(old, new)
         d = _build.BUILD_DIR / "variants" / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / "conv3x3_i8_wgmma.cuh").write_text(text)
+        (d / "conv_i8_wgmma.cuh").write_text(text)
         (d / "entry.cu").write_text(ENTRY)
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
                str(d / "variant.so"), str(d / "entry.cu")]
