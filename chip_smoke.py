@@ -33,10 +33,11 @@ Phases, each reported on its own line:
    of four times the pixels. Bars: int8 outputs at most 1 step apart on under
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
    on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
-   the int8-carry conv2, the v1 conv2 site, and the ConvT site's rows 5, 12
-   and 13, ``EXACT``) equal to their plain versions to the bit, conv1, conv2
-   and the ConvT rows timed with the K-major weight copy given, as the served
-   trunk and decoder call them; times by CUDA events
+   the int8-carry conv2, the v1 conv2 site, the ConvT site's rows 5, 12
+   and 13) and the encoder's two-pass rows 7-10 (``EXACT``) equal to their
+   plain versions to the bit, conv1, conv2, the ConvT rows and enc1, enc2
+   timed with the K-major weight copy given, as the served trunk, decoder
+   and encoder call them; times by CUDA events
    (the three epilogue rows also as three medians with L2 warm and three
    with L2 flushed before each call). Then conv1 and conv2 at
    ``WGMMA_SHAPES`` (down to [1, 16, 16, 128], up to [8, 128, 128, 256], and a
@@ -47,7 +48,11 @@ Phases, each reported on its own line:
    [2, 256, 256, 128] -> 64 in both stagings, [1, 16, 16, 64] -> 64,
    [1, 96, 96, 256] -> 128) with and without the K-major copy: equal to the
    plain versions to the bit, one launch per call, and the passes' rings and
-   shared memory as built;
+   shared memory as built; then rows 8-9 at ``ENC_SHAPES`` (enc1's and
+   enc2's shapes of a 256² and a 512² input, and [2, 32, 32, 64] -> 64) with
+   and without the K-major copy and rows 7 and 10 at ``ENC0_SHAPES`` (256²,
+   512² in both stagings, [1, 64, 128, 3]): equal to the plain versions to
+   the bit, one launch per call;
 3. end to end, ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256), batch 8, over 20 seeded inputs, the launch
@@ -79,6 +84,8 @@ Phases, each reported on its own line:
    weights with 2 resblocks and a noise image (the configuration in which the
    JAX package's tests hold that bar); time per batch and per stage, with
    both stagings;
+   at 224² (``224/int8``): no kernel site at all (the unfused int8 chain, as
+   the JAX package takes it away from 256² and 512²), 20 images served;
 4. tools/v1_v2: ``python -m msig_tpu_torch.tools.bench_v1_v2`` and
    ``...profile_fused_stages`` at batch 8 (their ``main``), once with one call
    of each site or stage and once timed, the launch counts set to 0 before
@@ -104,7 +111,7 @@ Phases, each reported on its own line:
    int8 rate and share of 1,979 TOP/s, beside the call's time by CUDA events;
    the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
    input's in both stagings: the memset, pass S and pass Q, each pass's int8
-   rate;
+   rate; and for rows 7-9 at theirs and row 10 in both stagings;
    then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
    engine in mode 0: the device's busy and idle share and the trunk's share
    of the busy time;
@@ -220,6 +227,7 @@ PATHS = {
     "256/enc1_im2col": {**_AT_256, "enc1_in_relu_requant": 0, "enc1_in_relu_requant_im2col": 1,
                         "conv3x3_adain_residual_requant": N_RES},
     "256/unfused+epilogue": {"adain_relu_requant_chunked": N_RES},
+    "224/int8": {},  # away from 256² and 512² the unfused chain throughout: no kernel site
 }
 # The tools/v1_v2 path: launches of one call of each site or stage, by kernel.
 _RELU1, _RES1, _UP1 = ("conv3x3_adain_relu_requant_v1", "conv3x3_adain_residual_requant_v1",
@@ -242,11 +250,21 @@ _TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant":
 # and a 384² input's up0 (W = 96).
 EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
          "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
-         "up1_s2d16_hbm")
+         "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
+         "enc2_in_relu_requant")
 WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256))
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
                 (2, 256, 128, 64, ("int32", "fp16")), (1, 16, 64, 64, ("int32",)),
                 (1, 96, 256, 128, ("int32",)))
+# Rows 7-10 (the encoder's two entries, each run as two passes with no
+# accumulator in device memory) are held equal to their plain versions to the
+# bit at ENC_SHAPES: the 4x4/s2 site at (b, side, cin, cout), enc1's and
+# enc2's shapes of a 256² and a 512² input and Cout 64 (BN = 64); enc0 at
+# (b, h, w, stagings), a 256² and a 512² input and a map that is not square.
+ENC_SHAPES = ((8, 256, 64, 128), (8, 128, 128, 256), (8, 512, 64, 128), (8, 256, 128, 256),
+              (2, 32, 64, 64))
+ENC0_SHAPES = ((8, 256, 256, ("int32",)), (8, 512, 512, ("int32", "fp16")),
+               (1, 64, 128, ("int32", "fp16")))
 # Device time of a trunk site's call by kernel (torch.profiler names).
 TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
                 ("relu epilogue", "relu_requant_kernel"), ("max|hn|", "residual_amax_kernel"),
@@ -254,6 +272,11 @@ TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
 # ... and of a ConvT site's call: the statistics' memset, pass S, pass Q.
 CONVT_GROUPS = (("pass S (wgmma)", "convt_i8_wgmma_stats_kernel"),
                 ("pass Q (wgmma)", "convt_i8_wgmma_requant_kernel"), ("memset", "Memset"))
+# ... and of an encoder site's call: the memset, pass S, pass Q.
+ENC_GROUPS = (("pass S (wgmma)", "conv4x4s2_i8_wgmma_stats_kernel"),
+              ("pass Q (wgmma)", "conv4x4s2_i8_wgmma_requant_kernel"),
+              ("pass S (wgmma)", "enc0_i8_stats_kernel"),
+              ("pass Q (wgmma)", "enc0_i8_requant_kernel"), ("memset", "Memset"))
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
                 ("reductions", "reduce_kernel"))
 PROFILE_STAGES = {
@@ -466,7 +489,9 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
             x = t(rng.integers(0, 128, (B, side, side, cin), dtype=np.int8))
             w = fe.pack_conv4x4(torch.from_numpy(
                 rng.integers(-127, 128, (4, 4, cin, 2 * cin), dtype=np.int8))).to(dev)
-            return (lambda: fn(x, w)), (lambda: plain(x, w))
+            # rows 8-9 as the served encoder calls them, with the K-major copy
+            wk = fe.pack_conv4x4_kmajor(w)
+            return (lambda: fn(x, w, w_kmajor=wk)), (lambda: plain(x, w))
         return make
 
     def final7(side):
@@ -745,6 +770,63 @@ def convt_phase(torch, fc, fd, dev) -> None:
               f"({', '.join(stages)}): equal to their plain versions to the bit, with the "
               f"K-major copy given and made by the wrapper", flush=True)
         del x, w, wk, want
+        torch.cuda.empty_cache()
+
+
+def enc_phase(torch, fe, dev) -> None:
+    """Rows 7-10 (the encoder's two entries) at ENC_SHAPES and ENC0_SHAPES, the
+    4x4/s2 site with the K-major copy given and made by the wrapper: every
+    output equal to the plain version's to the bit, one launch per call; and
+    the 4x4/s2 site's passes as built."""
+    cfg = fe.conv4x4s2_wgmma_config()
+    print("[kernel] wgmma passes of rows 8-9: tiles of " f"{cfg['tile_m']} pixels; " + "; ".join(
+        f"{p} at BN = {bn}: {cfg[f'k_bytes_{p}_n{bn}']} bytes of K a stage, "
+        f"{cfg[f'stages_{p}_n{bn}']} stages, {cfg[f'smem_bytes_{p}_n{bn}']} B of shared memory"
+        for bn in (256, 128, 64) for p in ("stats", "requant")), flush=True)
+    for b, side, cin, cout in ENC_SHAPES:
+        rng = np.random.default_rng(side + cin + cout)
+        x = torch.from_numpy(rng.integers(0, 128, (b, side, side, cin), dtype=np.int8)).to(dev)
+        w = fe.pack_conv4x4(torch.from_numpy(
+            rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8))).to(dev)
+        wk = fe.pack_conv4x4_kmajor(w)
+        want = fe.enc2_in_relu_requant_plain(x, w)
+        for fn, name in ((fe.enc1_in_relu_requant, fe.ENC1_SITE),
+                         (fe.enc2_in_relu_requant, fe.ENC2_SITE)):
+            for kw in ({"w_kmajor": wk}, {}):
+                before = fe.LAUNCHES[name]
+                got = fn(x, w, **kw)
+                torch.cuda.synchronize()
+                check(fe.LAUNCHES[name] == before + 1, f"{name} at {[b, side, side, cin]}: one launch")
+                got = got if isinstance(got, tuple) else (got, want[1])
+                check(all(torch.equal(g, v) for g, v in zip(got, want)),
+                      f"{name} at {[b, side, side, cin]} -> {cout} "
+                      f"({'K-major copy given' if kw else 'copy made'}) equal to its plain version "
+                      f"to the bit")
+        print(f"[kernel] rows 8-9 at {[b, side, side, cin]} -> {cout}: equal to their plain "
+              f"versions to the bit (int8 map and inverse scale), with the K-major copy given and "
+              f"made by the wrapper", flush=True)
+        del x, w, wk, want, got
+        torch.cuda.empty_cache()
+    for b, h, w_, stages in ENC0_SHAPES:
+        rng = np.random.default_rng(h + w_)
+        img = torch.from_numpy(rng.integers(0, 256, (b, h, w_, 3), dtype=np.uint8)).to(dev)
+        w = fe.pack_enc0(torch.from_numpy(
+            rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).to(dev)
+        for stage in stages:
+            want = fe.enc0_hbm_plain(img, w, stage=stage)
+            calls = [(lambda stage=stage: fe.enc0_hbm(img, w, stage=stage), fe.ENC0_HBM_SITE)]
+            if stage == "int32":
+                calls.append((lambda: fe.enc0_in_relu_requant(img, w), fe.ENC0_SITE))
+            for call, name in calls:
+                before = fe.LAUNCHES[name]
+                got = call()
+                torch.cuda.synchronize()
+                check(fe.LAUNCHES[name] == before + 1, f"{name} at {[b, h, w_, 3]}: one launch")
+                check(torch.equal(got, want), f"{name} at {[b, h, w_, 3]}, {stage} equal to its "
+                                              f"plain version to the bit")
+        print(f"[kernel] rows 7 and 10 at {[b, h, w_, 3]} ({', '.join(stages)}): equal to their "
+              f"plain versions to the bit", flush=True)
+        del img, w, want, got
         torch.cuda.empty_cache()
 
 
@@ -1065,6 +1147,14 @@ def e2e_phase(torch, mods, ap, work: str) -> dict:
           f"{total:.2f} dB (per image min {lo:.2f}, max {hi:.2f}); pallas=('trunk',) vs fp32: "
           f"{unfused:.2f} dB", flush=True)
     del fl, q8, want
+
+    # ---- 224²: away from 256² and 512² the unfused chain throughout, no kernel site.
+    served = serve("224/int8", 224, "0")
+    levels = len(np.unique(np.stack(list(served.values()))))
+    check(levels > 50, f"[224/int8] the served images hold {levels} distinct values")
+    print(f"[e2e 224/int8] {len(served)} images of 224², {levels} distinct values, no kernel site "
+          f"launched (the unfused int8 chain, as the JAX package takes it away from 256² and 512²)",
+          flush=True)
 
     # ---- 512²: the all-kernel chain with the staged sites, against pallas=("trunk",).
     served = serve("512", 512, "0")
@@ -1470,6 +1560,53 @@ def convt_split_phase(torch, fc, fd, kernels: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def enc_split_phase(torch, fe, kernels: dict) -> None:
+    """Rows 7-9 at their main-path shapes and row 10 at a 512² input's in both
+    stagings, the 4x4/s2 site with the K-major copy given: the time per call by
+    CUDA events (median of 30) and by ``torch.profiler`` device time per
+    kernel (``kernel_split`` with ``ENC_GROUPS``: memset, pass S, pass Q), each
+    pass's int8 rate (the conv's operations, once per pass) and its share of
+    the card's 1,979 TOP/s. The parts go into the row as ``parts_ms``. Run
+    last, as ``split_phase``."""
+    for name, side, cin, stage, case in (
+            ("enc0_in_relu_requant", 4 * SIDE, 3, "int32", "256² input"),
+            ("enc1_in_relu_requant", 4 * SIDE, C // 4, "int32", "256² input"),
+            ("enc2_in_relu_requant", 2 * SIDE, C // 2, "int32", "256² input"),
+            ("enc0_hbm", 8 * SIDE, 3, "int32", "512² input, staged int32"),
+            ("enc0_hbm", 8 * SIDE, 3, "fp16", "512² input, staged fp16")):
+        rng = np.random.default_rng(side + cin)
+        if cin == 3:
+            x = torch.from_numpy(rng.integers(0, 256, (B, side, side, 3), dtype=np.uint8)).cuda()
+            w = fe.pack_enc0(torch.from_numpy(
+                rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).cuda()
+            call = ((lambda: fe.enc0_in_relu_requant(x, w)) if name == "enc0_in_relu_requant"
+                    else (lambda: fe.enc0_hbm(x, w, stage=stage)))
+            ops, shape = 2 * B * side * side * 64 * 147, f"{[B, side, side, 3]} -> 64, {stage}"
+        else:
+            x = torch.from_numpy(rng.integers(0, 128, (B, side, side, cin), dtype=np.int8)).cuda()
+            w = fe.pack_conv4x4(torch.from_numpy(
+                rng.integers(-127, 128, (4, 4, cin, 2 * cin), dtype=np.int8))).cuda()
+            wk = fe.pack_conv4x4_kmajor(w)
+            call = (lambda fn=getattr(fe, name): fn(x, w, w_kmajor=wk))
+            ops = 2 * B * (side // 2) ** 2 * 2 * cin * 16 * cin
+            shape = f"{[B, side, side, cin]} -> {2 * cin}, K-major copy given"
+        ms = cuda_ms(torch, call, reps=30)
+        parts = kernel_split(torch, call, groups=ENC_GROUPS)
+        device = sum(parts.values())
+        row = next(r for r in [kernels[name], *kernels[name]["also"]] if r["case"] == case)
+        row["parts_ms"] = parts
+        rates = ", ".join(
+            f"{k} {ops / (v * 1e-3) / 1e12:.1f} TOP/s ({ops / (v * 1e-3) / PEAK_INT8_OPS:.1%})"
+            for k, v in parts.items() if k.startswith("pass")) or \
+            "not measured (the trace holds no device events)"
+        print(f"[kernel] {name} ({shape}): {ms:.4f} ms per call by CUDA events (median of 30), "
+              f"{device:.4f} ms of device time by torch.profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"; {rates} of 1,979",
+              flush=True)
+        del x, w
+        torch.cuda.empty_cache()
+
+
 def serve_profile_phase(torch) -> None:
     """``torch.profiler`` over 5 steady batches of the int8 engine at 256² in
     ``MSIG_TRUNK_HIFI=0`` (demo checkpoint, batch 8, seeded images and styles,
@@ -1790,6 +1927,7 @@ def main() -> int:
     kernels = kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev)
     wgmma_phase(torch, fc, v1, dev)
     convt_phase(torch, fc, fd, dev)
+    enc_phase(torch, fe, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
@@ -1801,6 +1939,7 @@ def main() -> int:
         split_phase(torch, to_split)
         trunk_split_phase(torch, fc, kernels)
         convt_split_phase(torch, fc, fd, kernels)
+        enc_split_phase(torch, fe, kernels)
         serve_profile_phase(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)

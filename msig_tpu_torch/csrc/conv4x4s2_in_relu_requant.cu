@@ -6,22 +6,41 @@
 // (_kernel_enc1, 64 -> 128, four output phases x nine grid taps on enc0's
 // b-major slab) and ::enc2_in_relu_requant (_kernel_enc2, 128 -> 256, sixteen
 // dense taps, which also returns the inverse scale the trunk's residual carry
-// starts from). The phase packing, and the 2.25x K inflation it costs enc1,
-// belong to the slab: on dense NHWC both are one GEMM with M = output pixels,
-// N = Cout and K = 16*Cin (Conv4x4s2Geom in conv_int8.cuh), which is also the
-// function of ::enc1_in_relu_requant_im2col.
+// starts from). Both share the epilogue _epilogue_in_relu_requant: plain IN
+// (gamma 1, beta 0), the relu sites' amax from the affine image of the
+// zero-masked min and max. The phase packing, and the 2.25x K inflation it
+// costs enc1, belong to the slab: on dense NHWC both are one GEMM with M =
+// output pixels, N = Cout and K = 16*Cin (Conv4x4s2Geom in conv_int8.cuh),
+// which is also the function of ::enc1_in_relu_requant_im2col.
 //
 // Bound on an H100 at the main path's shapes, B = 8: enc1 [8, 256, 256, 64] ->
 // [8, 128, 128, 128] and enc2 [8, 128, 128, 128] -> [8, 64, 64, 256] are each
 // 2 * outputs * 16 * Cin = 34.4 G int8 operations (17.4 us at 1,979 TOP/s)
 // against 50 MB (enc1) or 26 MB (enc2) that must move (15 or 7.7 us at
-// 3.35 TB/s), so operations bound both. This design adds the int32 round trip
-// (67 or 34 MB written and read back at B = 8) and uses mma.sync, not wgmma;
-// each input pixel is staged by four of the sixteen taps.
+// 3.35 TB/s), so operations bound both.
 //
-// Two launches, both from conv_int8.cuh: conv + exact int64 statistics, then
-// the relu epilogue with gamma = 1, beta = 0, which also writes the inverse
-// scale.
+// The requant scale of a sample needs all its conv outputs, and the epilogue
+// needs nothing of an output but to map it: so, as the decoder's ConvT site
+// (convt4x4s2_in_relu_requant.cu), the conv runs twice on the wgmma main loop
+// of conv_i8_wgmma.cuh, with K-major weights [Cout, 16*Cin]
+// (fused_enc_int8.py::pack_conv4x4_kmajor, made once at quantization), and
+// the int32 accumulator (67 MB at enc1, 34 MB at enc2, B = 8, each way) never
+// reaches device memory. Three launches: a memset of the statistics block;
+// pass S (conv4x4s2_i8_wgmma_stats_kernel), the conv and the exact statistics,
+// storing nothing else; pass Q (conv4x4s2_i8_wgmma_requant_kernel), the conv
+// again, each CTA first rebuilding its sample's affine, amax and scale from
+// the finished block (gamma = 1, beta = 0), then mapping its accumulator
+// registers to int8 as relu_requant_kernel does (the shared helpers of
+// conv_int8.cuh), writing the int8 map and the inverse scale. The grid is
+// the output map; each row's input pixel is (2*oy + dy, 2*ox + dx) with dy,
+// dx in -1 .. 2, and only row and column -1 (at oy, ox = 0) and 2 (at the last
+// output row or column) can fall outside the map. At Cin = 64 (enc1) a
+// 128-byte K block holds two taps, at Cin = 128 (enc2) one. The channel tile
+// is the whole Cout at both sites: BN = 256 at enc2 (the trunk's setting),
+// 128 at enc1, one 128-byte K block a stage. Each CTA takes a contiguous
+// run of tiles, so the statistics leave and the requant is rebuilt once per
+// sample it meets. Twice the conv caps the design at half of the one-pass
+// ops bound.
 //
 // A second entry, msig_enc1_im2col_in_relu_requant, replaces
 // ::enc1_in_relu_requant_im2col (_kernel_enc1_im2col), which gathers the 16
@@ -37,6 +56,7 @@
 // bit. Bound at [8, 256, 256, 64] -> [8, 128, 128, 128]: enc1's, 17.4 us of
 // operations; one CTA per SM (the tile's shared memory) and no overlap of the
 // gather with the product are this design's costs.
+#include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -126,39 +146,41 @@ enc1_im2col_stats_kernel(const int8_t* __restrict__ x, const int8_t* __restrict_
 
 }  // namespace msig
 
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. w: [16*Cin, Cout] int8, row
-// (4u + v)*Cin + ci; y_scratch: [B, H/2 * W/2, Cout] int32; stats: int64
-// [5*B*Cout + B], zero-initialised; out: [B, H/2, W/2, Cout] int8;
-// out_scale: [B] float32. Needs H and W even, Cin % 64 == 0,
-// Cout % 64 == 0, (H/2)*(W/2) % 128 == 0.
-extern "C" int msig_conv4x4s2_in_relu_requant(const void* x, const void* w, void* y_scratch,
-                                              void* stats, void* out, void* out_scale, int B,
-                                              int H, int W, int Cin, int Cout, float eps,
-                                              void* stream) {
-  using namespace msig;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int HWo = (H / 2) * (W / 2);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  int32_t* yp = static_cast<int32_t*>(y_scratch);
-  long long* sp = static_cast<long long*>(stats);
-  if (Cout % 128 == 0) {
-    dim3 grid_a(B * (HWo / kBM), Cout / 128);
-    conv_i8_stats_kernel<Conv4x4s2Geom, 128><<<grid_a, kConvThreads, 0, st>>>(
-        xp, wp, yp, sp, B, H, W, Cin, Cout);
-  } else {
-    dim3 grid_a(B * (HWo / kBM), Cout / 64);
-    conv_i8_stats_kernel<Conv4x4s2Geom, 64><<<grid_a, kConvThreads, 0, st>>>(
-        xp, wp, yp, sp, B, H, W, Cin, Cout);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_b(epilogue_blocks(HWo, Cout), B);
-  relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, 2 * Cout * sizeof(float), st>>>(
-      yp, sp, nullptr, nullptr, static_cast<int8_t*>(out), static_cast<float*>(out_scale), B,
-      HWo, Cout, eps);
-  return (int)cudaGetLastError();
+// Returns a CUDA error code (0 = success) after the launches. Launches on
+// `stream` and does not synchronise. wk: [Cout, 16*Cin] int8 from
+// pack_conv4x4_kmajor (the transpose of pack_conv4x4's [16*Cin, Cout], column
+// (4u + v)*Cin + ci); stats: int64 [5*B*Cout + B], zeroed here; out:
+// [B, H/2, W/2, Cout] int8; out_scale: [B] float32. Needs H and W even,
+// Cin % 64 == 0, Cout % 64 == 0, (H/2)*(W/2) % 128 == 0.
+extern "C" int msig_conv4x4s2_in_relu_requant(const void* x, const void* wk, void* stats,
+                                              void* out, void* out_scale, int B, int H, int W,
+                                              int Cin, int Cout, float eps, void* stream) {
+  return msig::wgmma::conv4x4s2_i8(x, wk, stats, out, out_scale, B, H, W, Cin, Cout, eps,
+                                   reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The two passes' configuration, for reports: out[0] = tile pixels, then for
+// pass S and pass Q at BN = 256, 128 and 64 (in that order) the bytes of K a
+// stage, the stages of the ring and the dynamic shared memory of a CTA.
+// Returns 0.
+extern "C" int msig_conv4x4s2_i8_wgmma_config(int* out) {
+  using namespace msig::wgmma;
+  using G = msig::Conv4x4s2Geom;
+  int n = 0;
+  out[n++] = kBM;
+  const int v[] = {LayoutOf<G, 256, Epi::kStats>::kKBytes, LayoutOf<G, 256, Epi::kStats>::kStages,
+                   LayoutOf<G, 256, Epi::kStats>::kBytes, LayoutOf<G, 256, Epi::kRequant>::kKBytes,
+                   LayoutOf<G, 256, Epi::kRequant>::kStages,
+                   LayoutOf<G, 256, Epi::kRequant>::kBytes,
+                   LayoutOf<G, 128, Epi::kStats>::kKBytes, LayoutOf<G, 128, Epi::kStats>::kStages,
+                   LayoutOf<G, 128, Epi::kStats>::kBytes, LayoutOf<G, 128, Epi::kRequant>::kKBytes,
+                   LayoutOf<G, 128, Epi::kRequant>::kStages,
+                   LayoutOf<G, 128, Epi::kRequant>::kBytes,
+                   LayoutOf<G, 64, Epi::kStats>::kKBytes, LayoutOf<G, 64, Epi::kStats>::kStages,
+                   LayoutOf<G, 64, Epi::kStats>::kBytes, LayoutOf<G, 64, Epi::kRequant>::kKBytes,
+                   LayoutOf<G, 64, Epi::kRequant>::kStages, LayoutOf<G, 64, Epi::kRequant>::kBytes};
+  for (int x : v) out[n++] = x;
+  return 0;
 }
 
 // enc1 as the dense K = 1024 product per output phase. Returns

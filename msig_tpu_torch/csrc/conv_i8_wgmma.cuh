@@ -1,9 +1,10 @@
-// The int8 conv main loop of the trunk's 3x3 sites and the decoder's ConvT
-// site on Hopper (sm_90a): an implicit GEMM on wgmma over a geometry, exact in
-// int32, fed by a cp.async ring; the tile then leaves in one of three ways
-// (Epi): its int32 rows and the statistics, the statistics alone, or int8.
-// (This header was conv3x3_i8_wgmma.cuh, the 3x3 alone; it is that kernel
-// generalised over conv_int8.cuh's geometries, and renamed.)
+// The int8 conv main loop of the trunk's 3x3 sites, the decoder's ConvT site
+// and the encoder's 4x4/s2 sites on Hopper (sm_90a): an implicit GEMM on wgmma
+// over a geometry, exact in int32, fed by a cp.async ring; the tile then
+// leaves in one of three ways (Epi): its int32 rows and the statistics, the
+// statistics alone, or int8. (This header was conv3x3_i8_wgmma.cuh, the 3x3
+// alone; it is that kernel generalised over conv_int8.cuh's geometries, and
+// renamed.)
 //
 // Statistics: the exact int64 block of conv_int8.cuh (sum, two-word sum of
 // squares, zero-masked min and max per (sample, channel)), to the bit the
@@ -16,7 +17,13 @@
 // - ConvT4x4s2Geom, Epi::kStats then Epi::kRequant: the whole of
 //   msig_convt4x4s2_in_relu_requant (fused_conv_int8_v2.py::
 //   convt4x4s2_in_relu_requant_ps, msig_tpu/ops/fused_dec_int8.py::up1_s2d16
-//   and up1_s2d16_hbm), see convt4x4s2_in_relu_requant.cu.
+//   and up1_s2d16_hbm), see convt4x4s2_in_relu_requant.cu;
+// - Conv4x4s2Geom, Epi::kStats then Epi::kRequant: the whole of
+//   msig_conv4x4s2_in_relu_requant (msig_tpu/ops/fused_enc_int8.py::
+//   enc1_in_relu_requant and enc2_in_relu_requant), see
+//   conv4x4s2_in_relu_requant.cu.
+// enc0_in_relu_requant.cu runs a transposed product of its own on the wgmma
+// helpers below (m64n256k32, the swizzle descriptor, the fences).
 //
 // Bound on an H100 at the trunk's [8, 64, 64, 256]: 2 * 32768 * 256 * 2304
 // = 38.7 G int8 operations (19.5 us at 1,979 TOP/s) against 17.4 MB that must
@@ -30,10 +37,12 @@
 //   [Cout, 9*C]; ::pack_convt_weights_ps_kmajor for the ConvT, [4, Cout,
 //   4*Cin]; both made once at quantization): wgmma takes 8-bit A and B only
 //   K-major, and a 16-byte copy of a weight row then lands as it is.
-// - GEMM per phase q: M = the pixels of the grid (the map for both
-//   geometries here), N = Cout, K = taps * Cin, in K blocks of 128 bytes
-//   (kBK, one swizzle row): one a stage for the 3x3, whose tile is 9 taps
-//   deep; two for the ConvT, whose tile is 4*Cin bytes of K (kSubBlocks).
+// - GEMM per phase q: M = the pixels of the grid (the input map at stride 1,
+//   the output map of the 4x4/s2 conv, whose row (gy, gx) reads input pixels
+//   (2gy + dy, 2gx + dx), dy, dx in -1 .. 2), N = Cout, K = taps * Cin, in K
+//   blocks of 128 bytes (kBK, one swizzle row): one a stage for the 3x3, whose
+//   tile is 9 taps deep, and for the 4x4/s2 conv; two for the ConvT, whose
+//   tile is 4*Cin bytes of K (kSubBlocks).
 //   The 16-byte chunk jc of K block kb holds K index 128*kb + 16*jc: one tap
 //   and 128 channels of it where Cin % 128 == 0, two taps of 64 channels
 //   each at Cin = 64. A CTA tile is kBM = 128 pixels of one phase of one sample
@@ -52,9 +61,12 @@
 //   for taps outside the map (the 3x3's border, the ConvT's rows and columns
 //   -1 and H or W), for any W: a TMA box tiles a 128-pixel run only where W
 //   divides 128 or 128 divides W, and the trunk of a 384^2 input has W = 96.
-//   Each producer thread keeps, per row of a tile, the pixel's offset and
-//   which of its 3x3 neighbours lie in the map, so that a copy costs a shift,
-//   a mask and an add.
+//   Each producer thread keeps, per row of a tile, its input pixel's offset
+//   and which of the rows and columns its taps reach lie in the map, so that
+//   a copy costs a shift, a mask and an add: with stride S a tap's row offset
+//   dy is in -1 .. S; rows S*gy .. S*gy + S - 1 always lie in the map, row
+//   S*gy - 1 where gy > 0 and row S*gy + S where gy < GH - 1 (bits 0, 1, 2 for
+//   the three cases; columns likewise, bits 3, 4, 5).
 //   mbarriers hand the stages over: a stage is full when all 128 producer
 //   threads' copies have landed (cp.async.mbarrier.arrive.noinc) and empty
 //   when the 8 consumer warps' wgmma on it have completed (wait_group 1
@@ -62,14 +74,16 @@
 //   the generic proxy and wgmma reads through the async proxy, so each
 //   consumer fences the proxies (fence.proxy.async) after its full-wait.
 // - Persistent CTAs, one per SM (gridDim.x = min(tiles, SMs)); channel tiles
-//   vary fastest, then phases, then pixel blocks, then samples. A one-phase
-//   geometry walks tile = blockIdx.x + i * gridDim.x, so the SMs work on
-//   neighbouring tiles; a phased one gives each CTA a contiguous run of
-//   tiles, so a CTA meets at most a few samples (the ConvT's statistics leave
-//   and its requant scale is rebuilt once per sample) and the four phases of
-//   a pixel block, which read the same input rows, follow each other. Either
-//   way the producer loads the next tile's stages while the consumers finish
-//   the last one.
+//   vary fastest, then phases, then pixel blocks, then samples. The int32
+//   pass of a one-phase geometry (rows 1-2) walks tile = blockIdx.x + i *
+//   gridDim.x, so the SMs work on neighbouring tiles; the two-pass sites
+//   (Epi::kStats, Epi::kRequant) and every phased geometry give each CTA a
+//   contiguous run of tiles, so a CTA meets at most a few samples (the
+//   statistics leave and the requant scale is rebuilt once per sample and
+//   channel tile, where a strided walk would change sample at nearly every
+//   tile) and the four phases of a pixel block, which read the same input
+//   rows, follow each other. Either way the producer loads the next tile's
+//   stages while the consumers finish the last one.
 // - The statistics come from the registers. A consumer thread holds rows
 //   16*warp + lane/4 (+8) and columns 8j + 2*(lane%4) + {0, 1} of its
 //   warpgroup's 64 rows. Per column it folds its two rows, then the 8 lanes of
@@ -116,10 +130,11 @@
 // the ConvT's two passes pull (tools/convt_wgmma_variants_torch.py times them
 // against the int32 round trip on this main loop).
 //
-// Needs Cin % 64 == 0 (% 128 for the 3x3), Cout % 64 == 0, H*W % 128 == 0
-// (the wrappers check), the statistics block zeroed (the launchers below zero
-// it), and a kernel register count that lets setmaxnreg rebalance (checked
-// before the launch: a shortfall would block the consumers' setmaxnreg.inc).
+// Needs Cin % 64 == 0 (% 128 for the 3x3), Cout % 64 == 0, a grid of (H/S) *
+// (W/S) pixels, a multiple of 128 (the wrappers check), the statistics block
+// zeroed (the launchers below zero it), and a kernel register count that lets
+// setmaxnreg rebalance (checked before the launch: a shortfall would block
+// the consumers' setmaxnreg.inc).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -146,9 +161,11 @@ constexpr int kConsumerThreads = kConsumerWarps * 32;
 // What the consumers do with a finished tile (see the header comment).
 enum class Epi { kInt32, kStats, kRequant };
 
-// K blocks of kBK bytes a stage: one for the 3x3, whose tile is 9 taps deep;
-// two for the ConvT, whose tile is 4*Cin bytes of K, so that a stage's
-// products are twice as long against its hand-over (6% at up1 on the card).
+// K blocks of kBK bytes a stage: one for the 3x3, whose tile is 9 taps deep,
+// and for the 4x4/s2 conv (two were no faster at enc1 on the card, and at
+// BN = 256 would leave a ring of two stages); two for the ConvT, whose tile is
+// 4*Cin bytes of K, so that a stage's products are twice as long against its
+// hand-over (6% at up1 on the card).
 template <class Geom>
 constexpr int kSubBlocks = Geom::kPhases > 1 ? 2 : 1;
 
@@ -529,8 +546,7 @@ __device__ __forceinline__ Tile tile_at(int tile, int tiles_n, int phases, int m
 // warpgroup runs (a tile of kBM * MB pixels; the 3x3 runs 1).
 template <class Geom, int BN, Epi E, class Stage, int MB>
 __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
-  static_assert(Geom::kStride == 1, "the grid is the input map");
-  constexpr int BM = kBM * MB, KS = kSubBlocks<Geom>;
+  constexpr int S = Geom::kStride, BM = kBM * MB, KS = kSubBlocks<Geom>;
   using L = LayoutOf<Geom, BN, E, MB>;
   static_assert((L::kRing + L::kOut + L::kStats + L::kAff) % 8 == 0, "8-byte aligned blocks");
   const uint32_t raw = smem_addr(smem_raw);
@@ -545,11 +561,12 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
                  empty = full + 8 * L::kStages;
 
   const int B = p.B, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int HW = H * W, mblocks = HW / BM, tiles_n = Cout / BN;
+  // the grid: GH x GW pixels a sample (the input map at stride 1)
+  const int GH = H / S, GW = W / S, GHW = GH * GW, mblocks = GHW / BM, tiles_n = Cout / BN;
   const int tiles = B * Geom::kPhases * mblocks * tiles_n;
   const int K = Geom::kTaps * Cin, ksteps = K / (KS * kBK);
   int first, end, step;
-  if constexpr (Geom::kPhases > 1) {  // a contiguous run of tiles per CTA
+  if constexpr (Geom::kPhases > 1 || E != Epi::kInt32) {  // a contiguous run of tiles per CTA
     first = (int)((long long)blockIdx.x * tiles / gridDim.x);
     end = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
     step = 1;
@@ -579,16 +596,18 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
     uint32_t phase = 0;
     for (int tile = first; tile < end; tile += step) {
       const Tile t = tile_at(tile, tiles_n, Geom::kPhases, mblocks, BM, BN);
-      // Per row: the pixel's offset in its sample, m * Cin (Cin % 64 == 0, so
-      // its low 6 bits are free), ORed with which of the rows y-1, y, y+1 (bits
-      // 0-2) and columns x-1, x, x+1 (bits 3-5) lie in the map.
+      // Per row: its input pixel's offset in its sample, (S*gy*W + S*gx) * Cin
+      // (Cin % 64 == 0, so its low 6 bits are free), ORed with which of the
+      // rows S*gy - 1, S*gy .. S*gy + S - 1, S*gy + S (bits 0-2) and the same
+      // columns (bits 3-5) lie in the map.
       int pix[BM / 16];
 #pragma unroll
       for (int i = 0; i < BM / 16; ++i) {
-        const int m = t.m0 + r0 + 16 * i, y = m / W, x = m - y * W;
-        pix[i] = m * Cin | (y > 0) | 2 | (y < H - 1) << 2 | (x > 0) << 3 | 16 | (x < W - 1) << 5;
+        const int m = t.m0 + r0 + 16 * i, gy = m / GW, gx = m - gy * GW;
+        pix[i] = S * (gy * W + gx) * Cin | (gy > 0) | 2 | (gy < GH - 1) << 2 | (gx > 0) << 3 |
+                 16 | (gx < GW - 1) << 5;
       }
-      const int8_t* xb = p.x + (size_t)t.b * HW * Cin;
+      const int8_t* xb = p.x + (size_t)t.b * H * W * Cin;
       const int8_t* wb = p.wk + ((size_t)t.q * Cout + t.n0 + r0) * K + jc * 16;
       int tap = jc * 16 / Cin, c0 = jc * 16 - tap * Cin;  // this chunk's tap and channel
       for (int ks = 0; ks < ksteps; ++ks) {
@@ -598,12 +617,14 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
           int dy, dx, blk;
           Geom::tap(t.q, tap, dy, dx, blk);
           const int delta = (dy * W + dx) * Cin + c0;  // from a row's pixel to its source
+          // the in-map bits of the tap's row and column (see pix)
+          const int rb = dy < 0 ? 0 : (dy < S ? 1 : 2), cb = dx < 0 ? 3 : (dx < S ? 4 : 5);
           const uint32_t sa = base + stage * L::kStage + sub * L::kA1,
                          sb = base + stage * L::kStage + L::kA + sub * L::kB1;
 #pragma unroll
           for (int i = 0; i < BM / 16; ++i) {
             const int row = r0 + 16 * i;
-            const bool in = (pix[i] >> (dy + 1)) & (pix[i] >> (dx + 4)) & 1;
+            const bool in = (pix[i] >> rb) & (pix[i] >> cb) & 1;
             const int8_t* src = in ? xb + ((pix[i] & ~63) + delta) : p.x;
             cp_async16(sa + row * kBK + ((jc ^ (row & 7)) << 4), src, in ? 16u : 0u);
           }
@@ -640,8 +661,8 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
       if constexpr (E == Epi::kRequant) {
         if (t.key != held) {
           consumer_sync();  // the last tile's map has read a2_s, d2_s
-          amax = load_requant<BN, Stage>(p.stats, t.b, B, Cout, (float)(Geom::kPhases * HW), p.eps,
-                                         t.n0, a2_s, d2_s, red, ct);
+          amax = load_requant<BN, Stage>(p.stats, t.b, B, Cout, (float)(Geom::kPhases * GHW),
+                                         p.eps, t.n0, a2_s, d2_s, red, ct);
           held = t.key;
         }
       }
@@ -685,7 +706,7 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
       if (lane == 0) mbar_arrive(empty + 8 * prev);
       __syncwarp();
 
-      const size_t ob = (size_t)t.b * Geom::kPhases * HW;  // the sample's first output row
+      const size_t ob = (size_t)t.b * Geom::kPhases * GHW;  // the sample's first output row
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
         const int r16 = 64 * (MB * cw + mb) + 16 * warp;  // the warp's first row
@@ -695,7 +716,7 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
           for (int h = 0; h < 2; ++h) {
             const int m = t.m0 + r16 + (lane >> 2) + 8 * h;
             int32_t* yr = static_cast<int32_t*>(p.y) +
-                          (ob + Geom::out_pixel(t.q, m / W, m % W, W)) * Cout + t.n0 +
+                          (ob + Geom::out_pixel(t.q, m / GW, m % GW, GW)) * Cout + t.n0 +
                           2 * (lane & 3);
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j)
@@ -729,7 +750,7 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
           for (int i = lane; i < 16 * kChunks; i += 32) {
             const int rr = i / kChunks, ch = i % kChunks;
             const int m = t.m0 + r16 + rr;
-            *reinterpret_cast<int4*>(yb + (ob + Geom::out_pixel(t.q, m / W, m % W, W)) * Cout +
+            *reinterpret_cast<int4*>(yb + (ob + Geom::out_pixel(t.q, m / GW, m % GW, GW)) * Cout +
                                      16 * ch) =
                 *reinterpret_cast<const int4*>(stg + rr * L::kOutPitch + 16 * ch);
           }
@@ -789,6 +810,17 @@ __global__ void __launch_bounds__(kThreads, 1) convt_i8_wgmma_requant_kernel(Arg
   extern __shared__ uint8_t smem_raw[];
   conv_body<ConvT4x4s2Geom, BN, Epi::kRequant, Stage, MB>(p, smem_raw);
 }
+// The encoder's 4x4/s2 site's pass S and pass Q.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) conv4x4s2_i8_wgmma_stats_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<Conv4x4s2Geom, BN, Epi::kStats, int32_t, 1>(p, smem_raw);
+}
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) conv4x4s2_i8_wgmma_requant_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<Conv4x4s2Geom, BN, Epi::kRequant, int32_t, 1>(p, smem_raw);
+}
 // The ConvT on this main loop with the int32 round trip (int32 rows and the
 // statistics, then relu_requant_kernel): tools/convt_wgmma_variants_torch.py
 // times it; no site runs it.
@@ -807,8 +839,14 @@ template <class Geom, int BN, Epi E, class Stage = int32_t, int MB = 1>
 static int launch(const Args& p, cudaStream_t st, int grid = 0) {
   using L = LayoutOf<Geom, BN, E, MB>;
   void (*kernel)(Args);
-  if constexpr (std::is_same_v<Geom, Conv3x3Geom>) kernel = conv3x3_i8_wgmma_kernel<BN>;
-  else if constexpr (E == Epi::kStats) kernel = convt_i8_wgmma_stats_kernel<BN, MB>;
+  if constexpr (std::is_same_v<Geom, Conv3x3Geom>) {
+    kernel = conv3x3_i8_wgmma_kernel<BN>;
+  } else if constexpr (std::is_same_v<Geom, Conv4x4s2Geom>) {
+    static_assert(E != Epi::kInt32 && MB == 1 && std::is_same_v<Stage, int32_t>,
+                  "the 4x4/s2 site runs its two passes on int32");
+    if constexpr (E == Epi::kStats) kernel = conv4x4s2_i8_wgmma_stats_kernel<BN>;
+    else kernel = conv4x4s2_i8_wgmma_requant_kernel<BN>;
+  } else if constexpr (E == Epi::kStats) kernel = convt_i8_wgmma_stats_kernel<BN, MB>;
   else if constexpr (E == Epi::kRequant) kernel = convt_i8_wgmma_requant_kernel<BN, MB, Stage>;
   else kernel = convt_i8_wgmma_int32_kernel<BN, MB>;
   constexpr int kMaxDevices = 64;
@@ -834,7 +872,8 @@ static int launch(const Args& p, cudaStream_t st, int grid = 0) {
   }
   // the producer's offsets within a sample are ints
   if ((long long)p.H * p.W * p.Cin >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-  const int tiles = p.B * Geom::kPhases * (p.H * p.W / (kBM * MB)) * (p.Cout / BN);
+  const int grid_px = (p.H / Geom::kStride) * (p.W / Geom::kStride);
+  const int tiles = p.B * Geom::kPhases * (grid_px / (kBM * MB)) * (p.Cout / BN);
   if (grid <= 0) grid = sms[dev];  // a grid given (the variants tool) replaces one CTA per SM
   kernel<<<tiles < grid ? tiles : grid, kThreads, L::kBytes, st>>>(p);
   return (int)cudaGetLastError();
@@ -857,13 +896,17 @@ static int conv3x3_i8_stats(const void* x, const void* wk, void* y, void* stats,
                       : launch<Conv3x3Geom, 128, Epi::kInt32>(p, st);
 }
 
-template <int BN, int MB = 1>
-static int convt_passes(const Args& p, bool stage_fp16, cudaStream_t st) {
-  const int err = launch<ConvT4x4s2Geom, BN, Epi::kStats, int32_t, MB>(p, st);
+// Pass S, then pass Q (the statistics block zeroed before).
+template <class Geom, int BN, int MB = 1>
+static int two_passes(const Args& p, bool stage_fp16, cudaStream_t st) {
+  const int err = launch<Geom, BN, Epi::kStats, int32_t, MB>(p, st);
   if (err != 0) return err;
-  return stage_fp16 ? launch<ConvT4x4s2Geom, BN, Epi::kRequant, __half, MB>(p, st)
-                    : launch<ConvT4x4s2Geom, BN, Epi::kRequant, int32_t, MB>(p, st);
+  if constexpr (std::is_same_v<Geom, Conv4x4s2Geom>) return launch<Geom, BN, Epi::kRequant>(p, st);
+  else
+    return stage_fp16 ? launch<Geom, BN, Epi::kRequant, __half, MB>(p, st)
+                      : launch<Geom, BN, Epi::kRequant, int32_t, MB>(p, st);
 }
+
 
 // The whole ConvT site: zeroes the statistics block on `st`, then pass S and
 // pass Q (BN = 128 where Cout % 128 == 0, else 64). x: [B, H, W, Cin] int8;
@@ -878,8 +921,24 @@ static int convt4x4s2_i8(const void* x, const void* wk, void* stats, void* out, 
   const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,
                static_cast<long long*>(stats), static_cast<float*>(out_scale), B, H, W, Cin,
                Cout, eps};
-  return Cout % 128 == 0 ? convt_passes<128>(p, stage_fp16, st)
-                         : convt_passes<64>(p, stage_fp16, st);
+  return Cout % 128 == 0 ? two_passes<ConvT4x4s2Geom, 128>(p, stage_fp16, st)
+                         : two_passes<ConvT4x4s2Geom, 64>(p, stage_fp16, st);
+}
+
+// The whole 4x4/s2 site: zeroes the statistics block on `st`, then pass S and
+// pass Q (BN = 256 where Cout % 256 == 0, else 128 where Cout % 128 == 0, else
+// 64). x: [B, H, W, Cin] int8; wk: [Cout, 16*Cin] int8 (K = (4u + v)*Cin +
+// ci); out: [B, H/2, W/2, Cout] int8; out_scale: [B] float32.
+static int conv4x4s2_i8(const void* x, const void* wk, void* stats, void* out, void* out_scale,
+                        int B, int H, int W, int Cin, int Cout, float eps, cudaStream_t st) {
+  const int err = zero_stats(stats, B, Cout, st);
+  if (err != 0) return err;
+  const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,
+               static_cast<long long*>(stats), static_cast<float*>(out_scale), B, H, W, Cin,
+               Cout, eps};
+  if (Cout % 256 == 0) return two_passes<Conv4x4s2Geom, 256>(p, false, st);
+  return Cout % 128 == 0 ? two_passes<Conv4x4s2Geom, 128>(p, false, st)
+                         : two_passes<Conv4x4s2Geom, 64>(p, false, st);
 }
 
 }  // namespace wgmma

@@ -32,12 +32,16 @@ calls; ``MSIG_ENC1_IM2COL=1`` runs enc1 as ``fe.enc1_in_relu_requant_im2col``.
 whose relu sites take ``adain_relu_requant_chunked`` of
 ``ops/int8_epilogue_chunked.py`` with ``fused_epilogue=True``.
 
-At any other input size it runs the composition ``pallas=("trunk",)``: the
-unfused int8 encoder and decoder (``_xla_encoder``, ``_xla_decoder``) around
-the kernel trunk. The JAX package leaves the unfused chain's convolutions to
-XLA; here they are an im2col times the library's exact int8 matrix product
-(``torch._int_mm``, int32 accumulation), on the CPU and on the card alike,
-with the bf16 activations and requant steps of the JAX chain.
+At 512² with float output (or ``MSIG_512_FUSED=0``) it runs the composition
+``pallas=("trunk",)``: the unfused int8 encoder and decoder (``_xla_encoder``,
+``_xla_decoder``) around the kernel trunk. At any other input size it runs
+the unfused chain throughout, ``_xla_trunk`` between them, as the JAX
+package does (``quantized.py:399-400``). The JAX package leaves the unfused
+chain's convolutions to XLA; here they are an im2col times the library's
+exact int8 matrix product (``torch._int_mm``, int32 accumulation), on the
+CPU and on the card alike, with the bf16 activations and requant steps of
+the JAX chain. Both entry points return float32 in [-1, 1] unless
+``out_dtype`` says otherwise, as the JAX package's do.
 ``quantized_generator_apply_staged`` runs any of the eight compositions, to
 attribute a difference to one stage.
 
@@ -121,7 +125,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
 
     Keys as in the JAX package: ``enc_conv{0,1,2}`` and ``dec_up{0,1}`` (int8
     OIHW of the forward conv), ``enc{0,1,2}_p`` (the encoder kernels packed
-    [K, Cout] for their sites), ``up{0,1}_ps`` (the ConvT kernels packed
+    [K, Cout] for their sites) with the port's ``enc{1,2}_pk`` beside them
+    (their K-major [Cout, 16*Cin] transposes, which the wgmma 4x4/s2 site
+    reads), ``up{0,1}_ps`` (the ConvT kernels packed
     [16*Cin, Cout] by phase) with the port's ``up{0,1}_ps_pk`` beside them
     (their K-major [4, Cout, 4*Cin] copies, which the wgmma ConvT site reads),
     ``res{i}_conv{1,2}_p`` (packed [9C, C] int8),
@@ -148,6 +154,7 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     q["enc0_p"] = fe.pack_enc0(q["enc_conv0"].permute(2, 3, 1, 0))
     for i in (1, 2):
         q[f"enc{i}_p"] = fe.pack_conv4x4(q[f"enc_conv{i}"].permute(2, 3, 1, 0))
+        q[f"enc{i}_pk"] = fe.pack_conv4x4_kmajor(q[f"enc{i}_p"])
     for i in (0, 1):
         w_hwio = q[f"dec_up{i}"].permute(2, 3, 1, 0)
         q[f"up{i}_ps"] = fc.pack_convt_weights_ps(w_hwio, *w_hwio.shape[2:])
@@ -271,7 +278,9 @@ def _fused_encoder(q: Q, img_u8: torch.Tensor):
     Dense counterpart of ``msig_tpu/infer/quantized.py::_fused_encoder``: the
     three encoder sites chained on int8, enc2's inverse scale as it comes.
     Where the grid of 4x4-pixel cells is wider than 64 (a 512² input), enc0
-    is the staged site (``msig_tpu/ops/fused_enc_int8.py:617``)."""
+    is the staged site (``msig_tpu/ops/fused_enc_int8.py:617``). enc1 and
+    enc2 get their K-major weight copies (``enc{1,2}_pk``, None where ``q``
+    lacks them)."""
     if img_u8.shape[1] // 4 > 64:
         h0 = fe.enc0_hbm(img_u8, q["enc0_p"], stage=_stage_mode())
     else:
@@ -279,8 +288,8 @@ def _fused_encoder(q: Q, img_u8: torch.Tensor):
     if _enc1_im2col() and "enc1_i2c_p" in q:  # msig_tpu/infer/quantized.py:280-282
         h1 = fe.enc1_in_relu_requant_im2col(h0, q["enc1_i2c_p"])
     else:
-        h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"])
-    return fe.enc2_in_relu_requant(h1, q["enc2_p"])
+        h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"], w_kmajor=q.get("enc1_pk"))
+    return fe.enc2_in_relu_requant(h1, q["enc2_p"], w_kmajor=q.get("enc2_pk"))
 
 
 def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Tensor,
@@ -426,7 +435,7 @@ ALL_STAGES = ("enc", "trunk", "dec")
 
 
 def quantized_generator_apply_staged(q: Q, img_u8: torch.Tensor, style: torch.Tensor,
-                                     n_res: int = 8, out_dtype=torch.uint8,
+                                     n_res: int = 8, out_dtype=torch.float32,
                                      pallas: Tuple[str, ...] = ALL_STAGES) -> torch.Tensor:
     """Per-stage composition of the int8 generator (``quantized_generator_apply_staged``).
 
@@ -457,26 +466,27 @@ def quantized_generator_apply_staged(q: Q, img_u8: torch.Tensor, style: torch.Te
 
 
 def quantized_generator_apply(q: Q, img_u8: torch.Tensor, style: torch.Tensor, n_res: int = 8,
-                              out_dtype=torch.uint8, fused_epilogue: bool = False,
+                              out_dtype=torch.float32, fused_epilogue: bool = False,
                               fused_trunk=None) -> torch.Tensor:
-    """uint8 NHWC image + style [B, S] -> image (uint8, or [-1,1] float).
+    """uint8 NHWC image + style [B, S] -> image ([-1,1] float32, or uint8).
 
     The JAX package's choice of chain by shape and output type
     (``quantized.py:352-400``): at 256² input the all-kernel chain
     ``pallas=("enc", "trunk", "dec")``, 3 + 2*n_res + 3 kernel-site calls
     (one trunk call under ``MSIG_TRUNK_V3=1``); at 512² the same for uint8
     output unless ``MSIG_512_FUSED=0``, with enc0 and up1 as their staged
-    sites; at 512² float output and at any other size ``pallas=("trunk",)``,
-    the unfused encoder and decoder around the kernel trunk. That is
-    ``fused_trunk`` None (the JAX package's choice on its accelerator) or True;
-    False runs the unfused chain throughout, ``_xla_trunk(fused_epilogue)``
-    between the unfused encoder and decoder."""
-    if fused_trunk is False:
-        h = _xla_trunk(q, _xla_encoder(q, img_u8), style, n_res, fused_epilogue)
-        return _xla_decoder(q, h, out_dtype)
+    sites, else ``pallas=("trunk",)``, the unfused encoder and decoder around
+    the kernel trunk; at any other size the unfused chain throughout,
+    ``_xla_trunk(fused_epilogue)`` between the unfused encoder and decoder.
+    That is ``fused_trunk`` None (the JAX package's choice on its
+    accelerator) or True; False runs the unfused chain at every size. Every
+    ``MSIG_*`` setting is read, and a junk value raises, before any work."""
+    _trunk_hifi_mode(), _stage_mode(), _trunk_v3(), _enc1_im2col()
     fused_512 = _env_choice("MSIG_512_FUSED", "1", ("0", "1")) == "1"
     side = tuple(img_u8.shape[1:3])
-    all_kernels = side == (256, 256) or (
-        side == (512, 512) and out_dtype == torch.uint8 and fused_512)
+    if fused_trunk is False or side not in ((256, 256), (512, 512)):
+        h = _xla_trunk(q, _xla_encoder(q, img_u8), style, n_res, fused_epilogue)
+        return _xla_decoder(q, h, out_dtype)
+    all_kernels = side == (256, 256) or (out_dtype == torch.uint8 and fused_512)
     return quantized_generator_apply_staged(q, img_u8, style, n_res, out_dtype,
                                             pallas=ALL_STAGES if all_kernels else ("trunk",))

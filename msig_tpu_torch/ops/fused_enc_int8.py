@@ -18,7 +18,13 @@ Each conv is followed by an instance norm in fp32 from exact statistics, a
 ReLU and the per-sample requant to int8 of the other relu sites
 (``fused_conv_int8_v2._relu_requant``). enc1 and enc2 run one CUDA source;
 on dense maps it is a single K = 16*Cin product, which is also what the TPU's
-``enc1_in_relu_requant_im2col`` computes.
+``enc1_in_relu_requant_im2col`` computes. Both CUDA entries run the conv
+twice, so that no int32 accumulator reaches device memory: pass S takes the
+exact statistics, pass Q recomputes the conv and writes int8 from the
+registers. enc1 and enc2 run it on ``wgmma``, which reads the weights
+K-major: their wrappers take the ``[Cout, 16*Cin]`` copy of
+``pack_conv4x4_kmajor`` as the keyword ``w_kmajor`` (made once at
+quantization) and make it themselves where it is not given.
 
 ``enc1_in_relu_requant_im2col`` is enc1 as the JAX package runs it under
 ``MSIG_ENC1_IM2COL=1``: the dense K = 1024 product per output phase against
@@ -29,8 +35,8 @@ for bit.
 
 ``enc0_hbm`` is enc0 as the all-kernel chain runs it on a 512² input, where
 the TPU splits the site into a staged pair of kernels (``_enc0_hbm``): the
-same CUDA source, with the accumulator staged as int32 or as fp16 x 2^-12
-(``stage``), counted under its own name.
+same CUDA source, the accumulator read as the staging type would pass it on,
+int32 or fp16 x 2^-12 (``stage``), counted under its own name.
 
 Each site has a wrapper that launches the kernel for CUDA tensors and adds
 one to its entry of ``LAUNCHES``, or raises, and a plain PyTorch version that
@@ -68,14 +74,14 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    ENC0_SITE: [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
-    CONV_S2_SOURCE: [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, _P],
+    ENC0_SITE: [_P] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
+    CONV_S2_SOURCE: [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, _P],
     ENC1_I2C_SITE: [_P] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, _P],
 }
 ENC1_I2C_ENTRY = "msig_enc1_im2col_in_relu_requant"
 
 ENC0_K = 7 * 7 * 3      # 147 rows of the enc0 weight matrix
-ENC0_K_PADDED = 160     # zero rows up to 5 mma steps of 32
+ENC0_K_PADDED = 160     # 147 rows and 13 zero rows (the kernel reads the 147)
 
 
 def reset_launch_counts() -> None:
@@ -102,6 +108,20 @@ def pack_conv4x4(w_hwio: torch.Tensor) -> torch.Tensor:
     if w_hwio.dim() != 4 or tuple(w_hwio.shape[:2]) != (4, 4):
         raise ValueError(f"expected a [4, 4, Cin, Cout] kernel, got {tuple(w_hwio.shape)}")
     return w_hwio.to(torch.int8).reshape(16 * w_hwio.shape[2], w_hwio.shape[3]).contiguous()
+
+
+def pack_conv4x4_kmajor(w_packed: torch.Tensor) -> torch.Tensor:
+    """[16*Cin, Cout] packed int8 weights (``pack_conv4x4``) -> [Cout, 16*Cin],
+    the transpose: row co holds the K = (4u + v)*Cin + ci of output channel co
+    contiguous, as ``wgmma`` takes an 8-bit B operand (K-major only)."""
+    if w_packed.dim() != 2 or w_packed.shape[0] % 16:
+        raise ValueError(f"expected packed weights [16*Cin, Cout], got {tuple(w_packed.shape)}")
+    return w_packed.to(torch.int8).t().contiguous()
+
+
+def conv4x4_kmajor_shape(w_packed: torch.Tensor) -> Tuple[int, int]:
+    """The shape [Cout, 16*Cin] of ``pack_conv4x4_kmajor(w_packed)``."""
+    return w_packed.shape[1], w_packed.shape[0]
 
 
 def pack_enc1_im2col(w_hwio: torch.Tensor) -> torch.Tensor:
@@ -202,18 +222,37 @@ def _check_conv4x4s2(x: torch.Tensor, w_packed: torch.Tensor) -> Tuple[int, int,
     return b, h, w, cin, cout
 
 
-def _conv4x4s2_kernel(x_i8: torch.Tensor, w_packed: torch.Tensor, eps: float):
-    """Launch the 4x4/s2 site's CUDA kernel; returns (int8, inv_scale). Counts no launch."""
+def _conv4x4s2_kernel(x_i8: torch.Tensor, w_packed: torch.Tensor, eps: float, w_kmajor=None):
+    """Launch the 4x4/s2 site's CUDA kernel; returns (int8, inv_scale). Counts no launch.
+
+    The kernel reads the K-major weights: ``w_kmajor`` (``pack_conv4x4_kmajor(w_packed)``),
+    checked, or the copy made here where it is None."""
     b, h, w, cin, cout = _check_conv4x4s2(x_i8, w_packed)
+    wk = fc._kmajor(w_packed, w_kmajor, pack_conv4x4_kmajor, (cout, 16 * cin))
     fn = _build.load(CONV_S2_SOURCE, _ARGTYPES[CONV_S2_SOURCE])
-    y, stats = fc._scratch(x_i8, b, (h // 2) * (w // 2), cout)
+    # the statistics block only: the C entry zeroes it on the stream
+    stats = torch.empty(5 * b * cout + b, dtype=torch.int64, device=x_i8.device)
     out = torch.empty((b, h // 2, w // 2, cout), dtype=torch.int8, device=x_i8.device)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=x_i8.device)
-    err = fn(x_i8.data_ptr(), w_packed.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(),
+    err = fn(x_i8.data_ptr(), wk.data_ptr(), stats.data_ptr(), out.data_ptr(),
              out_scale.data_ptr(), b, h, w, cin, cout, eps,
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(CONV_S2_SOURCE, err)
     return out, out_scale
+
+
+def conv4x4s2_wgmma_config() -> Dict[str, int]:
+    """The 4x4/s2 site's two wgmma passes as built (entry
+    ``msig_conv4x4s2_i8_wgmma_config``): tile pixels, and for pass S and pass Q
+    at each channel tile the bytes of K a stage, the stages of the ring and the
+    dynamic shared memory per CTA. Builds the source."""
+    fn = _build.load(CONV_S2_SOURCE, [ctypes.POINTER(ctypes.c_int)],
+                     entry="msig_conv4x4s2_i8_wgmma_config")
+    out = (ctypes.c_int * 19)()
+    _build.check(CONV_S2_SOURCE, fn(out))
+    keys = ["tile_m"] + [f"{what}_{p}_n{bn}" for bn in (256, 128, 64) for p in ("stats", "requant")
+                         for what in ("k_bytes", "stages", "smem_bytes")]
+    return dict(zip(keys, out))
 
 
 def _enc0_kernel(img_u8: torch.Tensor, w_packed: torch.Tensor, eps: float, stage: str):
@@ -225,15 +264,17 @@ def _enc0_kernel(img_u8: torch.Tensor, w_packed: torch.Tensor, eps: float, stage
         raise ValueError(f"the CUDA kernel needs C == 3, H % 8 == 0 and W % 16 == 0, "
                          f"got {tuple(img_u8.shape)}")
     fc.check_statistics(img_u8.shape, h * w, ENC0_K)
+    if stage not in fc.STAGES:
+        raise ValueError(f"stage must be one of {fc.STAGES}, got {stage!r}")
     fc._check("image", img_u8, torch.uint8, (b, h, w, c))
     fc._check("weights", w_packed, torch.int8, (ENC0_K_PADDED, 64))
     _same_device(img_u8, w_packed)
     fn = _build.load(ENC0_SITE, _ARGTYPES[ENC0_SITE])
-    y, stats = fc._scratch(img_u8, b, h * w, 64, stage)
+    # the statistics block only: the C entry zeroes it on the stream
+    stats = torch.empty(5 * b * 64 + b, dtype=torch.int64, device=img_u8.device)
     out = torch.empty((b, h, w, 64), dtype=torch.int8, device=img_u8.device)
-    err = fn(img_u8.data_ptr(), w_packed.data_ptr(), y.data_ptr(), stats.data_ptr(),
-             out.data_ptr(), b, h, w, eps, int(stage == "fp16"),
-             torch.cuda.current_stream(img_u8.device).cuda_stream)
+    err = fn(img_u8.data_ptr(), w_packed.data_ptr(), stats.data_ptr(), out.data_ptr(), b, h, w,
+             eps, int(stage == "fp16"), torch.cuda.current_stream(img_u8.device).cuda_stream)
     _build.check(ENC0_SITE, err)
     return out
 
@@ -253,8 +294,10 @@ def enc0_hbm(img_u8, w_packed, eps: float = _EPS, stage: str = "int32"):
     """First encoder site as the chain runs it on inputs wider than 256 pixels:
     uint8 image [B, H, W, 3] -> int8 [B, H, W, 64].
 
-    ``stage`` is how the accumulator crosses device memory: "int32", the
-    arithmetic of ``enc0_in_relu_requant``, or "fp16" (``fc.STAGES``)."""
+    ``stage`` is how the staged pair passes its accumulator on, and so how
+    the requant reads each value: "int32", the arithmetic of
+    ``enc0_in_relu_requant``, or "fp16" x 2^-12 (``fc.STAGES``); the kernel
+    applies it in registers."""
     if img_u8.device.type == "cpu":
         return enc0_hbm_plain(img_u8, w_packed, eps, stage)
     out = _enc0_kernel(img_u8, w_packed, eps, stage)
@@ -262,22 +305,27 @@ def enc0_hbm(img_u8, w_packed, eps: float = _EPS, stage: str = "int32"):
     return out
 
 
-def enc1_in_relu_requant(x_i8, w_packed, eps: float = _EPS):
+def enc1_in_relu_requant(x_i8, w_packed, eps: float = _EPS, *, w_kmajor=None):
     """Second encoder site: int8 [B, H, W, Cin] -> int8 [B, H/2, W/2, Cout].
 
-    w_packed [16*Cin, Cout] int8 from ``pack_conv4x4``."""
+    w_packed [16*Cin, Cout] int8 from ``pack_conv4x4``; w_kmajor, optional,
+    ``pack_conv4x4_kmajor(w_packed)``, which the kernel reads."""
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, conv4x4_kmajor_shape(w_packed))
         return enc1_in_relu_requant_plain(x_i8, w_packed, eps)
-    out, _ = _conv4x4s2_kernel(x_i8, w_packed, eps)
+    out, _ = _conv4x4s2_kernel(x_i8, w_packed, eps, w_kmajor)
     LAUNCHES[ENC1_SITE] += 1
     return out
 
 
-def enc2_in_relu_requant(x_i8, w_packed, eps: float = _EPS):
-    """Third encoder site: int8 [B, H, W, Cin] -> (int8 [B, H/2, W/2, Cout], inv_scale [B, 1])."""
+def enc2_in_relu_requant(x_i8, w_packed, eps: float = _EPS, *, w_kmajor=None):
+    """Third encoder site: int8 [B, H, W, Cin] -> (int8 [B, H/2, W/2, Cout], inv_scale [B, 1]).
+
+    w_kmajor as at ``enc1_in_relu_requant``."""
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, conv4x4_kmajor_shape(w_packed))
         return enc2_in_relu_requant_plain(x_i8, w_packed, eps)
-    out = _conv4x4s2_kernel(x_i8, w_packed, eps)
+    out = _conv4x4s2_kernel(x_i8, w_packed, eps, w_kmajor)
     LAUNCHES[ENC2_SITE] += 1
     return out
 

@@ -154,8 +154,10 @@ def _tile_at(tile, tiles_n, mblocks, bn):
 
 
 def _runs(tiles, grid):
-    """The contiguous run of tiles of each CTA of a phased geometry."""
-    return [range(i * tiles // grid, (i + 1) * tiles // grid) for i in range(min(tiles, grid))]
+    """The contiguous run of tiles of each CTA of a phased geometry (the launch
+    takes min(tiles, grid) CTAs)."""
+    grid = min(tiles, grid)
+    return [range(i * tiles // grid, (i + 1) * tiles // grid) for i in range(grid)]
 
 
 def _conv_tile(x, wk, b, q, m0, n0, bn):

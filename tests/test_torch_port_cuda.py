@@ -501,6 +501,124 @@ def test_encoder_wrappers_reject_bad_inputs(cuda_device):
         fe.enc2_in_relu_requant(t["x2"], t["w2"][:-128])
 
 
+# Rows 7-10 (the encoder's two entries, each two passes with no accumulator
+# in device memory): exact integer sums and the plain versions' epilogue
+# operations, so equal to the bit. The 4x4/s2 site (b, side, cin, cout) at
+# enc1's and enc2's shapes of a 256² and a 512² input and at Cout 64; enc0
+# (b, h, w, stage) at a 256² and a 512² input in both stagings and on a map
+# that is not square.
+ENC_WGMMA_SHAPES = [(8, 256, 64, 128), (8, 128, 128, 256), (8, 512, 64, 128),
+                    (8, 256, 128, 256), (2, 32, 64, 64)]
+ENC0_SHAPES = [(8, 256, 256, "int32"), (8, 512, 512, "int32"), (8, 512, 512, "fp16"),
+               (1, 64, 128, "int32"), (1, 64, 128, "fp16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,cin,cout", ENC_WGMMA_SHAPES)
+def test_conv4x4s2_sites_equal_plain_to_the_bit(cuda_device, b, side, cin, cout):
+    """Rows 8-9 (one entry) with and without the K-major copy: the int8 map
+    and the inverse scale equal the plain version's, one launch per call."""
+    rng = np.random.default_rng(side + cin + cout)
+    x = torch.from_numpy(rng.integers(0, 128, (b, side, side, cin), dtype=np.int8)).to(cuda_device)
+    w = fe.pack_conv4x4(torch.from_numpy(
+        rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8))).to(cuda_device)
+    wk = fe.pack_conv4x4_kmajor(w)
+    want_q, want_s = fe.enc2_in_relu_requant_plain(x, w)
+    for fn, name in ((fe.enc1_in_relu_requant, fe.ENC1_SITE),
+                     (fe.enc2_in_relu_requant, fe.ENC2_SITE)):
+        for kw in ({"w_kmajor": wk}, {}):
+            before = fe.LAUNCHES[name]
+            got = fn(x, w, **kw)
+            assert fe.LAUNCHES[name] == before + 1
+            torch.cuda.synchronize()
+            got_q, got_s = got if isinstance(got, tuple) else (got, want_s)
+            assert got_q.shape == want_q.shape and got_s.shape == want_s.shape
+            assert torch.equal(got_q, want_q), f"{name}: {int((got_q != want_q).sum())} differ"
+            assert torch.equal(got_s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,stage", ENC0_SHAPES)
+def test_enc0_sites_equal_plain_to_the_bit(cuda_device, b, h, w, stage):
+    """Rows 7 and 10 (one entry): the staged site in its staging, the 256²
+    site where it is int32, one launch per call."""
+    rng = np.random.default_rng(h + w)
+    img = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(cuda_device)
+    w0 = fe.pack_enc0(torch.from_numpy(
+        rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).to(cuda_device)
+    want = fe.enc0_hbm_plain(img, w0, stage=stage)
+    calls = [(lambda: fe.enc0_hbm(img, w0, stage=stage), fe.ENC0_HBM_SITE)]
+    if stage == "int32":
+        calls.append((lambda: fe.enc0_in_relu_requant(img, w0), fe.ENC0_SITE))
+    for call, name in calls:
+        before = fe.LAUNCHES[name]
+        got = call()
+        assert fe.LAUNCHES[name] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{name}: {int((got != want).sum())} of {got.numel()} differ"
+
+
+@pytest.mark.cuda
+def test_conv4x4s2_sites_reject_a_bad_kmajor_copy(cuda_device):
+    t = _enc_inputs(1, 64, cuda_device)
+    wk = fe.pack_conv4x4_kmajor(t["w1"])
+    bad = [("shape", wk[:64].contiguous()), ("shape", t["w1"]), ("int8", wk.to(torch.int32)),
+           ("CUDA tensor", wk.cpu()), ("contiguous", wk.t().contiguous().t())]
+    for match, w_kmajor in bad:
+        with pytest.raises(ValueError, match=match):
+            fe.enc1_in_relu_requant(t["x1"], t["w1"], w_kmajor=w_kmajor)
+        with pytest.raises(ValueError, match=match):
+            fe.enc2_in_relu_requant(t["x1"], t["w1"], w_kmajor=w_kmajor)
+
+
+@pytest.mark.cuda
+def test_enc0_allocates_no_accumulator_scratch(cuda_device):
+    """At a 512² input, [8, 512, 512, 3], a call's peak memory beyond its
+    inputs stays below its output (134 MB), the statistics block and 64 MB,
+    where the int32 accumulator alone took 537 MB."""
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)).to(cuda_device)
+    w0 = fe.pack_enc0(torch.from_numpy(
+        rng.integers(-127, 128, (7, 7, 3, 64), dtype=np.int8))).to(cuda_device)
+    for stage in fc.STAGES:
+        fe.enc0_hbm(img, w0, stage=stage)  # built and warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fe.enc0_hbm(img, w0, stage=stage)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base < \
+            out.numel() + (5 * 8 * 64 + 8) * 8 + 64 * 2 ** 20
+        del out
+
+
+@pytest.mark.cuda
+def test_int8_generator_serves_224(cuda_device):
+    """Away from 256² and 512² the int8 generator runs the unfused chain
+    throughout, as the JAX package does: a 224² input (a 56 x 56 trunk map,
+    which no trunk kernel site takes) is served on the card with no kernel
+    site launched, in uint8 and in the float32 default."""
+    from msig_tpu_torch.infer import quantized as tq
+    from msig_tpu_torch.models import StyleCycleGANGenerator
+
+    torch.manual_seed(0)
+    gen = StyleCycleGANGenerator(style_dim=64, n_residual_blocks=2)
+    q = {k: v.to(cuda_device) for k, v in tq.quantize_generator_params(gen.state_dict(), 2).items()}
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)).to(cuda_device)
+    style = torch.from_numpy(rng.normal(size=(2, 64)).astype(np.float32)).to(cuda_device)
+    for mod in (fc, fd, fe):
+        mod.reset_launch_counts()
+    u8 = tq.quantized_generator_apply(q, img, style, n_res=2, out_dtype=torch.uint8)
+    fl = tq.quantized_generator_apply(q, img, style, n_res=2)
+    torch.cuda.synchronize()
+    assert not any(v for mod in (fc, fd, fe) for v in mod.LAUNCHES.values())
+    assert u8.dtype == torch.uint8 and u8.shape == (2, 224, 224, 3)
+    assert fl.dtype == torch.float32 and fl.shape == (2, 224, 224, 3)
+    assert bool(torch.isfinite(fl).all()) and float(fl.abs().max()) <= 1.0
+    assert torch.equal(tq.to_out_dtype(fl, torch.uint8), u8)
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_path(cuda_device):
     x, w = _convt_inputs(1, 16, 64, 64, cuda_device)

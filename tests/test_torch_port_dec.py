@@ -199,15 +199,16 @@ def test_generator_256_matches_jax_staged_trunk_dec(qparams):
 
 
 _ALL_KERNELS = ["_fused_encoder", "_fused_trunk_rows", "_fused_decoder"]
-_TRUNK_ONLY = ["_xla_encoder", "_fused_trunk", "_xla_decoder"]
+_UNFUSED = ["_xla_encoder", "_xla_trunk", "_xla_decoder"]
 
 
-@pytest.mark.parametrize("side,chain", [(64, _TRUNK_ONLY), (128, _TRUNK_ONLY),
+@pytest.mark.parametrize("side,chain", [(64, _UNFUSED), (128, _UNFUSED),
                                         (256, _ALL_KERNELS)])
 def test_decoder_is_chosen_by_input_size(side, chain, monkeypatch):
     """256² takes the all-kernel chain (``pallas=("enc", "trunk", "dec")``):
     the kernel encoder, the trunk straight on its int8 output and scale, the
-    kernel decoder. Other sizes keep ``pallas=("trunk",)``."""
+    kernel decoder. Sizes other than 256² and 512² take the unfused chain
+    throughout, as ``msig_tpu/infer/quantized.py:399-400`` does."""
     calls = []
     hq = torch.zeros((1, 1, 1, 1), dtype=torch.int8)
 

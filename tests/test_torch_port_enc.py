@@ -258,8 +258,8 @@ def test_fused_encoder_takes_enc1_im2col_under_the_flag(jparams, monkeypatch, si
     calls = []
     for name in ("enc1_in_relu_requant", "enc1_in_relu_requant_im2col"):
         real = getattr(tfe, name)
-        monkeypatch.setattr(tfe, name, lambda *a, real=real, name=name: calls.append(name)
-                            or real(*a))
+        monkeypatch.setattr(tfe, name, lambda *a, real=real, name=name, **k: calls.append(name)
+                            or real(*a, **k))
     got_q, got_s = tq._fused_encoder(q_i2c, img)
     assert calls == ["enc1_in_relu_requant_im2col"]
     want_q, want_s = tq._fused_encoder(q, img)

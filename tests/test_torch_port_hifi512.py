@@ -395,6 +395,7 @@ def test_channel_affine_on_a_map_past_one_word_matches_python_integers():
 
 _ALL_KERNELS = ["_fused_encoder", "_fused_trunk_rows", "_fused_decoder"]
 _TRUNK_ONLY = ["_xla_encoder", "_fused_trunk", "_xla_decoder"]
+_UNFUSED = ["_xla_encoder", "_xla_trunk", "_xla_decoder"]
 
 
 @pytest.mark.parametrize("side,out_dtype,fused_512,chain", [
@@ -402,12 +403,12 @@ _TRUNK_ONLY = ["_xla_encoder", "_fused_trunk", "_xla_decoder"]
     (256, torch.uint8, "0", _ALL_KERNELS),
     (512, torch.uint8, "1", _ALL_KERNELS), (512, torch.uint8, None, _ALL_KERNELS),
     (512, torch.float32, "1", _TRUNK_ONLY), (512, torch.uint8, "0", _TRUNK_ONLY),
-    (384, torch.uint8, "1", _TRUNK_ONLY), (1024, torch.uint8, "1", _TRUNK_ONLY),
+    (384, torch.uint8, "1", _UNFUSED), (1024, torch.uint8, "1", _UNFUSED),
 ])
 def test_chain_is_chosen_by_size_and_output_type(side, out_dtype, fused_512, chain, monkeypatch):
     """msig_tpu/infer/quantized.py:352-400: 256² all-kernel; 512² all-kernel for
     uint8 output unless MSIG_512_FUSED=0, else ``pallas=("trunk",)``; other
-    sizes ``pallas=("trunk",)``."""
+    sizes the unfused chain throughout (``_xla_trunk``)."""
     calls = []
     hq = torch.zeros((1, 1, 1, 1), dtype=torch.int8)
 
@@ -446,8 +447,8 @@ def test_staged_sites_are_chosen_by_the_cell_grid(side, fp16, enc0, up1, monkeyp
                         lambda *a: calls.append("enc0_in_relu_requant") or small)
     monkeypatch.setattr(tq.fe, "enc0_hbm",
                         lambda *a, stage: calls.append(f"enc0_hbm:{stage}") or small)
-    monkeypatch.setattr(tq.fe, "enc1_in_relu_requant", lambda *a: small)
-    monkeypatch.setattr(tq.fe, "enc2_in_relu_requant", lambda *a: (small, None))
+    monkeypatch.setattr(tq.fe, "enc1_in_relu_requant", lambda *a, **k: small)
+    monkeypatch.setattr(tq.fe, "enc2_in_relu_requant", lambda *a, **k: (small, None))
     monkeypatch.setattr(tq.fc, "convt4x4s2_in_relu_requant_ps", lambda *a, **k: (small, None))
     monkeypatch.setattr(tq.fd, "up1_s2d16",
                         lambda *a, **k: calls.append("up1_s2d16") or (small, None))
@@ -481,7 +482,8 @@ def test_generator_512_runs_the_staged_sites_end_to_end(monkeypatch):
                         lambda y1, h, hs, *a, **k: (h, hs))
     img = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (1, 512, 512, 3),
                                                              dtype=np.uint8))
-    out = tq.quantized_generator_apply(q, img, torch.zeros((1, SDIM)), n_res=1)
+    out = tq.quantized_generator_apply(q, img, torch.zeros((1, SDIM)), n_res=1,
+                                       out_dtype=torch.uint8)
     assert out.dtype == torch.uint8 and out.shape == (1, 512, 512, 3)
     assert len(np.unique(out.numpy())) > 50
     # up1 gets its K-major weight copy (the ConvT sites' w_kmajor)

@@ -120,6 +120,42 @@ def test_int8_slice_matches_jax_staged_trunk(slice_inputs):
     assert _psnr_u8(got, want) >= 40.0
 
 
+@pytest.mark.parametrize("out_dtype", ["uint8", None])
+def test_generator_away_from_256_and_512_takes_the_jax_chain(random_gen, out_dtype):
+    """At 128² both entry points run the unfused chain throughout, the port's
+    ``_xla_trunk`` between its unfused encoder and decoder
+    (``msig_tpu/infer/quantized.py:399-400``); None leaves ``out_dtype`` at its
+    default, float32 in [-1, 1] on both sides. The bar is the slice's: 40 dB
+    (the float output over its range of 2)."""
+    params, sd = random_gen
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (1, 128, 128, 3), dtype=np.uint8)
+    style = rng.normal(0, 1, (1, SDIM)).astype(np.float32)
+    kw_j = {} if out_dtype is None else {"out_dtype": getattr(jnp, out_dtype)}
+    kw_t = {} if out_dtype is None else {"out_dtype": getattr(torch, out_dtype)}
+    want = np.asarray(jq.quantized_generator_apply(
+        jq.quantize_generator_params(params, N_RES), jnp.asarray(img), jnp.asarray(style),
+        n_res=N_RES, **kw_j))
+    got = tq.quantized_generator_apply(tq.quantize_generator_params(sd, N_RES),
+                                       torch.from_numpy(img), torch.from_numpy(style),
+                                       n_res=N_RES, **kw_t).numpy()
+    assert got.dtype == want.dtype == (np.float32 if out_dtype is None else np.uint8)
+    assert got.shape == want.shape == (1, 128, 128, 3)
+    if out_dtype is None:
+        assert np.abs(got).max() <= 1.0
+        mse = np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2)
+        assert 10 * np.log10(4.0 / mse) >= 40.0
+    else:
+        assert _psnr_u8(got, want) >= 40.0
+
+
+def test_generator_entry_points_default_to_float32():
+    """As the JAX package's (``msig_tpu/infer/quantized.py:337, 490``)."""
+    import inspect
+    for fn in (tq.quantized_generator_apply, tq.quantized_generator_apply_staged):
+        assert inspect.signature(fn).parameters["out_dtype"].default is torch.float32
+
+
 def test_int8_trunk_and_decoder_bit_exact_on_jax_encoder_output(slice_inputs):
     """From the same encoder output, the trunk (plain kernel versions vs the
     Pallas kernels in interpret mode) and the unfused decoder agree exactly."""
@@ -198,7 +234,8 @@ def test_trunk_hands_the_kernels_dense_contiguous_tensors(slice_inputs, monkeypa
                         spy(tq.fc.conv3x3_adain_relu_requant))
     monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant",
                         spy(tq.fc.conv3x3_adain_residual_requant))
-    tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style), n_res=N_RES)
+    tq.quantized_generator_apply_staged(q, torch.from_numpy(img), torch.from_numpy(style),
+                                        n_res=N_RES, pallas=("trunk",))
     assert seen == [(2, 16, 16, 256)] * (2 * N_RES)
 
 
@@ -209,8 +246,9 @@ def test_trunk_hifi_modes_are_refused(value, monkeypatch, slice_inputs):
     monkeypatch.setenv("MSIG_TRUNK_HIFI", value)
     if value not in ("1", "2"):
         with pytest.raises(ValueError, match="MSIG_TRUNK_HIFI"):
-            tq.quantized_generator_apply({}, torch.zeros((1, 64, 64, 3), dtype=torch.uint8),
-                                         torch.zeros((1, SDIM)))
+            tq.quantized_generator_apply_staged({}, torch.zeros((1, 64, 64, 3), dtype=torch.uint8),
+                                                torch.zeros((1, SDIM)), out_dtype=torch.uint8,
+                                                pallas=("trunk",))
         return
     _, q, img, style = slice_inputs
     name = {"1": "conv3x3_adain_residual_hifi", "2": "conv3x3_adain_residual_hifi2"}[value]
@@ -218,8 +256,9 @@ def test_trunk_hifi_modes_are_refused(value, monkeypatch, slice_inputs):
     monkeypatch.setattr(tq.fc, name, lambda *a: calls.append(name) or real(*a))
     monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant",
                         lambda *a: pytest.fail("the stock carry ran"))
-    out = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
-                                       n_res=N_RES)
+    out = tq.quantized_generator_apply_staged(q, torch.from_numpy(img), torch.from_numpy(style),
+                                              n_res=N_RES, out_dtype=torch.uint8,
+                                              pallas=("trunk",))
     assert calls == [name] * N_RES
     assert out.dtype == torch.uint8 and out.shape == (2, 64, 64, 3)
 

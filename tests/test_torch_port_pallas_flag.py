@@ -61,9 +61,11 @@ def test_pallas_flag_routes_the_float_generator_and_matches_jax(engines):
 
 
 def test_pallas_flag_asks_the_int8_path_for_its_kernel_trunk():
-    """JAX's ``force_fused`` is already the port's int8 chain: with and without
-    the flag, serving at 64² runs the kernel trunk (one conv1 site call per
-    resblock) and gives the same bits."""
+    """JAX's ``force_fused`` (``fused_trunk=True``) is already the port's int8
+    chain: with and without the flag the chain is chosen by size as
+    ``msig_tpu/infer/quantized.py:347-400`` chooses it, which at 64² is the
+    unfused one (one ``_xla_trunk`` call, no conv1 site call), and gives the
+    same bits."""
     imgs = torch.from_numpy(np.random.default_rng(13).integers(0, 256, (2, 64, 64, 3),
                                                                 dtype=np.uint8))
     styles = torch.from_numpy(np.random.default_rng(14).normal(0, 1, (2, 256)).astype(np.float32))
@@ -77,7 +79,8 @@ def test_pallas_flag_asks_the_int8_path_for_its_kernel_trunk():
                                     meta["style_dim"])
         assert eng.q is not None
         with mock.patch.object(qmod.fc, "conv3x3_adain_relu_requant",
-                               wraps=qmod.fc.conv3x3_adain_relu_requant) as conv1:
+                               wraps=qmod.fc.conv3x3_adain_relu_requant) as conv1, \
+                mock.patch.object(qmod, "_xla_trunk", wraps=qmod._xla_trunk) as trunk:
             outs.append(eng.generate(imgs, styles))
-        assert conv1.call_count == meta["n_residual_blocks"]
+        assert conv1.call_count == 0 and trunk.call_count == 1
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)

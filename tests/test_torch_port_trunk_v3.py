@@ -316,7 +316,7 @@ def test_generator_256_under_v3_matches_jax(gen_params, monkeypatch):
     with mock.patch.object(tq.f3, "fused_trunk_blocks", wraps=tq.f3.fused_trunk_blocks) as tv3, \
             mock.patch.object(tq.fc, "conv3x3_adain_relu_requant", side_effect=AssertionError):
         got = tq.quantized_generator_apply(q, torch.from_numpy(img), torch.from_numpy(style),
-                                           n_res=N_RES).numpy()
+                                           n_res=N_RES, out_dtype=torch.uint8).numpy()
     assert tv3.call_count == 1
     assert got.shape == want.shape == (1, 256, 256, 3)
     mse = np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2)

@@ -56,8 +56,8 @@ _NO_STORES = ("*reinterpret_cast<int4*>(yb + (ob", "if (0) *reinterpret_cast<int
 _NO_A = ("cp_async16(sa + row * kBK", "if (0) cp_async16(sa + row * kBK")
 _NO_B = ("cp_async16(sb + n * kBK", "if (0) cp_async16(sb + n * kBK")
 # at Cout = 128 (up0) two channel tiles of 64: the same products as m64n64k32
-_TILE_64 = ("return Cout % 128 == 0 ? convt_passes<128>(p, stage_fp16, st)",
-            "return Cout % 128 == 0 ? convt_passes<64>(p, stage_fp16, st)")
+_TILE_64 = ("return Cout % 128 == 0 ? two_passes<ConvT4x4s2Geom, 128>(p, stage_fp16, st)",
+            "return Cout % 128 == 0 ? two_passes<ConvT4x4s2Geom, 64>(p, stage_fp16, st)")
 _NO_MMA = ("wgmma_tile<BN>(acc[mb], sw128_desc", "if (0) wgmma_tile<BN>(acc[mb], sw128_desc")
 # name -> edits (old text, new text) of the header; each old text occurs once
 VARIANTS = {
@@ -92,7 +92,7 @@ static int run(int what, Args p, void* y, cudaStream_t st) {
     case 4:  // at BN = 64 (at 128 four m64 blocks a warpgroup would not fit its registers)
       if constexpr (BN == 64) {
         err = zero_stats(p.stats, p.B, p.Cout, st);
-        return err != 0 ? err : convt_passes<BN, 2>(p, false, st);
+        return err != 0 ? err : two_passes<ConvT4x4s2Geom, BN, 2>(p, false, st);
       } else {
         return (int)cudaErrorInvalidValue;
       }
