@@ -8,7 +8,7 @@ Phases, each reported on its own line:
 1. build: compiles the fourteen CUDA sources of the serving, tool and training
    paths from ``msig_tpu_torch/csrc`` (one nvcc per source, all at once),
    prints ptxas's registers and spills per kernel (named for the wgmma
-   kernels: rows 1-2's pass A, the ConvT site's pass S and pass Q), and the
+   kernels: rows 1-4's pass A, the ConvT site's pass S and pass Q), and the
    card's name and power limit as nvidia-smi reports them;
 2. kernels: each of the twenty-one kernel sites against its plain PyTorch version
    on the card, with seeded random inputs, batch 8. At the shapes of a 256²
@@ -33,15 +33,16 @@ Phases, each reported on its own line:
    of four times the pixels. Bars: int8 outputs at most 1 step apart on under
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
    on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
-   the int8-carry conv2, the v1 conv2 site, the ConvT site's rows 5, 12
+   the three conv2 sites, the v1 conv2 site, the ConvT site's rows 5, 12
    and 13) and the encoder's two-pass rows 7-10 (``EXACT``) equal to their
-   plain versions to the bit, conv1, conv2, the ConvT rows and enc1, enc2
-   timed with the K-major weight copy given, as the served trunk, decoder
-   and encoder call them; times by CUDA events
+   plain versions to the bit, conv1, the conv2 sites, the ConvT rows and
+   enc1, enc2 timed with the K-major weight copy given, as the served trunk,
+   decoder and encoder call them; times by CUDA events
    (the three epilogue rows also as three medians with L2 warm and three
-   with L2 flushed before each call). Then conv1 and conv2 at
-   ``WGMMA_SHAPES`` (down to [1, 16, 16, 128], up to [8, 128, 128, 256], and a
-   384² input's [1, 96, 96, 256]) with and without the K-major copy, twice,
+   with L2 flushed before each call). Then conv1 and the three conv2 sites at
+   ``WGMMA_SHAPES`` (down to [1, 16, 16, 128], up to [8, 128, 128, 256], a
+   384² input's [1, 96, 96, 256], and [1, 16, 16, 384]) with and without the
+   K-major copy, twice,
    and the v1 conv2 site at [1, 64, 64, 128] and [8, 64, 64, 256]: equal to
    the plain versions to the bit, one launch per call; then rows 5, 12 and 13
    at ``CONVT_SHAPES`` ([8, 64, 64, 256] -> 128, [8, 128, 128, 128] -> 64,
@@ -83,7 +84,7 @@ Phases, each reported on its own line:
    unfused one), and against each other at least 35 dB on seeded random
    weights with 2 resblocks and a noise image (the configuration in which the
    JAX package's tests hold that bar); time per batch and per stage, with
-   both stagings;
+   both stagings, and per batch in ``MSIG_TRUNK_HIFI`` 1 and 2;
    at 224² (``224/int8``): no kernel site at all (the unfused int8 chain, as
    the JAX package takes it away from 256² and 512²), 20 images served;
 4. tools/v1_v2: ``python -m msig_tpu_torch.tools.bench_v1_v2`` and
@@ -106,9 +107,10 @@ Phases, each reported on its own line:
    ``convolution_backward`` (dx and dW) beside it under its default and its
    deterministic algorithms; after phase 6, the device time of each kernel of
    a conv call (``torch.profiler``): row 24's IN backward, the conv core, the
-   reductions; and of conv1 and conv2 at [8, 64, 64, 256] and [8, 128, 128,
-   256]: the wgmma pass A, the epilogue kernels, the memset, with pass A's
-   int8 rate and share of 1,979 TOP/s, beside the call's time by CUDA events;
+   reductions; and of conv1 and the three conv2 sites at [8, 64, 64, 256] and
+   [8, 128, 128, 256]: the wgmma pass A, the epilogue kernels, the memset,
+   with pass A's int8 rate and share of 1,979 TOP/s, beside the call's time by
+   CUDA events, and the memory the call allocates at its peak;
    the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
    input's in both stagings: the memset, pass S and pass Q, each pass's int8
    rate; and for rows 7-9 at theirs and row 10 in both stagings;
@@ -239,20 +241,24 @@ BENCH_SITES = {
     "up1 site    v1": {_UP1: 1}, "up1 site    v2": {"convt4x4s2_in_relu_requant": 1},
 }
 _TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant": N_RES}
-# Rows 1, 2 and 20 (the trunk's 3x3) and rows 5, 12 and 13 (the ConvT site's
+# Rows 1-4 and 20 (the trunk's 3x3) and rows 5, 12 and 13 (the ConvT site's
 # two passes) run the conv on wgmma (csrc/conv_i8_wgmma.cuh): exact integer
 # sums and the plain versions' epilogue operations, so they are held equal to
 # their plain versions to the bit, at the kernel rows' shapes and at
 # WGMMA_SHAPES (b, side, c): small maps, both channel tiles, a 512² input's
-# trunk and a 384² input's (W = 96: tiles end inside image rows); and at
+# trunk and a 384² input's (W = 96: tiles end inside image rows), and C = 384
+# (three channel tiles of 128; row 4's epilogue then takes each group's
+# channels at every step); and at
 # CONVT_SHAPES (b, side, cin, cout, stages): up0's and up1's main-path shapes,
 # a 512² input's up1 in both stagings, Cin 64 (two taps a 128-byte K block)
 # and a 384² input's up0 (W = 96).
 EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
+         "conv3x3_adain_residual_hifi", "conv3x3_adain_residual_hifi2",
          "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
          "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
          "enc2_in_relu_requant")
-WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256))
+WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256),
+                (1, 16, 384))
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
                 (2, 256, 128, 64, ("int32", "fp16")), (1, 16, 64, 64, ("int32",)),
                 (1, 96, 256, 128, ("int32",)))
@@ -268,7 +274,10 @@ ENC0_SHAPES = ((8, 256, 256, ("int32",)), (8, 512, 512, ("int32", "fp16")),
 # Device time of a trunk site's call by kernel (torch.profiler names).
 TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
                 ("relu epilogue", "relu_requant_kernel"), ("max|hn|", "residual_amax_kernel"),
-                ("residual requant", "residual_requant_kernel"), ("memset", "Memset"))
+                ("residual requant", "residual_requant_kernel"),
+                ("carry + max|hn|", "hifi_carry_kernel"), ("int8 copy", "hifi_requant_kernel"),
+                ("max|hn|", "hifi2_amax_kernel"), ("two planes", "hifi2_requant_kernel"),
+                ("memset", "Memset"))
 # ... and of a ConvT site's call: the statistics' memset, pass S, pass Q.
 CONVT_GROUPS = (("pass S (wgmma)", "convt_i8_wgmma_stats_kernel"),
                 ("pass Q (wgmma)", "convt_i8_wgmma_requant_kernel"), ("memset", "Memset"))
@@ -445,9 +454,8 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
                     "hifi2": (x, hq, h2, hs, *tail)}[kind]
             fn = {"relu": "conv3x3_adain_relu_requant", "residual": "conv3x3_adain_residual_requant",
                   "hifi": "conv3x3_adain_residual_hifi", "hifi2": "conv3x3_adain_residual_hifi2"}[kind]
-            # rows 1-2 as the served trunk calls them, with the K-major copy
-            kw = ({"w_kmajor": fc.pack_weights_kmajor(w)}
-                  if mod is fc and kind in ("relu", "residual") else {})
+            # rows 1-4 as the served trunk calls them, with the K-major copy
+            kw = {"w_kmajor": fc.pack_weights_kmajor(w)} if mod is fc else {}
             return (lambda: getattr(mod, fn)(*args, **kw)), \
                 (lambda: getattr(mod, fn + "_plain")(*args))
         return make
@@ -670,11 +678,11 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
 
 
 def wgmma_phase(torch, fc, v1, dev) -> None:
-    """Rows 1-2 at WGMMA_SHAPES, with and without the K-major copy and twice,
+    """Rows 1-4 at WGMMA_SHAPES, with and without the K-major copy and twice,
     and row 20 (which makes the copy itself) at the 64x64 maps it takes: every
     output equal to the plain version's to the bit, one launch per call."""
     cfg = fc.wgmma_config()
-    print(f"[kernel] wgmma pass A of rows 1-2: {cfg['tile_m']} pixels x 256 (C % 256 == 0) or "
+    print(f"[kernel] wgmma pass A of rows 1-4: {cfg['tile_m']} pixels x 256 (C % 256 == 0) or "
           f"128 channels a tile, {cfg['tile_k_bytes']} bytes of K a stage through a "
           f"{cfg['stages']}-stage ring; {cfg['threads']} threads (producer {cfg['producer_regs']}, "
           f"consumers {cfg['consumer_regs']} registers after setmaxnreg); dynamic shared memory "
@@ -699,26 +707,32 @@ def wgmma_phase(torch, fc, v1, dev) -> None:
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"{name} {what} equal to its plain version to the bit")
 
+    names = (fc.RELU_SITE, fc.RESIDUAL_SITE, fc.HIFI_SITE, fc.HIFI2_SITE)
     for b, side, c in WGMMA_SHAPES:
         x, hq, hs, w, gamma, beta = inputs(b, side, c, side + c)
+        # the hi-fi carries: a bf16 map, and a second int8 plane beside hq
+        rng = np.random.default_rng(side + c + 1)
+        hb = torch.from_numpy(rng.normal(0, 1.5, tuple(x.shape)).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        h2 = torch.from_numpy(rng.integers(-127, 128, tuple(x.shape), dtype=np.int8)).to(dev)
+        tail = (w, gamma, beta)
+        args = {fc.RELU_SITE: (x, *tail), fc.RESIDUAL_SITE: (x, hq, hs, *tail),
+                fc.HIFI_SITE: (x, hb, *tail), fc.HIFI2_SITE: (x, hq, h2, hs, *tail)}
         wk = fc.pack_weights_kmajor(w)
-        want = (fc.conv3x3_adain_relu_requant_plain(x, w, gamma, beta),
-                fc.conv3x3_adain_residual_requant_plain(x, hq, hs, w, gamma, beta))
+        want = {n: getattr(fc, n + "_plain")(*args[n]) for n in names}
         for kw in ({"w_kmajor": wk}, {}, {"w_kmajor": wk}):
             before = dict(fc.LAUNCHES)
-            got = (fc.conv3x3_adain_relu_requant(x, w, gamma, beta, **kw),
-                   fc.conv3x3_adain_residual_requant(x, hq, hs, w, gamma, beta, **kw))
+            got = {n: getattr(fc, n)(*args[n], **kw) for n in names}
             torch.cuda.synchronize()
-            check(fc.LAUNCHES == {**before, fc.RELU_SITE: before[fc.RELU_SITE] + 1,
-                                  fc.RESIDUAL_SITE: before[fc.RESIDUAL_SITE] + 1},
-                  f"rows 1-2 at {(b, side, side, c)}: one launch each per call")
+            check(fc.LAUNCHES == {**before, **{n: before[n] + 1 for n in names}},
+                  f"rows 1-4 at {(b, side, side, c)}: one launch each per call")
             what = f"at {[b, side, side, c]} ({'K-major copy given' if kw else 'copy made'})"
-            equal("conv3x3_adain_relu_requant", got[0], want[0], what)
-            equal("conv3x3_adain_residual_requant", got[1], want[1], what)
-        print(f"[kernel] rows 1-2 at {[b, side, side, c]}: equal to their plain versions to the "
+            for n in names:
+                equal(n, got[n], want[n], what)
+        print(f"[kernel] rows 1-4 at {[b, side, side, c]}: equal to their plain versions to the "
               f"bit, with the K-major copy given and made by the wrapper, over two calls",
               flush=True)
-        del x, hq, w, want, got
+        del x, hq, hb, h2, w, args, want, got
     for b, c in ((1, 128), (B, C)):
         x, hq, hs, w, gamma, beta = inputs(b, 64, c, 9 + c)
         equal("conv3x3_adain_residual_requant_v1",
@@ -1218,6 +1232,12 @@ def e2e_phase(torch, mods, ap, work: str) -> dict:
               f"batch, {B / (ms / 1e3):.1f} images/s (median of 5, CUDA events)", flush=True)
     print(f"[e2e 512] fp16 staging vs int32 staging, one batch of noise images: PSNR "
           f"{psnr(outs['0'], outs['1']):.2f} dB", flush=True)
+    for hifi in ("1", "2"):
+        with env(MSIG_TRUNK_HIFI=hifi):
+            ms = cuda_ms(torch, lambda: q8.generate(imgs, styles), reps=5, warmup=2)
+        result["ms"][f"512/hifi{hifi}"] = ms
+        print(f"[e2e 512/hifi{hifi}] int8 generator, batch {B}: {ms:.2f} ms per batch, "
+              f"{B / (ms / 1e3):.1f} images/s (median of 5, CUDA events)", flush=True)
     with env(MSIG_STAGE_FP16="1"):
         staged_fp16 = reference(q8, bank)
     result["psnr"]["512/stage_fp16=1"] = total_psnr(staged_fp16, want)[0]
@@ -1475,18 +1495,20 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
 
 
 def trunk_split_phase(torch, fc, kernels: dict) -> None:
-    """Rows 1-2 at the trunk shapes of a 256² and a 512² input: the time per
+    """Rows 1-4 at the trunk shapes of a 256² and a 512² input: the time per
     call by CUDA events (median of 30) and by ``torch.profiler`` device time per
     kernel (``kernel_split`` with ``TRUNK_GROUPS``), pass A's int8 rate and its
-    share of the card's 1,979 TOP/s, and which of the two the row's time
-    follows. The parts go into the row as ``parts_ms``. Run last, as
-    ``split_phase``."""
+    share of the card's 1,979 TOP/s, which of the two the row's time follows,
+    and the device memory a call allocates at its peak beyond its inputs. The
+    parts go into the row as ``parts_ms``. Run last, as ``split_phase``."""
     for grid in (SIDE, 2 * SIDE):
         rng = np.random.default_rng(grid)
         t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
         x = t(rng.integers(-127, 128, (B, grid, grid, C), dtype=np.int8))
         hq = t(rng.integers(-127, 128, (B, grid, grid, C), dtype=np.int8))
         hs = t(rng.uniform(0.01, 0.05, (B, 1)).astype(np.float32))
+        hb = t(rng.normal(0, 1.5, (B, grid, grid, C)).astype(np.float32)).to(torch.bfloat16)
+        h2 = t(rng.integers(-127, 128, (B, grid, grid, C), dtype=np.int8))
         w = fc.pack_weights(torch.from_numpy(rng.integers(-32, 33, (3, 3, C, C), dtype=np.int8)))
         w, wk = w.cuda(), fc.pack_weights_kmajor(w).cuda()
         gamma = t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32))
@@ -1497,8 +1519,19 @@ def trunk_split_phase(torch, fc, kernels: dict) -> None:
                  lambda: fc.conv3x3_adain_relu_requant(x, w, gamma, beta, w_kmajor=wk)),
                 ("conv3x3_adain_residual_requant",
                  lambda: fc.conv3x3_adain_residual_requant(x, hq, hs, w, gamma, beta,
-                                                           w_kmajor=wk))):
+                                                           w_kmajor=wk)),
+                ("conv3x3_adain_residual_hifi",
+                 lambda: fc.conv3x3_adain_residual_hifi(x, hb, w, gamma, beta, w_kmajor=wk)),
+                ("conv3x3_adain_residual_hifi2",
+                 lambda: fc.conv3x3_adain_residual_hifi2(x, hq, h2, hs, w, gamma, beta,
+                                                         w_kmajor=wk))):
             ms = cuda_ms(torch, call, reps=30)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            call()
+            torch.cuda.synchronize()
+            peak_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
             parts = kernel_split(torch, call, groups=TRUNK_GROUPS)
             device = sum(parts.values())
             row = kernels[name] if grid == SIDE else next(
@@ -1514,8 +1547,9 @@ def trunk_split_phase(torch, fc, kernels: dict) -> None:
             print(f"[kernel] {name} ({[B, grid, grid, C]}, K-major copy given): {ms:.4f} ms per "
                   f"call by CUDA events (median of 30), {device:.4f} ms of device time by "
                   f"torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-                  + f"; {rate}; the row's time follows {follows}", flush=True)
-        del x, hq, w, wk
+                  + f"; {rate}; the row's time follows {follows}; {peak_mb:.1f} MB allocated "
+                  f"at the call's peak (outputs and scratch)", flush=True)
+        del x, hq, hb, h2, w, wk
         torch.cuda.empty_cache()
 
 
@@ -1916,7 +1950,7 @@ def main() -> int:
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line:
-                # the wgmma pass A of rows 1-2: registers, barriers, spills by kernel
+                # the wgmma pass A of rows 1-4: registers, barriers, spills by kernel
                 tag = f" ({entry})" if "wgmma" in entry else ""
                 print(f"[build] {name}{tag}: {line.strip()}")
     card = card_line()

@@ -14,13 +14,18 @@
 //
 // Bound on an H100 at [8, 64, 64, 256]: 38.7 G int8 operations (19.5 us at
 // 1,979 TOP/s) against 51 MB that must move (1 + 2 bytes per element in,
-// 1 + 2 out; 15 us at 3.35 TB/s), so operations bound it. This design adds
-// the int32 round trip and reads the carry it has just written once more.
+// 1 + 2 out; 15 us at 3.35 TB/s), so operations bound it. The conv runs on
+// wgmma at rows 1-2's pace (conv_i8_wgmma.cuh: K-major weights, a cp.async
+// ring, statistics from the registers). This design adds the int32 round trip
+// (34 MB written, then read) and reads the carry it has just written once more
+// (17 MB): max|hn| must be complete before any int8 copy is written.
 //
-// Three launches: conv + statistics (conv_int8.cuh), the carry and max|hn|
+// Launches: a memset of the statistics block and the conv + statistics on
+// wgmma (wgmma::conv3x3_i8_stats, K-major weights), the carry and max|hn|
 // per sample, the int8 copy.
 #include <cuda_bf16.h>
 
+#include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -90,10 +95,11 @@ hifi_requant_kernel(const __nv_bfloat16* __restrict__ carry, const long long* __
 
 }  // namespace msig
 
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. hb, out_hb: [B, H, W, C] bf16, distinct
-// buffers; y_scratch: [B, H*W, C] int32; stats: int64 [5*B*C + B], zeroed.
-extern "C" int msig_conv3x3_adain_residual_hifi(const void* y1, const void* hb, const void* w,
+// Returns a CUDA error code (0 = success) after the launches. Launches on
+// `stream` and does not synchronise. wk: [C, 9*C] int8, K-major (the transpose
+// of the [9*C, C] packing); hb, out_hb: [B, H, W, C] bf16, distinct buffers;
+// y_scratch: [B, H*W, C] int32; stats: int64 [5*B*C + B], zeroed here.
+extern "C" int msig_conv3x3_adain_residual_hifi(const void* y1, const void* hb, const void* wk,
                                                 const void* gamma, const void* beta,
                                                 void* y_scratch, void* stats, void* out,
                                                 void* out_hb, int B, int H, int W, int C,
@@ -101,18 +107,14 @@ extern "C" int msig_conv3x3_adain_residual_hifi(const void* y1, const void* hb, 
   using namespace msig;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  dim3 grid_a(B * (HW / kBM), C / 128);
-  conv_i8_stats_kernel<Conv3x3Geom, 128><<<grid_a, kConvThreads, 0, st>>>(
-      static_cast<const int8_t*>(y1), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err_a = wgmma::conv3x3_i8_stats(y1, wk, y_scratch, stats, B, H, W, C, st);
+  if (err_a != 0) return err_a;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   hifi_carry_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
       static_cast<const int32_t*>(y_scratch), static_cast<const __nv_bfloat16*>(hb),
       static_cast<long long*>(stats), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(out_hb), B, HW, C, eps);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hifi_requant_kernel<<<grid_b, kEpiThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(out_hb), static_cast<const long long*>(stats),

@@ -11,11 +11,16 @@
 //
 // Bound on an H100 at [8, 64, 64, 256]: 38.7 G int8 operations (19.5 us at
 // 1,979 TOP/s) against 42 MB that must move (3 bytes per element in, 2 out;
-// 13 us at 3.35 TB/s), so operations bound it. This design adds the int32
-// round trip and computes hn twice (once for max|hn|, once to store).
+// 13 us at 3.35 TB/s), so operations bound it. The conv runs on wgmma at rows
+// 1-2's pace (conv_i8_wgmma.cuh: K-major weights, a cp.async ring, statistics
+// from the registers). This design adds the int32 round trip (34 MB written,
+// then read twice) and computes hn twice (once for max|hn|, once to store):
+// keeping hn would need a sample's 4 MB of fp32 on chip.
 //
-// Three launches: conv + statistics (conv_int8.cuh), max|hn| per sample, the
+// Launches: a memset of the statistics block and the conv + statistics on
+// wgmma (wgmma::conv3x3_i8_stats, K-major weights), max|hn| per sample, the
 // two planes and the new scale.
+#include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
 namespace msig {
@@ -34,6 +39,34 @@ __device__ __forceinline__ float hifi2_hs2(float hs) {
   return __fmul_rn(hs, (float)(1.0 / 254.0));
 }
 
+// The affine a, d of an epilogue thread's group of four channels (elements
+// 4i .. 4i + 3 of a sample's [HW, C] map) in the grid-stride walks below
+// (blockDim.x = kEpiThreads). Where C divides 4 * kEpiThreads (kFixed,
+// fixed_group_channels), every step of the walk is a multiple of C, so a
+// thread meets the same four channels, (4 * threadIdx.x) % C, at each step:
+// they are read from shared memory once, into registers. Otherwise at()
+// reads group i's, (4i) % C, at each step. On an H100 the fixed channels took
+// 8% off hifi2_amax_kernel at [8, 128, 128, 256] and nothing off row 3's
+// carry kernel, which keeps the index at each step
+// (tools/trunk_hifi_variants_torch.py).
+template <bool kFixed>
+struct GroupAffine {
+  float a[4], d[4];
+  __device__ __forceinline__ GroupAffine(const float* a_s, const float* d_s, int C) {
+    if constexpr (kFixed) load(a_s, d_s, (4 * (int)threadIdx.x) % C);
+  }
+  __device__ __forceinline__ void at(const float* a_s, const float* d_s, size_t i, int C) {
+    if constexpr (!kFixed) load(a_s, d_s, (int)((i * 4) % C));
+  }
+  __device__ __forceinline__ void load(const float* a_s, const float* d_s, int c) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = a_s[c + k], d[k] = d_s[c + k];
+  }
+};
+inline bool fixed_group_channels(int C) { return (4 * kEpiThreads) % C == 0; }
+
+// kFixed: fixed_group_channels(C) (GroupAffine).
+template <bool kFixed>
 __global__ void __launch_bounds__(kEpiThreads)
 hifi2_amax_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h1,
                   const int8_t* __restrict__ h2, const float* __restrict__ h_scale,
@@ -51,21 +84,24 @@ hifi2_amax_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h1,
   const int4* y4 = reinterpret_cast<const int4*>(y + (size_t)b * HW * C);
   const char4* p1 = reinterpret_cast<const char4*>(h1 + (size_t)b * HW * C);
   const char4* p2 = reinterpret_cast<const char4*>(h2 + (size_t)b * HW * C);
+  GroupAffine<kFixed> g(a_s, d_s, C);
   float local = 0.f;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const int4 v = y4[i];
     const char4 r1 = p1[i], r2 = p2[i];
-    const int c = (int)((i * 4) % C);
-    local = fmaxf(local, fabsf(hifi2_hn(v.x, r1.x, r2.x, a_s[c], d_s[c], hs, hs2)));
-    local = fmaxf(local, fabsf(hifi2_hn(v.y, r1.y, r2.y, a_s[c + 1], d_s[c + 1], hs, hs2)));
-    local = fmaxf(local, fabsf(hifi2_hn(v.z, r1.z, r2.z, a_s[c + 2], d_s[c + 2], hs, hs2)));
-    local = fmaxf(local, fabsf(hifi2_hn(v.w, r1.w, r2.w, a_s[c + 3], d_s[c + 3], hs, hs2)));
+    g.at(a_s, d_s, i, C);
+    local = fmaxf(local, fabsf(hifi2_hn(v.x, r1.x, r2.x, g.a[0], g.d[0], hs, hs2)));
+    local = fmaxf(local, fabsf(hifi2_hn(v.y, r1.y, r2.y, g.a[1], g.d[1], hs, hs2)));
+    local = fmaxf(local, fabsf(hifi2_hn(v.z, r1.z, r2.z, g.a[2], g.d[2], hs, hs2)));
+    local = fmaxf(local, fabsf(hifi2_hn(v.w, r1.w, r2.w, g.a[3], g.d[3], hs, hs2)));
   }
   const float m = block_max(local, red);
   if (threadIdx.x == 0) store_amax(stats, B, C, b, m);
 }
 
+// kFixed: fixed_group_channels(C) (GroupAffine).
+template <bool kFixed>
 __global__ void __launch_bounds__(kEpiThreads)
 hifi2_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h1,
                      const int8_t* __restrict__ h2, const float* __restrict__ h_scale,
@@ -89,11 +125,12 @@ hifi2_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h
   const char4* p2 = reinterpret_cast<const char4*>(h2 + (size_t)b * HW * C);
   char4* o1 = reinterpret_cast<char4*>(out1 + (size_t)b * HW * C);
   char4* o2 = reinterpret_cast<char4*>(out2 + (size_t)b * HW * C);
+  GroupAffine<kFixed> g(a_s, d_s, C);
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const int4 v = y4[i];
     const char4 r1 = p1[i], r2 = p2[i];
-    const int c = (int)((i * 4) % C);
+    g.at(a_s, d_s, i, C);
     const int vals[4] = {v.x, v.y, v.z, v.w};
     const signed char res1[4] = {r1.x, r1.y, r1.z, r1.w};
     const signed char res2[4] = {r2.x, r2.y, r2.z, r2.w};
@@ -101,7 +138,7 @@ hifi2_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float t =
-          __fmul_rn(hifi2_hn(vals[k], res1[k], res2[k], a_s[c + k], d_s[c + k], hs, hs2), s);
+          __fmul_rn(hifi2_hn(vals[k], res1[k], res2[k], g.a[k], g.d[k], hs, hs2), s);
       const float q1f = rintf(fminf(fmaxf(t, -127.f), 127.f));
       const float e = __fmul_rn(__fsub_rn(t, q1f), 254.f);
       q1[k] = (signed char)(int)q1f;
@@ -114,12 +151,13 @@ hifi2_requant_kernel(const int32_t* __restrict__ y, const int8_t* __restrict__ h
 
 }  // namespace msig
 
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. h1, h2, out1, out2: [B, H, W, C] int8;
-// h_scale, out_scale: [B] float32; y_scratch: [B, H*W, C] int32; stats:
-// int64 [5*B*C + B], zeroed.
+// Returns a CUDA error code (0 = success) after the launches. Launches on
+// `stream` and does not synchronise. wk: [C, 9*C] int8, K-major (the transpose
+// of the [9*C, C] packing); h1, h2, out1, out2: [B, H, W, C] int8; h_scale,
+// out_scale: [B] float32; y_scratch: [B, H*W, C] int32; stats: int64
+// [5*B*C + B], zeroed here.
 extern "C" int msig_conv3x3_adain_residual_hifi2(const void* y1, const void* h1, const void* h2,
-                                                 const void* h_scale, const void* w,
+                                                 const void* h_scale, const void* wk,
                                                  const void* gamma, const void* beta,
                                                  void* y_scratch, void* stats, void* out1,
                                                  void* out2, void* out_scale, int B, int H, int W,
@@ -133,19 +171,18 @@ extern "C" int msig_conv3x3_adain_residual_hifi2(const void* y1, const void* h1,
   const float* hsp = static_cast<const float*>(h_scale);
   const float* gp = static_cast<const float*>(gamma);
   const float* bp = static_cast<const float*>(beta);
-  dim3 grid_a(B * (HW / kBM), C / 128);
-  conv_i8_stats_kernel<Conv3x3Geom, 128><<<grid_a, kConvThreads, 0, st>>>(
-      static_cast<const int8_t*>(y1), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err_a = wgmma::conv3x3_i8_stats(y1, wk, y_scratch, stats, B, H, W, C, st);
+  if (err_a != 0) return err_a;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   const size_t smem = 2 * C * sizeof(float);
-  hifi2_amax_kernel<<<grid_b, kEpiThreads, smem, st>>>(
-      yp, p1, p2, hsp, static_cast<long long*>(stats), gp, bp, B, HW, C, eps);
-  err = cudaGetLastError();
+  const bool fixed = fixed_group_channels(C);
+  auto* amax = fixed ? hifi2_amax_kernel<true> : hifi2_amax_kernel<false>;
+  auto* requant = fixed ? hifi2_requant_kernel<true> : hifi2_requant_kernel<false>;
+  amax<<<grid_b, kEpiThreads, smem, st>>>(yp, p1, p2, hsp, static_cast<long long*>(stats), gp, bp,
+                                          B, HW, C, eps);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  hifi2_requant_kernel<<<grid_b, kEpiThreads, smem, st>>>(
+  requant<<<grid_b, kEpiThreads, smem, st>>>(
       yp, p1, p2, hsp, static_cast<const long long*>(stats), gp, bp, static_cast<int8_t*>(out1),
       static_cast<int8_t*>(out2), static_cast<float*>(out_scale), B, HW, C, eps);
   return (int)cudaGetLastError();

@@ -13,7 +13,9 @@
 // Users and the TPU kernels they replace:
 // - Conv3x3Geom, Epi::kInt32: pass A of msig_conv3x3_adain_relu_requant and
 //   msig_conv3x3_adain_residual_requant (msig_tpu/ops/fused_conv_int8_v2.py::
-//   _kernel_relu and _kernel_res, their zero-masked extremes :68-87);
+//   _kernel_relu and _kernel_res, their zero-masked extremes :68-87), and of
+//   msig_conv3x3_adain_residual_hifi and msig_conv3x3_adain_residual_hifi2
+//   (::_kernel_res_hifi and _kernel_res_hifi2, the hi-fi residual carries);
 // - ConvT4x4s2Geom, Epi::kStats then Epi::kRequant: the whole of
 //   msig_convt4x4s2_in_relu_requant (fused_conv_int8_v2.py::
 //   convt4x4s2_in_relu_requant_ps, msig_tpu/ops/fused_dec_int8.py::up1_s2d16
@@ -75,7 +77,7 @@
 //   consumer fences the proxies (fence.proxy.async) after its full-wait.
 // - Persistent CTAs, one per SM (gridDim.x = min(tiles, SMs)); channel tiles
 //   vary fastest, then phases, then pixel blocks, then samples. The int32
-//   pass of a one-phase geometry (rows 1-2) walks tile = blockIdx.x + i *
+//   pass of a one-phase geometry (rows 1-4) walks tile = blockIdx.x + i *
 //   gridDim.x, so the SMs work on neighbouring tiles; the two-pass sites
 //   (Epi::kStats, Epi::kRequant) and every phased geometry give each CTA a
 //   contiguous run of tiles, so a CTA meets at most a few samples (the
@@ -792,7 +794,7 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
 }
 
 // The kernels, one name each, so that a profile tells them apart.
-// Rows 1-2's pass A: the 3x3, int32 rows and statistics.
+// Rows 1-4's pass A: the 3x3, int32 rows and statistics.
 template <int BN>
 __global__ void __launch_bounds__(kThreads, 1) conv3x3_i8_wgmma_kernel(Args p) {
   extern __shared__ uint8_t smem_raw[];
@@ -884,7 +886,7 @@ static int zero_stats(void* stats, int B, int C, cudaStream_t st) {
 }
 
 // Zeroes the statistics block [kStatBlocks*B*C + B] on `st`, then runs rows
-// 1-2's pass A (BN = 256 where C % 256 == 0, else 128). x: [B, H, W, C] int8;
+// 1-4's pass A (BN = 256 where C % 256 == 0, else 128). x: [B, H, W, C] int8;
 // wk: [C, 9*C] int8 K-major; y: [B, H*W, C] int32.
 static int conv3x3_i8_stats(const void* x, const void* wk, void* y, void* stats, int B, int H,
                             int W, int C, cudaStream_t st) {

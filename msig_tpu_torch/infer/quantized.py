@@ -331,12 +331,11 @@ def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Ten
     for i in range(n_res):
         y1q = fc.conv3x3_adain_relu_requant(hq, q[f"res{i}_conv1_p"], gammas[2 * i],
                                             betas[2 * i], w_kmajor=q.get(f"res{i}_conv1_pk"))
-        # The wgmma sites (conv1, mode 0's conv2) read the K-major copy.
-        kw = {} if hifi else {"w_kmajor": q.get(f"res{i}_conv2_pk")}
         # Every carry's first output is the int8 map that the next conv1 reads;
-        # modes 0 and 2 carry it on, mode 1 carries only the bf16 map.
+        # modes 0 and 2 carry it on, mode 1 carries only the bf16 map. Both
+        # sites run their conv on wgmma, which reads the K-major copy.
         hq, *rest = site(y1q, *carry, q[f"res{i}_conv2_p"], gammas[2 * i + 1], betas[2 * i + 1],
-                         **kw)
+                         w_kmajor=q.get(f"res{i}_conv2_pk"))
         carry = tuple(rest) if hifi == 1 else (hq, *rest)
     return hq
 

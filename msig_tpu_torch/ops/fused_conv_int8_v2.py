@@ -23,7 +23,7 @@ Each site has:
   wrapper runs for CPU tensors and which ``chip_smoke.py`` holds the kernel
   against on the card.
 
-The conv1 and int8-carry conv2 sites and the phase-split ConvT site run their
+The conv1 site, the three conv2 sites and the phase-split ConvT site run their
 conv on ``wgmma`` (``csrc/conv_i8_wgmma.cuh``), which reads the weights
 K-major: their wrappers take the ``[C, 9C]`` copy of ``pack_weights_kmajor``
 (the ConvT's ``[4, Cout, 4*Cin]`` copy of ``pack_convt_weights_ps_kmajor``) as
@@ -700,25 +700,29 @@ def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _E
     return out, out_scale
 
 
-def conv3x3_adain_residual_hifi(y1_i8, h_bf16, w_packed, gamma, beta, eps: float = _EPS):
+def conv3x3_adain_residual_hifi(y1_i8, h_bf16, w_packed, gamma, beta, eps: float = _EPS, *,
+                                w_kmajor=None):
     """Resblock conv2 site with a bf16 residual carry; returns (int8, bf16 carry).
 
     y1_i8 [B, H, W, C] int8, h_bf16 [B, H, W, C] bfloat16, w_packed [9C, C]
-    int8, gamma/beta [B, C] float32. The int8 copy feeds the next conv1 (or
-    the decoder), the carry the next conv2.
+    int8, gamma/beta [B, C] float32; w_kmajor, optional,
+    ``pack_weights_kmajor(w_packed)``, which the kernel reads. The int8 copy
+    feeds the next conv1 (or the decoder), the carry the next conv2.
     """
     if y1_i8.device.type == "cpu":
+        _check_kmajor_shape(w_kmajor, (y1_i8.shape[-1], 9 * y1_i8.shape[-1]))
         return conv3x3_adain_residual_hifi_plain(y1_i8, h_bf16, w_packed, gamma, beta, eps)
     _check("y1", y1_i8, torch.int8, tuple(y1_i8.shape))
     b, h, w, c = _check_site(y1_i8, w_packed, gamma, beta)
     _check("h", h_bf16, torch.bfloat16, tuple(y1_i8.shape))
     if h_bf16.device != y1_i8.device:
         raise ValueError(f"all inputs must be on {y1_i8.device}")
+    wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(HIFI_SITE, _ARGTYPES[HIFI_SITE])
-    y, stats = _scratch(y1_i8, b, h * w, c)
+    y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
     out = torch.empty_like(y1_i8)
     out_h = torch.empty_like(h_bf16)
-    err = fn(y1_i8.data_ptr(), h_bf16.data_ptr(), w_packed.data_ptr(), gamma.data_ptr(),
+    err = fn(y1_i8.data_ptr(), h_bf16.data_ptr(), wk.data_ptr(), gamma.data_ptr(),
              beta.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(), out_h.data_ptr(),
              b, h, w, c, eps, torch.cuda.current_stream(y1_i8.device).cuda_stream)
     _build.check(HIFI_SITE, err)
@@ -727,15 +731,17 @@ def conv3x3_adain_residual_hifi(y1_i8, h_bf16, w_packed, gamma, beta, eps: float
 
 
 def conv3x3_adain_residual_hifi2(y1_i8, h1_i8, h2_i8, h_scale, w_packed, gamma, beta,
-                                 eps: float = _EPS):
+                                 eps: float = _EPS, *, w_kmajor=None):
     """Resblock conv2 site with a two-plane int8 residual carry; returns (q1, q2, scale [B, 1]).
 
     y1_i8, h1_i8, h2_i8 [B, H, W, C] int8, h_scale [B, 1] float32, w_packed
-    [9C, C] int8, gamma/beta [B, C] float32. The residual is (h1 + h2/254) *
-    h_scale; q1 feeds the next conv1 (or the decoder), both planes and the
-    scale the next conv2.
+    [9C, C] int8, gamma/beta [B, C] float32; w_kmajor, optional,
+    ``pack_weights_kmajor(w_packed)``, which the kernel reads. The residual is
+    (h1 + h2/254) * h_scale; q1 feeds the next conv1 (or the decoder), both
+    planes and the scale the next conv2.
     """
     if y1_i8.device.type == "cpu":
+        _check_kmajor_shape(w_kmajor, (y1_i8.shape[-1], 9 * y1_i8.shape[-1]))
         return conv3x3_adain_residual_hifi2_plain(y1_i8, h1_i8, h2_i8, h_scale, w_packed, gamma,
                                                   beta, eps)
     _check("y1", y1_i8, torch.int8, tuple(y1_i8.shape))
@@ -746,12 +752,13 @@ def conv3x3_adain_residual_hifi2(y1_i8, h1_i8, h2_i8, h_scale, w_packed, gamma, 
     for t in (h1_i8, h2_i8, h_scale):
         if t.device != y1_i8.device:
             raise ValueError(f"all inputs must be on {y1_i8.device}, got {t.device}")
+    wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(HIFI2_SITE, _ARGTYPES[HIFI2_SITE])
-    y, stats = _scratch(y1_i8, b, h * w, c)
+    y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
     out1, out2 = torch.empty_like(y1_i8), torch.empty_like(y1_i8)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=y1_i8.device)
     err = fn(y1_i8.data_ptr(), h1_i8.data_ptr(), h2_i8.data_ptr(), h_scale.data_ptr(),
-             w_packed.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+             wk.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
              stats.data_ptr(), out1.data_ptr(), out2.data_ptr(), out_scale.data_ptr(),
              b, h, w, c, eps, torch.cuda.current_stream(y1_i8.device).cuda_stream)
     _build.check(HIFI2_SITE, err)

@@ -99,35 +99,44 @@ def test_residual_site_kernel_matches_plain(cuda_device, b, side, c):
     _assert_int8_close(got_q, want_q)
 
 
-# Rows 1-2 on wgmma (csrc/conv_i8_wgmma.cuh): the conv is exact integer
-# arithmetic and the epilogues are the plain versions' operations, so both
+# Rows 1-4 on wgmma (csrc/conv_i8_wgmma.cuh): the conv is exact integer
+# arithmetic and the epilogues are the plain versions' operations, so the four
 # sites equal their plain versions to the bit. (8, 128, 256) is a 512² input's
-# trunk, (1, 96, 256) a 384² input's: W = 96, no 128-pixel tile a whole row.
-WGMMA_SHAPES = [(1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256)]
+# trunk, (1, 96, 256) a 384² input's: W = 96, no 128-pixel tile a whole row;
+# C = 384 takes three channel tiles of 128, and row 4's epilogue the channel
+# index at every step (384 does not divide 4 * kEpiThreads).
+WGMMA_SHAPES = [(1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256),
+                (1, 16, 384)]
+_WGMMA_SITES = (fc.RELU_SITE, fc.RESIDUAL_SITE, fc.HIFI_SITE, fc.HIFI2_SITE)
 
 
-def _wgmma_sites(t, **kw):
-    relu = fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"], **kw)
-    res = fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
-                                            t["beta"], **kw)
-    return relu, *res
+def _wgmma_sites(t, plain=False, **kw):
+    """Rows 1-4 on t's inputs, their outputs in one tuple (the plain versions
+    where ``plain``)."""
+    tail = (t["w"], t["gamma"], t["beta"])
+    args = {fc.RELU_SITE: (t["x"], *tail), fc.RESIDUAL_SITE: (t["x"], t["hq"], t["hs"], *tail),
+            fc.HIFI_SITE: (t["x"], t["hb"], *tail),
+            fc.HIFI2_SITE: (t["x"], t["hq"], t["h2"], t["hs"], *tail)}
+    out = []
+    for name in _WGMMA_SITES:
+        got = getattr(fc, name + "_plain")(*args[name]) if plain else getattr(fc, name)(
+            *args[name], **kw)
+        out += list(got) if isinstance(got, tuple) else [got]
+    return tuple(out)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,side,c", WGMMA_SHAPES)
 def test_wgmma_sites_equal_plain_to_the_bit(cuda_device, b, side, c):
-    """Rows 1-2 with and without the K-major copy, twice: every output equal
+    """Rows 1-4 with and without the K-major copy, twice: every output equal
     to the plain version's, and one launch counted per call."""
     t = _inputs(b, side, c, cuda_device, seed=8)
     wk = fc.pack_weights_kmajor(t["w"])
-    want = (fc.conv3x3_adain_relu_requant_plain(t["x"], t["w"], t["gamma"], t["beta"]),
-            *fc.conv3x3_adain_residual_requant_plain(t["x"], t["hq"], t["hs"], t["w"],
-                                                     t["gamma"], t["beta"]))
+    want = _wgmma_sites(t, plain=True)
     for kw in ({"w_kmajor": wk}, {}, {"w_kmajor": wk}):
         before = dict(fc.LAUNCHES)
         got = _wgmma_sites(t, **kw)
-        assert fc.LAUNCHES == {**before, fc.RELU_SITE: before[fc.RELU_SITE] + 1,
-                               fc.RESIDUAL_SITE: before[fc.RESIDUAL_SITE] + 1}
+        assert fc.LAUNCHES == {**before, **{k: before[k] + 1 for k in _WGMMA_SITES}}
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and g.shape == w.shape
@@ -156,13 +165,17 @@ def test_wgmma_sites_reject_a_bad_kmajor_copy(cuda_device):
     wk = fc.pack_weights_kmajor(t["w"])
     bad = [("shape", wk[:, :-128].contiguous()), ("shape", t["w"]), ("int8", wk.to(torch.int32)),
            ("CUDA tensor", wk.cpu()), ("contiguous", t["w"].t())]
+    tail = (t["w"], t["gamma"], t["beta"])
     for match, w_kmajor in bad:
         with pytest.raises(ValueError, match=match):
-            fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"],
-                                          w_kmajor=w_kmajor)
+            fc.conv3x3_adain_relu_requant(t["x"], *tail, w_kmajor=w_kmajor)
         with pytest.raises(ValueError):
-            fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
-                                              t["beta"], w_kmajor=w_kmajor)
+            fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], *tail, w_kmajor=w_kmajor)
+        with pytest.raises(ValueError, match=match):
+            fc.conv3x3_adain_residual_hifi(t["x"], t["hb"], *tail, w_kmajor=w_kmajor)
+        with pytest.raises(ValueError, match=match):
+            fc.conv3x3_adain_residual_hifi2(t["x"], t["hq"], t["h2"], t["hs"], *tail,
+                                            w_kmajor=w_kmajor)
 
 
 def _bf16_ulps(a, b):

@@ -270,8 +270,8 @@ def test_trunk_carries_start_as_the_jax_function_starts_them(trunk_inputs, monke
     seen = {}
     for name in ("conv3x3_adain_residual_hifi", "conv3x3_adain_residual_hifi2"):
         real = getattr(tq.fc, name)
-        monkeypatch.setattr(tq.fc, name, lambda *a, _r=real, _n=name: (
-            seen.setdefault(_n, a), _r(*a))[1])
+        monkeypatch.setattr(tq.fc, name, lambda *a, _r=real, _n=name, **kw: (
+            seen.setdefault(_n, a), _r(*a, **kw))[1])
     args = (q, torch.from_numpy(hq), torch.from_numpy(hs), torch.from_numpy(style), N_RES)
     monkeypatch.setenv("MSIG_TRUNK_HIFI", "1")
     tq._fused_trunk_rows(*args)

@@ -253,9 +253,9 @@ def test_trunk_hifi_modes_are_refused(value, monkeypatch, slice_inputs):
     _, q, img, style = slice_inputs
     name = {"1": "conv3x3_adain_residual_hifi", "2": "conv3x3_adain_residual_hifi2"}[value]
     real, calls = getattr(tq.fc, name), []
-    monkeypatch.setattr(tq.fc, name, lambda *a: calls.append(name) or real(*a))
+    monkeypatch.setattr(tq.fc, name, lambda *a, **kw: calls.append(name) or real(*a, **kw))
     monkeypatch.setattr(tq.fc, "conv3x3_adain_residual_requant",
-                        lambda *a: pytest.fail("the stock carry ran"))
+                        lambda *a, **kw: pytest.fail("the stock carry ran"))
     out = tq.quantized_generator_apply_staged(q, torch.from_numpy(img), torch.from_numpy(style),
                                               n_res=N_RES, out_dtype=torch.uint8,
                                               pallas=("trunk",))

@@ -79,29 +79,84 @@ def test_sites_with_and_without_the_kmajor_copy_agree(b, side, c):
             _sites(t, w_kmajor=bad)
 
 
-@pytest.mark.parametrize("site", [fc.RELU_SITE, fc.RESIDUAL_SITE])
+def _carry(t, seed=4):
+    """A residual h [B, H, W, C] fp32 of t's shape and its two-plane int8
+    carry (h1 + h2/254) * hs, as tests/test_torch_port_hifi512.py makes them."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(0, 1.5, tuple(t["x"].shape)).astype(np.float32)
+    hs = (np.abs(h).max(axis=(1, 2, 3)) / 127.0).astype(np.float32).reshape(-1, 1)
+    ht = h / hs.reshape(-1, 1, 1, 1)
+    h1 = np.clip(np.round(ht), -127, 127)
+    h2 = np.clip(np.round((ht - h1) * 254.0), -127, 127)
+    return {k: torch.from_numpy(v) for k, v in (("h", h), ("hs", hs), ("h1", h1.astype(np.int8)),
+                                                ("h2", h2.astype(np.int8)))}
+
+
+def _bf16_ordered(x):
+    """Bit patterns of a bf16 array (jax or torch) as int32, ordered like the
+    values (+0 and -0 coincide)."""
+    if isinstance(x, torch.Tensor):
+        bits = x.view(torch.int16).numpy().astype(np.int32)
+    else:
+        bits = np.asarray(x.view(jnp.int16)).astype(np.int32)
+    return np.where(bits >= 0, bits, -(bits & 0x7FFF))
+
+
+def _assert_bf16_close(got, want):
+    """Within 1 ulp on < 1%, as tests/test_torch_port_hifi512.py holds the bf16
+    carry; where conv*a + d and the residual cancel to under 2^-16 of the
+    sample's largest value, the bar is absolute, 2^-22 of that value."""
+    want_f = np.asarray(want.astype(jnp.float32))
+    ulps = np.abs(_bf16_ordered(got) - _bf16_ordered(want))
+    amax = np.abs(want_f).max(axis=(1, 2, 3), keepdims=True)
+    cancelled = np.abs(want_f) < amax * 2.0 ** -16
+    assert ulps[~cancelled].max() <= 1 and (ulps[~cancelled] > 0).mean() < 0.01
+    assert cancelled.mean() < 1e-3
+    assert (np.abs(got.float().numpy() - want_f) <= amax * 2.0 ** -22)[cancelled].all()
+
+
+@pytest.mark.parametrize("site", [fc.RELU_SITE, fc.RESIDUAL_SITE, fc.HIFI_SITE, fc.HIFI2_SITE])
 def test_sites_with_the_kmajor_copy_match_pallas(site):
     """The keyword changes nothing of the function: the port with the copy
     against the Pallas kernel in interpret mode, at the bars of the parity
-    tests in tests/test_torch_port_ops.py."""
+    tests in tests/test_torch_port_ops.py and tests/test_torch_port_hifi512.py."""
     w_img, c = 16, 256
     t = _site_inputs(2, w_img, c, seed=3)
     wp = t["w"].numpy()
     rows = lambda a: jf2.to_padded_rows(jnp.asarray(a.numpy()))  # noqa: E731
     unpack = lambda a: fc.from_padded_rows(torch.from_numpy(np.array(a)), w_img)  # noqa: E731
     kw = {"w_kmajor": fc.pack_weights_kmajor(t["w"])}
+    jtail = (jnp.asarray(wp), jnp.asarray(t["gamma"].numpy()), jnp.asarray(t["beta"].numpy()))
+    tail = (t["w"], t["gamma"], t["beta"])
     if site == fc.RELU_SITE:
-        want = unpack(jf2.conv3x3_adain_relu_requant(
-            rows(t["x"]), jnp.asarray(wp), jnp.asarray(t["gamma"].numpy()),
-            jnp.asarray(t["beta"].numpy()), w_img=w_img))
-        got = fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"], **kw)
-    else:
+        want = unpack(jf2.conv3x3_adain_relu_requant(rows(t["x"]), *jtail, w_img=w_img))
+        got = fc.conv3x3_adain_relu_requant(t["x"], *tail, **kw)
+    elif site == fc.RESIDUAL_SITE:
         want_q, want_s = jf2.conv3x3_adain_residual_requant(
-            rows(t["x"]), rows(t["hq"]), jnp.asarray(t["hs"].numpy()), jnp.asarray(wp),
-            jnp.asarray(t["gamma"].numpy()), jnp.asarray(t["beta"].numpy()), w_img=w_img)
-        got, got_s = fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"],
-                                                       t["gamma"], t["beta"], **kw)
+            rows(t["x"]), rows(t["hq"]), jnp.asarray(t["hs"].numpy()), *jtail, w_img=w_img)
+        got, got_s = fc.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], *tail, **kw)
         np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s).reshape(-1, 1), rtol=1e-5)
+        want = unpack(want_q)
+    elif site == fc.HIFI_SITE:
+        hb = _carry(t)["h"].to(torch.bfloat16)
+        want_q, want_h = jf2.conv3x3_adain_residual_hifi(
+            rows(t["x"]), jf2.to_padded_rows(jnp.asarray(hb.float().numpy()).astype(jnp.bfloat16)),
+            *jtail, w_img=w_img)
+        got, got_h = fc.conv3x3_adain_residual_hifi(t["x"], hb, *tail, **kw)
+        g = fc.guard_rows(w_img)
+        _assert_bf16_close(got_h, want_h[:, g:g + w_img * (w_img + 8)]
+                           .reshape(2, w_img, w_img + 8, c)[:, :, :w_img])
+        want = unpack(want_q)
+    else:
+        r = _carry(t)
+        want_q, want_q2, want_s = jf2.conv3x3_adain_residual_hifi2(
+            rows(t["x"]), rows(r["h1"]), rows(r["h2"]),
+            jnp.asarray(r["hs"].numpy()).reshape(-1, 1, 1), *jtail, w_img=w_img)
+        got, got_q2, got_s = fc.conv3x3_adain_residual_hifi2(t["x"], r["h1"], r["h2"], r["hs"],
+                                                             *tail, **kw)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s).reshape(-1, 1), rtol=1e-5)
+        diff = (got_q2.to(torch.int32) - unpack(want_q2).to(torch.int32)).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 0.01
         want = unpack(want_q)
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 0.01
@@ -265,9 +320,9 @@ def _trunk_q(n_res, c, s, seed=4):
 
 @pytest.mark.parametrize("hifi", ["0", "1", "2"])
 def test_trunk_hands_the_wgmma_sites_their_kmajor_copies(hifi, monkeypatch):
-    """``_fused_trunk_rows`` passes each resblock's K-major copies to conv1 and,
-    in mode 0, to conv2 (the hi-fi sites keep the [9C, C] pass A); the output
-    is the same without the copies in ``q``."""
+    """``_fused_trunk_rows`` passes each resblock's K-major copies to conv1 and
+    to conv2 in every mode (the three conv2 sites run their conv on wgmma);
+    the output is the same without the copies in ``q``."""
     n_res, c, s, b, side = 2, 128, 8, 1, 16
     monkeypatch.setenv("MSIG_TRUNK_HIFI", hifi)
     q = _trunk_q(n_res, c, s)
@@ -288,6 +343,6 @@ def test_trunk_hands_the_wgmma_sites_their_kmajor_copies(hifi, monkeypatch):
     assert [n for n, _ in seen] == ["conv3x3_adain_relu_requant", conv2] * n_res
     for i in range(n_res):
         assert seen[2 * i][1] is q[f"res{i}_conv1_pk"]
-        assert seen[2 * i + 1][1] is (q[f"res{i}_conv2_pk"] if hifi == "0" else None)
+        assert seen[2 * i + 1][1] is q[f"res{i}_conv2_pk"]
     plain_q = {k: v for k, v in q.items() if not k.endswith("_pk")}
     assert torch.equal(got, tq._fused_trunk_rows(plain_q, hq, hs, style, n_res))

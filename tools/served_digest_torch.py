@@ -7,9 +7,10 @@ Runs ``python -m msig_tpu_torch.inference --quantize int8 --device cuda`` on
 the committed demo checkpoint over the 20 seeded inputs and 9 reference
 folders that ``chip_smoke.py`` writes (``write_inputs``), batch 8,
 ``--style_mode average``, at 256² with ``MSIG_TRUNK_HIFI`` 0, 1 and 2 and at
-512² with ``MSIG_STAGE_FP16`` 0 and 1, and prints for each a sha256 over the
-served images (file name, then pixels, by file name), the digest
-``chip_smoke.py`` prints for its paths. Then the float output (``256/float``):
+512² with ``MSIG_STAGE_FP16`` 0 and 1 and ``MSIG_TRUNK_HIFI`` 1 and 2 (int32
+staging), and prints for each a sha256 over the served images (file name,
+then pixels, by file name), the digest ``chip_smoke.py`` prints for its
+paths. Then the float output (``256/float``):
 the int8 engine with ``out_uint8`` off (its decoder's ConvT site twice, then
 the unfused final conv) on two seeded batches of 8 at 256², a sha256 over the
 float32 outputs' bytes. It uses the package and ``chip_smoke.py`` beside it,
@@ -27,7 +28,8 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATHS = (("256/hifi0", 256, "0", "0"), ("256/hifi1", 256, "1", "0"),
-         ("256/hifi2", 256, "2", "0"), ("512", 512, "0", "0"), ("512/fp16", 512, "0", "1"))
+         ("256/hifi2", 256, "2", "0"), ("512", 512, "0", "0"), ("512/fp16", 512, "0", "1"),
+         ("512/hifi1", 512, "1", "0"), ("512/hifi2", 512, "2", "0"))
 
 
 def float_digest(torch, cs, np) -> str:
