@@ -53,7 +53,9 @@ Phases, each reported on its own line:
    enc2's shapes of a 256² and a 512² input, and [2, 32, 32, 64] -> 64) with
    and without the K-major copy and rows 7 and 10 at ``ENC0_SHAPES`` (256²,
    512² in both stagings, [1, 64, 128, 3]): equal to the plain versions to
-   the bit, one launch per call;
+   the bit, one launch per call; row 14 (``final7_tanh_u8``, mma.sync with
+   kx folded into N, packed weights ``fd.pack_final7_weights`` given) equal
+   to its plain version to the bit at both inputs' maps;
 3. end to end, ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256), batch 8, over 20 seeded inputs, the launch
@@ -102,8 +104,14 @@ Phases, each reported on its own line:
    multiple of the 128-pixel tile). Bars: every output within rtol 1e-4 and
    atol 1e-5 x max|plain|; dgamma and dbeta within rtol 1e-5 and atol 1e-6 x
    max|plain|; dx exactly 0 under the relu mask; a second call gives
-   bit-identical dW. The conv core's tiles, ring and CTAs per SM (occupancy
-   API). Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
+   bit-identical dW, and every output of the AdaIN kernels (row 22: one
+   thread-block cluster a sample and 32 channels, partials summed in rank
+   order). Row 22 also at [8|4, 4096, 256] and [1, 16384, 256] in fp32 and
+   bf16 (the TPU kernel's largest fp32 slab): within the bars (bf16 y and
+   dx 2e-2, one bf16 rounding), bit-identical over two calls, each with its
+   plan (cluster size, CTAs, shared memory) and the card's
+   cudaOccupancyMaxActiveClusters. The conv core's tiles, ring and CTAs per
+   SM (occupancy API). Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
    ``convolution_backward`` (dx and dW) beside it under its default and its
    deterministic algorithms; after phase 6, the device time of each kernel of
    a conv call (``torch.profiler``): row 24's IN backward, the conv core, the
@@ -113,7 +121,10 @@ Phases, each reported on its own line:
    CUDA events, and the memory the call allocates at its peak;
    the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
    input's in both stagings: the memset, pass S and pass Q, each pass's int8
-   rate; and for rows 7-9 at theirs and row 10 in both stagings;
+   rate; and for rows 7-9 at theirs and row 10 in both stagings; row 14 at a
+   256² and a 512² input's maps with its packed weights: its kernel's device
+   time and the mma.sync rate against 1,979 TOP/s (as issued, kx folded into
+   N = 24, and as the conv's own operations);
    then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
    engine in mode 0: the device's busy and idle share and the trunk's share
    of the busy time;
@@ -256,7 +267,7 @@ EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
          "conv3x3_adain_residual_hifi", "conv3x3_adain_residual_hifi2",
          "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
          "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
-         "enc2_in_relu_requant")
+         "enc2_in_relu_requant", "final7_tanh_u8")
 WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256),
                 (1, 16, 384))
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
@@ -286,6 +297,8 @@ ENC_GROUPS = (("pass S (wgmma)", "conv4x4s2_i8_wgmma_stats_kernel"),
               ("pass Q (wgmma)", "conv4x4s2_i8_wgmma_requant_kernel"),
               ("pass S (wgmma)", "enc0_i8_stats_kernel"),
               ("pass Q (wgmma)", "enc0_i8_requant_kernel"), ("memset", "Memset"))
+# ... and of row 14's call: its one kernel (the mma.sync conv and the epilogue).
+FINAL7_GROUPS = (("mma.sync conv + epilogue", "final7_mma_kernel"),)
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
                 ("reductions", "reduce_kernel"))
 PROFILE_STAGES = {
@@ -511,7 +524,10 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
                     t(rng.uniform(1e-4, 2e-4, 3).astype(np.float32)),
                     t(rng.uniform(-0.3, 0.3, 3).astype(np.float32)),
                     t(rng.uniform(0.02, 0.05, (B, 1)).astype(np.float32)))
-            return (lambda: fd.final7_tanh_u8(*args)), (lambda: fd.final7_tanh_u8_plain(*args))
+            # row 14 as the served decoder calls it, with the packed weights
+            pk = fd.pack_final7_weights(args[1])
+            return (lambda: fd.final7_tanh_u8(*args, w_packed=pk)), \
+                (lambda: fd.final7_tanh_u8_plain(*args))
         return make
 
     def trunk_v3():
@@ -1389,7 +1405,65 @@ def hold_train_kernel(torch, name: str, kernel, plain, x, relu: bool) -> tuple:
         again = kernel()
         check(torch.equal(again[1], got[1]), f"{name}: a second call gives the same dW")
         report += ", dW bit-identical over two calls"
+    else:  # row 22: fixed summation order across the cluster
+        again = kernel()
+        check(all(torch.equal(a, g) for a, g in zip(again, got)),
+              f"{name}: a second call gives the same bits")
+        report += ", every output bit-identical over two calls"
     return max(errs), report
+
+
+def adain_plan_line(torch, ap, b: int, s: int, c: int, dtype, backward: bool) -> str:
+    """Row 22's launch at [b, s, c]: ``ap.plan`` and the card's
+    cudaOccupancyMaxActiveClusters for it."""
+    p = ap.plan(s, c)
+    n = ap.max_active_clusters(p, s, c, dtype, backward)
+    return (f"cluster of {p.cluster} CTAs x {p.rows} pixel rows, streamed (later passes from "
+            f"L2), {b * p.ctas_per_sample} CTAs, {ap.STATIC_SMEM} B of shared memory a CTA, "
+            f"cudaOccupancyMaxActiveClusters {n}")
+
+
+def adain_cluster_phase(torch, ap, dev) -> None:
+    """Row 22 (forward and backward, one cluster per sample and 32 channels)
+    at the train step's trunk, [8|4, 4096, 256], and at the TPU kernel's
+    largest fp32 slab, [1, 16384, 256], in fp32 and
+    bf16: each output within its bar of the plain version (fp32 rtol 1e-4 /
+    atol 1e-5 x max, dgamma and dbeta 1e-5 / 1e-6; bf16 y and dx 2e-2, one
+    bf16 rounding), bit-identical over two calls, one launch a call; the plan
+    of each."""
+    for b, s in ((2 * TRAIN_B, SIDE * SIDE), (TRAIN_B, SIDE * SIDE), (1, 16384)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.default_rng(s + b)
+            t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+            x = t(rng.normal(0.3, 2.0, (b, s, C))).to(dtype)
+            dy = t(rng.normal(0, 1, (b, s, C))).to(dtype)
+            gamma, beta = t(rng.normal(1.0, 0.5, (b, C))), t(rng.normal(0.0, 0.5, (b, C)))
+            _, mean, rstd = ap.adain_fwd_plain(x, gamma, beta)
+            for name, kernel, plain, backward in (
+                    ("adain_pallas_fwd", lambda: ap.adain_fwd(x, gamma, beta),
+                     lambda: ap.adain_fwd_plain(x, gamma, beta), False),
+                    ("adain_pallas_bwd", lambda: ap.adain_bwd(x, gamma, mean, rstd, dy),
+                     lambda: ap.adain_bwd_plain(x, gamma, mean, rstd, dy), True)):
+                before = ap.LAUNCHES[name]
+                got, again = kernel(), kernel()
+                want = plain()
+                torch.cuda.synchronize()
+                check(ap.LAUNCHES[name] == before + 2, f"{name}: one launch a call")
+                check(all(torch.equal(a, g) for a, g in zip(again, got)),
+                      f"{name} at {[b, s, C]} {dtype}: a second call gives the same bits")
+                errs = []
+                for k, (g, w) in enumerate(zip(got, want)):
+                    if g.dim() == 3:  # y, dx: one bf16 rounding in bf16
+                        bar = (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+                    else:  # mean, rstd; dgamma, dbeta: sums over a whole image
+                        bar = (1e-5, 1e-6) if backward else (1e-4, 1e-5)
+                    errs.append(close(torch, f"{name} output {k}", g.float(), w.float(), *bar)[0])
+                print(f"[train kernel] {name} at {[b, s, C]} {str(dtype)[6:]}: "
+                      f"{adain_plan_line(torch, ap, b, s, C, dtype, backward)}; max abs err "
+                      f"{max(errs):.3e} within the bars, every output bit-identical over two "
+                      f"calls", flush=True)
+            del x, dy
+            torch.cuda.empty_cache()
 
 
 def train_kernel_phase(torch, ap, cv, dev) -> tuple:
@@ -1638,6 +1712,43 @@ def enc_split_phase(torch, fe, kernels: dict) -> None:
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"; {rates} of 1,979",
               flush=True)
         del x, w
+        torch.cuda.empty_cache()
+
+
+def final7_split_phase(torch, fd, kernels: dict) -> None:
+    """Row 14 at a 256² and a 512² input's maps, with the packed weights
+    given: the time per call by CUDA events (median of 30) and by
+    ``torch.profiler`` device time, and the mma.sync rate against the card's
+    1,979 TOP/s, counted both as the tensor work issued (kx folded into N =
+    24 columns, 21 of them used) and as the conv's own operations. The parts
+    go into the row as ``parts_ms``. Run last, as ``split_phase``."""
+    for side, case in ((4 * SIDE, "256² input"), (8 * SIDE, "512² input")):
+        rng = np.random.default_rng(side)
+        args = (torch.from_numpy(rng.integers(0, 128, (B, side, side, 64), dtype=np.int8)).cuda(),
+                torch.from_numpy(rng.integers(-127, 128, (3, 64, 7, 7), dtype=np.int8)).cuda(),
+                torch.from_numpy(rng.uniform(1e-4, 2e-4, 3).astype(np.float32)).cuda(),
+                torch.from_numpy(rng.uniform(-0.3, 0.3, 3).astype(np.float32)).cuda(),
+                torch.from_numpy(rng.uniform(0.02, 0.05, (B, 1)).astype(np.float32)).cuda())
+        pk = fd.pack_final7_weights(args[1])
+        call = lambda: fd.final7_tanh_u8(*args, w_packed=pk)  # noqa: E731
+        ms = cuda_ms(torch, call, reps=30)
+        parts = kernel_split(torch, call, groups=FINAL7_GROUPS)
+        device = sum(parts.values())
+        row = next(r for r in [kernels["final7_tanh_u8"], *kernels["final7_tanh_u8"]["also"]]
+                   if r["case"] == case)
+        row["parts_ms"] = parts
+        # issued: 2,016 m16n8k32 products (8,192 operations each) a tile of
+        # 32 x 16 outputs, kx folded into N = 24 over 48 halo columns
+        issued, own = B * side * side * 2016 * 8192 // 512, 2 * B * side * side * 3 * 49 * 64
+        rates = (f"mma.sync {issued / (device * 1e-3) / 1e12:.1f} TOP/s issued (kx folded into "
+                 f"N = 24), {issued / (device * 1e-3) / PEAK_INT8_OPS:.1%} of 1,979; the conv's "
+                 f"own {own / (device * 1e-3) / 1e12:.1f} TOP/s" if device else
+                 "not measured (the trace holds no device events)")
+        print(f"[kernel] final7_tanh_u8 ({[B, side, side, 64]} -> 3, packed weights given): "
+              f"{ms:.4f} ms per call by CUDA events (median of 30), {device:.4f} ms of device "
+              f"time by torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + f"; {rates}", flush=True)
+        del args, pk
         torch.cuda.empty_cache()
 
 
@@ -1968,12 +2079,14 @@ def main() -> int:
         e2e = e2e_phase(torch, int8_mods, ap, work)
         tool_launches = tools_phase(torch, int8_mods)
         train_kernels, to_split = train_kernel_phase(torch, ap, cv, dev)
+        adain_cluster_phase(torch, ap, dev)
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
         split_phase(torch, to_split)
         trunk_split_phase(torch, fc, kernels)
         convt_split_phase(torch, fc, fd, kernels)
         enc_split_phase(torch, fe, kernels)
+        final7_split_phase(torch, fd, kernels)
         serve_profile_phase(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -10,37 +10,34 @@
 //
 // Here the per-(sample, channel) sums need the whole image before any dy
 // exists, which on the card is a reduction across CTAs. So the IN backward
-// runs first as in_norm.cuh's in_bwd_kernel (one CTA per sample and 32
-// channels, shared with adain_pallas's backward, whose bits it keeps), which
-// writes dy to a device scratch; then the conv backward core of
-// conv3x3_bwd.cuh runs on that dy: dx and dW as 3xTF32 implicit GEMMs on
-// mma.sync, operands through a 3-stage cp.async ring, dW's partials added in
-// chunk order. Bound on an H100 at [8, 64, 64, 256]: the conv's 77.3 GFLOP as
+// runs first as in_norm.cuh's in_bwd_kernel (a thread-block cluster per
+// sample and 32 channels, the same launch as adain_pallas's backward, whose
+// bits it gives), which writes dy to a device scratch; then the conv
+// backward core of conv3x3_bwd.cuh runs on that dy: dx and dW as 3xTF32
+// implicit GEMMs on mma.sync, operands through a 3-stage cp.async ring, dW's
+// partials added in chunk order. Bound on an H100 at [8, 64, 64, 256]: the conv's 77.3 GFLOP as
 // three TF32 passes, 0.47 ms (1.15 ms at the fp32 FMA rate), plus the IN's
 // ~8 flops an element; the function's bytes (x, y, g read, dx written) are
-// 134 MB, 0.04 ms. The dy scratch costs 33.6 MB written and read back, and
-// in_bwd_kernel fills 64 CTAs at B = 8: forming dy in the core's loaders
-// would remove both (chip_smoke.py times the IN part alone).
+// 134 MB, 0.04 ms. The dy scratch costs 33.6 MB written and read back:
+// forming dy in the core's loaders would remove it (chip_smoke.py times the
+// IN part alone).
 #include "conv3x3_bwd.cuh"
 #include "in_norm.cuh"
 
 // x [B, H, W, C], y and g [B, H, W, Co] fp32; mu, r, gamma [B, Co] fp32; wt
 // [9, Co, C]; outputs dx [B, H, W, C], dw [9, C, Co], dgamma and dbeta
-// [B, Co]; dy_scratch [B, H, W, Co]; part as for msig_conv3x3_bwd.
+// [B, Co]; dy_scratch [B, H, W, Co]; part as for msig_conv3x3_bwd; R: the
+// IN backward's cluster size (ops/adain_pallas.py::plan at S = H*W).
 // Returns cudaGetLastError() (0 = success); launches on `stream`, does not synchronise.
 extern "C" int msig_conv3x3_adain_bwd(const void* x, const void* y, const void* g, const void* mu,
                                       const void* r, const void* gamma, const void* wt, void* dx,
                                       void* dw, void* dgamma, void* dbeta, void* dy_scratch,
                                       void* part, int B, int H, int W, int C, int Co, int relu,
-                                      void* stream) {
+                                      int R, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  msig_in::in_bwd_kernel<float><<<msig_in::grid_of(B, Co), msig_in::block_of(), 0, st>>>(
-      static_cast<const float*>(y), static_cast<const float*>(g), static_cast<const float*>(mu),
-      static_cast<const float*>(r), static_cast<const float*>(gamma),
-      static_cast<float*>(dy_scratch), static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-      H * W, Co);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = msig_in::in_bwd_launch<float>(y, g, mu, r, gamma, dy_scratch, dgamma, dbeta, B,
+                                                H * W, Co, R, st);
+  if (err != 0) return err;
   const msig_f32::Map geom{B, H, W, C, Co};
   return (int)msig_f32::conv3x3_bwd_launch(
       static_cast<const float*>(x), static_cast<const float*>(dy_scratch),

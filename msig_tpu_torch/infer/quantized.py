@@ -134,7 +134,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     with the port's ``res{i}_conv{1,2}_pk`` beside them (their K-major [C, 9C]
     transposes, which the wgmma trunk sites read), ``res{i}_adain{1,2}_{k,b}``
     (style affine, fp32), ``out_kernel_i8``, ``out_wscale``, ``out_bias``
-    (final conv, with a true dequant). Under
+    (final conv, with a true dequant) with the port's ``out_kernel_pk`` beside
+    them (``fd.pack_final7_weights``, the order of the final conv kernel's
+    mma fragments; for the 64 -> 3 conv the kernel takes). Under
     ``MSIG_TRUNK_V3=1`` also ``trunk_w_stack`` (the 2*n packed trunk weights
     stacked, 9.4 MB at C = 256, n = 8), and under ``MSIG_ENC1_IM2COL=1`` with
     enc1's [4, 4, 64, 128] kernel ``enc1_i2c_p`` (``fe.pack_enc1_im2col``), as
@@ -179,6 +181,8 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     ws = torch.where(wamax > 0, wamax / 127.0, 1.0)
     q["out_kernel_i8"] = torch.clamp(torch.round(wout / ws[:, None, None, None]),
                                      -127, 127).to(torch.int8)
+    if tuple(q["out_kernel_i8"].shape) == (3, 64, 7, 7):
+        q["out_kernel_pk"] = fd.pack_final7_weights(q["out_kernel_i8"])
     q["out_wscale"] = ws
     q["out_bias"] = sd[f"decoder.{n + 6}.bias"]
     return q
@@ -418,7 +422,8 @@ def _fused_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
     image) up1 is the staged site (:308-309). Float output: the ConvT site
     for up0 and up1, then the unfused final conv on up1's int8 output and its
     inverse scale, with no second requant. Every ConvT call gets its K-major
-    weight copy (``up{i}_ps_pk``, None where ``q`` lacks it)."""
+    weight copy (``up{i}_ps_pk``, None where ``q`` lacks it), the final conv
+    its packed weights (``out_kernel_pk``, likewise)."""
     k0, k1 = ({"w_kmajor": q.get(f"up{i}_ps_pk")} for i in (0, 1))
     y0, _ = fc.convt4x4s2_in_relu_requant_ps(hq, q["up0_ps"], **k0)
     if out_dtype == torch.uint8:
@@ -426,7 +431,8 @@ def _fused_decoder(q: Q, hq: torch.Tensor, out_dtype) -> torch.Tensor:
             y1, inv_s = fd.up1_s2d16_hbm(y0, q["up1_ps"], stage=_stage_mode(), **k1)
         else:
             y1, inv_s = fd.up1_s2d16(y0, q["up1_ps"], **k1)
-        return fd.final7_tanh_u8(y1, q["out_kernel_i8"], q["out_wscale"], q["out_bias"], inv_s)
+        return fd.final7_tanh_u8(y1, q["out_kernel_i8"], q["out_wscale"], q["out_bias"], inv_s,
+                                 w_packed=q.get("out_kernel_pk"))
     return _final_conv_i8(q, *fc.convt4x4s2_in_relu_requant_ps(y0, q["up1_ps"], **k1), out_dtype)
 
 

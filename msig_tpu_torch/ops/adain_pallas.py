@@ -12,12 +12,17 @@ forward saving (mean, rstd) for a backward that gives dx, dgamma and dbeta
   ``LAUNCHES``, or raise; for CPU tensors they run the plain versions
   ``adain_fwd_plain`` / ``adain_bwd_plain``, the TPU kernels' formulas in
   PyTorch, which ``chip_smoke.py`` holds the kernels against on the card.
+* ``plan``: how the kernels (``csrc/in_norm.cuh``) split a [S, 32]-channel
+  slab over a thread-block cluster: the cluster's CTAs and the pixel rows
+  each takes. ``conv3x3_vjp.conv3x3_adain_bwd``'s IN backward runs the same
+  plan.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -39,9 +44,57 @@ COPIES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    FWD: [_P] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
-    BWD: [_P] * 8 + [ctypes.c_int] * 4 + [_P],
+    FWD: [_P] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 + [_P],
+    BWD: [_P] * 8 + [ctypes.c_int] * 5 + [_P],
 }
+_CLUSTERS_ARGTYPES = [ctypes.c_int] * 5 + [_P]
+
+# csrc/in_norm.cuh: channels a cluster, threads a CTA and the pixel rows they
+# cover at once, a CTA's shared memory (the scratch of the reductions), and
+# the largest cluster (the portable size).
+GROUP, THREADS, SLOTS = 32, 512, 64
+STATIC_SMEM = (2 * SLOTS * GROUP + 4 * GROUP) * 4
+CLUSTER_MAX = 8
+
+
+class Plan(NamedTuple):
+    """A launch of the cluster kernels on [B, S, C]: ``cluster`` CTAs a
+    (sample, 32-channel group), each taking ``rows`` pixel rows;
+    ``ctas_per_sample`` = cluster * C / 32."""
+    cluster: int
+    rows: int
+    ctas_per_sample: int
+
+
+def plan(s: int, c: int) -> Plan:
+    """The plan of the forward and the backward at S pixels and C channels:
+    the largest power of two R up to 8 with at least 32 pixel rows a CTA. At
+    [4096, 256]: 8 CTAs of 512 pixel rows."""
+    cluster = min(CLUSTER_MAX, 1 << max(0, (s // GROUP).bit_length() - 1))
+    return Plan(cluster, -(-s // cluster), cluster * (c // GROUP))
+
+
+def max_active_clusters(p: Plan, s: int, c: int, dtype: torch.dtype, backward: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the forward (or ``backward``) at
+    plan ``p`` on the current card (builds the kernels)."""
+    fn = _build.load(SOURCE, _CLUSTERS_ARGTYPES, "msig_adain_pallas_clusters")
+    out = ctypes.c_int(0)
+    _build.check("adain_pallas_clusters", fn(int(backward), int(dtype == torch.bfloat16), s, c,
+                                             p.cluster, ctypes.byref(out)))
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(device: int, s: int, c: int, dtype: torch.dtype, backward: bool) -> Plan:
+    """The plan of a launch on card ``device``, refused where no cluster of
+    it fits the card; kept per shape, so that a call asks the card once."""
+    p = plan(s, c)
+    with torch.cuda.device(device):
+        n = max_active_clusters(p, s, c, dtype, backward)
+    if n <= 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters is {n} for {p}: no cluster of "
+                           f"{p.cluster} CTAs fits this card")
+    return p
 
 
 def reset_launch_counts() -> None:
@@ -122,6 +175,13 @@ def _check_x(x3: torch.Tensor) -> Tuple[int, int, int]:
     return b, s, c
 
 
+def _check_aligned(*ts: torch.Tensor) -> None:
+    """The kernels move four channels at once (16 bytes of fp32, 8 of bf16)."""
+    for t in ts:
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"the CUDA kernel needs {4 * t.element_size()}-byte aligned maps")
+
+
 def adain_fwd(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = _EPS):
     """(y, mean, rstd) of x [B, S, C]; the CUDA kernel for CUDA tensors, else the plain version."""
     if x3.device.type == "cpu":
@@ -129,12 +189,14 @@ def adain_fwd(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: fl
     b, s, c = _check_x(x3)
     _check("gamma", gamma, torch.float32, (b, c), x3.device)
     _check("beta", beta, torch.float32, (b, c), x3.device)
+    _check_aligned(x3)
     fn = _build.load(SOURCE, _ARGTYPES[FWD], "msig_" + FWD)
+    p = _launch_plan(x3.device.index, s, c, x3.dtype, False)
     y = torch.empty_like(x3)
     mean = torch.empty((b, c), dtype=torch.float32, device=x3.device)
     rstd = torch.empty_like(mean)
     err = fn(x3.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mean.data_ptr(),
-             rstd.data_ptr(), b, s, c, eps, int(x3.dtype == torch.bfloat16),
+             rstd.data_ptr(), b, s, c, eps, int(x3.dtype == torch.bfloat16), p.cluster,
              torch.cuda.current_stream(x3.device).cuda_stream)
     _build.check(FWD, err)
     LAUNCHES[FWD] += 1
@@ -150,13 +212,16 @@ def adain_bwd(x3: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor, rstd: t
     _check("dy", dy3, x3.dtype, x3.shape, x3.device)
     for name, t in (("gamma", gamma), ("mean", mean), ("rstd", rstd)):
         _check(name, t, torch.float32, (b, c), x3.device)
+    _check_aligned(x3, dy3)
     fn = _build.load(SOURCE, _ARGTYPES[BWD], "msig_" + BWD)
+    p = _launch_plan(x3.device.index, s, c, x3.dtype, True)
     dx = torch.empty_like(dy3)
     dgamma = torch.empty((b, c), dtype=torch.float32, device=x3.device)
     dbeta = torch.empty_like(dgamma)
     err = fn(x3.data_ptr(), dy3.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
              dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, s, c,
-             int(x3.dtype == torch.bfloat16), torch.cuda.current_stream(x3.device).cuda_stream)
+             int(x3.dtype == torch.bfloat16), p.cluster,
+             torch.cuda.current_stream(x3.device).cuda_stream)
     _build.check(BWD, err)
     LAUNCHES[BWD] += 1
     return dx, dgamma, dbeta

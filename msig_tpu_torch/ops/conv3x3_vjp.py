@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from msig_tpu_torch.ops import _build
+from msig_tpu_torch.ops import adain_pallas as ap
 
 _IN_EPS = 1e-5  # torch nn.InstanceNorm2d default (ops/norm.py)
 _MAX_K = 2304  # the most K a kernel tile accumulates (kMaxK of csrc/conv3x3_bwd.cuh)
@@ -45,7 +46,7 @@ COPIES: Dict[str, int] = {name: 0 for name in KERNELS}
 _P = ctypes.c_void_p
 _ARGTYPES = {
     BWD: [_P] * 6 + [ctypes.c_int] * 6 + [_P],
-    ADAIN_BWD: [_P] * 13 + [ctypes.c_int] * 6 + [_P],
+    ADAIN_BWD: [_P] * 13 + [ctypes.c_int] * 7 + [_P],
 }
 _CONFIG_KEYS = ("tile_m", "tile_n", "tile_k", "stages", "threads", "max_k", "smem_bytes",
                 "ctas_per_sm", "ctas_per_sm_relu")
@@ -247,6 +248,7 @@ def conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input: bool = False):
     for name, t in (("mu", mu), ("r", r), ("gamma", gamma)):
         _check(name, t, (b, co), x.device)
     fn = _build.load(ADAIN_BWD, _ARGTYPES[ADAIN_BWD])
+    p = ap._launch_plan(x.device.index, h * wd, co, torch.float32, True)  # the IN backward
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
     dgamma = torch.empty((b, co), dtype=torch.float32, device=x.device)
@@ -255,7 +257,7 @@ def conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input: bool = False):
     err = fn(x.data_ptr(), y.data_ptr(), g.data_ptr(), mu.data_ptr(), r.data_ptr(),
              gamma.data_ptr(), wt.data_ptr(), dx.data_ptr(), dw.data_ptr(), dgamma.data_ptr(),
              dbeta.data_ptr(), dy.data_ptr(), part.data_ptr(), b, h, wd, c, co, int(relu_input),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             p.cluster, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(ADAIN_BWD, err)
     LAUNCHES[ADAIN_BWD] += 1
     return dx, dw, dgamma, dbeta

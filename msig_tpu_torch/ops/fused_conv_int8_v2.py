@@ -474,25 +474,27 @@ def _check_site(x: torch.Tensor, w_packed, gamma, beta) -> Tuple[int, int, int, 
     return b, h, w, c
 
 
-def _kmajor(w_packed: torch.Tensor, w_kmajor, pack, shape) -> torch.Tensor:
-    """The K-major weights of the wgmma sites on the card: ``w_kmajor`` checked
+def _kmajor(w_packed: torch.Tensor, w_kmajor, pack, shape, name: str = "w_kmajor"
+            ) -> torch.Tensor:
+    """The kernel's own weight copy on the card (the K-major weights of the
+    wgmma sites, the fragment order of the final conv): ``w_kmajor`` checked
     (int8 of ``shape``, contiguous, on ``w_packed``'s device), or the copy
-    ``pack(w_packed)`` where it is None."""
+    ``pack(w_packed)`` where it is None. ``name`` is the keyword it came by."""
     if w_kmajor is None:
         return pack(w_packed)
-    _check("w_kmajor", w_kmajor, torch.int8, shape)
+    _check(name, w_kmajor, torch.int8, shape)
     if w_kmajor.device != w_packed.device:
         raise ValueError(f"all inputs must be on {w_packed.device}, got {w_kmajor.device}")
     return w_kmajor
 
 
-def _check_kmajor_shape(w_kmajor, shape) -> None:
+def _check_kmajor_shape(w_kmajor, shape, name: str = "w_kmajor") -> None:
     """The CPU side of ``_kmajor``: the plain versions read the packed
-    weights, so a K-major copy given with CPU tensors is only checked for
+    weights, so a kernel's copy given with CPU tensors is only checked for
     dtype and shape."""
     if w_kmajor is not None and (w_kmajor.dtype != torch.int8
                                  or tuple(w_kmajor.shape) != tuple(shape)):
-        raise ValueError(f"w_kmajor must be int8 of shape {tuple(shape)}, got {w_kmajor.dtype} "
+        raise ValueError(f"{name} must be int8 of shape {tuple(shape)}, got {w_kmajor.dtype} "
                          f"{tuple(w_kmajor.shape)}")
 
 

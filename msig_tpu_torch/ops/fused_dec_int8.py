@@ -14,7 +14,10 @@ matmuls on that slab. Here both sites take and give dense NHWC:
   the accumulator read as int32 or as fp16 x 2^-12 (``stage``), counted
   under its own name;
 * ``final7_tanh_u8``: ReflectionPad2d(3) by index, exact int8 7x7 conv,
-  dequant by ``wscale * inv_s``, bias, tanh, uint8.
+  dequant by ``wscale * inv_s``, bias, tanh, uint8; its kernel reads the
+  weights in the fragment order of ``pack_final7_weights``, kx folded into
+  the mma's N (keyword ``w_packed``, made once at quantization as
+  ``out_kernel_pk``).
 
 Each has a wrapper that launches the kernel for CUDA tensors and adds one to
 its entry of ``LAUNCHES``, or raises, and a plain PyTorch version that the
@@ -84,6 +87,22 @@ def final7_i64(x_i8: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
     return y.to(torch.int64)
 
 
+FINAL7_PACKED_SHAPE = (7, 2, 3, 8, 32)  # [ky][channel half][n8 tile][8 columns][32 ch]
+
+
+def pack_final7_weights(w_oihw: torch.Tensor) -> torch.Tensor:
+    """The final conv's OIHW int8 [3, 64, 7, 7] weights in the order the
+    kernel's mma.sync B fragments take them, kx folded into N: [ky][half][n8
+    tile][column][c] = w[co, 32*half + c, ky, kx] for column n = 8 * tile +
+    column = co * 7 + kx < 21, zero for n = 21..23 (10,752 bytes)."""
+    if tuple(w_oihw.shape) != (3, 64, 7, 7) or w_oihw.dtype != torch.int8:
+        raise ValueError(f"expected int8 weights [3, 64, 7, 7], got {w_oihw.dtype} "
+                         f"{tuple(w_oihw.shape)}")
+    cols = torch.zeros((7, 24, 2, 32), dtype=torch.int8, device=w_oihw.device)
+    cols[:, :21] = w_oihw.permute(2, 0, 3, 1).reshape(7, 21, 2, 32)  # [ky, co*7 + kx, half, c]
+    return cols.permute(0, 2, 1, 3).reshape(FINAL7_PACKED_SHAPE).contiguous()
+
+
 def final7_tanh_u8_plain(x_i8, w_i8, wscale, bias, inv_s):
     """conv7 -> y * (wscale * inv_s) + bias -> tanh -> uint8 (``_kernel_final7``).
 
@@ -133,13 +152,18 @@ def up1_s2d16_hbm(x_i8, w_ps, eps: float = _EPS, stage: str = "int32", *, w_kmaj
     return out
 
 
-def final7_tanh_u8(x_i8, w_i8, wscale, bias, inv_s):
+def final7_tanh_u8(x_i8, w_i8, wscale, bias, inv_s, *, w_packed=None):
     """Final decoder site: x_i8 [B, H, W, 64] int8 -> uint8 [B, H, W, 3].
 
     w_i8 [3, 64, 7, 7] int8 (OIHW), wscale and bias [3] float32, inv_s [B, 1]
-    float32 (up1's inverse scale).
+    float32 (up1's inverse scale). w_packed, optional, must be
+    ``pack_final7_weights(w_i8)``: on the card the kernel reads only this
+    copy (its contents are not checked against w_i8, which the CPU path
+    reads), so a copy made before w_i8 changed serves wrong images. Made here
+    where it is not given.
     """
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_packed, FINAL7_PACKED_SHAPE, "w_packed")
         return final7_tanh_u8_plain(x_i8, w_i8, wscale, bias, inv_s)
     if x_i8.dim() != 4:
         raise ValueError(f"expected NHWC [B, H, W, 64], got shape {tuple(x_i8.shape)}")
@@ -156,8 +180,9 @@ def final7_tanh_u8(x_i8, w_i8, wscale, bias, inv_s):
         if t.device != x_i8.device:
             raise ValueError(f"all inputs must be on {x_i8.device}, got {t.device}")
     fn = _build.load(FINAL7_SITE, _FINAL7_ARGTYPES)
+    wp = fc._kmajor(w_i8, w_packed, pack_final7_weights, FINAL7_PACKED_SHAPE, "w_packed")
     out = torch.empty((b, h, w, 3), dtype=torch.uint8, device=x_i8.device)
-    err = fn(x_i8.data_ptr(), w_i8.data_ptr(), wscale.data_ptr(), bias.data_ptr(),
+    err = fn(x_i8.data_ptr(), wp.data_ptr(), wscale.data_ptr(), bias.data_ptr(),
              inv_s.data_ptr(), out.data_ptr(), b, h, w,
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(FINAL7_SITE, err)

@@ -426,7 +426,7 @@ def test_decoder_hands_every_convt_call_its_kmajor_copy(grid, out_dtype, monkeyp
     monkeypatch.setattr(tq.fc, "convt4x4s2_in_relu_requant_ps", spy("up"))
     monkeypatch.setattr(tq.fd, "up1_s2d16", spy("up1_s2d16"))
     monkeypatch.setattr(tq.fd, "up1_s2d16_hbm", spy("up1_s2d16_hbm"))
-    monkeypatch.setattr(tq.fd, "final7_tanh_u8", lambda *a: "image")
+    monkeypatch.setattr(tq.fd, "final7_tanh_u8", lambda *a, **k: "image")
     monkeypatch.setattr(tq, "_final_conv_i8", lambda *a: "image")
     assert tq._fused_decoder(q, torch.zeros((1, grid, grid, 256), dtype=torch.int8),
                              out_dtype) == "image"

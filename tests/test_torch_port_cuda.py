@@ -409,12 +409,18 @@ def test_convt_site_allocates_no_accumulator_scratch(cuda_device):
     del out
 
 
+# Row 14 on mma.sync (csrc/final7_tanh_u8.cu): exact integer sums and the
+# plain version's epilogue operations, so equal to the bit, with the packed
+# weights given (as the served decoder passes out_kernel_pk) and made by the
+# wrapper; a 256² and a 512² input's maps among the shapes.
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,side", [(1, 32), (2, 64), (8, 256)])
-def test_final7_kernel_matches_plain(cuda_device, b, side):
+@pytest.mark.parametrize("b,side", [(1, 32), (2, 64), (8, 256), (2, 512)])
+@pytest.mark.parametrize("packed", [True, False])
+def test_final7_kernel_matches_plain(cuda_device, b, side, packed):
     args = _final7_inputs(b, side, cuda_device)
+    kw = {"w_packed": fd.pack_final7_weights(args[1])} if packed else {}
     before = fd.LAUNCHES[fd.FINAL7_SITE]
-    got = fd.final7_tanh_u8(*args)
+    got = fd.final7_tanh_u8(*args, **kw)
     assert fd.LAUNCHES[fd.FINAL7_SITE] == before + 1
     want = fd.final7_tanh_u8_plain(*args)
     torch.cuda.synchronize()
@@ -422,6 +428,7 @@ def test_final7_kernel_matches_plain(cuda_device, b, side):
     diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
     assert int(diff.max()) <= 1
     assert float((diff > 0).float().mean()) < 1e-3
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -444,6 +451,11 @@ def test_decoder_wrappers_reject_bad_inputs(cuda_device):
         fd.final7_tanh_u8(x7, w7.cpu(), ws, bias, inv_s)
     with pytest.raises(ValueError, match="contiguous"):
         fd.final7_tanh_u8(x7.transpose(1, 2), w7, ws, bias, inv_s)
+    pk = fd.pack_final7_weights(w7)
+    with pytest.raises(ValueError, match="w_packed must have shape"):
+        fd.final7_tanh_u8(x7, w7, ws, bias, inv_s, w_packed=pk.reshape(42, 8, 32))
+    with pytest.raises(ValueError, match="w_packed must be a CUDA tensor"):
+        fd.final7_tanh_u8(x7, w7, ws, bias, inv_s, w_packed=pk.cpu())
 
 
 def _enc_inputs(b, side, dev, seed=4):

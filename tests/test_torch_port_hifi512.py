@@ -454,7 +454,7 @@ def test_staged_sites_are_chosen_by_the_cell_grid(side, fp16, enc0, up1, monkeyp
                         lambda *a, **k: calls.append("up1_s2d16") or (small, None))
     monkeypatch.setattr(tq.fd, "up1_s2d16_hbm", lambda *a, stage, **k: calls.append(
         f"up1_s2d16_hbm:{stage}") or (small, None))
-    monkeypatch.setattr(tq.fd, "final7_tanh_u8", lambda *a: None)
+    monkeypatch.setattr(tq.fd, "final7_tanh_u8", lambda *a, **k: None)
     q = dict.fromkeys(("enc0_p", "enc1_p", "enc2_p", "up0_ps", "up1_ps", "out_kernel_i8",
                        "out_wscale", "out_bias"))
     tq._fused_encoder(q, torch.zeros((1, side, side, 3), dtype=torch.uint8))

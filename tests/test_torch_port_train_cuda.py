@@ -81,6 +81,50 @@ def test_adain_kernels_match_plain(cuda_device, b, side, c, dtype):
     assert ap.LAUNCHES[ap.BWD] == before[ap.BWD] + 1
 
 
+# Row 22 on a thread-block cluster a (sample, 32 channels) (csrc/in_norm.cuh,
+# ap.plan): the train step's trunk [8|4, 4096, 256] (R = 8), the TPU kernel's
+# largest fp32 slab S = 16,384, a last CTA with a row fewer (S = 999) and a
+# cluster of one (S = 40). The partials meet in rank order: a second call
+# gives the same bits.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [(8, 4096, 256), (4, 4096, 256), (1, 16384, 256),
+                                   (2, 16384, 128), (2, 999, 256), (1, 40, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_cluster_kernels_match_plain_and_repeat_their_bits(cuda_device, b, s, c, dtype):
+    rng = np.random.default_rng(s + c + b)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda_device)  # noqa: E731
+    x, dy = t(rng.normal(0.3, 2.0, (b, s, c))).to(dtype), t(rng.normal(0, 1, (b, s, c))).to(dtype)
+    gamma, beta = t(rng.normal(1.0, 0.5, (b, c))), t(rng.normal(0.0, 0.5, (b, c)))
+    for backward in (False, True):
+        p = ap.plan(s, c)
+        assert ap.max_active_clusters(p, s, c, dtype, backward) > 0
+        print(f"[{b}, {s}, {c}] {dtype} {'bwd' if backward else 'fwd'}: {p}")
+    tol = {} if dtype == torch.float32 else dict(rtol=2e-2, atol_rel=2e-2)  # one bf16 rounding
+    got, again = ap.adain_fwd(x, gamma, beta), ap.adain_fwd(x, gamma, beta)
+    want = ap.adain_fwd_plain(x, gamma, beta)
+    for name, g_, a_, w_ in zip(("y", "mean", "rstd"), got, again, want):
+        _close(g_, w_, f"fwd {name}", **(tol if name == "y" else {}))
+        assert torch.equal(g_, a_), f"fwd {name}: a second call gives the same bits"
+    got = ap.adain_bwd(x, gamma, want[1], want[2], dy)
+    again = ap.adain_bwd(x, gamma, want[1], want[2], dy)
+    wb = ap.adain_bwd_plain(x, gamma, want[1], want[2], dy)
+    _close(got[0], wb[0], "bwd dx", **tol)
+    _close(got[1], wb[1], "bwd dgamma", rtol=1e-5, atol_rel=1e-6)
+    _close(got[2], wb[2], "bwd dbeta", rtol=1e-5, atol_rel=1e-6)
+    assert all(torch.equal(g_, a_) for g_, a_ in zip(got, again)), "bwd: the same bits twice"
+
+
+@pytest.mark.cuda
+def test_conv3x3_adain_bwd_runs_row_22s_backward(cuda_device):
+    """Row 24's IN part is row 22's backward on the saved conv output: the
+    same launch, so its dgamma and dbeta equal adain_bwd's to the bit."""
+    x, w, gamma, g = _unit_inputs(4, 64, 256, cuda_device, seed=11)
+    _, (y, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, torch.zeros_like(gamma), False)
+    _, _, dgamma, dbeta = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g)
+    _, dg, db = ap.adain_bwd(y.reshape(4, 4096, 256), gamma, mu, r, g.reshape(4, 4096, 256))
+    assert torch.equal(dgamma, dg) and torch.equal(dbeta, db)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,side,c", SHAPES)
 @pytest.mark.parametrize("relu", [False, True])
