@@ -55,7 +55,12 @@ Phases, each reported on its own line:
    512² in both stagings, [1, 64, 128, 3]): equal to the plain versions to
    the bit, one launch per call; row 14 (``final7_tanh_u8``, mma.sync with
    kx folded into N, packed weights ``fd.pack_final7_weights`` given) equal
-   to its plain version to the bit at both inputs' maps;
+   to its plain version to the bit at both inputs' maps; row 15
+   (``fused_trunk_blocks``: the whole trunk in one cooperative launch on the
+   wgmma main loop, timed with its K-major stack ``f3.stack_kmajor``) equal to
+   its plain version to the bit at the main path's shape and at
+   ``TRUNK_V3_SHAPES`` ([2, 16, 16, 128] with 1 block, [2, 16, 16, 256] with
+   3), with the stack given and made by the wrapper, over two calls;
 3. end to end, ``msig_tpu_torch.inference.main`` on ``cuda`` with
    ``--quantize int8``, the committed demo checkpoint (10 domains, 8
    resblocks, style_dim 256), batch 8, over 20 seeded inputs, the launch
@@ -124,7 +129,9 @@ Phases, each reported on its own line:
    rate; and for rows 7-9 at theirs and row 10 in both stagings; row 14 at a
    256² and a 512² input's maps with its packed weights: its kernel's device
    time and the mma.sync rate against 1,979 TOP/s (as issued, kx folded into
-   N = 24, and as the conv's own operations);
+   N = 24, and as the conv's own operations); row 15 at the main path's shape:
+   its cooperative kernel's device time beside PyTorch's own kernels of the
+   call, the cooperative grid and the 16 convs' int8 rate;
    then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
    engine in mode 0: the device's busy and idle share and the trunk's share
    of the busy time;
@@ -267,7 +274,7 @@ EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
          "conv3x3_adain_residual_hifi", "conv3x3_adain_residual_hifi2",
          "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
          "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
-         "enc2_in_relu_requant", "final7_tanh_u8")
+         "enc2_in_relu_requant", "final7_tanh_u8", "fused_trunk_blocks")
 WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256),
                 (1, 16, 384))
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
@@ -282,6 +289,12 @@ ENC_SHAPES = ((8, 256, 64, 128), (8, 128, 128, 256), (8, 512, 64, 128), (8, 256,
               (2, 32, 64, 64))
 ENC0_SHAPES = ((8, 256, 256, ("int32",)), (8, 512, 512, ("int32", "fp16")),
                (1, 64, 128, ("int32", "fp16")))
+# Row 15 (the whole trunk in one cooperative launch on the wgmma main loop,
+# exact statistics) is held equal to its plain version to the bit at the
+# main path's (b, side, c, n_blocks) in the kernel phase, and at
+# TRUNK_V3_SHAPES: both channel tiles (BN = 128 at C = 128), 1 and 3 blocks,
+# 4 tiles a conv over the card's CTAs, most of which get none.
+TRUNK_V3_SHAPES = ((2, 16, 128, 1), (2, 16, 256, 3))
 # Device time of a trunk site's call by kernel (torch.profiler names).
 TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
                 ("relu epilogue", "relu_requant_kernel"), ("max|hn|", "residual_amax_kernel"),
@@ -297,6 +310,9 @@ ENC_GROUPS = (("pass S (wgmma)", "conv4x4s2_i8_wgmma_stats_kernel"),
               ("pass Q (wgmma)", "conv4x4s2_i8_wgmma_requant_kernel"),
               ("pass S (wgmma)", "enc0_i8_stats_kernel"),
               ("pass Q (wgmma)", "enc0_i8_requant_kernel"), ("memset", "Memset"))
+# ... and of row 15's call: the cooperative kernel, and PyTorch's own (the
+# statistics blocks' fill, the affines' site-major copies).
+TRUNK_V3_GROUPS = (("cooperative kernel (wgmma)", "fused_trunk_kernel"),)
 # ... and of row 14's call: its one kernel (the mma.sync conv and the epilogue).
 FINAL7_GROUPS = (("mma.sync conv + epilogue", "final7_mma_kernel"),)
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
@@ -539,13 +555,18 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
             args = (x, t(rng.uniform(0.5, 2.0, (B, 1)).astype(np.float32)), w.to(dev),
                     t(rng.normal(1.0, 0.5, (B, 2 * N_RES, C)).astype(np.float32)),
                     t(rng.normal(0.0, 0.5, (B, 2 * N_RES, C)).astype(np.float32)), N_RES)
-            first = f3.fused_trunk_blocks(*args)
+            # row 15 as the served trunk calls it, with the K-major stack
+            wk = f3.stack_kmajor(args[2])
+            first = f3.fused_trunk_blocks(*args, w_packed=wk)
             again = f3.fused_trunk_blocks(*args)
             check(all(torch.equal(a, b) for a, b in zip(first, again)),
-                  "fused_trunk_blocks: a second call gives the same bits")
-            print(f"[kernel] fused_trunk_blocks: two calls bit-identical; cooperative grid of "
-                  f"{f3.LAST_GRID[f3.SITE]} CTAs", flush=True)
-            return (lambda: f3.fused_trunk_blocks(*args)), (lambda: f3.fused_trunk_blocks_plain(*args))
+                  "fused_trunk_blocks: a second call, without the K-major stack, gives the same "
+                  "bits")
+            print(f"[kernel] fused_trunk_blocks: two calls bit-identical (K-major stack given and "
+                  f"made by the wrapper); cooperative grid of {f3.LAST_GRID[f3.SITE]} CTAs",
+                  flush=True)
+            return (lambda: f3.fused_trunk_blocks(*args, w_packed=wk)), \
+                (lambda: f3.fused_trunk_blocks_plain(*args))
         return make
 
     def enc1_im2col(side):
@@ -757,6 +778,36 @@ def wgmma_phase(torch, fc, v1, dev) -> None:
               f"at {[b, 64, 64, c]}")
         print(f"[kernel] row 20 at {[b, 64, 64, c]}: equal to its plain version to the bit",
               flush=True)
+    torch.cuda.empty_cache()
+
+
+def trunk_v3_phase(torch, fc, f3, dev) -> None:
+    """Row 15 at TRUNK_V3_SHAPES with and without the K-major stack, twice:
+    equal to the plain version to the bit, one launch per call."""
+    for b, side, c, n in TRUNK_V3_SHAPES:
+        rng = np.random.default_rng(side + c + n)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        w = torch.cat([fc.pack_weights(torch.from_numpy(
+            rng.integers(-32, 33, (3, 3, c, c), dtype=np.int8))) for _ in range(2 * n)])
+        args = (t(rng.integers(-127, 128, (b, side, side, c), dtype=np.int8)),
+                t(rng.uniform(0.5, 2.0, (b, 1)).astype(np.float32)), w.to(dev),
+                t(rng.normal(1.0, 0.5, (b, 2 * n, c)).astype(np.float32)),
+                t(rng.normal(0.0, 0.5, (b, 2 * n, c)).astype(np.float32)), n)
+        want = f3.fused_trunk_blocks_plain(*args)
+        wk = f3.stack_kmajor(args[2])
+        for kw in ({"w_packed": wk}, {}, {"w_packed": wk}):
+            before = f3.LAUNCHES[f3.SITE]
+            got = f3.fused_trunk_blocks(*args, **kw)
+            torch.cuda.synchronize()
+            check(f3.LAUNCHES[f3.SITE] == before + 1,
+                  f"fused_trunk_blocks at {(b, side, side, c, n)}: one launch per call")
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"fused_trunk_blocks at {[b, side, side, c]}, {n} blocks "
+                  f"({'K-major stack given' if kw else 'stack made'}) equal to its plain version "
+                  f"to the bit")
+        print(f"[kernel] fused_trunk_blocks at {[b, side, side, c]}, {n} blocks: equal to its "
+              f"plain version to the bit, with the K-major stack given and made by the wrapper, "
+              f"over two calls; cooperative grid of {f3.LAST_GRID[f3.SITE]} CTAs", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1715,6 +1766,40 @@ def enc_split_phase(torch, fe, kernels: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def trunk_v3_split_phase(torch, fc, f3, kernels: dict) -> None:
+    """Row 15 at the main path's shape with the K-major stack given: the time
+    per call by CUDA events (median of 10), the device time by
+    ``torch.profiler`` (``kernel_split`` with ``TRUNK_V3_GROUPS``), the
+    cooperative grid, and the int8 rate of the 16 convs against the card's
+    1,979 TOP/s. The parts go into the row as ``parts_ms``. Run last, as
+    ``split_phase``."""
+    rng = np.random.default_rng(SIDE + 1)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    w = torch.cat([fc.pack_weights(torch.from_numpy(
+        rng.integers(-32, 33, (3, 3, C, C), dtype=np.int8))) for _ in range(2 * N_RES)]).cuda()
+    args = (t(rng.integers(-127, 128, (B, SIDE, SIDE, C), dtype=np.int8)),
+            t(rng.uniform(0.5, 2.0, (B, 1)).astype(np.float32)), w,
+            t(rng.normal(1.0, 0.5, (B, 2 * N_RES, C)).astype(np.float32)),
+            t(rng.normal(0.0, 0.5, (B, 2 * N_RES, C)).astype(np.float32)), N_RES)
+    wk = f3.stack_kmajor(w)
+    call = lambda: f3.fused_trunk_blocks(*args, w_packed=wk)  # noqa: E731
+    ms = cuda_ms(torch, call, reps=10)
+    parts = kernel_split(torch, call, calls=5, groups=TRUNK_V3_GROUPS)
+    device = sum(parts.values())
+    kernels["fused_trunk_blocks"]["parts_ms"] = parts
+    ops = 2 * N_RES * 2 * B * SIDE * SIDE * C * 9 * C
+    k = parts.get("cooperative kernel (wgmma)")
+    rate = (f"the 16 convs at {ops / (k * 1e-3) / 1e12:.1f} TOP/s, "
+            f"{ops / (k * 1e-3) / PEAK_INT8_OPS:.1%} of 1,979" if k else
+            "not measured (the trace holds no device events)")
+    print(f"[kernel] fused_trunk_blocks ({[B, SIDE, SIDE, C]}, {N_RES} blocks, K-major stack "
+          f"given): {ms:.4f} ms per call by CUDA events (median of 10), {device:.4f} ms of device "
+          f"time by torch.profiler: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; cooperative grid of {f3.LAST_GRID[f3.SITE]} CTAs; {rate}", flush=True)
+    del args, w, wk
+    torch.cuda.empty_cache()
+
+
 def final7_split_phase(torch, fd, kernels: dict) -> None:
     """Row 14 at a 256² and a 512² input's maps, with the packed weights
     given: the time per call by CUDA events (median of 30) and by
@@ -2071,6 +2156,7 @@ def main() -> int:
     int8_mods = (fc, fd, fe, f3, ec, v1, ep)
     kernels = kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev)
     wgmma_phase(torch, fc, v1, dev)
+    trunk_v3_phase(torch, fc, f3, dev)
     convt_phase(torch, fc, fd, dev)
     enc_phase(torch, fe, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2084,6 +2170,7 @@ def main() -> int:
         train_cli_phase(torch, work)
         split_phase(torch, to_split)
         trunk_split_phase(torch, fc, kernels)
+        trunk_v3_split_phase(torch, fc, f3, kernels)
         convt_split_phase(torch, fc, fd, kernels)
         enc_split_phase(torch, fe, kernels)
         final7_split_phase(torch, fd, kernels)

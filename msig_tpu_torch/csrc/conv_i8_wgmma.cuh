@@ -7,8 +7,9 @@
 // renamed.)
 //
 // Statistics: the exact int64 block of conv_int8.cuh (sum, two-word sum of
-// squares, zero-masked min and max per (sample, channel)), to the bit the
-// sums of conv_int8.cuh's pass A.
+// squares, zero-masked min and max per (sample, channel); the true min and
+// max for the single-kernel trunk, kTrue), to the bit the sums of
+// conv_int8.cuh's pass A.
 //
 // Users and the TPU kernels they replace:
 // - Conv3x3Geom, Epi::kInt32: pass A of msig_conv3x3_adain_relu_requant and
@@ -23,7 +24,11 @@
 // - Conv4x4s2Geom, Epi::kStats then Epi::kRequant: the whole of
 //   msig_conv4x4s2_in_relu_requant (msig_tpu/ops/fused_enc_int8.py::
 //   enc1_in_relu_requant and enc2_in_relu_requant), see
-//   conv4x4s2_in_relu_requant.cu.
+//   conv4x4s2_in_relu_requant.cu;
+// - Conv3x3Geom, Epi::kInt32 with the true extremes, produce and consume
+//   called by a persistent kernel: the 16 convs of msig_fused_trunk_blocks
+//   (msig_tpu/ops/fused_trunk_v3.py::fused_trunk_blocks), see
+//   fused_trunk_blocks.cu.
 // enc0_in_relu_requant.cu runs a transposed product of its own on the wgmma
 // helpers below (m64n256k32, the swizzle descriptor, the fences).
 //
@@ -395,10 +400,20 @@ __device__ __forceinline__ T fold8(T (&v)[8], int lane, Op op) {
   return op(keep, __shfl_xor_sync(0xffffffffu, send, 4));
 }
 
+// The neutral value of statistics block k: 0 for the sums and the
+// zero-masked extremes; the ends of the int32 range for the true extremes
+// (kTrue: the single-kernel trunk, conv_int8.cuh's kTrueExtremes mode).
+template <bool kTrue>
+__device__ __forceinline__ long long stat_neutral(int k) {
+  if constexpr (kTrue) return k == 2 ? 0x7fffffffll : (k == 3 ? -0x80000000ll : 0ll);
+  else return 0;
+}
+
 // Adds a warp's 16 rows of the tile to the CTA's shared statistics block cta
-// [kStatBlocks][BN] (zero-masked extremes). acc[4j + e] holds column 8j +
-// 2*(lane%4) + e of row lane/4, acc[4j + 2 + e] the same column 8 rows down.
-template <int BN>
+// [kStatBlocks][BN] (zero-masked extremes, or the true ones where kTrue).
+// acc[4j + e] holds column 8j + 2*(lane%4) + e of row lane/4, acc[4j + 2 + e]
+// the same column 8 rows down.
+template <int BN, bool kTrue = false>
 __device__ __forceinline__ void warp_stats(const int (&acc)[BN / 2], long long* cta, int lane) {
   const int q = lane & 3, g = lane >> 2;
 #pragma unroll
@@ -412,8 +427,8 @@ __device__ __forceinline__ void warp_stats(const int (&acc)[BN / 2], long long* 
       const int v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
       s[k] = (long long)v0 + v1;
       sq[k] = (unsigned long long)((long long)v0 * v0) + (unsigned long long)((long long)v1 * v1);
-      mn[k] = min(0, min(v0, v1));
-      mx[k] = max(0, max(v0, v1));
+      mn[k] = kTrue ? min(v0, v1) : min(0, min(v0, v1));
+      mx[k] = kTrue ? max(v0, v1) : max(0, max(v0, v1));
     }
     const long long s16 = fold8(s, lane, Add());
     const unsigned long long sq16 = fold8(sq, lane, Add());  // 16 squares < 2^62
@@ -542,254 +557,326 @@ __device__ __forceinline__ Tile tile_at(int tile, int tiles_n, int phases, int m
   return Tile{b, q, (r2 % mblocks) * BM, tn * BN, b * tiles_n + tn};
 }
 
-// The kernel body; see the header comment. grid = min(tiles, SMs), block =
-// kThreads, dynamic smem Layout<BN, E, MB>::kBytes. Stage: how Epi::kRequant
-// reads the accumulator (StageOf of conv_int8.cuh). MB: m64 blocks a consumer
-// warpgroup runs (a tile of kBM * MB pixels; the 3x3 runs 1).
-template <class Geom, int BN, Epi E, class Stage, int MB>
-__device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
-  constexpr int S = Geom::kStride, BM = kBM * MB, KS = kSubBlocks<Geom>;
+// The kernel body's pieces; see the header comment. grid = min(tiles, SMs),
+// block = kThreads, dynamic smem Layout<BN, E, MB>::kBytes. Stage: how
+// Epi::kRequant reads the accumulator (StageOf of conv_int8.cuh). MB: m64
+// blocks a consumer warpgroup runs (a tile of kBM * MB pixels; the 3x3 runs
+// 1). conv_body runs one call in a kernel of its own; the single-kernel trunk
+// (fused_trunk_blocks.cu) keeps each warpgroup in its role for the whole
+// launch and calls produce and consume once per conv, the ring's barriers
+// initialised once and its position (RingPos) carried from call to call.
+
+// Where a kernel's blocks lie in its dynamic shared memory: the Layout from
+// the first 1024-byte boundary (the swizzle repeats every 1024 bytes).
+template <class Geom, int BN, Epi E, int MB>
+struct Body {
   using L = LayoutOf<Geom, BN, E, MB>;
   static_assert((L::kRing + L::kOut + L::kStats + L::kAff) % 8 == 0, "8-byte aligned blocks");
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle repeats every 1024 bytes
-  uint8_t* smem = smem_raw + (base - raw);
-  uint8_t* out_s = smem + L::kRing;
-  long long* cta = reinterpret_cast<long long*>(smem + L::kRing + L::kOut);
-  float* a2_s = reinterpret_cast<float*>(smem + L::kRing + L::kOut + L::kStats);
-  float* d2_s = a2_s + BN;
-  float* red = d2_s + BN;
-  const uint32_t full = base + L::kRing + L::kOut + L::kStats + L::kAff,
-                 empty = full + 8 * L::kStages;
+  uint32_t base, full, empty;  // shared addresses: the ring, its full and empty barriers
+  uint8_t* out_s;
+  long long* cta;
+  float *a2_s, *d2_s, *red;
 
-  const int B = p.B, H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  // the grid: GH x GW pixels a sample (the input map at stride 1)
-  const int GH = H / S, GW = W / S, GHW = GH * GW, mblocks = GHW / BM, tiles_n = Cout / BN;
-  const int tiles = B * Geom::kPhases * mblocks * tiles_n;
-  const int K = Geom::kTaps * Cin, ksteps = K / (KS * kBK);
-  int first, end, step;
-  if constexpr (Geom::kPhases > 1 || E != Epi::kInt32) {  // a contiguous run of tiles per CTA
-    first = (int)((long long)blockIdx.x * tiles / gridDim.x);
-    end = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
-    step = 1;
-  } else {
-    first = blockIdx.x;
-    end = tiles;
-    step = gridDim.x;
+  __device__ __forceinline__ explicit Body(uint8_t* smem_raw) {
+    const uint32_t raw = smem_addr(smem_raw);
+    base = (raw + 1023u) & ~1023u;
+    uint8_t* smem = smem_raw + (base - raw);
+    out_s = smem + L::kRing;
+    cta = reinterpret_cast<long long*>(smem + L::kRing + L::kOut);
+    a2_s = reinterpret_cast<float*>(smem + L::kRing + L::kOut + L::kStats);
+    d2_s = a2_s + BN;
+    red = d2_s + BN;
+    full = base + L::kRing + L::kOut + L::kStats + L::kAff;
+    empty = full + 8 * L::kStages;
   }
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(full + 8 * s, 128);
-      mbar_init(empty + 8 * s, kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if constexpr (E != Epi::kRequant)
-    for (int i = threadIdx.x; i < kStatBlocks * BN; i += kThreads) cta[i] = 0;
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    // Producer: thread t copies 16-byte chunk t % 8 (K index 128 ks + 16 (t % 8)
-    // of stage ks) of rows t / 8 + 16 i.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int jc = threadIdx.x & 7, r0 = threadIdx.x >> 3;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int tile = first; tile < end; tile += step) {
-      const Tile t = tile_at(tile, tiles_n, Geom::kPhases, mblocks, BM, BN);
-      // Per row: its input pixel's offset in its sample, (S*gy*W + S*gx) * Cin
-      // (Cin % 64 == 0, so its low 6 bits are free), ORed with which of the
-      // rows S*gy - 1, S*gy .. S*gy + S - 1, S*gy + S (bits 0-2) and the same
-      // columns (bits 3-5) lie in the map.
-      int pix[BM / 16];
-#pragma unroll
-      for (int i = 0; i < BM / 16; ++i) {
-        const int m = t.m0 + r0 + 16 * i, gy = m / GW, gx = m - gy * GW;
-        pix[i] = S * (gy * W + gx) * Cin | (gy > 0) | 2 | (gy < GH - 1) << 2 | (gx > 0) << 3 |
-                 16 | (gx < GW - 1) << 5;
+  // Thread 0 initialises the ring's barriers, all threads set the CTA's
+  // statistics block to its neutral values; then the CTA meets.
+  template <bool kTrue>
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < L::kStages; ++s) {
+        mbar_init(full + 8 * s, 128);
+        mbar_init(empty + 8 * s, kConsumerWarps);
       }
-      const int8_t* xb = p.x + (size_t)t.b * H * W * Cin;
-      const int8_t* wb = p.wk + ((size_t)t.q * Cout + t.n0 + r0) * K + jc * 16;
-      int tap = jc * 16 / Cin, c0 = jc * 16 - tap * Cin;  // this chunk's tap and channel
-      for (int ks = 0; ks < ksteps; ++ks) {
-        mbar_wait(empty + 8 * stage, phase ^ 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if constexpr (E != Epi::kRequant)
+      for (int i = threadIdx.x; i < kStatBlocks * BN; i += kThreads)
+        cta[i] = stat_neutral<kTrue>(i / BN);
+    __syncthreads();
+  }
+};
+
+// The tiles of one call, and the CTA's share of them.
+template <class Geom, int BN, Epi E, int MB>
+struct Walk {
+  int GH, GW, GHW, mblocks, tiles_n, K, ksteps, first, end, step;
+
+  __device__ __forceinline__ explicit Walk(const Args& p) {
+    constexpr int S = Geom::kStride, BM = kBM * MB, KS = kSubBlocks<Geom>;
+    // the grid: GH x GW pixels a sample (the input map at stride 1)
+    GH = p.H / S, GW = p.W / S, GHW = GH * GW, mblocks = GHW / BM, tiles_n = p.Cout / BN;
+    const int tiles = p.B * Geom::kPhases * mblocks * tiles_n;
+    K = Geom::kTaps * p.Cin, ksteps = K / (KS * kBK);
+    if constexpr (Geom::kPhases > 1 || E != Epi::kInt32) {  // a contiguous run of tiles per CTA
+      first = (int)((long long)blockIdx.x * tiles / gridDim.x);
+      end = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+      step = 1;
+    } else {
+      first = blockIdx.x;
+      end = tiles;
+      step = gridDim.x;
+    }
+  }
+};
+
+// The ring's next stage and its phase parity; each role keeps its own.
+struct RingPos {
+  int stage;
+  uint32_t phase;
+};
+
+// The producer warpgroup's part of a call (threads 0-127): thread t copies
+// 16-byte chunk t % 8 (K index 128 ks + 16 (t % 8) of stage ks) of rows t / 8
+// + 16 i. Returns with its copies in flight.
+template <class Geom, int BN, Epi E, int MB>
+__device__ __forceinline__ void produce(const Args& p, const Body<Geom, BN, E, MB>& sm,
+                                        RingPos& pos) {
+  constexpr int S = Geom::kStride, BM = kBM * MB, KS = kSubBlocks<Geom>;
+  using L = LayoutOf<Geom, BN, E, MB>;
+  const Walk<Geom, BN, E, MB> w(p);
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int GH = w.GH, GW = w.GW, mblocks = w.mblocks, tiles_n = w.tiles_n, K = w.K;
+  const int ksteps = w.ksteps;
+  const uint32_t base = sm.base, empty = sm.empty, full = sm.full;
+  const int jc = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  int stage = pos.stage;
+  uint32_t phase = pos.phase;
+  for (int tile = w.first; tile < w.end; tile += w.step) {
+    const Tile t = tile_at(tile, tiles_n, Geom::kPhases, mblocks, BM, BN);
+    // Per row: its input pixel's offset in its sample, (S*gy*W + S*gx) * Cin
+    // (Cin % 64 == 0, so its low 6 bits are free), ORed with which of the
+    // rows S*gy - 1, S*gy .. S*gy + S - 1, S*gy + S (bits 0-2) and the same
+    // columns (bits 3-5) lie in the map.
+    int pix[BM / 16];
 #pragma unroll
-        for (int sub = 0; sub < KS; ++sub) {
-          int dy, dx, blk;
-          Geom::tap(t.q, tap, dy, dx, blk);
-          const int delta = (dy * W + dx) * Cin + c0;  // from a row's pixel to its source
-          // the in-map bits of the tap's row and column (see pix)
-          const int rb = dy < 0 ? 0 : (dy < S ? 1 : 2), cb = dx < 0 ? 3 : (dx < S ? 4 : 5);
-          const uint32_t sa = base + stage * L::kStage + sub * L::kA1,
-                         sb = base + stage * L::kStage + L::kA + sub * L::kB1;
+    for (int i = 0; i < BM / 16; ++i) {
+      const int m = t.m0 + r0 + 16 * i, gy = m / GW, gx = m - gy * GW;
+      pix[i] = S * (gy * W + gx) * Cin | (gy > 0) | 2 | (gy < GH - 1) << 2 | (gx > 0) << 3 |
+               16 | (gx < GW - 1) << 5;
+    }
+    const int8_t* xb = p.x + (size_t)t.b * H * W * Cin;
+    const int8_t* wb = p.wk + ((size_t)t.q * Cout + t.n0 + r0) * K + jc * 16;
+    int tap = jc * 16 / Cin, c0 = jc * 16 - tap * Cin;  // this chunk's tap and channel
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(empty + 8 * stage, phase ^ 1);
 #pragma unroll
-          for (int i = 0; i < BM / 16; ++i) {
-            const int row = r0 + 16 * i;
-            const bool in = (pix[i] >> rb) & (pix[i] >> cb) & 1;
-            const int8_t* src = in ? xb + ((pix[i] & ~63) + delta) : p.x;
-            cp_async16(sa + row * kBK + ((jc ^ (row & 7)) << 4), src, in ? 16u : 0u);
-          }
-          const int8_t* wk = wb + (ks * KS + sub) * kBK;
+      for (int sub = 0; sub < KS; ++sub) {
+        int dy, dx, blk;
+        Geom::tap(t.q, tap, dy, dx, blk);
+        const int delta = (dy * W + dx) * Cin + c0;  // from a row's pixel to its source
+        // the in-map bits of the tap's row and column (see pix)
+        const int rb = dy < 0 ? 0 : (dy < S ? 1 : 2), cb = dx < 0 ? 3 : (dx < S ? 4 : 5);
+        const uint32_t sa = base + stage * L::kStage + sub * L::kA1,
+                       sb = base + stage * L::kStage + L::kA + sub * L::kB1;
 #pragma unroll
-          for (int i = 0; i < BN / 16; ++i) {
-            const int n = r0 + 16 * i;
-            cp_async16(sb + n * kBK + ((jc ^ (n & 7)) << 4), wk + (size_t)16 * i * K, 16u);
-          }
-          for (c0 += kBK; c0 >= Cin; c0 -= Cin) ++tap;
+        for (int i = 0; i < BM / 16; ++i) {
+          const int row = r0 + 16 * i;
+          const bool in = (pix[i] >> rb) & (pix[i] >> cb) & 1;
+          const int8_t* src = in ? xb + ((pix[i] & ~63) + delta) : p.x;
+          cp_async16(sa + row * kBK + ((jc ^ (row & 7)) << 4), src, in ? 16u : 0u);
         }
-        cp_async_arrive(full + 8 * stage);
-        if (++stage == L::kStages) stage = 0, phase ^= 1;
+        const int8_t* wk = wb + (ks * KS + sub) * kBK;
+#pragma unroll
+        for (int i = 0; i < BN / 16; ++i) {
+          const int n = r0 + 16 * i;
+          cp_async16(sb + n * kBK + ((jc ^ (n & 7)) << 4), wk + (size_t)16 * i * K, 16u);
+        }
+        for (c0 += kBK; c0 >= Cin; c0 -= Cin) ++tap;
+      }
+      cp_async_arrive(full + 8 * stage);
+      if (++stage == L::kStages) stage = 0, phase ^= 1;
+    }
+  }
+  pos = RingPos{stage, phase};
+}
+
+// The consumer warpgroups' part of a call (threads 128-383): the products,
+// and the tile's way out (Epi). kTrue: the true extremes in the statistics.
+template <class Geom, int BN, Epi E, class Stage, int MB, bool kTrue>
+__device__ __forceinline__ void consume(const Args& p, const Body<Geom, BN, E, MB>& sm,
+                                        RingPos& pos) {
+  constexpr int BM = kBM * MB, KS = kSubBlocks<Geom>;
+  using L = LayoutOf<Geom, BN, E, MB>;
+  const Walk<Geom, BN, E, MB> w(p);
+  const int B = p.B, Cout = p.Cout;
+  const int GW = w.GW, GHW = w.GHW, mblocks = w.mblocks, tiles_n = w.tiles_n, ksteps = w.ksteps;
+  const uint32_t base = sm.base, full = sm.full, empty = sm.empty;
+  uint8_t* out_s = sm.out_s;
+  long long* cta = sm.cta;
+  float *a2_s = sm.a2_s, *d2_s = sm.d2_s, *red = sm.red;
+  const int cw = (threadIdx.x >> 7) - 1;  // consumer warpgroup: tile rows 64*MB*cw ..
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int ct = threadIdx.x - 128;
+  const size_t BC = (size_t)B * Cout;
+  int stage = pos.stage;
+  uint32_t phase = pos.phase;
+  int held = -1;     // Epi::kRequant: the key whose requant a2_s, d2_s hold
+  // Epi::kStats at BN = 64: the statistics gather in registers over tiles
+  constexpr bool kRegStats = E == Epi::kStats && BN == 64;
+  static_assert(!(kRegStats && kTrue), "RegStats keeps the zero-masked extremes");
+  RegStats<kRegStats ? BN : 32, MB> reg;
+  if constexpr (kRegStats) reg.clear();
+  float amax = 0.f;  // and its amax
+  int acc[MB][BN / 2];  // m64 block mb: tile rows 64*(MB*cw + mb) ..
+  for (int tile = w.first; tile < w.end; tile += w.step) {
+    const Tile t = tile_at(tile, tiles_n, Geom::kPhases, mblocks, BM, BN);
+    if constexpr (E == Epi::kRequant) {
+      if (t.key != held) {
+        consumer_sync();  // the last tile's map has read a2_s, d2_s
+        amax = load_requant<BN, Stage>(p.stats, t.b, B, Cout, (float)(Geom::kPhases * GHW),
+                                       p.eps, t.n0, a2_s, d2_s, red, ct);
+        held = t.key;
       }
     }
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0;
+    int prev = 0;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(full + 8 * stage, phase);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t sa = base + stage * L::kStage + cw * MB * 64 * kBK, sb =
+          base + stage * L::kStage + L::kA;
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+      wgmma_fence();
+#pragma unroll
+      for (int sub = 0; sub < KS; ++sub)
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int kk = 0; kk < kBK / 32; ++kk)
+            wgmma_tile<BN>(acc[mb], sw128_desc(sa + sub * L::kA1 + mb * 64 * kBK + 32 * kk),
+                           sw128_desc(sb + sub * L::kB1 + 32 * kk));
+      wgmma_commit();
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+      if (ks > 0) {
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+        __syncwarp();
+      }
+      prev = stage;
+      if (++stage == L::kStages) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+    __syncwarp();
+
+    const size_t ob = (size_t)t.b * Geom::kPhases * GHW;  // the sample's first output row
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const int r16 = 64 * (MB * cw + mb) + 16 * warp;  // the warp's first row
+      if constexpr (E == Epi::kInt32) {
+        // The tile's int32 rows, straight from the fragment.
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = t.m0 + r16 + (lane >> 2) + 8 * h;
+          int32_t* yr = static_cast<int32_t*>(p.y) +
+                        (ob + Geom::out_pixel(t.q, m / GW, m % GW, GW)) * Cout + t.n0 +
+                        2 * (lane & 3);
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            *reinterpret_cast<int2*>(yr + 8 * j) = make_int2(acc[mb][4 * j + 2 * h],
+                                                             acc[mb][4 * j + 2 * h + 1]);
+        }
+      }
+      if constexpr (E == Epi::kRequant) {
+        // Each value as the epilogue reads it, mapped to int8 into the warp's
+        // 16 staged rows, which leave as 16-byte chunks at their output pixels.
+        const int qd = lane & 3;
+        uint8_t* stg = out_s + (4 * cw + warp) * 16 * L::kOutPitch;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 a2 = *reinterpret_cast<const float2*>(a2_s + 8 * j + 2 * qd);
+          const float2 d2 = *reinterpret_cast<const float2*>(d2_s + 8 * j + 2 * qd);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const signed char v0 = relu_requant_folded(
+                StageOf<Stage>::through(acc[mb][4 * j + 2 * h]), a2.x, d2.x);
+            const signed char v1 = relu_requant_folded(
+                StageOf<Stage>::through(acc[mb][4 * j + 2 * h + 1]), a2.y, d2.y);
+            *reinterpret_cast<char2*>(stg + ((lane >> 2) + 8 * h) * L::kOutPitch + 8 * j +
+                                      2 * qd) = make_char2(v0, v1);
+          }
+        }
+        __syncwarp();
+        constexpr int kChunks = BN / 16;
+        int8_t* yb = static_cast<int8_t*>(p.y) + t.n0;
+#pragma unroll
+        for (int i = lane; i < 16 * kChunks; i += 32) {
+          const int rr = i / kChunks, ch = i % kChunks;
+          const int m = t.m0 + r16 + rr;
+          *reinterpret_cast<int4*>(yb + (ob + Geom::out_pixel(t.q, m / GW, m % GW, GW)) * Cout +
+                                   16 * ch) =
+              *reinterpret_cast<const int4*>(stg + rr * L::kOutPitch + 16 * ch);
+        }
+        __syncwarp();  // the chunks are read before the next rows land
+      }
+      if constexpr (kRegStats) reg.add(acc[mb]);
+      else if constexpr (E != Epi::kRequant) warp_stats<BN, kTrue>(acc[mb], cta, lane);
+    }
+    if constexpr (E == Epi::kRequant) {
+      // One tile per sample writes its inverse scale (all compute the same bits).
+      if (p.out_scale != nullptr && ct == 0 && t.q == 0 && t.m0 == 0 && t.n0 == 0)
+        p.out_scale[t.b] = relu_inv_scale(amax);
+    } else {
+      // The CTA's block leaves when the next tile is of another (sample,
+      // channel tile), or this is the CTA's last; register partials fold
+      // into it then, or when they hold RegStats::kTiles tiles.
+      const int next = tile + w.step;
+      const bool leaves =
+          next >= w.end || tile_at(next, tiles_n, Geom::kPhases, mblocks, BM, BN).key != t.key;
+      if constexpr (kRegStats)
+        if (leaves || ++reg.tiles == reg.kTiles) reg.fold(cta, lane);
+      if (leaves) {
+        consumer_sync();
+        for (int i = ct; i < kStatBlocks * BN; i += kConsumerThreads) {
+          const int k = i / BN, col = i % BN;
+          const long long v = cta[i], neutral = stat_neutral<kTrue>(k);
+          cta[i] = neutral;
+          if (v == neutral) continue;  // every block starts at the identity of its operation
+          long long* dst = p.stats + k * BC + (size_t)t.b * Cout + t.n0 + col;
+          if (k == 2) atomicMin(dst, v);
+          else if (k == 3) atomicMax(dst, v);
+          else atomicAdd(reinterpret_cast<unsigned long long*>(dst), (unsigned long long)v);
+        }
+        consumer_sync();
+      }
+    }
+  }
+  pos = RingPos{stage, phase};
+}
+
+template <class Geom, int BN, Epi E, class Stage, int MB>
+__device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
+  const Body<Geom, BN, E, MB> sm(smem_raw);
+  sm.template init<false>();
+  RingPos pos{0, 0};
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    produce(p, sm, pos);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int cw = (threadIdx.x >> 7) - 1;  // consumer warpgroup: tile rows 64*MB*cw ..
-    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-    const int ct = threadIdx.x - 128;
-    const size_t BC = (size_t)B * Cout;
-    int stage = 0;
-    uint32_t phase = 0;
-    int held = -1;     // Epi::kRequant: the key whose requant a2_s, d2_s hold
-    // Epi::kStats at BN = 64: the statistics gather in registers over tiles
-    constexpr bool kRegStats = E == Epi::kStats && BN == 64;
-    RegStats<kRegStats ? BN : 32, MB> reg;
-    if constexpr (kRegStats) reg.clear();
-    float amax = 0.f;  // and its amax
-    int acc[MB][BN / 2];  // m64 block mb: tile rows 64*(MB*cw + mb) ..
-    for (int tile = first; tile < end; tile += step) {
-      const Tile t = tile_at(tile, tiles_n, Geom::kPhases, mblocks, BM, BN);
-      if constexpr (E == Epi::kRequant) {
-        if (t.key != held) {
-          consumer_sync();  // the last tile's map has read a2_s, d2_s
-          amax = load_requant<BN, Stage>(p.stats, t.b, B, Cout, (float)(Geom::kPhases * GHW),
-                                         p.eps, t.n0, a2_s, d2_s, red, ct);
-          held = t.key;
-        }
-      }
-#pragma unroll
-      for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0;
-      int prev = 0;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        mbar_wait(full + 8 * stage, phase);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        const uint32_t sa = base + stage * L::kStage + cw * MB * 64 * kBK, sb =
-            base + stage * L::kStage + L::kA;
-#pragma unroll
-        for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
-        wgmma_fence();
-#pragma unroll
-        for (int sub = 0; sub < KS; ++sub)
-#pragma unroll
-          for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-            for (int kk = 0; kk < kBK / 32; ++kk)
-              wgmma_tile<BN>(acc[mb], sw128_desc(sa + sub * L::kA1 + mb * 64 * kBK + 32 * kk),
-                             sw128_desc(sb + sub * L::kB1 + 32 * kk));
-        wgmma_commit();
-#pragma unroll
-        for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
-        if (ks > 0) {
-          wgmma_wait<1>();  // the previous stage's products are done: release it
-#pragma unroll
-          for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
-          if (lane == 0) mbar_arrive(empty + 8 * prev);
-          __syncwarp();
-        }
-        prev = stage;
-        if (++stage == L::kStages) stage = 0, phase ^= 1;
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int mb = 0; mb < MB; ++mb) fence_regs(acc[mb]);
-      if (lane == 0) mbar_arrive(empty + 8 * prev);
-      __syncwarp();
-
-      const size_t ob = (size_t)t.b * Geom::kPhases * GHW;  // the sample's first output row
-#pragma unroll
-      for (int mb = 0; mb < MB; ++mb) {
-        const int r16 = 64 * (MB * cw + mb) + 16 * warp;  // the warp's first row
-        if constexpr (E == Epi::kInt32) {
-          // The tile's int32 rows, straight from the fragment.
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = t.m0 + r16 + (lane >> 2) + 8 * h;
-            int32_t* yr = static_cast<int32_t*>(p.y) +
-                          (ob + Geom::out_pixel(t.q, m / GW, m % GW, GW)) * Cout + t.n0 +
-                          2 * (lane & 3);
-#pragma unroll
-            for (int j = 0; j < BN / 8; ++j)
-              *reinterpret_cast<int2*>(yr + 8 * j) = make_int2(acc[mb][4 * j + 2 * h],
-                                                               acc[mb][4 * j + 2 * h + 1]);
-          }
-        }
-        if constexpr (E == Epi::kRequant) {
-          // Each value as the epilogue reads it, mapped to int8 into the warp's
-          // 16 staged rows, which leave as 16-byte chunks at their output pixels.
-          const int qd = lane & 3;
-          uint8_t* stg = out_s + (4 * cw + warp) * 16 * L::kOutPitch;
-#pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            const float2 a2 = *reinterpret_cast<const float2*>(a2_s + 8 * j + 2 * qd);
-            const float2 d2 = *reinterpret_cast<const float2*>(d2_s + 8 * j + 2 * qd);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const signed char v0 = relu_requant_folded(
-                  StageOf<Stage>::through(acc[mb][4 * j + 2 * h]), a2.x, d2.x);
-              const signed char v1 = relu_requant_folded(
-                  StageOf<Stage>::through(acc[mb][4 * j + 2 * h + 1]), a2.y, d2.y);
-              *reinterpret_cast<char2*>(stg + ((lane >> 2) + 8 * h) * L::kOutPitch + 8 * j +
-                                        2 * qd) = make_char2(v0, v1);
-            }
-          }
-          __syncwarp();
-          constexpr int kChunks = BN / 16;
-          int8_t* yb = static_cast<int8_t*>(p.y) + t.n0;
-#pragma unroll
-          for (int i = lane; i < 16 * kChunks; i += 32) {
-            const int rr = i / kChunks, ch = i % kChunks;
-            const int m = t.m0 + r16 + rr;
-            *reinterpret_cast<int4*>(yb + (ob + Geom::out_pixel(t.q, m / GW, m % GW, GW)) * Cout +
-                                     16 * ch) =
-                *reinterpret_cast<const int4*>(stg + rr * L::kOutPitch + 16 * ch);
-          }
-          __syncwarp();  // the chunks are read before the next rows land
-        }
-        if constexpr (kRegStats) reg.add(acc[mb]);
-        else if constexpr (E != Epi::kRequant) warp_stats<BN>(acc[mb], cta, lane);
-      }
-      if constexpr (E == Epi::kRequant) {
-        // One tile per sample writes its inverse scale (all compute the same bits).
-        if (p.out_scale != nullptr && ct == 0 && t.q == 0 && t.m0 == 0 && t.n0 == 0)
-          p.out_scale[t.b] = relu_inv_scale(amax);
-      } else {
-        // The CTA's block leaves when the next tile is of another (sample,
-        // channel tile), or this is the CTA's last; register partials fold
-        // into it then, or when they hold RegStats::kTiles tiles.
-        const int next = tile + step;
-        const bool leaves =
-            next >= end || tile_at(next, tiles_n, Geom::kPhases, mblocks, BM, BN).key != t.key;
-        if constexpr (kRegStats)
-          if (leaves || ++reg.tiles == reg.kTiles) reg.fold(cta, lane);
-        if (leaves) {
-          consumer_sync();
-          for (int i = ct; i < kStatBlocks * BN; i += kConsumerThreads) {
-            const int k = i / BN, col = i % BN;
-            const long long v = cta[i];
-            cta[i] = 0;
-            if (v == 0) continue;  // every block starts at 0, the identity of its operation
-            long long* dst = p.stats + k * BC + (size_t)t.b * Cout + t.n0 + col;
-            if (k == 2) atomicMin(dst, v);
-            else if (k == 3) atomicMax(dst, v);
-            else atomicAdd(reinterpret_cast<unsigned long long*>(dst), (unsigned long long)v);
-          }
-          consumer_sync();
-        }
-      }
-    }
+    consume<Geom, BN, E, Stage, MB, false>(p, sm, pos);
   }
 }
 

@@ -8,10 +8,10 @@
 // while exact per-(sample, channel) statistics are reduced across CTAs with
 // int64 atomics. A site's geometry (which input pixel and which weight block
 // each tap reads, and where an output row lands) is a small struct; the tile
-// loop is shared. The trunk's conv1 and int8-carry conv2 sites and the
-// phase-split ConvT site run that conv on wgmma instead (conv_i8_wgmma.cuh,
-// over the same geometries and statistics block), the ConvT without the
-// scratch.
+// loop is shared. The trunk's sites, the single-kernel trunk, the encoder's
+// 4x4/s2 sites and the phase-split ConvT site run that conv on wgmma instead
+// (conv_i8_wgmma.cuh, over the same geometries and statistics block), the
+// two-pass sites without the scratch.
 //
 // Why two passes: the TPU kernels (msig_tpu/ops/fused_conv_int8_v2.py,
 // fused_dec_int8.py) run one whole sample per program and keep its int32
@@ -34,11 +34,12 @@
 // reach 2^66, past one int64. Integer sums make the statistics independent
 // of the order of the CTAs.
 //
-// In the true-extremes mode (kTrueExtremes: the single-kernel trunk
-// msig_tpu/ops/fused_trunk_v3.py:99-118, the chunked epilogue
+// In the true-extremes mode (kTrueExtremes: the chunked epilogue
 // int8_epilogue_chunked.py:64-69 and the v1 relu and ConvT sites
-// fused_conv_int8.py:125-126, :225-226) blocks 2 and 3 hold the true min y and
-// max y instead; the caller initialises them to INT64_MAX and INT64_MIN.
+// fused_conv_int8.py:125-126, :225-226; on wgmma, conv_i8_wgmma.cuh's kTrue,
+// the single-kernel trunk msig_tpu/ops/fused_trunk_v3.py:99-118) blocks 2 and
+// 3 hold the true min y and max y instead; the caller initialises them to
+// INT64_MAX and INT64_MIN.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -167,15 +168,6 @@ struct ConvT4x4s2KcatGeom {
     return ConvT4x4s2Geom::out_pixel(q, gy, gx, GW);
   }
 };
-
-// A load that bypasses L1 (ld.global.cg) where kCg: data written earlier in
-// the same launch (the single-kernel trunk) must not be read through L1 or the
-// read-only path, which are not coherent with other SMs' writes.
-template <bool kCg, class T>
-__device__ __forceinline__ T ld(const T* p) {
-  if constexpr (kCg) return __ldcg(p);
-  else return *p;
-}
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -326,9 +318,8 @@ __device__ __forceinline__ void store_tile(const int (&acc)[2][BN / 16][4], Stag
 // phase q's column block where kWPhases > 1); y: [B, kPhases*GHW,
 // Cout], rows in output-pixel order, int32 or __half (see StageOf). Needs
 // Cin % kBK == 0, Cout % BN == 0, GHW % kBM == 0, H and W multiples of
-// kStride (the wrappers check). kCg reads x past L1 (see ld).
-template <class Geom, int BN, class Stage = int32_t, bool kTrueExtremes = false,
-          bool kCg = false>
+// kStride (the wrappers check).
+template <class Geom, int BN, class Stage = int32_t, bool kTrueExtremes = false>
 __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x,
                                           const int8_t* __restrict__ w, Stage* __restrict__ y,
                                           long long* __restrict__ stats, int B, int H, int W,
@@ -370,7 +361,7 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x,
         const int yy = (m / GW) * Geom::kStride + dy, xx = (m % GW) * Geom::kStride + dx;
         int4 v = make_int4(0, 0, 0, 0);
         if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-          v = ld<kCg>(reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16));
+          v = *reinterpret_cast<const int4*>(xb + (size_t)(yy * W + xx) * Cin + c0 + j * 16);
         *reinterpret_cast<int4*>(As + p * kLds + j * 16) = v;
       }
       // Weight tile, transposed on the way in: Bs[co][k] = w[blk*Cin + c0 + k][wc + co].
@@ -437,30 +428,34 @@ __device__ __forceinline__ void store_amax(long long* stats, int B, int C, int b
 // the plain IN of the ConvT sites (:627-631): 1 * r and 0 - m * a give the
 // bits of r and -m * a. Explicit _rn intrinsics keep nvcc from contracting
 // into FMAs, so the plain PyTorch version can repeat the arithmetic.
-// kCg reads the statistics past L1 (see ld).
-template <bool kCg = false>
+// affine_of: the same from the entry's sum and sum-of-squares words, loaded
+// by the caller.
+__device__ __forceinline__ void affine_of(long long sum, unsigned long long sq_lo,
+                                          unsigned long long sq_hi, float gamma, float beta,
+                                          float n, float eps, float& a, float& d) {
+  const float mean = __fdiv_rn((float)sum, n);
+  const float sumsq = sumsq_to_float(sq_lo, sq_hi);
+  const float var = fmaxf(__fsub_rn(__fdiv_rn(sumsq, n), __fmul_rn(mean, mean)), 0.f);
+  a = __fmul_rn(gamma, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
+  d = __fsub_rn(beta, __fmul_rn(mean, a));
+}
 __device__ __forceinline__ void in_affine(const long long* __restrict__ stats,
                                           const float* __restrict__ gamma,
                                           const float* __restrict__ beta, size_t i, size_t BC,
                                           float n, float eps, float& a, float& d) {
-  const float mean = __fdiv_rn((float)ld<kCg>(&stats[i]), n);
-  const float sumsq = sumsq_to_float((unsigned long long)ld<kCg>(&stats[BC + i]),
-                                     (unsigned long long)ld<kCg>(&stats[4 * BC + i]));
-  const float var = fmaxf(__fsub_rn(__fdiv_rn(sumsq, n), __fmul_rn(mean, mean)), 0.f);
-  a = __fmul_rn(gamma ? gamma[i] : 1.f, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
-  d = __fsub_rn(beta ? beta[i] : 0.f, __fmul_rn(mean, a));
+  affine_of(stats[i], (unsigned long long)stats[BC + i], (unsigned long long)stats[4 * BC + i],
+            gamma ? gamma[i] : 1.f, beta ? beta[i] : 0.f, n, eps, a, d);
 }
 
 // The per-channel affine of sample b (in_affine) into a_s[C], d_s[C], by the
 // threads of the block; HW is the number of outputs per (sample, channel).
-template <bool kCg = false>
 __device__ __forceinline__ void channel_affine(const long long* __restrict__ stats,
                                                const float* __restrict__ gamma,
                                                const float* __restrict__ beta, int b, int B,
                                                int C, int HW, float eps, float* a_s, float* d_s) {
   const size_t BC = (size_t)B * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x)
-    in_affine<kCg>(stats, gamma, beta, (size_t)b * C + c, BC, (float)HW, eps, a_s[c], d_s[c]);
+    in_affine(stats, gamma, beta, (size_t)b * C + c, BC, (float)HW, eps, a_s[c], d_s[c]);
 }
 
 // The relu sites' requant, shared by relu_requant_kernel and the ConvT site's
@@ -514,21 +509,20 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return r;
 }
 
-// The true-extremes relu epilogue (fused_trunk_v3.py:112-124,
-// int8_epilogue_chunked.py:79-95). amax is the largest of the channels'
+// The true-extremes relu epilogue (int8_epilogue_chunked.py:79-95, as
+// fused_trunk_v3.py:112-124). amax is the largest of the channels'
 // max(a*max y, a*min y) + d and 0, over the true extremes (exact: the affine
 // is monotone in y per channel); then q = clip(round(max(y*a + d, 0) * s), +-127)
 // with s = 127/amax, unfolded as the TPU kernels compute it. Every thread of
 // the block calls true_relu_amax; a_s, d_s hold sample b's affine.
-template <bool kCg = false>
 __device__ __forceinline__ float true_relu_amax(const long long* __restrict__ stats,
                                                 const float* a_s, const float* d_s, int b, int B,
                                                 int C, float* red) {
   const size_t BC = (size_t)B * C;
   float local = 0.f;  // max(hi, 0)
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float cmin = (float)ld<kCg>(&stats[2 * BC + (size_t)b * C + c]);
-    const float cmax = (float)ld<kCg>(&stats[3 * BC + (size_t)b * C + c]);
+    const float cmin = (float)stats[2 * BC + (size_t)b * C + c];
+    const float cmax = (float)stats[3 * BC + (size_t)b * C + c];
     local = fmaxf(local, __fadd_rn(fmaxf(__fmul_rn(a_s[c], cmax), __fmul_rn(a_s[c], cmin)), d_s[c]));
   }
   return block_max(local, red);

@@ -138,7 +138,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     them (``fd.pack_final7_weights``, the order of the final conv kernel's
     mma fragments; for the 64 -> 3 conv the kernel takes). Under
     ``MSIG_TRUNK_V3=1`` also ``trunk_w_stack`` (the 2*n packed trunk weights
-    stacked, 9.4 MB at C = 256, n = 8), and under ``MSIG_ENC1_IM2COL=1`` with
+    stacked, 9.4 MB at C = 256, n = 8) and its K-major copy
+    ``trunk_w_stack_pk`` (``f3.pack_trunk_weights_kmajor``, which the kernel
+    reads), and under ``MSIG_ENC1_IM2COL=1`` with
     enc1's [4, 4, 64, 128] kernel ``enc1_i2c_p`` (``fe.pack_enc1_im2col``), as
     the JAX package builds them (``quantized.py:72-75, 97-100``): only then do
     the generator's branches find them.
@@ -171,6 +173,7 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
             q[f"res{i}_{a}_b"] = sd[f"decoder.{i}.{a}.style_modulation.bias"]
     if v3:
         q["trunk_w_stack"] = f3.pack_trunk_weights(q, n)
+        q["trunk_w_stack_pk"] = f3.pack_trunk_weights_kmajor(q, n)
     w_enc1 = q["enc_conv1"].permute(2, 3, 1, 0)
     if enc1_im2col and tuple(w_enc1.shape) == (4, 4, 64, 128):
         q["enc1_i2c_p"] = fe.pack_enc1_im2col(w_enc1)
@@ -321,7 +324,9 @@ def _fused_trunk_rows(q: Q, hq: torch.Tensor, hs: torch.Tensor, style: torch.Ten
         ks, bs = _affine_weights(q, n_res)
         params = torch.einsum("bs,nsc->bnc", style.to(torch.float32), ks) + bs[None]
         gammas, betas = (t.contiguous() for t in params.chunk(2, dim=-1))  # [B, 2n, C]
-        return f3.fused_trunk_blocks(hq, hs, q["trunk_w_stack"], gammas, betas, n_res)[0]
+        # the kernel's K-major copy, where quantization made it
+        kw = {"w_packed": q["trunk_w_stack_pk"]} if "trunk_w_stack_pk" in q else {}
+        return f3.fused_trunk_blocks(hq, hs, q["trunk_w_stack"], gammas, betas, n_res, **kw)[0]
     gammas, betas = _style_affines(q, style, n_res)
     if hifi == 1:
         carry = (hq.to(torch.bfloat16) * hs.reshape(-1, 1, 1, 1).to(torch.bfloat16),)

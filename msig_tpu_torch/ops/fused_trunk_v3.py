@@ -19,7 +19,8 @@ extremes and folds the scale into the affine: the two agree to one step on
 almost every element, and part where a channel's conv1 output has one sign.
 
 ``fused_trunk_blocks`` launches the CUDA kernel (``csrc/fused_trunk_blocks.cu``,
-one cooperative launch per call) for CUDA tensors and adds one to
+one cooperative launch per call, its convs on ``wgmma`` with K-major weights:
+``w_packed``, ``pack_trunk_weights_kmajor``) for CUDA tensors and adds one to
 ``LAUNCHES``, or raises; for CPU tensors it runs ``fused_trunk_blocks_plain``,
 which convolves exactly in float64 and reduces integer statistics, as the
 kernel does.
@@ -44,6 +45,10 @@ SOURCES = (SITE,)
 LAUNCHES: Dict[str, int] = {SITE: 0}
 # CTAs of the last launch: the occupancy calculator's blocks per SM x SMs.
 LAST_GRID: Dict[str, int] = {SITE: 0}
+# What the kernel's elementwise phases have for a site's [B, C] affines and
+# three floats per sample: the ring of its conv phases (196,608 bytes of
+# shared memory) less the buffers they stream through (122,880).
+_STAGING_BYTES = 73728
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, _P, ctypes.POINTER(ctypes.c_int)]
@@ -59,6 +64,24 @@ def pack_trunk_weights(q: Mapping[str, torch.Tensor], n_blocks: int) -> torch.Te
     ``msig_tpu/ops/fused_trunk_v3.py::pack_trunk_weights``)."""
     return torch.cat([q[f"res{i}_{c}_p"] for i in range(n_blocks) for c in ("conv1", "conv2")],
                      dim=0).contiguous()
+
+
+def pack_trunk_weights_kmajor(q: Mapping[str, torch.Tensor], n_blocks: int) -> torch.Tensor:
+    """The K-major [C, 9C] weights ``res{i}_conv{1,2}_pk`` stacked site-major,
+    [2N*C, 9C]: the operand the kernel's ``wgmma`` convs read."""
+    return torch.cat([q[f"res{i}_{c}_pk"] for i in range(n_blocks) for c in ("conv1", "conv2")],
+                     dim=0).contiguous()
+
+
+def stack_kmajor(w_stack: torch.Tensor) -> torch.Tensor:
+    """``pack_trunk_weights``' [2N*9C, C] stack -> ``pack_trunk_weights_kmajor``'s
+    [2N*C, 9C]: each site's block transposed (``fc.pack_weights_kmajor``)."""
+    c = w_stack.shape[1]
+    if w_stack.dim() != 2 or w_stack.shape[0] % (9 * c):
+        raise ValueError(f"expected a stack of [9C, C] blocks, got {tuple(w_stack.shape)}")
+    n_sites = w_stack.shape[0] // (9 * c)
+    return w_stack.reshape(n_sites, 9 * c, c).transpose(1, 2).reshape(n_sites * c, 9 * c) \
+        .to(torch.int8).contiguous()
 
 
 def fused_trunk_blocks_plain(x_i8, h_scale, w_stack, gammas, betas, n_blocks: int,
@@ -77,14 +100,21 @@ def fused_trunk_blocks_plain(x_i8, h_scale, w_stack, gammas, betas, n_blocks: in
     return h, hs
 
 
-def fused_trunk_blocks(x_i8, h_scale, w_stack, gammas, betas, n_blocks: int, eps: float = _EPS):
+def fused_trunk_blocks(x_i8, h_scale, w_stack, gammas, betas, n_blocks: int, eps: float = _EPS,
+                       *, w_packed=None):
     """N resblocks on dense NHWC int8; returns (int8 [B, H, W, C], scale [B, 1]).
 
     x_i8 [B, H, W, C] int8 with its scale h_scale [B, 1] float32, w_stack
     [2N*9C, C] int8 from ``pack_trunk_weights``, gammas/betas [B, 2N, C] float32
-    (site-major: block i's conv1 at 2i, conv2 at 2i + 1).
+    (site-major: block i's conv1 at 2i, conv2 at 2i + 1). w_packed, optional,
+    must be ``pack_trunk_weights_kmajor`` of the same weights (= ``stack_kmajor
+    (w_stack)``): on the card the kernel reads only this copy, made here where
+    it is not given; the CPU path reads w_stack.
     """
     if x_i8.device.type == "cpu":
+        if x_i8.dim() == 4:
+            c = x_i8.shape[-1]
+            fc._check_kmajor_shape(w_packed, (2 * n_blocks * c, 9 * c), "w_packed")
         return fused_trunk_blocks_plain(x_i8, h_scale, w_stack, gammas, betas, n_blocks, eps)
     if n_blocks < 1:
         raise ValueError(f"n_blocks must be at least 1, got {n_blocks}")
@@ -96,6 +126,10 @@ def fused_trunk_blocks(x_i8, h_scale, w_stack, gammas, betas, n_blocks: int, eps
         raise ValueError(f"the CUDA kernel needs C % 128 == 0 and H*W % 128 == 0, "
                          f"got {tuple(x_i8.shape)}")
     fc.check_statistics(x_i8.shape, h * w, 9 * c)
+    if b * h * w * c >= 2 ** 31 or (2 * b * c + 3 * b) * 4 > _STAGING_BYTES:
+        raise ValueError(f"the CUDA kernel needs B*H*W*C < 2^31 and a site's [B, C] affines "
+                         f"within {_STAGING_BYTES} bytes of shared memory, got "
+                         f"{tuple(x_i8.shape)}")
     fc._check("h_scale", h_scale, torch.float32, (b, 1))
     fc._check("w_stack", w_stack, torch.int8, (2 * n_blocks * 9 * c, c))
     fc._check("gammas", gammas, torch.float32, (b, 2 * n_blocks, c))
@@ -104,6 +138,7 @@ def fused_trunk_blocks(x_i8, h_scale, w_stack, gammas, betas, n_blocks: int, eps
         if t.device != x_i8.device:
             raise ValueError(f"all inputs must be on {x_i8.device}, got {t.device}")
     fn = _build.load(SITE, _ARGTYPES)
+    wk = fc._kmajor(w_stack, w_packed, stack_kmajor, (2 * n_blocks * c, 9 * c), "w_packed")
     dev = x_i8.device
     y = torch.empty((b, h * w, c), dtype=torch.int32, device=dev)
     stats = fc.true_extremes_stats(2 * n_blocks, b, c, dev)
@@ -113,7 +148,7 @@ def fused_trunk_blocks(x_i8, h_scale, w_stack, gammas, betas, n_blocks: int, eps
     g_sites = gammas.transpose(0, 1).contiguous()
     b_sites = betas.transpose(0, 1).contiguous()
     grid = ctypes.c_int(0)
-    err = fn(x_i8.data_ptr(), h_scale.data_ptr(), w_stack.data_ptr(), g_sites.data_ptr(),
+    err = fn(x_i8.data_ptr(), h_scale.data_ptr(), wk.data_ptr(), g_sites.data_ptr(),
              b_sites.data_ptr(), y.data_ptr(), stats.data_ptr(), y1.data_ptr(), h_a.data_ptr(),
              out.data_ptr(), out_scale.data_ptr(), b, h, w, c, n_blocks, eps,
              torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(grid))
