@@ -18,8 +18,9 @@ Phases, each reported on its own line:
    [8, 64, 64, 256], up0 -> [8, 128, 128, 128], up1 -> [8, 256, 256, 64],
    final7 -> [8, 256, 256, 3], and the three sites of the opt-in compositions:
    ``fused_trunk_blocks`` (all 8 resblocks in one launch) at [8, 64, 64, 256],
-   ``enc1_in_relu_requant_im2col`` at enc1's shapes (and equal to enc1's
-   kernel to the bit), ``adain_relu_requant_chunked`` at [8, 4096, 256] int32;
+   ``enc1_in_relu_requant_im2col`` at enc1's shapes with four distinct phase
+   blocks (and with four equal ones equal to enc1's kernel to the bit),
+   ``adain_relu_requant_chunked`` at [8, 4096, 256] int32;
    the v1 sites of ``fused_conv_int8`` (conv1 and conv2 at [8, 64, 64, 256],
    the ConvT on the 9-tap K-concat operand at up0's and up1's shapes), the
    9-tap ConvT site of ``fused_conv_int8_v2`` at the same two (and equal to
@@ -34,8 +35,8 @@ Phases, each reported on its own line:
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
    on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
    the three conv2 sites, the v1 conv2 site, the ConvT site's rows 5, 12
-   and 13) and the encoder's two-pass rows 7-10 (``EXACT``) equal to their
-   plain versions to the bit, conv1, the conv2 sites, the ConvT rows and
+   and 13), the encoder's two-pass rows 7-11 and row 18 (``EXACT``) equal
+   to their plain versions to the bit, conv1, the conv2 sites, the ConvT rows and
    enc1, enc2 timed with the K-major weight copy given, as the served trunk,
    decoder and encoder call them; times by CUDA events
    (the three epilogue rows also as three medians with L2 warm and three
@@ -53,7 +54,12 @@ Phases, each reported on its own line:
    enc2's shapes of a 256² and a 512² input, and [2, 32, 32, 64] -> 64) with
    and without the K-major copy and rows 7 and 10 at ``ENC0_SHAPES`` (256²,
    512² in both stagings, [1, 64, 128, 3]): equal to the plain versions to
-   the bit, one launch per call; row 14 (``final7_tanh_u8``, mma.sync with
+   the bit, one launch per call; row 11 (enc1's four-phase form on the same
+   two passes) at ``ENC1_I2C_SHAPES`` with four distinct phase blocks and
+   the K-major copy given and made (equal to its plain version to the bit)
+   and with four equal blocks (equal to row 8 to the bit); row 18 (one cooperative launch) at [8, 4096, 256] with
+   |x| < 2^20 and over the whole int32 range: equal to its plain version to
+   the bit, two calls alike, its grid and items; row 14 (``final7_tanh_u8``, mma.sync with
    kx folded into N, packed weights ``fd.pack_final7_weights`` given) equal
    to its plain version to the bit at both inputs' maps; row 15
    (``fused_trunk_blocks``: the whole trunk in one cooperative launch on the
@@ -80,7 +86,7 @@ Phases, each reported on its own line:
    from the fp32 path; ``quantized_generator_apply(..., fused_trunk=False,
    fused_epilogue=True)`` (``256/unfused+epilogue``: 8 launches of
    ``adain_relu_requant_chunked`` per batch and no other kernel site), its
-   PSNR printed; time per batch of each and of the trunk alone under v3;
+   PSNR and a sha256 of its images printed, and of ``256/unfused``'s; time per batch of each and of the trunk alone under v3;
    at 256² the fp32 float path with ``--pallas`` (``256/float+pallas``):
    ``adain_pallas_fwd`` 16 times per generator call and no other kernel, at
    least 40 dB from the float path without it; its time per batch;
@@ -131,7 +137,10 @@ Phases, each reported on its own line:
    time and the mma.sync rate against 1,979 TOP/s (as issued, kx folded into
    N = 24, and as the conv's own operations); row 15 at the main path's shape:
    its cooperative kernel's device time beside PyTorch's own kernels of the
-   call, the cooperative grid and the 16 convs' int8 rate;
+   call, the cooperative grid and the 16 convs' int8 rate; row 11 at enc1's
+   main-path shape (memset, pass S, pass Q); row 18 at [8, 4096, 256]: its
+   device time by kernel, its kernel launches per call on the card (one),
+   and its time by CUDA events with L2 warm and flushed;
    then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
    engine in mode 0: the device's busy and idle share and the trunk's share
    of the busy time;
@@ -274,7 +283,8 @@ EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
          "conv3x3_adain_residual_hifi", "conv3x3_adain_residual_hifi2",
          "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
          "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
-         "enc2_in_relu_requant", "final7_tanh_u8", "fused_trunk_blocks")
+         "enc2_in_relu_requant", "final7_tanh_u8", "fused_trunk_blocks",
+         "enc1_in_relu_requant_im2col", "adain_relu_requant_chunked")
 WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256),
                 (1, 16, 384))
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
@@ -289,6 +299,10 @@ ENC_SHAPES = ((8, 256, 64, 128), (8, 128, 128, 256), (8, 512, 64, 128), (8, 256,
               (2, 32, 64, 64))
 ENC0_SHAPES = ((8, 256, 256, ("int32",)), (8, 512, 512, ("int32", "fp16")),
                (1, 64, 128, ("int32", "fp16")))
+# Row 11 (enc1's four-phase form on the same two passes) at ENC1_I2C_SHAPES
+# (b, h, w): a 256² and a 512² input's enc1, a grid of 8 x 48 (tiles end
+# inside grid rows) and the smallest square map (two tiles a phase).
+ENC1_I2C_SHAPES = ((8, 256, 256), (8, 512, 512), (2, 32, 192), (1, 64, 64))
 # Row 15 (the whole trunk in one cooperative launch on the wgmma main loop,
 # exact statistics) is held equal to its plain version to the bit at the
 # main path's (b, side, c, n_blocks) in the kernel phase, and at
@@ -308,6 +322,8 @@ CONVT_GROUPS = (("pass S (wgmma)", "convt_i8_wgmma_stats_kernel"),
 # ... and of an encoder site's call: the memset, pass S, pass Q.
 ENC_GROUPS = (("pass S (wgmma)", "conv4x4s2_i8_wgmma_stats_kernel"),
               ("pass Q (wgmma)", "conv4x4s2_i8_wgmma_requant_kernel"),
+              ("pass S (wgmma)", "enc1_phase_i8_wgmma_stats_kernel"),
+              ("pass Q (wgmma)", "enc1_phase_i8_wgmma_requant_kernel"),
               ("pass S (wgmma)", "enc0_i8_stats_kernel"),
               ("pass Q (wgmma)", "enc0_i8_requant_kernel"), ("memset", "Memset"))
 # ... and of row 15's call: the cooperative kernel, and PyTorch's own (the
@@ -315,6 +331,8 @@ ENC_GROUPS = (("pass S (wgmma)", "conv4x4s2_i8_wgmma_stats_kernel"),
 TRUNK_V3_GROUPS = (("cooperative kernel (wgmma)", "fused_trunk_kernel"),)
 # ... and of row 14's call: its one kernel (the mma.sync conv and the epilogue).
 FINAL7_GROUPS = (("mma.sync conv + epilogue", "final7_mma_kernel"),)
+# ... and of row 18's call: its one cooperative kernel.
+CHUNKED_GROUPS = (("cooperative kernel", "chunked_epilogue_kernel"),)
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
                 ("reductions", "reduce_kernel"))
 PROFILE_STAGES = {
@@ -578,10 +596,14 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
             check(torch.equal(fe.enc1_in_relu_requant_im2col(x, w4),
                               fe.enc1_in_relu_requant(x, w1)),
                   "enc1_in_relu_requant_im2col equals enc1_in_relu_requant to the bit")
-            print("[kernel] enc1_in_relu_requant_im2col: equal to enc1_in_relu_requant's kernel "
-                  "to the bit", flush=True)
-            return (lambda: fe.enc1_in_relu_requant_im2col(x, w4)), \
-                (lambda: fe.enc1_in_relu_requant_im2col_plain(x, w4))
+            print("[kernel] enc1_in_relu_requant_im2col: with four equal phase blocks equal to "
+                  "enc1_in_relu_requant's kernel to the bit", flush=True)
+            # timed with four distinct phase blocks and the K-major copy, as served
+            wq = torch.cat([fe.pack_conv4x4(torch.from_numpy(rng.integers(
+                -127, 128, (4, 4, 64, 128), dtype=np.int8))) for _ in range(4)]).to(dev)
+            wk = fe.pack_enc1_im2col_kmajor(wq)
+            return (lambda: fe.enc1_in_relu_requant_im2col(x, wq, w_kmajor=wk)), \
+                (lambda: fe.enc1_in_relu_requant_im2col_plain(x, wq))
         return make
 
     def slab(residual: bool):
@@ -644,8 +666,8 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
     label = "256² input"
     cases += [("fused_trunk_blocks", f"{label}, {N_RES} resblocks", "trunk_v3", (B, SIDE, C),
                trunk_v3()),
-              ("enc1_in_relu_requant_im2col", label, "conv4x4s2", (B, 4 * SIDE, C // 4),
-               enc1_im2col(4 * SIDE)),
+              ("enc1_in_relu_requant_im2col", f"{label}, four distinct phase blocks", "conv4x4s2",
+               (B, 4 * SIDE, C // 4), enc1_im2col(4 * SIDE)),
               ("adain_relu_requant_chunked", f"{label}, int32 [{B}, {SIDE * SIDE}, {C}]",
                "epilogue", (B, SIDE * SIDE, C), epilogue())]
     cases += [("conv3x3_adain_relu_requant_v1", label, "relu", (B, SIDE, C),
@@ -908,6 +930,75 @@ def enc_phase(torch, fe, dev) -> None:
         print(f"[kernel] rows 7 and 10 at {[b, h, w_, 3]} ({', '.join(stages)}): equal to their "
               f"plain versions to the bit", flush=True)
         del img, w, want, got
+        torch.cuda.empty_cache()
+    for b, h, w_ in ENC1_I2C_SHAPES:
+        rng = np.random.default_rng(h + w_ + 1)
+        x = torch.from_numpy(rng.integers(0, 128, (b, h, w_, 64), dtype=np.int8)).to(dev)
+        kernels = [torch.from_numpy(rng.integers(-127, 128, (4, 4, 64, 128), dtype=np.int8))
+                   for _ in range(4)]
+        wq = torch.cat([fe.pack_conv4x4(k) for k in kernels]).to(dev)  # four distinct blocks
+        wk = fe.pack_enc1_im2col_kmajor(wq)
+        want = fe.enc1_in_relu_requant_im2col_plain(x, wq)
+        for kw in ({"w_kmajor": wk}, {}):
+            before = fe.LAUNCHES[fe.ENC1_I2C_SITE]
+            got = fe.enc1_in_relu_requant_im2col(x, wq, **kw)
+            torch.cuda.synchronize()
+            check(fe.LAUNCHES[fe.ENC1_I2C_SITE] == before + 1,
+                  f"enc1_in_relu_requant_im2col at {[b, h, w_, 64]}: one launch")
+            check(torch.equal(got, want),
+                  f"enc1_in_relu_requant_im2col at {[b, h, w_, 64]}, four distinct phase blocks "
+                  f"({'K-major copy given' if kw else 'copy made'}) equal to its plain version to "
+                  f"the bit")
+        w4, w1 = fe.pack_enc1_im2col(kernels[0]).to(dev), fe.pack_conv4x4(kernels[0]).to(dev)
+        check(torch.equal(fe.enc1_in_relu_requant_im2col(x, w4, w_kmajor=fe.pack_enc1_im2col_kmajor(
+            w4)), fe.enc1_in_relu_requant(x, w1, w_kmajor=fe.pack_conv4x4_kmajor(w1))),
+              f"enc1_in_relu_requant_im2col at {[b, h, w_, 64]}, four equal blocks, equal to "
+              f"enc1_in_relu_requant to the bit")
+        print(f"[kernel] row 11 at {[b, h, w_, 64]}: with four distinct phase blocks equal to its "
+              f"plain version to the bit (K-major copy given and made by the wrapper), with four "
+              f"equal blocks equal to row 8 to the bit", flush=True)
+        del x, wq, wk, want, got, w4, w1
+        torch.cuda.empty_cache()
+
+
+def device_launches(torch, fn, calls: int = 10) -> float:
+    """Kernel launches on the card per call of ``fn`` (``torch.profiler``, over
+    ``calls`` calls after one; memsets count), or nan where the trace holds no
+    device events."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / calls if n else float("nan")
+
+
+def epilogue_phase(torch, ec, dev) -> None:
+    """Row 18 at the main path's [8, 4096, 256] with |x| < 2^20 and over the
+    whole int32 range: equal to its plain version to the bit, two calls alike,
+    one launch a call (the count; the card's trace in ``epilogue_split_phase``),
+    its cooperative grid and the items a sample is cut into."""
+    for lim in (2 ** 20, 2 ** 31 - 1):
+        rng = np.random.default_rng(lim % 1000)
+        x = torch.from_numpy(rng.integers(-lim, lim, (B, SIDE * SIDE, C), dtype=np.int64).astype(
+            np.int32)).to(dev)
+        g = torch.from_numpy(rng.normal(1.0, 0.5, (B, C)).astype(np.float32)).to(dev)
+        be = torch.from_numpy(rng.normal(0.0, 0.5, (B, C)).astype(np.float32)).to(dev)
+        want = ec.adain_relu_requant_chunked_plain(x, g, be)
+        before = ec.LAUNCHES[ec.SITE]
+        first, again = ec.adain_relu_requant_chunked(x, g, be), ec.adain_relu_requant_chunked(x, g, be)
+        torch.cuda.synchronize()
+        check(ec.LAUNCHES[ec.SITE] == before + 2, "adain_relu_requant_chunked: one launch a call")
+        check(torch.equal(first, want) and torch.equal(again, first),
+              f"adain_relu_requant_chunked at |x| < {lim + 1}: equal to its plain version to the "
+              f"bit, two calls alike")
+        grid = ec.cooperative_grid()
+        print(f"[kernel] row 18 at {[B, SIDE * SIDE, C]}, |x| < {lim + 1}: equal to its plain "
+              f"version to the bit, two calls alike; cooperative grid of {grid} CTAs, "
+              f"{ec.parts(grid, B)} items a sample", flush=True)
+        del x, g, be, want, first, again
         torch.cuda.empty_cache()
 
 
@@ -1204,10 +1295,16 @@ def e2e_phase(torch, mods, ap, work: str) -> dict:
         label = path if fused_epilogue else "256/unfused"
         result["psnr"][label], lo, hi = total_psnr(images, want)
         result["ms"][label] = ms
+        digest = hashlib.sha256()
+        for name in sorted(images):
+            digest.update(name.encode())
+            digest.update(images[name].tobytes())
+        result["sha256"][label] = digest.hexdigest()
         print(f"[e2e {label}] quantized_generator_apply(fused_trunk=False, fused_epilogue="
               f"{fused_epilogue}): int8 vs fp32 float path PSNR {result['psnr'][label]:.2f} dB "
               f"(per image min {lo:.2f}, max {hi:.2f}); {ms:.2f} ms per batch of {B} (median of "
-              f"5, CUDA events)", flush=True)
+              f"5, CUDA events); images sha256 {digest.hexdigest()} (pixels by file name)",
+              flush=True)
     result["psnr"]["256/unfused+epilogue vs 256/unfused"] = total_psnr(unfused[True],
                                                                        unfused[False])[0]
     print(f"[e2e 256/unfused+epilogue] vs 256/unfused: PSNR "
@@ -1406,20 +1503,24 @@ def kernel_split(torch, fn, calls: int = 10, groups=TRAIN_GROUPS) -> dict:
     24's IN backward, the conv core, the in-order reductions, and the taps'
     transposed copy); {} if the trace holds no device events, or holds a
     kernel's launches in a number that is no multiple of ``calls`` (a trace
-    that lost events, which would read as a rate past the card's peak)."""
+    that lost events, which would read as a rate past the card's peak) in
+    each of three tries."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out, count = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = next((g for g, k in groups if k in e.name), "PyTorch kernels")
-            out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
-            count[e.name] = count.get(e.name, 0) + 1
-    return out if all(n % calls == 0 for n in count.values()) else {}
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out, count = {}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = next((g for g, k in groups if k in e.name), "PyTorch kernels")
+                out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+                count[e.name] = count.get(e.name, 0) + 1
+        if out and all(n % calls == 0 for n in count.values()):
+            return out
+    return {}
 
 
 def close(torch, name: str, got, want, rtol: float = 1e-4, atol_rel: float = 1e-5) -> tuple:
@@ -1720,8 +1821,9 @@ def convt_split_phase(torch, fc, fd, kernels: dict) -> None:
 
 
 def enc_split_phase(torch, fe, kernels: dict) -> None:
-    """Rows 7-9 at their main-path shapes and row 10 at a 512² input's in both
-    stagings, the 4x4/s2 site with the K-major copy given: the time per call by
+    """Rows 7-9 and 11 at their main-path shapes and row 10 at a 512² input's
+    in both stagings, the 4x4/s2 sites with the K-major copy given (row 11
+    with four distinct phase blocks): the time per call by
     CUDA events (median of 30) and by ``torch.profiler`` device time per
     kernel (``kernel_split`` with ``ENC_GROUPS``: memset, pass S, pass Q), each
     pass's int8 rate (the conv's operations, once per pass) and its share of
@@ -1731,6 +1833,8 @@ def enc_split_phase(torch, fe, kernels: dict) -> None:
             ("enc0_in_relu_requant", 4 * SIDE, 3, "int32", "256² input"),
             ("enc1_in_relu_requant", 4 * SIDE, C // 4, "int32", "256² input"),
             ("enc2_in_relu_requant", 2 * SIDE, C // 2, "int32", "256² input"),
+            ("enc1_in_relu_requant_im2col", 4 * SIDE, C // 4, "int32",
+             "256² input, four distinct phase blocks"),
             ("enc0_hbm", 8 * SIDE, 3, "int32", "512² input, staged int32"),
             ("enc0_hbm", 8 * SIDE, 3, "fp16", "512² input, staged fp16")):
         rng = np.random.default_rng(side + cin)
@@ -1745,7 +1849,12 @@ def enc_split_phase(torch, fe, kernels: dict) -> None:
             x = torch.from_numpy(rng.integers(0, 128, (B, side, side, cin), dtype=np.int8)).cuda()
             w = fe.pack_conv4x4(torch.from_numpy(
                 rng.integers(-127, 128, (4, 4, cin, 2 * cin), dtype=np.int8))).cuda()
-            wk = fe.pack_conv4x4_kmajor(w)
+            if name == "enc1_in_relu_requant_im2col":  # four distinct phase blocks
+                w = torch.cat([w] + [fe.pack_conv4x4(torch.from_numpy(rng.integers(
+                    -127, 128, (4, 4, cin, 2 * cin), dtype=np.int8))).cuda() for _ in range(3)])
+                wk = fe.pack_enc1_im2col_kmajor(w)
+            else:
+                wk = fe.pack_conv4x4_kmajor(w)
             call = (lambda fn=getattr(fe, name): fn(x, w, w_kmajor=wk))
             ops = 2 * B * (side // 2) ** 2 * 2 * cin * 16 * cin
             shape = f"{[B, side, side, cin]} -> {2 * cin}, K-major copy given"
@@ -1764,6 +1873,36 @@ def enc_split_phase(torch, fe, kernels: dict) -> None:
               flush=True)
         del x, w
         torch.cuda.empty_cache()
+
+
+def epilogue_split_phase(torch, ec, kernels: dict) -> None:
+    """Row 18 at [8, 4096, 256] (the kernel phase's inputs): its device time by
+    ``torch.profiler`` (``kernel_split`` with ``CHUNKED_GROUPS``), its kernel
+    launches per call on the card, and its time per call by CUDA events with
+    L2 warm and flushed before each call (three medians of 30 each). The parts
+    go into the row as ``parts_ms``. Run last, as ``split_phase``."""
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    args = (t(rng.integers(-2 ** 20, 2 ** 20, (B, SIDE * SIDE, C), dtype=np.int32)),
+            t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32)),
+            t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32)))
+    call = lambda: ec.adain_relu_requant_chunked(*args)  # noqa: E731
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    warm = [cuda_ms(torch, call, reps=30, warmup=1) for _ in range(3)]
+    cold = [cuda_ms(torch, call, reps=30, warmup=1, flush=flush) for _ in range(3)]
+    parts = kernel_split(torch, call, groups=CHUNKED_GROUPS)
+    kernels["adain_relu_requant_chunked"]["parts_ms"] = parts
+    n = device_launches(torch, call)
+    check(n == 1, f"adain_relu_requant_chunked: {n} kernel launches a call on the card")
+    print(f"[kernel] adain_relu_requant_chunked ({[B, SIDE * SIDE, C]}): by CUDA events "
+          f"{', '.join(f'{v:.4f}' for v in warm)} ms with L2 warm, "
+          f"{', '.join(f'{v:.4f}' for v in cold)} ms with L2 flushed before each call (medians of "
+          f"30); {sum(parts.values()):.4f} ms of device time by torch.profiler: "
+          + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured (the trace "
+             "holds no device events)") + f"; {n:g} kernel launch(es) a call; cooperative grid of "
+          f"{ec.cooperative_grid()} CTAs", flush=True)
+    del args, flush
+    torch.cuda.empty_cache()
 
 
 def trunk_v3_split_phase(torch, fc, f3, kernels: dict) -> None:
@@ -2159,6 +2298,7 @@ def main() -> int:
     trunk_v3_phase(torch, fc, f3, dev)
     convt_phase(torch, fc, fd, dev)
     enc_phase(torch, fe, dev)
+    epilogue_phase(torch, ec, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
@@ -2173,6 +2313,7 @@ def main() -> int:
         trunk_v3_split_phase(torch, fc, f3, kernels)
         convt_split_phase(torch, fc, fd, kernels)
         enc_split_phase(torch, fe, kernels)
+        epilogue_split_phase(torch, ec, kernels)
         final7_split_phase(torch, fd, kernels)
         serve_profile_phase(torch)
     finally:

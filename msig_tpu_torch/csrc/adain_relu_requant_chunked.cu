@@ -1,96 +1,312 @@
 // Instance norm + AdaIN + ReLU + per-sample requant of an int32 map, the
 // epilogue of the unfused trunk's relu sites: x [B, S, C] int32 -> int8
 // [B, S, C], with the true per-channel extremes and the unfolded requant of
-// conv_int8.cuh (true_relu_amax, relu_requant_unfolded).
+// conv_int8.cuh (true_relu_hi, relu_requant_unfolded).
 //
 // Replaces the TPU kernel msig_tpu/ops/int8_epilogue_chunked.py::
 // adain_relu_requant_chunked, which walks a sequential (B, 2, S/512) grid:
 // phase 0 carries fp32 sums, min and max across chunks in VMEM, phase 1
-// requantizes. Blocks of a Hopper grid run in no order, so here the two
-// phases are two launches: exact integer statistics reduced across CTAs with
-// int64 atomics (order-free, as at every site of the port), then the
-// elementwise pass (true_relu_requant_kernel of conv_int8.cuh), in which each
-// CTA rebuilds its sample's affine and scale.
+// requantizes. Blocks of a Hopper grid run in no order, so here the phases
+// are parts of one persistent cooperative launch (as fused_trunk_blocks.cu),
+// one grid of as many CTAs as the card holds at once, joined by grid
+// barriers:
+//   1. each CTA streams a contiguous share of one sample's rows (an item: the
+//      sample's S rows cut into `parts` shares) with 16-byte loads, kUnroll
+//      in flight a thread, and folds the exact statistics in registers and
+//      shared memory: the integer sum, the square split at bit 32 into two
+//      64-bit words, the true min and max. It writes them to its item's own
+//      slot of the partials: no atomics, so nothing needs a fill first;
+//   2. (after a barrier) each (sample, 32 channels) is reduced by one CTA,
+//      a warp per share of the items, the warps' sums met in warp order; the
+//      CTA builds the channels' affine as in_affine does and each channel's
+//      part of the amax (true_relu_hi) and writes them;
+//   3. (after a second barrier) each CTA takes its sample's amax from the
+//      parts and the scale, then requantizes its own share, last-read rows
+//      first, so that the rows it read last still lie in the 50 MB L2.
+// The reduction is a phase of its own so that each CTA reads its sample's
+// C x 12 bytes of affine, not all of its sample's partials: those grow with
+// the grid (parts x C x 32 bytes a sample), and each of a sample's `parts`
+// CTAs would read them all.
 //
 // The input is any int32, not a conv output of known depth. So each square
 // (< 2^62 for |x| <= 2^31) is split at bit 32 element by element and the
 // halves are summed in two 64-bit words: exact for every int32 and for up to
-// 2^32 rows, with no range check.
+// 2^32 rows, with no range check. Integer sums: the result does not depend on
+// the grid or the order of the CTAs.
 //
 // Bound on an H100 at the main path's shape [8, 4096, 256]: 33.6 MB read and
 // 8.4 MB written, 12.5 us at 3.35 TB/s; bytes bound it. This design reads the
 // int32 map twice (statistics, then requant); the second read mostly hits the
-// 50 MB L2 at this size.
+// L2 at this size. Two CTAs of 256 threads an SM: the grid barriers cost more
+// the more CTAs meet at them (tools/optin_rows_torch.py times the grid at
+// one, two, three and four CTAs an SM, the unroll, the requant's order and the
+// second barrier replaced by a second launch).
+#include <cooperative_groups.h>
+
 #include <climits>
 
 #include "conv_int8.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace msig {
+namespace chunked {
 
-constexpr int kChunkRows = 128;  // rows of one sample per statistics CTA
-constexpr int kChunkCols = 128;  // channels per statistics CTA: one per thread, two row lanes
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileC = 128;   // channels a pass over an item's rows: 32 lanes of 4
+constexpr int kUnroll = 4;    // 16-byte loads in flight a thread
+constexpr int kSmem = 32768;  // phase 1's fold of the warps, then phase 3's affine
+constexpr int kMaxC = kSmem / 8;
 
-// grid = (ceil(S / kChunkRows), C / kChunkCols, B), block = 256. Thread t
-// takes channel t % 128 and every other row from t / 128; the two lanes meet
-// in shared memory, then one thread per channel adds to the statistics block.
-__global__ void __launch_bounds__(256)
-chunk_stats_kernel(const int32_t* __restrict__ x, long long* __restrict__ stats, int B, int S,
-                   int C) {
-  __shared__ long long sh_s[kChunkCols], sh_mn[kChunkCols], sh_mx[kChunkCols];
-  __shared__ unsigned long long sh_lo[kChunkCols], sh_hi[kChunkCols];
-  const int b = blockIdx.z;
-  const int col = threadIdx.x % kChunkCols, lane = threadIdx.x / kChunkCols;
-  const int c = blockIdx.y * kChunkCols + col;
-  const int r0 = blockIdx.x * kChunkRows, r1 = min(r0 + kChunkRows, S);
-  long long s = 0;
-  unsigned long long lo = 0, hi = 0;
-  int mn = INT_MAX, mx = INT_MIN;
-  const int32_t* xb = x + (size_t)b * S * C + c;
-  for (int r = r0 + lane; r < r1; r += 2) {
-    const int v = xb[(size_t)r * C];
-    const unsigned long long sq = (unsigned long long)((long long)v * v);
-    s += v;
-    lo += sq & 0xffffffffull;
-    hi += sq >> 32;
-    mn = min(mn, v);
-    mx = max(mx, v);
+struct Args {
+  const int32_t* x;     // [B, S, C]
+  const float* gamma;   // [B, C]
+  const float* beta;    // [B, C]
+  long long* ws;        // the workspace (Work)
+  int8_t* out;          // [B, S, C]
+  int B, S, C, parts;   // parts: items a sample
+  float eps;
+};
+
+// The workspace, for items = B * parts: the partials' sums, low and high
+// words of the squares [items * C] (int64), their mins and maxes [items * C]
+// (int32 each), then the affine a, d and the amax parts [3][B * C] (float):
+// 4 * items * C + ceil(3 * B * C / 2) int64 words.
+struct Work {
+  long long* sum;
+  unsigned long long *lo, *hi;
+  int *mn, *mx;
+  float* aff;
+  __device__ explicit Work(const Args& p) {
+    const size_t n = (size_t)p.B * p.parts * p.C;
+    sum = p.ws;
+    lo = reinterpret_cast<unsigned long long*>(p.ws + n);
+    hi = reinterpret_cast<unsigned long long*>(p.ws + 2 * n);
+    mn = reinterpret_cast<int*>(p.ws + 3 * n);
+    mx = mn + n;
+    aff = reinterpret_cast<float*>(p.ws + 4 * n);
   }
-  if (lane == 1) {
-    sh_s[col] = s, sh_lo[col] = lo, sh_hi[col] = hi, sh_mn[col] = mn, sh_mx[col] = mx;
+};
+
+// Item i: share i % parts of sample i / parts, rows [r0, r1).
+__device__ __forceinline__ void item_rows(const Args& p, int item, int& b, int& r0, int& r1) {
+  b = item / p.parts;
+  const int k = item % p.parts;
+  r0 = (int)((long long)k * p.S / p.parts);
+  r1 = (int)((long long)(k + 1) * p.S / p.parts);
+}
+
+// A thread's statistics of its four channels.
+struct Stats4 {
+  long long s[4];
+  unsigned long long lo[4], hi[4];
+  int mn[4], mx[4];
+  __device__ void clear() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = 0, lo[j] = 0, hi[j] = 0, mn[j] = INT_MAX, mx[j] = INT_MIN;
   }
-  __syncthreads();
-  if (lane == 0) {
-    const size_t BC = (size_t)B * C, i = (size_t)b * C + c;
-    atomicAdd(reinterpret_cast<unsigned long long*>(&stats[i]),
-              (unsigned long long)(s + sh_s[col]));
-    atomicAdd(reinterpret_cast<unsigned long long*>(&stats[BC + i]), lo + sh_lo[col]);
-    atomicMin(&stats[2 * BC + i], min((long long)mn, sh_mn[col]));
-    atomicMax(&stats[3 * BC + i], max((long long)mx, sh_mx[col]));
-    atomicAdd(reinterpret_cast<unsigned long long*>(&stats[4 * BC + i]), hi + sh_hi[col]);
+  __device__ void add(const int4& v) {
+    const int e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned long long sq = (unsigned long long)((long long)e[j] * e[j]);
+      s[j] += e[j];
+      lo[j] += sq & 0xffffffffull;
+      hi[j] += sq >> 32;
+      mn[j] = min(mn[j], e[j]);
+      mx[j] = max(mx[j], e[j]);
+    }
+  }
+};
+
+// Phases 1-2 meet the warps' partials here, [kWarps][kTileC] each.
+struct Fold {
+  long long s[kWarps][kTileC];
+  unsigned long long lo[kWarps][kTileC], hi[kWarps][kTileC];
+  int mn[kWarps][kTileC], mx[kWarps][kTileC];
+};
+static_assert(sizeof(Fold) <= kSmem, "the fold fits the shared block");
+
+__global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {
+  __shared__ __align__(16) unsigned char smem[kSmem];
+  __shared__ float red[32];
+  Fold& f = *reinterpret_cast<Fold*>(smem);
+  const Work w(p);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int items = p.B * p.parts, C = p.C, C4 = C / 4;
+  const size_t BC = (size_t)p.B * C;
+
+  // 1. Each item's statistics, one tile of 128 channels after the other: warp
+  // k takes rows r0 + k, r0 + k + 8, ..., lane l channels 4l .. 4l + 3.
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    int b, r0, r1;
+    item_rows(p, item, b, r0, r1);
+    for (int ct = 0; ct < C / kTileC; ++ct) {
+      const int4* xc = reinterpret_cast<const int4*>(p.x + (size_t)b * p.S * C) + ct * 32 + lane;
+      Stats4 a;
+      a.clear();
+      for (int r = r0 + warp; r < r1; r += kWarps * kUnroll) {
+        int4 v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          v[u] = r + u * kWarps < r1 ? __ldg(xc + (size_t)(r + u * kWarps) * C4)
+                                     : make_int4(0, 0, 0, 0);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (r + u * kWarps < r1) a.add(v[u]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * lane + j;
+        f.s[warp][c] = a.s[j], f.lo[warp][c] = a.lo[j], f.hi[warp][c] = a.hi[j];
+        f.mn[warp][c] = a.mn[j], f.mx[warp][c] = a.mx[j];
+      }
+      __syncthreads();
+      if (threadIdx.x < kTileC) {  // channel c of the tile, the warps in order
+        const int c = threadIdx.x;
+        long long s = 0;
+        unsigned long long lo = 0, hi = 0;
+        int mn = INT_MAX, mx = INT_MIN;
+        for (int k = 0; k < kWarps; ++k)
+          s += f.s[k][c], lo += f.lo[k][c], hi += f.hi[k][c], mn = min(mn, f.mn[k][c]),
+              mx = max(mx, f.mx[k][c]);
+        const size_t i = (size_t)item * C + ct * kTileC + c;
+        w.sum[i] = s, w.lo[i] = lo, w.hi[i] = hi, w.mn[i] = mn, w.mx[i] = mx;
+      }
+      __syncthreads();
+    }
+  }
+  cg::this_grid().sync();
+
+  // 2. (sample, 32 channels) unit by unit: warp k sums items k, k + 8, ... of
+  // the sample (read past L1: written in this launch), lane l channel l; the
+  // warps meet in order and thread l builds channel l's affine and amax part.
+  const int groups = C / 32;
+  for (int unit = blockIdx.x; unit < p.B * groups; unit += gridDim.x) {
+    const int b = unit / groups, c = (unit % groups) * 32 + lane;
+    long long s = 0;
+    unsigned long long lo = 0, hi = 0;
+    int mn = INT_MAX, mx = INT_MIN;
+    for (int k = warp; k < p.parts; k += kWarps) {
+      const size_t i = ((size_t)b * p.parts + k) * C + c;
+      s += __ldcg(w.sum + i), lo += __ldcg(w.lo + i), hi += __ldcg(w.hi + i);
+      mn = min(mn, __ldcg(w.mn + i)), mx = max(mx, __ldcg(w.mx + i));
+    }
+    f.s[warp][lane] = s, f.lo[warp][lane] = lo, f.hi[warp][lane] = hi;
+    f.mn[warp][lane] = mn, f.mx[warp][lane] = mx;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      for (int k = 1; k < kWarps; ++k)
+        s += f.s[k][lane], lo += f.lo[k][lane], hi += f.hi[k][lane],
+            mn = min(mn, f.mn[k][lane]), mx = max(mx, f.mx[k][lane]);
+      const size_t i = (size_t)b * C + c;
+      float a, d;
+      affine_of(s, lo, hi, p.gamma[i], p.beta[i], (float)p.S, p.eps, a, d);
+      w.aff[i] = a, w.aff[BC + i] = d;
+      w.aff[2 * BC + i] = true_relu_hi(a, d, (float)mn, (float)mx);
+    }
+    __syncthreads();
+  }
+  cg::this_grid().sync();
+
+  // 3. The CTA's items in reverse order, each item's tiles and rows from the
+  // last read; the sample's affine and scale loaded where the sample changes.
+  float* a_s = reinterpret_cast<float*>(smem);
+  float* d_s = a_s + C;
+  if ((int)blockIdx.x >= items) return;
+  int held = -1;
+  float sc = 1.f;
+  const int last = blockIdx.x + (items - 1 - blockIdx.x) / gridDim.x * gridDim.x;
+  for (int item = last; item >= (int)blockIdx.x; item -= gridDim.x) {
+    int b, r0, r1;
+    item_rows(p, item, b, r0, r1);
+    if (b != held) {
+      __syncthreads();  // the last item's rows have read a_s, d_s
+      float local = 0.f;  // max(hi, 0)
+      for (int c = threadIdx.x; c < C; c += kThreads) {
+        const size_t i = (size_t)b * C + c;
+        a_s[c] = __ldcg(w.aff + i), d_s[c] = __ldcg(w.aff + BC + i);
+        local = fmaxf(local, __ldcg(w.aff + 2 * BC + i));
+      }
+      sc = relu_scale(block_max(local, red));  // block_max syncs: a_s, d_s are in place
+      held = b;
+    }
+    const int4* xb = reinterpret_cast<const int4*>(p.x + (size_t)b * p.S * C);
+    char4* ob = reinterpret_cast<char4*>(p.out + (size_t)b * p.S * C);
+    for (int ct = C / kTileC - 1; ct >= 0; --ct) {
+      const int g = ct * 32 + lane;  // the thread's group of four channels
+      const float4 a = reinterpret_cast<const float4*>(a_s)[g];
+      const float4 d = reinterpret_cast<const float4*>(d_s)[g];
+      for (int r = r1 - 1 - warp; r >= r0; r -= kWarps * kUnroll) {
+        int4 v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          v[u] = r - u * kWarps >= r0 ? __ldg(xb + (size_t)(r - u * kWarps) * C4 + g)
+                                      : make_int4(0, 0, 0, 0);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (r - u * kWarps >= r0)
+            ob[(size_t)(r - u * kWarps) * C4 + g] =
+                make_char4(relu_requant_unfolded((float)v[u].x, a.x, d.x, sc),
+                           relu_requant_unfolded((float)v[u].y, a.y, d.y, sc),
+                           relu_requant_unfolded((float)v[u].z, a.z, d.z, sc),
+                           relu_requant_unfolded((float)v[u].w, a.w, d.w, sc));
+      }
+    }
   }
 }
 
+// The cooperative grid on the current device: as many CTAs as fit at once.
+static int cooperative_grid(int* grid) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunked_epilogue_kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    cached[dev] = per_sm * sms;
+  }
+  *grid = cached[dev];
+  return 0;
+}
+
+}  // namespace chunked
 }  // namespace msig
 
-// Returns cudaGetLastError() after the launches (0 = success). Launches on
-// `stream` and does not synchronise. x: [B, S, C] int32; gamma, beta: [B, C]
-// float32; stats: int64 [5*B*C + B], blocks 0, 1 and 4 zeroed, block 2 set
-// to INT64_MAX and block 3 to INT64_MIN; out: [B, S, C] int8. Needs
-// C % 128 == 0.
+// The grid that msig_adain_relu_requant_chunked launches on the current
+// device (*grid); the caller cuts each sample into parts = max(1, grid / B)
+// items. Returns a CUDA error code (0 = success).
+extern "C" int msig_adain_relu_requant_chunked_grid(int* grid) {
+  return msig::chunked::cooperative_grid(grid);
+}
+
+// Returns the CUDA error of the launch (0 = success). One cooperative launch
+// on `stream`; does not synchronise. x: [B, S, C] int32; gamma, beta: [B, C]
+// float32; ws: int64 [4*B*parts*C + ceil(3*B*C / 2)], needs no fill; out:
+// [B, S, C] int8. Needs C % 128 == 0, C <= 4096 and parts >= 1.
 extern "C" int msig_adain_relu_requant_chunked(const void* x, const void* gamma, const void* beta,
-                                               void* stats, void* out, int B, int S, int C,
-                                               float eps, void* stream) {
-  using namespace msig;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid_a((S + kChunkRows - 1) / kChunkRows, C / kChunkCols, B);
-  chunk_stats_kernel<<<grid_a, 256, 0, st>>>(static_cast<const int32_t*>(x),
-                                             static_cast<long long*>(stats), B, S, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid_b(epilogue_blocks(S, C), B);
-  true_relu_requant_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
-      static_cast<const int32_t*>(x), static_cast<const long long*>(stats),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<int8_t*>(out), nullptr, B, S, C, eps);
-  return (int)cudaGetLastError();
+                                               void* ws, void* out, int B, int S, int C,
+                                               int parts, float eps, void* stream) {
+  using namespace msig::chunked;
+  if (C % kTileC != 0 || C > kMaxC || parts < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const int err = cooperative_grid(&grid);
+  if (err != 0) return err;
+  Args p{static_cast<const int32_t*>(x), static_cast<const float*>(gamma),
+         static_cast<const float*>(beta), static_cast<long long*>(ws), static_cast<int8_t*>(out),
+         B, S, C, parts, eps};
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)chunked_epilogue_kernel, dim3(grid),
+                                                    dim3(kThreads), args, 0,
+                                                    reinterpret_cast<cudaStream_t>(stream));
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

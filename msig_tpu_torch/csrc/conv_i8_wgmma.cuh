@@ -25,6 +25,9 @@
 //   msig_conv4x4s2_in_relu_requant (msig_tpu/ops/fused_enc_int8.py::
 //   enc1_in_relu_requant and enc2_in_relu_requant), see
 //   conv4x4s2_in_relu_requant.cu;
+// - Enc1PhaseGeom, Epi::kStats then Epi::kRequant: the whole of
+//   msig_enc1_phases_in_relu_requant (::enc1_in_relu_requant_im2col, a weight
+//   block per output phase), the same source;
 // - Conv3x3Geom, Epi::kInt32 with the true extremes, produce and consume
 //   called by a persistent kernel: the 16 convs of msig_fused_trunk_blocks
 //   (msig_tpu/ops/fused_trunk_v3.py::fused_trunk_blocks), see
@@ -42,14 +45,18 @@
 // - The weights come K-major, [phases, Cout, K] with K = taps * Cin and column
 //   t*Cin + ci (fused_conv_int8_v2.py::pack_weights_kmajor for the 3x3,
 //   [Cout, 9*C]; ::pack_convt_weights_ps_kmajor for the ConvT, [4, Cout,
-//   4*Cin]; both made once at quantization): wgmma takes 8-bit A and B only
+//   4*Cin]; fused_enc_int8.py::pack_conv4x4_kmajor for the 4x4/s2 conv,
+//   [Cout, 16*Cin], and ::pack_enc1_im2col_kmajor for its four-phase form,
+//   [4, Cout, 16*Cin]; all made once at quantization): wgmma takes 8-bit A and B only
 //   K-major, and a 16-byte copy of a weight row then lands as it is.
 // - GEMM per phase q: M = the pixels of the grid (the input map at stride 1,
 //   the output map of the 4x4/s2 conv, whose row (gy, gx) reads input pixels
-//   (2gy + dy, 2gx + dx), dy, dx in -1 .. 2), N = Cout, K = taps * Cin, in K
-//   blocks of 128 bytes (kBK, one swizzle row): one a stage for the 3x3, whose
-//   tile is 9 taps deep, and for the 4x4/s2 conv; two for the ConvT, whose
-//   tile is 4*Cin bytes of K (kSubBlocks).
+//   (2gy + dy, 2gx + dx), dy, dx in -1 .. 2, and a quarter of it in the
+//   four-phase form, whose row of phase q reads (4gy + dy, 4gx + dx), dy, dx
+//   in -1 .. 4), N = Cout, K = taps * Cin, in K blocks of 128 bytes (kBK, one
+//   swizzle row): one a stage for the 3x3, whose tile is 9 taps deep, and for
+//   the 4x4/s2 conv; two for the phased geometries (the ConvT, whose tile is
+//   4*Cin bytes of K, and the four-phase 4x4/s2 conv) (kSubBlocks).
 //   The 16-byte chunk jc of K block kb holds K index 128*kb + 16*jc: one tap
 //   and 128 channels of it where Cin % 128 == 0, two taps of 64 channels
 //   each at Cin = 64. A CTA tile is kBM = 128 pixels of one phase of one sample
@@ -137,8 +144,9 @@
 // the ConvT's two passes pull (tools/convt_wgmma_variants_torch.py times them
 // against the int32 round trip on this main loop).
 //
-// Needs Cin % 64 == 0 (% 128 for the 3x3), Cout % 64 == 0, a grid of (H/S) *
-// (W/S) pixels, a multiple of 128 (the wrappers check), the statistics block
+// Needs Cin % 64 == 0 (% 128 for the 3x3), Cout % 64 == 0 (% 128 for the
+// four-phase conv), a grid of (H/S) * (W/S) pixels, a multiple of 128 (the
+// wrappers check), the statistics block
 // zeroed (the launchers below zero it), and a kernel register count that lets
 // setmaxnreg rebalance (checked before the launch: a shortfall would block
 // the consumers' setmaxnreg.inc).
@@ -910,6 +918,17 @@ __global__ void __launch_bounds__(kThreads, 1) conv4x4s2_i8_wgmma_requant_kernel
   extern __shared__ uint8_t smem_raw[];
   conv_body<Conv4x4s2Geom, BN, Epi::kRequant, int32_t, 1>(p, smem_raw);
 }
+// Its four-phase form's pass S and pass Q (a weight block per phase).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) enc1_phase_i8_wgmma_stats_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<Enc1PhaseGeom, BN, Epi::kStats, int32_t, 1>(p, smem_raw);
+}
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) enc1_phase_i8_wgmma_requant_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<Enc1PhaseGeom, BN, Epi::kRequant, int32_t, 1>(p, smem_raw);
+}
 // The ConvT on this main loop with the int32 round trip (int32 rows and the
 // statistics, then relu_requant_kernel): tools/convt_wgmma_variants_torch.py
 // times it; no site runs it.
@@ -935,6 +954,11 @@ static int launch(const Args& p, cudaStream_t st, int grid = 0) {
                   "the 4x4/s2 site runs its two passes on int32");
     if constexpr (E == Epi::kStats) kernel = conv4x4s2_i8_wgmma_stats_kernel<BN>;
     else kernel = conv4x4s2_i8_wgmma_requant_kernel<BN>;
+  } else if constexpr (std::is_same_v<Geom, Enc1PhaseGeom>) {
+    static_assert(E != Epi::kInt32 && MB == 1 && std::is_same_v<Stage, int32_t>,
+                  "the four-phase 4x4/s2 site runs its two passes on int32");
+    if constexpr (E == Epi::kStats) kernel = enc1_phase_i8_wgmma_stats_kernel<BN>;
+    else kernel = enc1_phase_i8_wgmma_requant_kernel<BN>;
   } else if constexpr (E == Epi::kStats) kernel = convt_i8_wgmma_stats_kernel<BN, MB>;
   else if constexpr (E == Epi::kRequant) kernel = convt_i8_wgmma_requant_kernel<BN, MB, Stage>;
   else kernel = convt_i8_wgmma_int32_kernel<BN, MB>;
@@ -990,7 +1014,8 @@ template <class Geom, int BN, int MB = 1>
 static int two_passes(const Args& p, bool stage_fp16, cudaStream_t st) {
   const int err = launch<Geom, BN, Epi::kStats, int32_t, MB>(p, st);
   if (err != 0) return err;
-  if constexpr (std::is_same_v<Geom, Conv4x4s2Geom>) return launch<Geom, BN, Epi::kRequant>(p, st);
+  if constexpr (std::is_same_v<Geom, Conv4x4s2Geom> || std::is_same_v<Geom, Enc1PhaseGeom>)
+    return launch<Geom, BN, Epi::kRequant>(p, st);
   else
     return stage_fp16 ? launch<Geom, BN, Epi::kRequant, __half, MB>(p, st)
                       : launch<Geom, BN, Epi::kRequant, int32_t, MB>(p, st);
@@ -1028,6 +1053,26 @@ static int conv4x4s2_i8(const void* x, const void* wk, void* stats, void* out, v
   if (Cout % 256 == 0) return two_passes<Conv4x4s2Geom, 256>(p, false, st);
   return Cout % 128 == 0 ? two_passes<Conv4x4s2Geom, 128>(p, false, st)
                          : two_passes<Conv4x4s2Geom, 64>(p, false, st);
+}
+
+// The four-phase form: zeroes the statistics block on `st`, then pass S and
+// pass Q at BN = 128, each on a ring of three 64 KB stages (a channel tile of
+// 256 would leave pass Q's ring one stage at two K blocks a stage; one K
+// block a stage, six stages of 32 KB, ran no faster on the card:
+// tools/enc_variants_torch.py). x: [B, H, W, Cin] int8; wk: [4, Cout,
+// 16*Cin] int8 (phase, channel, K = (4u + v)*Cin + ci); out: [B, H/2, W/2,
+// Cout] int8; out_scale: [B] float32.
+static_assert(LayoutOf<Enc1PhaseGeom, 128, Epi::kStats>::kStages >= 3 &&
+                  LayoutOf<Enc1PhaseGeom, 128, Epi::kRequant>::kStages >= 3,
+              "the four-phase passes keep rings of three stages at least");
+static int enc1_phases_i8(const void* x, const void* wk, void* stats, void* out, void* out_scale,
+                          int B, int H, int W, int Cin, int Cout, float eps, cudaStream_t st) {
+  const int err = zero_stats(stats, B, Cout, st);
+  if (err != 0) return err;
+  const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,
+               static_cast<long long*>(stats), static_cast<float*>(out_scale), B, H, W, Cin,
+               Cout, eps};
+  return two_passes<Enc1PhaseGeom, 128>(p, false, st);
 }
 
 }  // namespace wgmma

@@ -9,7 +9,8 @@
 // int64 atomics. A site's geometry (which input pixel and which weight block
 // each tap reads, and where an output row lands) is a small struct; the tile
 // loop is shared. The trunk's sites, the single-kernel trunk, the encoder's
-// 4x4/s2 sites and the phase-split ConvT site run that conv on wgmma instead
+// 4x4/s2 sites (also in their four-phase form) and the phase-split ConvT site
+// run that conv on wgmma instead
 // (conv_i8_wgmma.cuh, over the same geometries and statistics block), the
 // two-pass sites without the scratch.
 //
@@ -34,8 +35,7 @@
 // reach 2^66, past one int64. Integer sums make the statistics independent
 // of the order of the CTAs.
 //
-// In the true-extremes mode (kTrueExtremes: the chunked epilogue
-// int8_epilogue_chunked.py:64-69 and the v1 relu and ConvT sites
+// In the true-extremes mode (kTrueExtremes: the v1 relu and ConvT sites
 // fused_conv_int8.py:125-126, :225-226; on wgmma, conv_i8_wgmma.cuh's kTrue,
 // the single-kernel trunk msig_tpu/ops/fused_trunk_v3.py:99-118) blocks 2 and
 // 3 hold the true min y and max y instead; the caller initialises them to
@@ -128,6 +128,27 @@ struct Conv4x4s2Geom {
     blk = t;
   }
   __device__ static int out_pixel(int, int gy, int gx, int GW) { return gy * GW + gx; }
+};
+
+// The same conv as four output phases q = 2*qy + qx, each its own dense
+// K = 16*Cin product against its own weight block (msig_tpu/ops/
+// fused_enc_int8.py::enc1_in_relu_requant_im2col, pack_enc1_im2col): the grid
+// is (H/4) x (W/4); grid pixel (gy, gx) of phase q is output pixel (2gy + qy,
+// 2gx + qx), and tap t = 4u + v reads input (4gy + 2qy + u - 1,
+// 4gx + 2qx + v - 1), dy and dx in -1 .. 4, against weight block q*16 + t.
+struct Enc1PhaseGeom {
+  static constexpr int kPhases = 4;
+  static constexpr int kTaps = 16;
+  static constexpr int kStride = 4;
+  static constexpr int kWPhases = 1;
+  __device__ static void tap(int q, int t, int& dy, int& dx, int& blk) {
+    dy = 2 * (q >> 1) + (t >> 2) - 1;
+    dx = 2 * (q & 1) + (t & 3) - 1;
+    blk = q * kTaps + t;
+  }
+  __device__ static int out_pixel(int q, int gy, int gx, int GW) {
+    return (2 * gy + (q >> 1)) * (2 * GW) + 2 * gx + (q & 1);
+  }
 };
 
 // ConvT 4x4 / stride 2 / pad 1 as four output phases q = (qy, qx), each a
@@ -513,8 +534,12 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 // fused_trunk_v3.py:112-124). amax is the largest of the channels'
 // max(a*max y, a*min y) + d and 0, over the true extremes (exact: the affine
 // is monotone in y per channel); then q = clip(round(max(y*a + d, 0) * s), +-127)
-// with s = 127/amax, unfolded as the TPU kernels compute it. Every thread of
-// the block calls true_relu_amax; a_s, d_s hold sample b's affine.
+// with s = 127/amax, unfolded as the TPU kernels compute it. true_relu_hi is
+// one channel's part; every thread of the block calls true_relu_amax; a_s,
+// d_s hold sample b's affine.
+__device__ __forceinline__ float true_relu_hi(float a, float d, float cmin, float cmax) {
+  return __fadd_rn(fmaxf(__fmul_rn(a, cmax), __fmul_rn(a, cmin)), d);
+}
 __device__ __forceinline__ float true_relu_amax(const long long* __restrict__ stats,
                                                 const float* a_s, const float* d_s, int b, int B,
                                                 int C, float* red) {
@@ -523,7 +548,7 @@ __device__ __forceinline__ float true_relu_amax(const long long* __restrict__ st
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const float cmin = (float)stats[2 * BC + (size_t)b * C + c];
     const float cmax = (float)stats[3 * BC + (size_t)b * C + c];
-    local = fmaxf(local, __fadd_rn(fmaxf(__fmul_rn(a_s[c], cmax), __fmul_rn(a_s[c], cmin)), d_s[c]));
+    local = fmaxf(local, true_relu_hi(a_s[c], d_s[c], cmin, cmax));
   }
   return block_max(local, red);
 }
@@ -602,10 +627,9 @@ relu_requant_kernel(const Stage* __restrict__ y, const long long* __restrict__ s
 }
 
 // Pass B of the true-extremes relu sites (the v1 sites
-// msig_tpu/ops/fused_conv_int8.py::_kernel :141-157 and _kernel_up :247-264,
-// the chunked epilogue int8_epilogue_chunked.py:79-95): the affine (gamma,
-// beta null for the plain IN of a ConvT site), amax by true_relu_amax, q by
-// relu_requant_unfolded. out_scale, where not null, gets amax/127, or 1 when
+// msig_tpu/ops/fused_conv_int8.py::_kernel :141-157 and _kernel_up :247-264):
+// the affine (gamma, beta null for the plain IN of a ConvT site), amax by
+// true_relu_amax, q by relu_requant_unfolded. out_scale, where not null, gets amax/127, or 1 when
 // amax is 0. y: [B, HW, C] int32, HW the output pixels per sample; the
 // statistics block in the true-extremes mode. grid = (epilogue_blocks(HW, C),
 // B), dynamic smem 2*C floats.

@@ -141,8 +141,9 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     stacked, 9.4 MB at C = 256, n = 8) and its K-major copy
     ``trunk_w_stack_pk`` (``f3.pack_trunk_weights_kmajor``, which the kernel
     reads), and under ``MSIG_ENC1_IM2COL=1`` with
-    enc1's [4, 4, 64, 128] kernel ``enc1_i2c_p`` (``fe.pack_enc1_im2col``), as
-    the JAX package builds them (``quantized.py:72-75, 97-100``): only then do
+    enc1's [4, 4, 64, 128] kernel ``enc1_i2c_p`` (``fe.pack_enc1_im2col``) and
+    its K-major copy ``enc1_i2c_pk`` (``fe.pack_enc1_im2col_kmajor``, which the
+    kernel reads), as the JAX package builds them (``quantized.py:72-75, 97-100``): only then do
     the generator's branches find them.
     """
     v3, enc1_im2col = _trunk_v3(), _enc1_im2col()
@@ -177,6 +178,7 @@ def quantize_generator_params(gen_sd: Mapping[str, torch.Tensor], n_residual_blo
     w_enc1 = q["enc_conv1"].permute(2, 3, 1, 0)
     if enc1_im2col and tuple(w_enc1.shape) == (4, 4, 64, 128):
         q["enc1_i2c_p"] = fe.pack_enc1_im2col(w_enc1)
+        q["enc1_i2c_pk"] = fe.pack_enc1_im2col_kmajor(q["enc1_i2c_p"])
     # The final conv is not IN-followed: per-output-channel scales are kept
     # for a true dequant before tanh.
     wout = sd[f"decoder.{n + 6}.weight"]
@@ -287,13 +289,13 @@ def _fused_encoder(q: Q, img_u8: torch.Tensor):
     Where the grid of 4x4-pixel cells is wider than 64 (a 512² input), enc0
     is the staged site (``msig_tpu/ops/fused_enc_int8.py:617``). enc1 and
     enc2 get their K-major weight copies (``enc{1,2}_pk``, None where ``q``
-    lacks them)."""
+    lacks them; the dense enc1 gets ``enc1_i2c_pk``)."""
     if img_u8.shape[1] // 4 > 64:
         h0 = fe.enc0_hbm(img_u8, q["enc0_p"], stage=_stage_mode())
     else:
         h0 = fe.enc0_in_relu_requant(img_u8, q["enc0_p"])
     if _enc1_im2col() and "enc1_i2c_p" in q:  # msig_tpu/infer/quantized.py:280-282
-        h1 = fe.enc1_in_relu_requant_im2col(h0, q["enc1_i2c_p"])
+        h1 = fe.enc1_in_relu_requant_im2col(h0, q["enc1_i2c_p"], w_kmajor=q.get("enc1_i2c_pk"))
     else:
         h1 = fe.enc1_in_relu_requant(h0, q["enc1_p"], w_kmajor=q.get("enc1_pk"))
     return fe.enc2_in_relu_requant(h1, q["enc2_p"], w_kmajor=q.get("enc2_pk"))

@@ -614,17 +614,14 @@ def convt_wgmma_config() -> Dict[str, int]:
     return dict(zip(keys, out))
 
 
-def _scratch(x: torch.Tensor, b: int, hw: int, c: int, stage: str = "int32",
-             zeroed: bool = True):
-    """Pass A's accumulator scratch [b, hw, c] and the statistics block, zeroed
-    unless ``zeroed`` is False (the wgmma sites' C entries zero it on the stream)."""
+def _scratch(x: torch.Tensor, b: int, hw: int, c: int, stage: str = "int32"):
+    """Pass A's accumulator scratch [b, hw, c] and the statistics block, not
+    zeroed (the wgmma sites' C entries zero it on the stream)."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     y = torch.empty((b, hw, c), dtype=torch.float16 if stage == "fp16" else torch.int32,
                     device=x.device)
-    stats = (torch.zeros if zeroed else torch.empty)(5 * b * c + b, dtype=torch.int64,
-                                                     device=x.device)
-    return y, stats
+    return y, torch.empty(5 * b * c + b, dtype=torch.int64, device=x.device)
 
 
 def true_extremes_stats(n_sites: int, b: int, c: int, device) -> torch.Tensor:
@@ -651,7 +648,7 @@ def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS, *
     b, h, w, c = _check_site(x_i8, w_packed, gamma, beta)
     wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(RELU_SITE, _ARGTYPES[RELU_SITE])
-    y, stats = _scratch(x_i8, b, h * w, c, zeroed=False)
+    y, stats = _scratch(x_i8, b, h * w, c)
     out = torch.empty_like(x_i8)
     err = fn(x_i8.data_ptr(), wk.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
              y.data_ptr(), stats.data_ptr(), out.data_ptr(), b, h, w, c, eps,
@@ -691,7 +688,7 @@ def residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps: float = _E
         raise ValueError(f"all inputs must be on {y1_i8.device}")
     wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(RESIDUAL_SITE, _ARGTYPES[RESIDUAL_SITE])
-    y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
+    y, stats = _scratch(y1_i8, b, h * w, c)
     out = torch.empty_like(y1_i8)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=y1_i8.device)
     err = fn(y1_i8.data_ptr(), h_i8.data_ptr(), h_scale.data_ptr(), wk.data_ptr(),
@@ -721,7 +718,7 @@ def conv3x3_adain_residual_hifi(y1_i8, h_bf16, w_packed, gamma, beta, eps: float
         raise ValueError(f"all inputs must be on {y1_i8.device}")
     wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(HIFI_SITE, _ARGTYPES[HIFI_SITE])
-    y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
+    y, stats = _scratch(y1_i8, b, h * w, c)
     out = torch.empty_like(y1_i8)
     out_h = torch.empty_like(h_bf16)
     err = fn(y1_i8.data_ptr(), h_bf16.data_ptr(), wk.data_ptr(), gamma.data_ptr(),
@@ -756,7 +753,7 @@ def conv3x3_adain_residual_hifi2(y1_i8, h1_i8, h2_i8, h_scale, w_packed, gamma, 
             raise ValueError(f"all inputs must be on {y1_i8.device}, got {t.device}")
     wk = _kmajor(w_packed, w_kmajor, pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(HIFI2_SITE, _ARGTYPES[HIFI2_SITE])
-    y, stats = _scratch(y1_i8, b, h * w, c, zeroed=False)
+    y, stats = _scratch(y1_i8, b, h * w, c)
     out1, out2 = torch.empty_like(y1_i8), torch.empty_like(y1_i8)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=y1_i8.device)
     err = fn(y1_i8.data_ptr(), h1_i8.data_ptr(), h2_i8.data_ptr(), h_scale.data_ptr(),

@@ -28,10 +28,12 @@ quantization) and make it themselves where it is not given.
 
 ``enc1_in_relu_requant_im2col`` is enc1 as the JAX package runs it under
 ``MSIG_ENC1_IM2COL=1``: the dense K = 1024 product per output phase against
-that phase's own block of ``pack_enc1_im2col``'s [4 * 1024, 128] weights,
-from an im2col tile gathered once into shared memory (its own entry point
-of the 4x4/s2 source). With four equal blocks it is enc1's function bit
-for bit.
+that phase's own block of ``pack_enc1_im2col``'s [4 * 1024, 128] weights.
+Its entry of the 4x4/s2 source runs the same two ``wgmma`` passes over a
+four-phase geometry (a quarter of the output map a phase), reading each
+phase's block K-major (``pack_enc1_im2col_kmajor``, [4 * 128, 1024], the
+keyword ``w_kmajor``). With four equal blocks it is enc1's function bit for
+bit.
 
 ``enc0_hbm`` is enc0 as the all-kernel chain runs it on a 512² input, where
 the TPU splits the site into a staged pair of kernels (``_enc0_hbm``): the
@@ -76,9 +78,8 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     ENC0_SITE: [_P] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, _P],
     CONV_S2_SOURCE: [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, _P],
-    ENC1_I2C_SITE: [_P] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, _P],
 }
-ENC1_I2C_ENTRY = "msig_enc1_im2col_in_relu_requant"
+ENC1_I2C_ENTRY = "msig_enc1_phases_in_relu_requant"  # the same arguments as CONV_S2_SOURCE's
 
 ENC0_K = 7 * 7 * 3      # 147 rows of the enc0 weight matrix
 ENC0_K_PADDED = 160     # 147 rows and 13 zero rows (the kernel reads the 147)
@@ -132,6 +133,22 @@ def pack_enc1_im2col(w_hwio: torch.Tensor) -> torch.Tensor:
     if tuple(w_hwio.shape) != (4, 4, 64, 128):
         raise ValueError(f"expected a [4, 4, 64, 128] kernel, got {tuple(w_hwio.shape)}")
     return pack_conv4x4(w_hwio).repeat(4, 1).contiguous()
+
+
+def pack_enc1_im2col_kmajor(w_i2c: torch.Tensor) -> torch.Tensor:
+    """[4 * 16*Cin, Cout] phase blocks (``pack_enc1_im2col``) -> [4 * Cout,
+    16*Cin]: block q's transpose, row q*Cout + co holding the K = (4u + v)*Cin
+    + ci of phase q's output channel co contiguous, as ``wgmma`` takes an
+    8-bit B operand (K-major only). Each phase keeps its own block."""
+    if w_i2c.dim() != 2 or w_i2c.shape[0] % 64:
+        raise ValueError(f"expected phase blocks [4 * 16*Cin, Cout], got {tuple(w_i2c.shape)}")
+    k, cout = w_i2c.shape[0] // 4, w_i2c.shape[1]
+    return w_i2c.to(torch.int8).reshape(4, k, cout).transpose(1, 2).reshape(4 * cout, k).contiguous()
+
+
+def enc1_im2col_kmajor_shape(w_i2c: torch.Tensor) -> Tuple[int, int]:
+    """The shape [4 * Cout, 16*Cin] of ``pack_enc1_im2col_kmajor(w_i2c)``."""
+    return 4 * w_i2c.shape[1], w_i2c.shape[0] // 4
 
 
 # ----------------------------------------------------------- plain versions
@@ -330,12 +347,14 @@ def enc2_in_relu_requant(x_i8, w_packed, eps: float = _EPS, *, w_kmajor=None):
     return out
 
 
-def enc1_in_relu_requant_im2col(x_i8, w_i2c, eps: float = _EPS):
+def enc1_in_relu_requant_im2col(x_i8, w_i2c, eps: float = _EPS, *, w_kmajor=None):
     """Second encoder site in the dense K = 1024 form: int8 [B, H, W, 64] ->
     int8 [B, H/2, W/2, 128].
 
-    w_i2c [4 * 1024, 128] int8 from ``pack_enc1_im2col``."""
+    w_i2c [4 * 1024, 128] int8 from ``pack_enc1_im2col``; w_kmajor, optional,
+    ``pack_enc1_im2col_kmajor(w_i2c)``, which the kernel reads."""
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, enc1_im2col_kmajor_shape(w_i2c))
         return enc1_in_relu_requant_im2col_plain(x_i8, w_i2c, eps)
     if x_i8.dim() != 4 or w_i2c.dim() != 2:
         raise ValueError(f"expected x [B, H, W, 64] and w [4096, Cout], got "
@@ -349,12 +368,14 @@ def enc1_in_relu_requant_im2col(x_i8, w_i2c, eps: float = _EPS):
     fc._check("x", x_i8, torch.int8, tuple(x_i8.shape))
     fc._check("weights", w_i2c, torch.int8, (4 * 16 * cin, cout))
     _same_device(x_i8, w_i2c)
-    fn = _build.load(CONV_S2_SOURCE, _ARGTYPES[ENC1_I2C_SITE], ENC1_I2C_ENTRY)
-    y, stats = fc._scratch(x_i8, b, (h // 2) * (w // 2), cout)
+    wk = fc._kmajor(w_i2c, w_kmajor, pack_enc1_im2col_kmajor, (4 * cout, 16 * cin))
+    fn = _build.load(CONV_S2_SOURCE, _ARGTYPES[CONV_S2_SOURCE], ENC1_I2C_ENTRY)
+    # the statistics block only: the C entry zeroes it on the stream
+    stats = torch.empty(5 * b * cout + b, dtype=torch.int64, device=x_i8.device)
     out = torch.empty((b, h // 2, w // 2, cout), dtype=torch.int8, device=x_i8.device)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=x_i8.device)
-    err = fn(x_i8.data_ptr(), w_i2c.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(),
-             out_scale.data_ptr(), b, h, w, cout, eps,
+    err = fn(x_i8.data_ptr(), wk.data_ptr(), stats.data_ptr(), out.data_ptr(),
+             out_scale.data_ptr(), b, h, w, cin, cout, eps,
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(ENC1_I2C_ENTRY, err)
     LAUNCHES[ENC1_I2C_SITE] += 1

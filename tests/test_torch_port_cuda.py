@@ -712,12 +712,24 @@ def test_trunk_v3_kernel_matches_plain(cuda_device, b, side, c, n):
     assert torch.equal(again, got) and torch.equal(again_s, got_s)
 
 
+def _device_kernels(fn) -> int:
+    """Kernel launches on the card in one call of ``fn`` (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,lim", [((2, 64, 128), 3000), ((1, 1000, 384), 2 ** 31 - 1),
-                                       ((8, 4096, 256), 2 ** 20)])
+                                       ((8, 4096, 256), 2 ** 20), ((8, 4096, 256), 2 ** 31 - 1)])
 def test_chunked_epilogue_kernel_matches_plain(cuda_device, shape, lim):
-    """The last shape is the main path's; the second takes the whole int32
-    range and three channel tiles."""
+    """The last two shapes are the main path's, the last over the whole int32
+    range; the second takes three channel tiles. Exact statistics and the
+    plain version's rounded operations: equal to it to the bit, two calls
+    alike, one kernel launch a call (no statistics block to fill)."""
     rng = np.random.default_rng(shape[1])
     b, _, c = shape
     x = torch.from_numpy(rng.integers(-lim, lim, shape, dtype=np.int64).astype(np.int32))
@@ -726,18 +738,24 @@ def test_chunked_epilogue_kernel_matches_plain(cuda_device, shape, lim):
     x, g, be = x.to(cuda_device), g.to(cuda_device), be.to(cuda_device)
     before = ec.LAUNCHES[ec.SITE]
     got = ec.adain_relu_requant_chunked(x, g, be)
-    assert ec.LAUNCHES[ec.SITE] == before + 1
+    again = ec.adain_relu_requant_chunked(x, g, be)
+    assert ec.LAUNCHES[ec.SITE] == before + 2
     want = ec.adain_relu_requant_chunked_plain(x, g, be)
     torch.cuda.synchronize()
     assert got.shape == shape and got.dtype == torch.int8
-    _assert_int8_close(got, want)
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert _device_kernels(lambda: ec.adain_relu_requant_chunked(x, g, be)) == 1
+    assert ec.cooperative_grid() >= torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,side", [(1, 64), (2, 128), (8, 256)])
 def test_enc1_im2col_kernel_matches_plain_and_enc1(cuda_device, b, side):
     """With four equal phase blocks, enc1's kernel to the bit; with four
-    different ones, the plain version's phase mapping."""
+    different ones, the plain version to the bit (each phase its own block),
+    the K-major copy given or made by the wrapper; three launches a call
+    (the memset, pass S, pass Q)."""
     t = _enc_inputs(b, side, cuda_device)
     w4 = t["w1"].repeat(4, 1).contiguous()
     before = fe.LAUNCHES[fe.ENC1_I2C_SITE]
@@ -746,10 +764,34 @@ def test_enc1_im2col_kernel_matches_plain_and_enc1(cuda_device, b, side):
     assert torch.equal(got, fe.enc1_in_relu_requant(t["x1"], t["w1"]))
     rng = np.random.default_rng(side)
     wq = torch.from_numpy(rng.integers(-127, 128, (4096, 128), dtype=np.int8)).to(cuda_device)
-    got = fe.enc1_in_relu_requant_im2col(t["x1"], wq)
     want = fe.enc1_in_relu_requant_im2col_plain(t["x1"], wq)
+    for kw in ({}, {"w_kmajor": fe.pack_enc1_im2col_kmajor(wq)}):
+        got = fe.enc1_in_relu_requant_im2col(t["x1"], wq, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert not torch.equal(want, fe.enc1_in_relu_requant_im2col_plain(
+        t["x1"], wq[:1024].repeat(4, 1).contiguous()))
+    wk = fe.pack_enc1_im2col_kmajor(wq)
+    assert _device_kernels(lambda: fe.enc1_in_relu_requant_im2col(t["x1"], wq, w_kmajor=wk)) == 3
+
+
+@pytest.mark.cuda
+def test_enc1_im2col_allocates_no_accumulator_scratch(cuda_device):
+    """At enc1's main-path shape, [8, 256, 256, 64] -> 128, a call's peak
+    memory beyond its inputs (its int8 output, 16.8 MB, the statistics block
+    and the scale) stays below the 67 MB of the int32 accumulator scratch it
+    no longer has."""
+    t = _enc_inputs(8, 256, cuda_device)
+    w4 = t["w1"].repeat(4, 1).contiguous()
+    wk = fe.pack_enc1_im2col_kmajor(w4)
+    fe.enc1_in_relu_requant_im2col(t["x1"], w4, w_kmajor=wk)  # built and warm
     torch.cuda.synchronize()
-    _assert_int8_close(got, want)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fe.enc1_in_relu_requant_im2col(t["x1"], w4, w_kmajor=wk)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 8 * 128 * 128 * 128 * 4
+    del out
 
 
 @pytest.mark.cuda
@@ -777,6 +819,10 @@ def test_v3_epilogue_im2col_wrappers_reject_bad_inputs(cuda_device):
         fe.enc1_in_relu_requant_im2col(e["x1"], e["w1"])
     with pytest.raises(ValueError, match="Cin == 64"):
         fe.enc1_in_relu_requant_im2col(e["x2"], e["w1"].repeat(4, 1).contiguous())
+    w4 = e["w1"].repeat(4, 1).contiguous()
+    for bad in (w4, fe.pack_enc1_im2col_kmajor(w4)[:128], fe.pack_enc1_im2col_kmajor(w4).cpu()):
+        with pytest.raises(ValueError, match="w_kmajor"):
+            fe.enc1_in_relu_requant_im2col(e["x1"], w4, w_kmajor=bad)
 
 
 @pytest.mark.cuda

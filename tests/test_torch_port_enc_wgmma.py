@@ -1,4 +1,4 @@
-"""The encoder's two-pass sites (rows 7-10) on the CPU: the K-major weights of
+"""The encoder's two-pass sites (rows 7-11) on the CPU: the K-major weights of
 the 4x4/s2 site, the sites with and without them, their callers, and both
 CUDA entries' passes emulated in numpy.
 
@@ -7,15 +7,20 @@ CUDA entries' passes emulated in numpy.
 K-major (``fe.pack_conv4x4_kmajor``, [Cout, 16*Cin]) and whose grid is the
 output map: pass S folds the exact statistics from the registers, pass Q
 rebuilds each sample's requant and maps its registers straight to int8.
+The same source runs enc1's four-phase form (``fe.enc1_in_relu_requant_im2col``,
+``MSIG_ENC1_IM2COL=1``) on the same two passes over ``Enc1PhaseGeom``, a
+quarter of the output map a phase, K-major blocks ``fe.pack_enc1_im2col_kmajor``.
 ``csrc/enc0_in_relu_requant.cu`` runs enc0 (and the staged 512² site) as two
 passes over the same tile producer: a reflected halo of one word a pixel, a
 K laid out by tap slot, register partials of the statistics. The kernels
 cannot run here. Their arithmetic is exact integer arithmetic and the
 epilogue's fp32 operations, so what can go wrong is the schedule: which tiles
 a CTA walks, each 16-byte chunk's tap and channels (two taps a K block at
-Cin = 64), the stride-2 in-map bits at both edges, which statistics column a
-lane ends with, enc0's slot layout of A and B and its reflected halo, where
-each int8 row lands, and pass Q's rounding in both stagings. The emulation
+Cin = 64), the in-map bits at both edges (stride 2, and stride 4 in the
+four-phase form, whose tiles of phase q read weight block q), which
+statistics column a lane ends with, enc0's slot layout of A and B and its
+reflected halo, where each int8 row lands, and pass Q's rounding in both
+stagings. The emulation
 below follows the kernels' index arithmetic and is held to the bit against
 the plain versions. On the card, tests/test_torch_port_cuda.py and
 chip_smoke.py hold the kernels to the bit against the plain versions.
@@ -26,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_convt_wgmma import (BK, BM, WARPS, RegStats, _fake_generator_sd, _load_requant,
-                                         _merge, _runs, _through, _tile_stats)
+                                         _merge, _out_pixel, _runs, _through, _tile_stats)
+from test_torch_port_convt_wgmma import _tile_at as _tile_at_phased
 
 from msig_tpu.ops import fused_enc_int8 as jfe
 from msig_tpu_torch.infer import quantized as tq
@@ -272,6 +278,253 @@ def test_conv4x4s2_two_passes_equal_the_plain_site_to_the_bit(w, h, cin, cout, g
     want_q, want_s = fe.enc2_in_relu_requant_plain(torch.from_numpy(x), w_p)
     np.testing.assert_array_equal(got_q, want_q.numpy().astype(np.int32))
     np.testing.assert_array_equal(got_s.view(np.int32), want_s.numpy().view(np.int32))
+
+
+# -------------------- enc1's four-phase form: its weights, its callers
+
+
+def _i2c_blocks(seed, cin=64, cout=128):
+    """Four distinct phase blocks [4 * 16*Cin, Cout], each ``pack_conv4x4`` of a
+    kernel of its own (``pack_enc1_im2col`` makes four equal ones)."""
+    rng = np.random.default_rng(seed)
+    return torch.cat([fe.pack_conv4x4(torch.from_numpy(
+        rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8))) for _ in range(4)])
+
+
+def test_pack_enc1_im2col_kmajor_is_the_per_block_transpose_of_jax_packing():
+    """Block q of [4 * Cout, 1024] is the transpose of rows q*1024 .. of JAX's
+    ``pack_enc1_im2col``; distinct blocks stay apart."""
+    w1 = _conv4x4_weights(64, 128, seed=4)
+    jp = np.array(jfe.pack_enc1_im2col(w1))
+    got = fe.pack_enc1_im2col_kmajor(fe.pack_enc1_im2col(torch.from_numpy(w1)))
+    assert got.dtype == torch.int8 and got.is_contiguous() and tuple(got.shape) == (512, 1024)
+    assert fe.enc1_im2col_kmajor_shape(torch.from_numpy(jp)) == (512, 1024)
+    slab = _i2c_blocks(5)
+    got4 = fe.pack_enc1_im2col_kmajor(slab).numpy()
+    for q in range(4):
+        np.testing.assert_array_equal(got.numpy()[128 * q:128 * (q + 1)],
+                                      jp[1024 * q:1024 * (q + 1)].T)
+        np.testing.assert_array_equal(got4[128 * q:128 * (q + 1)],
+                                      slab.numpy()[1024 * q:1024 * (q + 1)].T)
+    with pytest.raises(ValueError, match="4 \\* 16\\*Cin, Cout"):
+        fe.pack_enc1_im2col_kmajor(torch.zeros((1000, 128), dtype=torch.int8))
+
+
+def test_im2col_site_with_and_without_the_kmajor_copy_agree():
+    x = torch.from_numpy(np.random.default_rng(6).integers(-127, 128, (2, 32, 64, 64),
+                                                           dtype=np.int8))
+    w = _i2c_blocks(6)
+    got = fe.enc1_in_relu_requant_im2col(x, w, w_kmajor=fe.pack_enc1_im2col_kmajor(w))
+    assert torch.equal(got, fe.enc1_in_relu_requant_im2col(x, w))
+    assert torch.equal(got, fe.enc1_in_relu_requant_im2col_plain(x, w))
+
+
+def test_im2col_site_rejects_a_wrong_kmajor_copy():
+    x = torch.zeros((1, 32, 64, 64), dtype=torch.int8)
+    w = _i2c_blocks(7)
+    wk = fe.pack_enc1_im2col_kmajor(w)
+    for bad in (w, wk.to(torch.int16), wk[:128], wk.reshape(4, 128, 1024), wk.reshape(-1)):
+        with pytest.raises(ValueError, match="w_kmajor"):
+            fe.enc1_in_relu_requant_im2col(x, w, w_kmajor=bad)
+
+
+def test_quantize_generator_params_stores_the_im2col_kmajor_copy(monkeypatch):
+    assert "enc1_i2c_pk" not in tq.quantize_generator_params(_fake_generator_sd(1), 1)
+    monkeypatch.setenv("MSIG_ENC1_IM2COL", "1")
+    q = tq.quantize_generator_params(_fake_generator_sd(1), 1)
+    assert tuple(q["enc1_i2c_p"].shape) == (4096, 128)
+    assert torch.equal(q["enc1_i2c_pk"], fe.pack_enc1_im2col_kmajor(q["enc1_i2c_p"]))
+    assert q["enc1_i2c_pk"].is_contiguous() and tuple(q["enc1_i2c_pk"].shape) == (512, 1024)
+
+
+def test_encoder_hands_the_im2col_site_its_kmajor_copy(monkeypatch):
+    monkeypatch.setenv("MSIG_ENC1_IM2COL", "1")
+    q = tq.quantize_generator_params(_fake_generator_sd(1), 1)
+    seen = []
+
+    def site(x, w, *a, **kw):
+        seen.append((w is q["enc1_i2c_p"], kw.get("w_kmajor") is q["enc1_i2c_pk"]))
+        b, h, wd, _ = x.shape
+        return torch.zeros((b, h // 2, wd // 2, 128), dtype=torch.int8)
+    monkeypatch.setattr(tq.fe, "enc1_in_relu_requant_im2col", site)
+    monkeypatch.setattr(tq.fe, "enc1_in_relu_requant", None)  # not called under the flag
+    tq._fused_encoder(q, torch.zeros((1, 64, 64, 3), dtype=torch.uint8))
+    assert seen == [(True, True)]
+
+
+# ----------------------------------- enc1's four-phase form: the two passes
+
+I2C_BN = 128  # conv_i8_wgmma.cuh::enc1_phases_i8: one channel tile of 128 for every Cout
+I2C_KS = 2    # kSubBlocks of a phased geometry: two 128-byte K blocks a stage
+
+
+def _pix4(m0, gh, gw, w_in, cin):
+    """The producer's rows at stride 4: each grid pixel's input offset
+    (4*gy*W + 4*gx)*Cin and the in-map bits of rows 4gy - 1 (bit 0),
+    4gy .. 4gy + 3 (bit 1, always), 4gy + 4 (bit 2), columns alike (3-5)."""
+    m = m0 + np.arange(BM)
+    gy, gx = m // gw, m % gw
+    bits = ((gy > 0) | 2 | (gy < gh - 1) << 2 | (gx > 0) << 3 | 16 | (gx < gw - 1) << 5)
+    return 4 * (gy * w_in + gx) * cin, bits.astype(np.int64), gy, gx
+
+
+def _conv_tile_phase(x, wk, b, q, m0, n0, bn):
+    """One tile of phase q: the int64 accumulator [BM, bn] as the producer stages
+    it, I2C_KS K blocks a stage; chunk jc of K block kb holds K index 128 kb +
+    16 jc, tap t = 4u + v read at (4gy + 2qy + u - 1, 4gx + 2qx + v - 1)
+    (Enc1PhaseGeom::tap), zeros where the in-map bits say so; each block is a
+    product with rows q*Cout + n0 .. of the K-major blocks [4 * Cout, K]."""
+    _, h, w, cin = x.shape
+    gh, gw, cout = h // 4, w // 4, wk.shape[0] // 4
+    off, bits, gy, gx = _pix4(m0, gh, gw, w, cin)
+    xf = x[b].reshape(-1).astype(np.float64)
+    acc = np.zeros((BM, bn), np.float64)  # exact: |partial sums| < 2^53
+    taps = [divmod(16 * jc, cin) for jc in range(8)]  # (tap, c0) of each chunk
+    for ks in range(16 * cin // (I2C_KS * BK)):
+        for sub in range(I2C_KS):
+            kb = I2C_KS * ks + sub
+            a = np.zeros((BM, BK), np.float64)
+            for jc, (t, c0) in enumerate(taps):
+                dy, dx = 2 * (q >> 1) + (t >> 2) - 1, 2 * (q & 1) + (t & 3) - 1
+                rb = 0 if dy < 0 else (1 if dy < 4 else 2)
+                cb = 3 if dx < 0 else (4 if dx < 4 else 5)
+                inside = ((bits >> rb) & (bits >> cb) & 1).astype(bool)
+                want = ((4 * gy + dy >= 0) & (4 * gy + dy < h) & (4 * gx + dx >= 0)
+                        & (4 * gx + dx < w))
+                assert np.array_equal(inside, want), "the in-map bits are the map's bounds"
+                src = off[inside] + (dy * w + dx) * cin + c0
+                a[inside, 16 * jc:16 * jc + 16] = xf[src[:, None] + np.arange(16)]
+            rows = wk[q * cout + n0:q * cout + n0 + bn, kb * BK:(kb + 1) * BK]
+            acc += a @ rows.T.astype(np.float64)
+            for jc, (t, c0) in enumerate(taps):
+                c0 += BK
+                while c0 >= cin:
+                    c0, t = c0 - cin, t + 1
+                taps[jc] = (t, c0)
+    return acc.astype(np.int64)
+
+
+def i2c_pass_s(x, wk, grid, seed=0):
+    """Pass S over the four-phase walk: channel tiles fastest, then the four
+    phases of a pixel block, pixel blocks, samples, a contiguous run a CTA
+    (CTAs in a shuffled order); a CTA's shared block leaves when the next tile
+    is of another (sample, channel tile), or after its last. [5, B, Cout]."""
+    b_, h, w, _ = x.shape
+    cout = wk.shape[0] // 4
+    tiles_n, mblocks = cout // I2C_BN, (h // 4) * (w // 4) // BM
+    runs = _runs(b_ * 4 * mblocks * tiles_n, grid)
+    stats = np.zeros((5, b_, cout), np.int64)
+    seen = np.zeros((b_, 4, mblocks, tiles_n), np.int64)
+    for cta in np.random.default_rng(seed).permutation(len(runs)):
+        block = np.zeros((5, I2C_BN), np.int64)
+        for tile in runs[cta]:
+            b, q, m0, n0, key = _tile_at_phased(tile, tiles_n, mblocks, I2C_BN)
+            seen[b, q, m0 // BM, n0 // I2C_BN] += 1
+            _merge(block, _tile_stats(_conv_tile_phase(x, wk, b, q, m0, n0, I2C_BN)))
+            nxt = tile + 1
+            if nxt >= runs[cta].stop or _tile_at_phased(nxt, tiles_n, mblocks, I2C_BN)[4] != key:
+                dst = stats[:, b, n0:n0 + I2C_BN]
+                dst[[0, 1, 4]] += block[[0, 1, 4]]
+                dst[2], dst[3] = np.minimum(dst[2], block[2]), np.maximum(dst[3], block[3])
+                block[:] = 0
+    assert (seen == 1).all(), "every tile once"
+    return stats
+
+
+def i2c_pass_q(x, wk, stats, grid, seed=1):
+    """Pass Q over the same walk: the requant rebuilt where the key changes
+    (n_out = 4 * GHW outputs a channel), staged per warp and written as
+    16-byte chunks at out_pixel(q, gy, gx, GW) of the [H/2, W/2] map; the
+    tile (q 0, pixel 0, channel 0) of a sample writes its inverse scale.
+    Returns (int8 [B, H/2, W/2, Cout], scale [B, 1])."""
+    b_, h, w, _ = x.shape
+    cout = wk.shape[0] // 4
+    gw, ghw = w // 4, (h // 4) * (w // 4)
+    tiles_n, mblocks = cout // I2C_BN, ghw // BM
+    runs = _runs(b_ * 4 * mblocks * tiles_n, grid)
+    out = np.full((b_, 4 * ghw, cout), -1000, np.int32)  # -1000: not written
+    scale = np.full((b_, 1), np.nan, F32)
+    lane = np.arange(32)
+    g, qd = lane // 4, lane % 4
+    chunks = I2C_BN // 16
+    for cta in np.random.default_rng(seed).permutation(len(runs)):
+        held = None
+        for tile in runs[cta]:
+            b, q, m0, n0, key = _tile_at_phased(tile, tiles_n, mblocks, I2C_BN)
+            if key != held:
+                amax, a2, d2 = _load_requant(stats, b, n0, I2C_BN, 4 * ghw, "int32")
+                held = key
+            t = _through(_conv_tile_phase(x, wk, b, q, m0, n0, I2C_BN), "int32") * a2 + d2
+            qv = np.rint(np.clip(t, F32(0), F32(127))).astype(np.int32)
+            for wi in range(WARPS):
+                staging = np.full((16, I2C_BN + 16), -1000, np.int32)
+                for j in range(I2C_BN // 8):
+                    for hh in range(2):
+                        for e in range(2):
+                            staging[g + 8 * hh, 8 * j + 2 * qd + e] = \
+                                qv[16 * wi + g + 8 * hh, 8 * j + 2 * qd + e]
+                for i in range(16 * chunks):  # lane i % 32 reads chunk i
+                    rr, ch = divmod(i, chunks)
+                    m = m0 + 16 * wi + rr
+                    dst = out[b, _out_pixel(q, m // gw, m % gw, gw), n0 + 16 * ch:n0 + 16 * ch + 16]
+                    assert (dst == -1000).all(), "written once"
+                    dst[:] = staging[rr, 16 * ch:16 * ch + 16]
+            if q == 0 and m0 == 0 and n0 == 0:
+                scale[b] = amax / F32(127) if amax > 0 else F32(1)
+    assert (out != -1000).all(), "every output written"
+    return out.reshape(b_, h // 2, w // 2, cout), scale
+
+
+# (H, W) with (H/4)*(W/4) % 128 == 0: 32 x 64 is one pixel block a phase;
+# 32 x 192 puts tile edges inside grid rows (GW = 48) and 64 x 32 is taller
+# than wide; Cout 256 takes two channel tiles. On 5 CTAs (runs that start and
+# end inside a pixel block's phases, and cross samples) and on one.
+I2C_SCHEDULE = [(32, 64, 128, 5), (32, 192, 128, 5), (64, 32, 256, 5), (32, 192, 256, 1)]
+
+
+@pytest.mark.parametrize("h,w,cout,grid", I2C_SCHEDULE)
+def test_enc1_phase_two_passes_equal_the_plain_site_to_the_bit(h, w, cout, grid):
+    """Four distinct phase blocks, Cin = 64 (two taps a K block)."""
+    b = 2
+    rng = np.random.default_rng(h * 1000 + w + cout)
+    x = rng.integers(-127, 128, (b, h, w, 64), dtype=np.int8)
+    w_i2c = _i2c_blocks(h + w + cout, cout=cout)
+    wk = fe.pack_enc1_im2col_kmajor(w_i2c).numpy()
+    stats = i2c_pass_s(x, wk, grid=grid)
+    y = fe.conv4x4s2_phases_i64(torch.from_numpy(x), w_i2c)  # [B, H/2, W/2, Cout]
+    np.testing.assert_array_equal(stats[0], y.sum(dim=(1, 2)).numpy())
+    hi, lo = tq.fc.sumsq_words(y)
+    np.testing.assert_array_equal(stats[4].astype(object) * 2 ** 32 + stats[1].astype(object),
+                                  hi.numpy().astype(object) * 2 ** 32 + lo.numpy())
+    np.testing.assert_array_equal(stats[2], y.amin(dim=(1, 2)).clamp(max=0).numpy())
+    np.testing.assert_array_equal(stats[3], y.amax(dim=(1, 2)).clamp(min=0).numpy())
+    got_q, got_s = i2c_pass_q(x, wk, stats, grid=grid)
+    want_q = fe.enc1_in_relu_requant_im2col_plain(torch.from_numpy(x), w_i2c)
+    np.testing.assert_array_equal(got_q, want_q.numpy().astype(np.int32))
+    want_s = tq.fc.in_relu_requant_i64(y)[1]
+    np.testing.assert_array_equal(got_s.view(np.int32), want_s.numpy().view(np.int32))
+    # phase q's own block: the same passes on block 0 alone give another map
+    wk0 = np.tile(wk[:cout], (4, 1))
+    assert (i2c_pass_q(x, wk0, i2c_pass_s(x, wk0, grid), grid)[0] != got_q).mean() > 0.1
+
+
+def test_enc_variants_tool_edits_apply_to_the_sources():
+    """Every variant of ``tools/enc_variants_torch.py`` finds its text in the
+    sources as often as it says, so the tool builds on the card."""
+    import importlib.util
+
+    from msig_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location(
+        "enc_variants_torch", _build.CSRC.parents[1] / "tools" / "enc_variants_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    for site, variants in tool.VARIANTS.items():
+        for name, edits in variants.items():
+            texts = {f: (_build.CSRC / (f if f.endswith(".cuh") else f + ".cu")).read_text()
+                     for f in (site, tool.HEADER)}
+            for f, old, _, *times in edits:
+                assert texts[f].count(old) == (times[0] if times else 1), (site, name, old)
+    assert {site for site, _ in tool.ENTRIES.values()} <= set(tool.VARIANTS)
 
 
 # ------------------------------------------------ enc0's two passes

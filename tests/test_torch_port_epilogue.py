@@ -99,6 +99,162 @@ def test_supported_mirrors_jax(shape):
     assert tec.supported(shape) == jec.supported(shape)
 
 
+# ------------------------------------------- the cooperative kernel's schedule
+
+WARPS, TILE_C, UNROLL = 8, 128, 4  # csrc/adain_relu_requant_chunked.cu (256 threads)
+F32 = np.float32
+INT_MAX, INT_MIN = 2 ** 31 - 1, -2 ** 31  # the neutral min and max of a thread's int32
+
+
+def _items(b, s, grid):
+    """The kernel's items: each sample's S rows cut into parts(grid, B) shares,
+    item i = share i % parts of sample i / parts, rows [r0, r1)."""
+    parts = tec.parts(grid, b)
+    return parts, [(i // parts, i % parts * s // parts, (i % parts + 1) * s // parts)
+                   for i in range(b * parts)]
+
+
+def _ctas(n_items, grid, seed):
+    """Each CTA's items (blockIdx.x, + grid, ...), the CTAs in a shuffled order."""
+    return [(cta, list(range(cta, n_items, grid)))
+            for cta in np.random.default_rng(seed).permutation(grid)]
+
+
+def _warp_rows(r0, r1, warp):
+    """The rows a warp adds: r = r0 + warp, + 32, ..., kUnroll loads 8 rows apart each."""
+    return [r + u * WARPS for r in range(r0 + warp, r1, WARPS * UNROLL) for u in range(UNROLL)
+            if r + u * WARPS < r1]
+
+
+def chunked_emulated(x, gamma, beta, grid, eps=1e-5, seed=0):
+    """The three phases of the one launch with the kernel's index arithmetic:
+    each item's statistics per 128-channel tile, per warp over its rows and
+    met in warp order, into the item's slot; per (sample, 32 channels) the
+    warps' shares of the items summed and met in warp order, then the affine
+    and each channel's amax part in fp32; each CTA's items in reverse, tiles
+    and rows from the last read, through the sample's scale. Returns (the
+    statistics [5, B, C] as the reduction leaves them, int8 [B, S, C])."""
+    b_, s_, c_ = x.shape
+    parts, items = _items(b_, s_, grid)
+    xi = x.astype(np.int64)
+    slot = np.zeros((5, len(items), c_), np.int64)  # sum, lo, hi, min, max; every slot written
+    written = np.zeros((len(items), c_), np.int64)
+    for _, mine in _ctas(len(items), grid, seed):
+        for item in mine:
+            b, r0, r1 = items[item]
+            cover = np.zeros(s_, np.int64)
+            for ct in range(c_ // TILE_C):
+                cols = slice(ct * TILE_C, (ct + 1) * TILE_C)
+                part = np.zeros((5, WARPS, TILE_C), np.int64)
+                for warp in range(WARPS):
+                    rows = _warp_rows(r0, r1, warp)
+                    cover[rows] += 1
+                    v = xi[b, rows, cols]
+                    sq = v * v  # < 2^62
+                    part[:, warp] = (v.sum(0), (sq & 0xFFFFFFFF).sum(0), (sq >> 32).sum(0),
+                                     v.min(0, initial=INT_MAX), v.max(0, initial=INT_MIN))
+                fold = part[:, 0].copy()
+                for warp in range(1, WARPS):  # the warps in order
+                    fold[:3] += part[:3, warp]
+                    fold[3], fold[4] = np.minimum(fold[3], part[3, warp]), np.maximum(fold[4],
+                                                                                    part[4, warp])
+                slot[:, item, cols] = fold
+                written[item, cols] += 1
+            assert np.array_equal(cover[r0:r1], np.full(r1 - r0, c_ // TILE_C)), "each row once"
+    assert (written == 1).all(), "every slot written once"
+    stats = np.zeros((5, b_, c_), np.int64)
+    for unit in range(b_ * c_ // 32):
+        b, c = unit // (c_ // 32), (unit % (c_ // 32)) * 32 + np.arange(32)
+        share = [slot[:, [b * parts + k for k in range(warp, parts, WARPS)]][:, :, c]
+                 for warp in range(WARPS)]
+        fold = np.stack([share[0][i].sum(0) if i < 3 else (share[0][i].min(0, initial=INT_MAX)
+                         if i == 3 else share[0][i].max(0, initial=INT_MIN))
+                         for i in range(5)])
+        for warp in range(1, WARPS):
+            fold[:3] += share[warp][:3].sum(1)
+            fold[3] = np.minimum(fold[3], share[warp][3].min(0, initial=INT_MAX))
+            fold[4] = np.maximum(fold[4], share[warp][4].max(0, initial=INT_MIN))
+        stats[:, b, c] = fold
+    # in_affine (affine_of) and true_relu_hi in fp32, as the kernel's thread l
+    n = F32(s_)
+    mean = stats[0].astype(F32) / n
+    sumsq = tf2.words_to_f32(torch.from_numpy(stats[2]), torch.from_numpy(stats[1])).numpy()
+    var = np.maximum(sumsq / n - mean * mean, F32(0))
+    a = gamma * (F32(1) / np.sqrt(var + F32(eps)))
+    d = beta - mean * a
+    hi = np.maximum(a * stats[4].astype(F32), a * stats[3].astype(F32)) + d
+    out = np.full(x.shape, -1000, np.int32)  # -1000: not written
+    for cta, mine in _ctas(len(items), grid, seed + 1):
+        for item in reversed(mine):
+            b, r0, r1 = items[item]
+            amax = max(F32(0), hi[b].max())
+            sc = F32(127) / amax if amax > 0 else F32(1)
+            for ct in reversed(range(c_ // TILE_C)):
+                cols = slice(ct * TILE_C, (ct + 1) * TILE_C)
+                for warp in range(WARPS):
+                    rows = [r - u * WARPS for r in range(r1 - 1 - warp, r0 - 1, -WARPS * UNROLL)
+                            for u in range(UNROLL) if r - u * WARPS >= r0]
+                    t = np.maximum(x[b, rows, cols].astype(F32) * a[b, cols] + d[b, cols],
+                                   F32(0)) * sc
+                    dst = out[b, rows, cols]
+                    assert (dst == -1000).all(), "written once"
+                    out[b, rows, cols] = np.clip(np.rint(t), -127, 127)
+    assert (out != -1000).all(), "every output written"
+    return stats, out
+
+
+# (B, S, C, grid, |x| <): S ragged against the items (100 rows in 7 shares),
+# three channel tiles (C = 384), the whole int32 range, more items than rows
+# (parts 66 > S = 24: empty items), and more samples than CTAs (B = 3 on 2:
+# one item a sample, CTAs walking two).
+CHUNKED_SCHEDULE = [(1, 100, 128, 7, 3000), (2, 72, 256, 5, 2 ** 31), (3, 40, 384, 16, 2 ** 20),
+                    (2, 24, 128, 132, 2 ** 31), (3, 8, 256, 2, 3000)]
+
+
+@pytest.mark.parametrize("b,s,c,grid,lim", CHUNKED_SCHEDULE)
+def test_cooperative_schedule_equals_the_plain_version_to_the_bit(b, s, c, grid, lim):
+    rng = np.random.default_rng(s + c + grid)
+    x = rng.integers(-lim, lim, (b, s, c), dtype=np.int64).astype(np.int32)
+    g = rng.standard_normal((b, c)).astype(np.float32)
+    be = rng.standard_normal((b, c)).astype(np.float32)
+    stats, got = chunked_emulated(x, g, be, grid)
+    y = torch.from_numpy(x).to(torch.int64)
+    np.testing.assert_array_equal(stats[0], y.sum(1).numpy())
+    hi, lo = tf2.sumsq_words(y.reshape(b, s, 1, c))
+    np.testing.assert_array_equal(stats[2].astype(object) * 2 ** 32 + stats[1].astype(object),
+                                  hi.numpy().astype(object) * 2 ** 32 + lo.numpy())
+    np.testing.assert_array_equal(stats[3], y.amin(1).numpy())
+    np.testing.assert_array_equal(stats[4], y.amax(1).numpy())
+    want = tec.adain_relu_requant_chunked_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                                torch.from_numpy(be))
+    np.testing.assert_array_equal(got, want.numpy().astype(np.int32))
+
+
+def test_parts_and_workspace():
+    """Every CTA of the grid gets an item where the samples allow it; the
+    workspace holds four int64 words an item and channel and the [3, B, C]
+    fp32 affine."""
+    assert [tec.parts(396, b) for b in (1, 3, 8, 500)] == [396, 132, 49, 1]
+    assert tec.workspace_words(8, 256, 49) == 4 * 8 * 49 * 256 + 3 * 8 * 256 // 2
+    assert tec.workspace_words(1, 128, 1) == 4 * 128 + 192
+
+
+def test_variants_tool_edits_apply_to_the_source():
+    """Every variant of ``tools/optin_rows_torch.py`` finds its text in the
+    CUDA source as often as it says, so the tool builds on the card."""
+    import importlib.util
+    root = _build.CSRC.parents[1]
+    spec = importlib.util.spec_from_file_location("optin_rows_torch",
+                                                  root / "tools" / "optin_rows_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = (_build.CSRC / tool.SOURCE).read_text()
+    for name, edits in tool.VARIANTS.items():
+        assert (tool.variant_text(source, edits) == source) == (name == "as built"), name
+    split = tool.variant_text(source, "split")
+    assert split.count("cg::this_grid().sync();") == 1 and "chunked_requant_kernel<<<" in split
+
+
 # ------------------------------------------------------ no silent fallback
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the encoder's two-pass sites goes (rows 7-10): variants, timed alone.
+"""Where the time of the encoder's two-pass sites goes (rows 7-11): variants, timed alone.
 
     python3 tools/enc_variants_torch.py [--reps 5] [--calls 20]
 
@@ -10,8 +10,10 @@ into ``build/msig_kernels/enc_variants/``), and times each site's entry
 launched back to back ``--calls`` times between two CUDA events, median of
 ``--reps``, at the main path's shapes: enc0 [8, 256, 256, 3] (row 7) and
 [8, 512, 512, 3] (row 10, int32 staging), enc1 [8, 256, 256, 64] -> 128
-(row 8) and enc2 [8, 128, 128, 128] -> 256 (row 9); seeded inputs, K-major
-weights for the 4x4/s2 site. What it times, each as a row:
+(row 8) and enc2 [8, 128, 128, 128] -> 256 (row 9), and the 4x4/s2 source's
+four-phase entry (row 11, enc1 with four distinct phase blocks) at enc1's
+shape; seeded inputs, K-major weights for the 4x4/s2 site. What it times,
+each as a row:
 
 * ``as built``: the site as its entry runs it (memset, pass S, pass Q);
 * ``pass S alone`` and ``pass Q alone`` (pass Q on the statistics of a full
@@ -25,7 +27,9 @@ weights for the 4x4/s2 site. What it times, each as a row:
   tile, as rows 1-2's int32 pass walks, in place of a contiguous run; pass Q
   then rebuilds its requant at nearly every tile), ``no statistics``,
   ``no stores``, ``no loads`` (neither operand copied) and ``no products``
-  (no wgmma issued).
+  (no wgmma issued); for the four-phase entry the same builds (its strided
+  walk is no change: a phased geometry always takes a contiguous run) and
+  ``one K block a stage`` (against two, the phased geometries' setting).
 
 A variant computes wrong values (its time says what the part it cuts costs);
 the as-built rows are held equal to the plain versions. Prints each time with
@@ -51,12 +55,18 @@ _E0_S_ALONE = ("  enc0_i8_requant_kernel<Stage><<<", "  if (0) enc0_i8_requant_k
 _E0_Q_ALONE = [("cudaMemsetAsync(stats, 0, ((size_t)kStatBlocks * B * kE0Cout + B) * sizeof(long long), "
                 "st);", "cudaSuccess;"),
                ("  enc0_i8_stats_kernel<<<", "  if (0) enc0_i8_stats_kernel<<<")]
-_S2_S_ALONE = ("if constexpr (std::is_same_v<Geom, Conv4x4s2Geom>) return launch<Geom, BN, "
-               "Epi::kRequant>(p, st);",
-               "if constexpr (std::is_same_v<Geom, Conv4x4s2Geom>) return 0;")
+_S2_GEOMS = "std::is_same_v<Geom, Conv4x4s2Geom> || std::is_same_v<Geom, Enc1PhaseGeom>"
+_S2_S_ALONE = (f"if constexpr ({_S2_GEOMS})\n    return launch<Geom, BN, Epi::kRequant>(p, st);",
+               f"if constexpr ({_S2_GEOMS})\n    return 0;")
+_ARGS_P = ("  const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,\n"
+           "               static_cast<long long*>(stats), static_cast<float*>(out_scale), B, "
+           "H, W, Cin,\n               Cout, eps};\n")
 _S2_Q_ALONE = [("  const int err = launch<Geom, BN, Epi::kStats, int32_t, MB>(p, st);",
-                "  const int err = std::is_same_v<Geom, Conv4x4s2Geom> ? 0 : "
+                f"  const int err = ({_S2_GEOMS}) ? 0 : "
                 "launch<Geom, BN, Epi::kStats, int32_t, MB>(p, st);"),
+               ("  const int err = zero_stats(stats, B, Cout, st);\n  if (err != 0) return err;\n"
+                + _ARGS_P + "  return two_passes<Enc1PhaseGeom",
+                _ARGS_P + "  return two_passes<Enc1PhaseGeom"),
                ("  const int err = zero_stats(stats, B, Cout, st);\n  if (err != 0) return err;\n"
                 "  const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,\n"
                 "               static_cast<long long*>(stats), static_cast<float*>(out_scale), B, "
@@ -64,7 +74,7 @@ _S2_Q_ALONE = [("  const int err = launch<Geom, BN, Epi::kStats, int32_t, MB>(p,
                 "  const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,\n"
                 "               static_cast<long long*>(stats), static_cast<float*>(out_scale), B, "
                 "H, W, Cin,\n               Cout, eps};\n  if (Cout % 256")]
-_S2_NO_STATS = [("warp_stats<BN>(acc[mb], cta, lane);", "(void)0;"),
+_S2_NO_STATS = [("warp_stats<BN, kTrue>(acc[mb], cta, lane);", "(void)0;"),
                 ("if constexpr (kRegStats) reg.add(acc[mb]);", "if constexpr (kRegStats) (void)0;"),
                 ("reg.fold(cta, lane);", "(void)0;")]
 # site -> {variant name: [(file, old text, new text[, occurrences]), ...]}; each old
@@ -101,15 +111,23 @@ VARIANTS = {
                      (HEADER, "cp_async16(sb + n * kBK", "if (0) cp_async16(sb + n * kBK")],
         "no products": [(HEADER, "wgmma_tile<BN>(acc[mb], sw128_desc",
                          "if (0) wgmma_tile<BN>(acc[mb], sw128_desc")],
+        "one K block a stage": [(HEADER, "constexpr int kSubBlocks = Geom::kPhases > 1 ? 2 : 1;",
+                                 "constexpr int kSubBlocks = Geom::kPhases > 1 && "
+                                 "Geom::kStride == 1 ? 2 : 1;")],
     },
 }
-SHAPES = ((E0, 8, 256, 3, 64), (E0, 8, 512, 3, 64), (S2, 8, 256, 64, 128), (S2, 8, 128, 128, 256))
+I2C = "enc1_phases"  # the four-phase entry of the 4x4/s2 source (row 11)
+SHAPES = ((E0, 8, 256, 3, 64), (E0, 8, 512, 3, 64), (S2, 8, 256, 64, 128), (S2, 8, 128, 128, 256),
+          (I2C, 8, 256, 64, 128))
+# site -> (the source whose builds it runs, its C entry)
+ENTRIES = {E0: (E0, f"msig_{E0}"), S2: (S2, f"msig_{S2}"),
+           I2C: (S2, "msig_enc1_phases_in_relu_requant")}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {E0: [P] * 4 + [I] * 3 + [F, I, P], S2: [P] * 5 + [I] * 5 + [F, P]}
 
 
 def build_variants(_build) -> dict:
-    """{(site, name): ctypes function} of every variant, compiled in parallel."""
+    """{(source, name): its library} of every variant, compiled in parallel."""
     procs = {}
     for site, variants in VARIANTS.items():
         for i, (name, edits) in enumerate(variants.items()):
@@ -136,9 +154,7 @@ def build_variants(_build) -> dict:
         regs = sorted({line.split(":", 1)[-1].strip() for line in log.splitlines()
                        if ("registers" in line or "spill" in line) and "used 0 barriers" not in line})
         print(f"[build] {site} / {name}: " + " | ".join(regs[:6]), flush=True)
-        fn = getattr(ctypes.CDLL(str(d / "variant.so")), f"msig_{site}")
-        fn.argtypes, fn.restype = ARGTYPES[site], ctypes.c_int
-        fns[site, name] = fn
+        fns[site, name] = ctypes.CDLL(str(d / "variant.so"))
     return fns
 
 
@@ -157,7 +173,7 @@ def main(argv=None) -> int:
     from msig_tpu_torch.ops import _build
     from msig_tpu_torch.ops import fused_enc_int8 as fe
 
-    fns = build_variants(_build)
+    libs = build_variants(_build)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[card] {card}", flush=True)
@@ -172,6 +188,15 @@ def main(argv=None) -> int:
             out = torch.empty((b, side, side, cout), dtype=torch.int8, device="cuda")
             ops = 2 * b * side * side * cout * 147
             label = f"enc0 [{b}, {side}, {side}, 3]"
+        elif site == I2C:
+            x = torch.from_numpy(rng.integers(0, 128, (b, side, side, cin), dtype=np.int8)).cuda()
+            w = torch.cat([fe.pack_conv4x4(torch.from_numpy(rng.integers(
+                -127, 128, (4, 4, cin, cout), dtype=np.int8))) for _ in range(4)]).cuda()
+            want = fe.enc1_in_relu_requant_im2col_plain(x, w)
+            w = fe.pack_enc1_im2col_kmajor(w)
+            out = torch.empty((b, side // 2, side // 2, cout), dtype=torch.int8, device="cuda")
+            ops = 2 * b * (side // 2) ** 2 * cout * 16 * cin
+            label = f"enc1 four phases [{b}, {side}, {side}, {cin}] -> {cout}"
         else:
             x = torch.from_numpy(rng.integers(0, 128, (b, side, side, cin), dtype=np.int8)).cuda()
             w = fe.pack_conv4x4(torch.from_numpy(
@@ -193,9 +218,15 @@ def main(argv=None) -> int:
                          scale.data_ptr(), b, side, side, cin, cout, 1e-5, stream)
             if err:
                 raise RuntimeError(f"{label}: cudaError {err}")
-        for name in VARIANTS[site]:
-            fn = fns[site, name]
-            run(fns[site, "as built"])  # the statistics that pass Q alone reads
+        src, entry = ENTRIES[site]
+        fns = {}
+        for name in VARIANTS[src]:
+            fns[name] = getattr(libs[src, name], entry)
+            fns[name].argtypes, fns[name].restype = ARGTYPES[src], ctypes.c_int
+        for name, fn in fns.items():
+            if site == I2C and name == "strided walk":
+                continue
+            run(fns["as built"])  # the statistics that pass Q alone reads
             out.zero_()
             for _ in range(3):
                 run(fn)
