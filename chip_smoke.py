@@ -34,11 +34,13 @@ Phases, each reported on its own line:
    of four times the pixels. Bars: int8 outputs at most 1 step apart on under
    1% of the elements, scales within rtol 1e-5, the bf16 carry at most 1 ulp
    on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
-   the three conv2 sites, the v1 conv2 site, the ConvT site's rows 5, 12
-   and 13), the encoder's two-pass rows 7-11 and row 18 (``EXACT``) equal
-   to their plain versions to the bit, conv1, the conv2 sites, the ConvT rows and
-   enc1, enc2 timed with the K-major weight copy given, as the served trunk,
-   decoder and encoder call them; times by CUDA events
+   the three conv2 sites, the v1 conv1 and conv2 sites, the ConvT site's rows
+   5, 12 and 13, the v1 and 9-tap ConvT sites), the encoder's two-pass rows
+   7-11 and row 18 (``EXACT``) equal to their plain versions to the bit,
+   conv1, the conv2 sites, the ConvT rows and enc1, enc2 timed with the
+   K-major weight copy given, as the served trunk, decoder and encoder call
+   them (rows 6 and 19-21 also with the copy made by the wrapper); times by
+   CUDA events
    (the three epilogue rows also as three medians with L2 warm and three
    with L2 flushed before each call). Then conv1 and the three conv2 sites at
    ``WGMMA_SHAPES`` (down to [1, 16, 16, 128], up to [8, 128, 128, 256], a
@@ -50,7 +52,13 @@ Phases, each reported on its own line:
    [2, 256, 256, 128] -> 64 in both stagings, [1, 16, 16, 64] -> 64,
    [1, 96, 96, 256] -> 128) with and without the K-major copy: equal to the
    plain versions to the bit, one launch per call, and the passes' rings and
-   shared memory as built; then rows 8-9 at ``ENC_SHAPES`` (enc1's and
+   shared memory as built; then rows 21 and 6 at ``V1_CONVT_SHAPES`` (up0's
+   and up1's shapes, [1, 16, 16, 64] -> 64, [2, 16, 16, 256] -> 128) and row
+   19 at ``V1_CONV1_SHAPES`` ([1, 64, 64, 128], [8, 64, 64, 256]) with and
+   without the K-major copy, twice: equal to the plain versions to the bit,
+   one launch per call, row 6 equal to row 5's kernel; on one-sign channels
+   rows 21 and 6, and rows 19 and 1, apart by more than the int8 bar; then
+   rows 8-9 at ``ENC_SHAPES`` (enc1's and
    enc2's shapes of a 256² and a 512² input, and [2, 32, 32, 64] -> 64) with
    and without the K-major copy and rows 7 and 10 at ``ENC0_SHAPES`` (256²,
    512² in both stagings, [1, 64, 128, 3]): equal to the plain versions to
@@ -132,7 +140,9 @@ Phases, each reported on its own line:
    CUDA events, and the memory the call allocates at its peak;
    the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
    input's in both stagings: the memset, pass S and pass Q, each pass's int8
-   rate; and for rows 7-9 at theirs and row 10 in both stagings; row 14 at a
+   rate; for rows 21 and 6 at up0's and up1's shapes and row 19 at
+   [8, 64, 64, 256] (the fill or memset, the passes; their times by events
+   with the copy given and made); and for rows 7-9 at theirs and row 10 in both stagings; row 14 at a
    256² and a 512² input's maps with its packed weights: its kernel's device
    time and the mma.sync rate against 1,979 TOP/s (as issued, kx folded into
    N = 24, and as the conv's own operations); row 15 at the main path's shape:
@@ -281,7 +291,9 @@ _TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant":
 # and a 384² input's up0 (W = 96).
 EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
          "conv3x3_adain_residual_hifi", "conv3x3_adain_residual_hifi2",
-         "conv3x3_adain_residual_requant_v1", "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
+         "conv3x3_adain_relu_requant_v1", "conv3x3_adain_residual_requant_v1",
+         "convt4x4s2_in_relu_requant_v1", "convt4x4s2_in_relu_requant",
+         "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
          "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
          "enc2_in_relu_requant", "final7_tanh_u8", "fused_trunk_blocks",
          "enc1_in_relu_requant_im2col", "adain_relu_requant_chunked")
@@ -290,6 +302,14 @@ WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96,
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
                 (2, 256, 128, 64, ("int32", "fp16")), (1, 16, 64, 64, ("int32",)),
                 (1, 96, 256, 128, ("int32",)))
+# Rows 6 and 21 (the 9-tap ConvT entry on row 5's two wgmma passes, row 21 in
+# their true-extremes mode) and row 19 (row 1's wgmma pass A in that mode,
+# then the unfolded epilogue) are held equal to their plain versions to the
+# bit at V1_CONVT_SHAPES (b, side, cin, cout): up0's and up1's main-path
+# shapes, Cin 64 (two taps a 128-byte K block) and a small map at BN = 128;
+# and row 19 at V1_CONV1_SHAPES (b, c) of the 64x64 map it takes.
+V1_CONVT_SHAPES = ((8, 64, 256, 128), (8, 128, 128, 64), (1, 16, 64, 64), (2, 16, 256, 128))
+V1_CONV1_SHAPES = ((1, 128), (8, 256))
 # Rows 7-10 (the encoder's two entries, each run as two passes with no
 # accumulator in device memory) are held equal to their plain versions to the
 # bit at ENC_SHAPES: the 4x4/s2 site at (b, side, cin, cout), enc1's and
@@ -319,6 +339,15 @@ TRUNK_GROUPS = (("pass A (wgmma)", "conv3x3_i8_wgmma_kernel"),
 # ... and of a ConvT site's call: the statistics' memset, pass S, pass Q.
 CONVT_GROUPS = (("pass S (wgmma)", "convt_i8_wgmma_stats_kernel"),
                 ("pass Q (wgmma)", "convt_i8_wgmma_requant_kernel"), ("memset", "Memset"))
+# ... and of rows 6, 19 and 21's calls: the statistics block's fill (the
+# true-extremes mode) or memset, the passes.
+V1_GROUPS = (("fill", "stats_fill_kernel"),
+             ("pass S (wgmma, true extremes)", "convt_i8_wgmma_true_stats_kernel"),
+             ("pass Q (wgmma, true extremes)", "convt_i8_wgmma_true_requant_kernel"),
+             ("pass S (wgmma)", "convt_i8_wgmma_stats_kernel"),
+             ("pass Q (wgmma)", "convt_i8_wgmma_requant_kernel"),
+             ("pass A (wgmma, true extremes)", "conv3x3_i8_wgmma_true_kernel"),
+             ("epilogue", "true_relu_requant_kernel"), ("memset", "Memset"))
 # ... and of an encoder site's call: the memset, pass S, pass Q.
 ENC_GROUPS = (("pass S (wgmma)", "conv4x4s2_i8_wgmma_stats_kernel"),
               ("pass Q (wgmma)", "conv4x4s2_i8_wgmma_requant_kernel"),
@@ -501,10 +530,12 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
                     "hifi2": (x, hq, h2, hs, *tail)}[kind]
             fn = {"relu": "conv3x3_adain_relu_requant", "residual": "conv3x3_adain_residual_requant",
                   "hifi": "conv3x3_adain_residual_hifi", "hifi2": "conv3x3_adain_residual_hifi2"}[kind]
-            # rows 1-4 as the served trunk calls them, with the K-major copy
-            kw = {"w_kmajor": fc.pack_weights_kmajor(w)} if mod is fc else {}
-            return (lambda: getattr(mod, fn)(*args, **kw)), \
-                (lambda: getattr(mod, fn + "_plain")(*args))
+            # rows 1-4 as the served trunk calls them, with the K-major copy;
+            # the v1 sites (rows 19-20) also with the copy made by the wrapper
+            kw = {"w_kmajor": fc.pack_weights_kmajor(w)}
+            calls = ((lambda: getattr(mod, fn)(*args, **kw)),
+                     (lambda: getattr(mod, fn + "_plain")(*args)))
+            return calls + ((lambda: getattr(mod, fn)(*args)),) if mod is v1 else calls
         return make
 
     def convt(fn, plain, side, cin, pack=fc.pack_convt_weights_ps, **kw):
@@ -514,10 +545,11 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
             x = t(rng.integers(lo, 128, (B, side, side, cin), dtype=np.int8))
             w = torch.from_numpy(rng.integers(-127, 128, (4, 4, cin, cin // 2), dtype=np.int8))
             wp = pack(w, cin, cin // 2).to(dev)
-            # rows 5, 12, 13 as the served decoder calls them, with the K-major copy
-            kk = ({"w_kmajor": fc.pack_convt_weights_ps_kmajor(wp)}
-                  if fn in (fc.convt4x4s2_in_relu_requant_ps, fd.up1_s2d16, fd.up1_s2d16_hbm)
-                  else {})
+            # rows 5, 12, 13 as the served decoder calls them, with the K-major
+            # copy; rows 6 and 21 with theirs, and also with it made by the wrapper
+            kcat = fn in (fc.convt4x4s2_in_relu_requant, v1.convt4x4s2_in_relu_requant)
+            kk = {"w_kmajor": (fc.pack_convt_kcat_kmajor if kcat
+                               else fc.pack_convt_weights_ps_kmajor)(wp)}
             if fn is fc.convt4x4s2_in_relu_requant:  # row 6 is row 5's function
                 row5 = fc.convt4x4s2_in_relu_requant_ps(x, fc.pack_convt_weights_ps(
                     w, cin, cin // 2).to(dev))
@@ -526,7 +558,8 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
                 print(f"[kernel] convt4x4s2_in_relu_requant: equal to "
                       f"convt4x4s2_in_relu_requant_ps's kernel to the bit at [{B}, {side}, "
                       f"{side}, {cin}]", flush=True)
-            return (lambda: fn(x, wp, **kw, **kk)), (lambda: plain(x, wp, **kw))
+            calls = (lambda: fn(x, wp, **kw, **kk)), (lambda: plain(x, wp, **kw))
+            return calls + ((lambda: fn(x, wp, **kw)),) if kcat else calls
         return make
 
     def enc0(fn, plain, side, **kw):
@@ -694,7 +727,7 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
     # 256 MiB, past the H100's 50 MB L2: the epilogue rows are also timed cold.
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     for name, label, kind, dims, make in kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
-        kernel, plain = make()
+        kernel, plain, *made = make()
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         max_step, report = compare(torch, name, got, want)
@@ -711,6 +744,9 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
         plain_ms = cuda_ms(torch, plain, reps=2 if large else 3, warmup=1)
         bound_ms, bound_by = bound(kind, *dims)
         row = dict(case=label, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if made:  # the K-major copy made by the wrapper on every call
+            row["ms_copy_made"] = cuda_ms(torch, made[0], reps=reps)
+            report += f"; copy made by the wrapper {row['ms_copy_made']:.4f} ms"
         if name in results:  # a further shape or staging of a site already reported
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], max_step)
             results[name]["also"].append(row)
@@ -729,7 +765,7 @@ def kernel_phase(torch, fc, fd, fe, f3, ec, v1, ep, dev) -> dict:
             print(f"[kernel] {name} spread: warm-L2 medians "
                   f"{', '.join(f'{v:.4f}' for v in warm)} ms; L2 flushed before each call "
                   f"{', '.join(f'{v:.4f}' for v in cold)} ms", flush=True)
-        del kernel, plain
+        del kernel, plain, made
         torch.cuda.empty_cache()
     del flush
     check(set(results) == set(SITES), f"kernel cases cover {sorted(results)}")
@@ -874,6 +910,109 @@ def convt_phase(torch, fc, fd, dev) -> None:
               f"K-major copy given and made by the wrapper", flush=True)
         del x, w, wk, want
         torch.cuda.empty_cache()
+
+
+def int8_apart(torch, a, b) -> bool:
+    """The negation of the kernel phase's int8 bar: the two maps part by more
+    than 1 step, or on 1% of the elements or more."""
+    diff = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return int(diff.max()) > 1 or float((diff > 0).float().mean()) >= 0.01
+
+
+def v1_phase(torch, fc, v1, dev) -> None:
+    """Rows 6 and 21 at V1_CONVT_SHAPES and row 19 at V1_CONV1_SHAPES, with the
+    K-major copy given and made by the wrapper, over two calls: every output
+    equal to the plain version's to the bit, one launch per call, row 6 equal
+    to row 5's kernel. On one-sign channels (all conv outputs of one sign)
+    rows 21 and 6 part by more than the kernel phase's bar, and so do rows
+    19 and 1, each equal to its own plain version."""
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    sites = ((v1.convt4x4s2_in_relu_requant, v1.convt4x4s2_in_relu_requant_plain, v1.LAUNCHES,
+              v1.CONVT_SITE),
+             (fc.convt4x4s2_in_relu_requant, fc.convt4x4s2_in_relu_requant_plain, fc.LAUNCHES,
+              fc.KCAT_SITE))
+
+    def convt_calls(b, side, cin, cout, x, w, what):
+        kcat = fc.pack_convt_weights(w, cin, cout).to(dev)
+        wk = fc.pack_convt_kcat_kmajor(kcat)
+        row5 = fc.convt4x4s2_in_relu_requant_ps(x, fc.pack_convt_weights_ps(w, cin, cout).to(dev))
+        out = []
+        for fn, plain, counts, name in sites:
+            want = plain(x, kcat)
+            for kw in ({"w_kmajor": wk}, {}, {"w_kmajor": wk}):
+                before = counts[name]
+                got = fn(x, kcat, **kw)
+                torch.cuda.synchronize()
+                check(counts[name] == before + 1, f"{name} at {[b, side, side, cin]}: one launch")
+                check(all(torch.equal(g, v) for g, v in zip(got, want)),
+                      f"{name} at {[b, side, side, cin]} -> {cout}{what} "
+                      f"({'K-major copy given' if kw else 'copy made'}) equal to its plain "
+                      f"version to the bit")
+                if fn is fc.convt4x4s2_in_relu_requant:
+                    check(all(torch.equal(g, v) for g, v in zip(got, row5)),
+                          f"row 6 at {[b, side, side, cin]}{what} equal to row 5's kernel")
+            out.append(got[0])
+        return out
+
+    for b, side, cin, cout in V1_CONVT_SHAPES:
+        rng = np.random.default_rng(side + cin + cout + 1)
+        x = t(rng.integers(-127 if cin == C else 0, 128, (b, side, side, cin), dtype=np.int8))
+        w = torch.from_numpy(rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8))
+        convt_calls(b, side, cin, cout, x, w, "")
+        print(f"[kernel] rows 21 and 6 at {[b, side, side, cin]} -> {cout}: equal to their plain "
+              f"versions to the bit, with the K-major copy given and made by the wrapper, over "
+              f"two calls; row 6 equal to row 5's kernel", flush=True)
+        del x, w
+    # one-sign channels: x >= 0, channels 0-3's weights <= 0
+    rng = np.random.default_rng(16)
+    x = t(rng.integers(0, 128, (2, 16, 16, 64), dtype=np.int8))
+    w = rng.integers(-127, 128, (4, 4, 64, 64), dtype=np.int8)
+    w[..., :4] = -np.abs(w[..., :4])
+    got21, got6 = convt_calls(2, 16, 64, 64, x, torch.from_numpy(w), ", one-sign channels")
+    check(int8_apart(torch, got21, got6), "rows 21 and 6 part on one-sign channels")
+    print("[kernel] rows 21 and 6 at [2, 16, 16, 64] -> 64 with one-sign channels: each equal to "
+          "its plain version to the bit, the two apart by more than the int8 bar", flush=True)
+
+    def conv1_inputs(b, c, seed, one_sign=False):
+        rng = np.random.default_rng(seed)
+        x = rng.integers(-127, 128, (b, 64, 64, c), dtype=np.int8)
+        w = rng.integers(-32, 33, (3, 3, c, c), dtype=np.int8)
+        gamma = rng.normal(1.0, 0.5, (b, c)).astype(np.float32)
+        beta = rng.normal(0.0, 0.5, (b, c)).astype(np.float32)
+        if one_sign:  # channels 0-3 all positive, gamma < 0: amax at their minimum
+            x = np.abs(x.astype(np.int16)).astype(np.int8)
+            w[..., :4] = np.abs(w[..., :4]) + 1
+            gamma[:, :4], beta[:, :4] = -1.5, 3.0
+        wp = fc.pack_weights(torch.from_numpy(w)).to(dev)
+        return t(x), wp, t(gamma), t(beta)
+
+    for b, c in V1_CONV1_SHAPES + ((2, 128),):
+        one_sign = (b, c) not in V1_CONV1_SHAPES
+        x, wp, gamma, beta = conv1_inputs(b, c, 19 + b + c, one_sign)
+        wk = fc.pack_weights_kmajor(wp)
+        want = v1.conv3x3_adain_relu_requant_plain(x, wp, gamma, beta)
+        for kw in ({"w_kmajor": wk}, {}, {"w_kmajor": wk}):
+            before = v1.LAUNCHES[v1.RELU_SITE]
+            got = v1.conv3x3_adain_relu_requant(x, wp, gamma, beta, **kw)
+            torch.cuda.synchronize()
+            check(v1.LAUNCHES[v1.RELU_SITE] == before + 1, f"row 19 at {[b, 64, 64, c]}: one launch")
+            check(torch.equal(got, want), f"row 19 at {[b, 64, 64, c]} "
+                  f"({'K-major copy given' if kw else 'copy made'}) equal to its plain version "
+                  f"to the bit")
+        if one_sign:
+            row1 = fc.conv3x3_adain_relu_requant(x, wp, gamma, beta, w_kmajor=wk)
+            check(torch.equal(row1, fc.conv3x3_adain_relu_requant_plain(x, wp, gamma, beta)),
+                  "row 1 on one-sign channels equal to its plain version")
+            check(int8_apart(torch, got, row1), "rows 19 and 1 part on one-sign channels")
+            print(f"[kernel] rows 19 and 1 at {[b, 64, 64, c]} with one-sign channels: each "
+                  f"equal to its plain version to the bit, the two apart by more than the int8 "
+                  f"bar", flush=True)
+        else:
+            print(f"[kernel] row 19 at {[b, 64, 64, c]}: equal to its plain version to the bit, "
+                  f"with the K-major copy given and made by the wrapper, over two calls",
+                  flush=True)
+        del x, wp, wk, want, got
+    torch.cuda.empty_cache()
 
 
 def enc_phase(torch, fe, dev) -> None:
@@ -1820,6 +1959,62 @@ def convt_split_phase(torch, fc, fd, kernels: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def v1_split_phase(torch, fc, v1, kernels: dict) -> None:
+    """Rows 21 and 6 at up0's and up1's main-path shapes and row 19 at
+    [8, 64, 64, 256], with the K-major copy given: the time per call by CUDA
+    events (median of 30; and with the copy made by the wrapper), and by
+    ``torch.profiler`` device time per kernel (``kernel_split`` with
+    ``V1_GROUPS``: the fill or memset and the passes), each pass's int8 rate
+    (the conv's operations, once per pass) and its share of the card's
+    1,979 TOP/s. The parts go into the row as ``parts_ms``. Run last, as
+    ``split_phase``."""
+    cases = [(name, side, cin) for name in ("convt4x4s2_in_relu_requant_v1",
+                                           "convt4x4s2_in_relu_requant")
+             for side, cin in ((SIDE, C), (2 * SIDE, C // 2))]
+    for name, side, cin in cases + [("conv3x3_adain_relu_requant_v1", SIDE, C)]:
+        rng = np.random.default_rng(side + cin)
+        t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+        if name.startswith("convt"):
+            cout = cin // 2
+            x = t(rng.integers(-127 if cin == C else 0, 128, (B, side, side, cin), dtype=np.int8))
+            wp = fc.pack_convt_weights(torch.from_numpy(
+                rng.integers(-127, 128, (4, 4, cin, cout), dtype=np.int8)), cin, cout).cuda()
+            wk = fc.pack_convt_kcat_kmajor(wp)
+            fn = v1.convt4x4s2_in_relu_requant if name.endswith("_v1") else \
+                fc.convt4x4s2_in_relu_requant
+            call, made = (lambda: fn(x, wp, w_kmajor=wk)), (lambda: fn(x, wp))
+            ops = 2 * B * 4 * side * side * cout * 4 * cin
+            case = f"256² input, {'up0' if side == SIDE else 'up1'}"
+            shape = f"{[B, side, side, cin]} -> {cout}"
+        else:
+            x = t(rng.integers(-127, 128, (B, side, side, C), dtype=np.int8))
+            wp = fc.pack_weights(torch.from_numpy(
+                rng.integers(-32, 33, (3, 3, C, C), dtype=np.int8))).cuda()
+            wk = fc.pack_weights_kmajor(wp)
+            gamma = t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32))
+            beta = t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32))
+            call = lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta, w_kmajor=wk)  # noqa: E731
+            made = lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta)  # noqa: E731
+            ops = 2 * B * side * side * C * 9 * C
+            case, shape = "256² input", f"{[B, side, side, C]}"
+        ms, made_ms = cuda_ms(torch, call, reps=30), cuda_ms(torch, made, reps=30)
+        parts = kernel_split(torch, call, groups=V1_GROUPS)
+        device = sum(parts.values())
+        row = next(r for r in [kernels[name], *kernels[name]["also"]] if r["case"] == case)
+        row["parts_ms"] = parts
+        rates = ", ".join(
+            f"{k} {ops / (v * 1e-3) / 1e12:.1f} TOP/s ({ops / (v * 1e-3) / PEAK_INT8_OPS:.1%})"
+            for k, v in parts.items() if k.startswith("pass")) or \
+            "not measured (the trace holds no device events)"
+        print(f"[kernel] {name} ({shape}, K-major copy given): {ms:.4f} ms per call by CUDA "
+              f"events (median of 30; {made_ms:.4f} with the copy made by the wrapper), "
+              f"{device:.4f} ms of device time by torch.profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f"; {rates} of 1,979",
+              flush=True)
+        del x, wp, wk
+        torch.cuda.empty_cache()
+
+
 def enc_split_phase(torch, fe, kernels: dict) -> None:
     """Rows 7-9 and 11 at their main-path shapes and row 10 at a 512² input's
     in both stagings, the 4x4/s2 sites with the K-major copy given (row 11
@@ -2297,6 +2492,7 @@ def main() -> int:
     wgmma_phase(torch, fc, v1, dev)
     trunk_v3_phase(torch, fc, f3, dev)
     convt_phase(torch, fc, fd, dev)
+    v1_phase(torch, fc, v1, dev)
     enc_phase(torch, fe, dev)
     epilogue_phase(torch, ec, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2312,6 +2508,7 @@ def main() -> int:
         trunk_split_phase(torch, fc, kernels)
         trunk_v3_split_phase(torch, fc, f3, kernels)
         convt_split_phase(torch, fc, fd, kernels)
+        v1_split_phase(torch, fc, v1, kernels)
         enc_split_phase(torch, fe, kernels)
         epilogue_split_phase(torch, ec, kernels)
         final7_split_phase(torch, fd, kernels)
@@ -2332,7 +2529,7 @@ def main() -> int:
                  max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                  bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
                  path=SITES[name][2], also=k["also"],
-                 **({"parts_ms": k["parts_ms"]} if "parts_ms" in k else {}))
+                 **{key: k[key] for key in ("parts_ms", "ms_copy_made") if key in k})
             for name, k in kernels.items()]
     # the training rows: launches from step 1 of the configuration that runs them;
     # the first case's bound_fp32_fma_ms, library_deterministic_ms and parts_ms beside.

@@ -22,9 +22,14 @@
 // conv3x3_adain_relu_requant (_kernel, the guard-row slab and a [1024, 9C]
 // im2col operand in VMEM). Its requant differs: the true per-channel extremes
 // (:125-126, :138-139) and the unfolded max(y*a + d, 0) * s (:154-157),
-// where v2 zero-masks the extremes and folds s into a and d. So it is
-// conv_int8.cuh's mma.sync pass A in the true-extremes mode on the [9C, C]
-// weights, then true_relu_requant_kernel; the same bound.
+// where v2 zero-masks the extremes and folds s into a and d. v1's packing is
+// v2's, so it reads the same K-major copy. Three launches, the same bound: the
+// statistics block set to the true-extremes mode's neutral values (a fill
+// kernel, not a memset: the extremes' blocks start at the int32 ends, as a
+// CTA's shared block does), the pass A above in conv_i8_wgmma.cuh's kTrue
+// mode (its own kernel, conv3x3_i8_wgmma_true_kernel), then
+// true_relu_requant_kernel. Not the ConvT's two passes: at N = 256 the
+// one-pass conv and its epilogue run faster than two convs would.
 #include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
 
@@ -61,21 +66,17 @@ extern "C" int msig_conv3x3_i8_wgmma_config(int* out) {
   return 0;
 }
 
-// The v1 site (see above). stats: int64 [5*B*C + B] in the true-extremes
-// mode (blocks 0, 1, 4 zeroed, block 2 at INT64_MAX, block 3 at INT64_MIN).
-extern "C" int msig_conv3x3_adain_relu_requant_v1(const void* x, const void* w, const void* gamma,
-                                                  const void* beta, void* y_scratch, void* stats,
-                                                  void* out, int B, int H, int W, int C,
-                                                  float eps, void* stream) {
+// The v1 site (see above). wk: [C, 9*C] int8 K-major, as above; stats: int64
+// [5*B*C + B], set here to the true-extremes mode's neutral values.
+extern "C" int msig_conv3x3_adain_relu_requant_v1(const void* x, const void* wk,
+                                                  const void* gamma, const void* beta,
+                                                  void* y_scratch, void* stats, void* out, int B,
+                                                  int H, int W, int C, float eps, void* stream) {
   using namespace msig;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int HW = H * W;
-  dim3 grid_a(B * (HW / kBM), C / 128);
-  conv_i8_stats_kernel<Conv3x3Geom, 128, int32_t, true><<<grid_a, kConvThreads, 0, st>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<int32_t*>(y_scratch), static_cast<long long*>(stats), B, H, W, C, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = wgmma::conv3x3_i8_stats<true>(x, wk, y_scratch, stats, B, H, W, C, st);
+  if (err != 0) return err;
   dim3 grid_b(epilogue_blocks(HW, C), B);
   true_relu_requant_kernel<<<grid_b, kEpiThreads, 2 * C * sizeof(float), st>>>(
       static_cast<const int32_t*>(y_scratch), static_cast<const long long*>(stats),

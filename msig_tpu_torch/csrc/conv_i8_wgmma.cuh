@@ -8,8 +8,7 @@
 //
 // Statistics: the exact int64 block of conv_int8.cuh (sum, two-word sum of
 // squares, zero-masked min and max per (sample, channel); the true min and
-// max for the single-kernel trunk, kTrue), to the bit the sums of
-// conv_int8.cuh's pass A.
+// max in the kTrue mode of the v1 sites and the single-kernel trunk).
 //
 // Users and the TPU kernels they replace:
 // - Conv3x3Geom, Epi::kInt32: pass A of msig_conv3x3_adain_relu_requant and
@@ -17,10 +16,18 @@
 //   _kernel_relu and _kernel_res, their zero-masked extremes :68-87), and of
 //   msig_conv3x3_adain_residual_hifi and msig_conv3x3_adain_residual_hifi2
 //   (::_kernel_res_hifi and _kernel_res_hifi2, the hi-fi residual carries);
+// - Conv3x3Geom, Epi::kInt32 with the true extremes: pass A of
+//   msig_conv3x3_adain_relu_requant_v1 (msig_tpu/ops/fused_conv_int8.py::
+//   conv3x3_adain_relu_requant, v1's true extremes :125-126), see
+//   conv3x3_adain_relu_requant.cu;
 // - ConvT4x4s2Geom, Epi::kStats then Epi::kRequant: the whole of
 //   msig_convt4x4s2_in_relu_requant (fused_conv_int8_v2.py::
 //   convt4x4s2_in_relu_requant_ps, msig_tpu/ops/fused_dec_int8.py::up1_s2d16
-//   and up1_s2d16_hbm), see convt4x4s2_in_relu_requant.cu;
+//   and up1_s2d16_hbm) and of msig_convt4x4s2_kcat on the K-major copy of
+//   the 9-tap operand (fused_conv_int8_v2.py::convt4x4s2_in_relu_requant,
+//   the same function; with the true extremes and the unfolded requant,
+//   fused_conv_int8.py::convt4x4s2_in_relu_requant, v1), see
+//   convt4x4s2_in_relu_requant.cu;
 // - Conv4x4s2Geom, Epi::kStats then Epi::kRequant: the whole of
 //   msig_conv4x4s2_in_relu_requant (msig_tpu/ops/fused_enc_int8.py::
 //   enc1_in_relu_requant and enc2_in_relu_requant), see
@@ -119,11 +126,13 @@
 //   at the geometry's output pixel.
 // - Epi::kRequant (after Epi::kStats has finished the statistics block): the
 //   consumers rebuild the sample's requant from the block (channel_affine,
-//   the zero-masked amax and the scale of conv_int8.cuh's relu epilogue, by
-//   its helpers), map their accumulator registers through the staging type
-//   and relu_requant_folded, stage the int8 tile per warp in shared memory and
-//   write it as 16-byte rows at the geometry's output pixels. The int32
-//   accumulator never reaches device memory; the conv runs twice.
+//   the amax and the scale of conv_int8.cuh's relu epilogue, by its helpers),
+//   map their accumulator registers through the staging type and
+//   relu_requant_folded (kTrue: the unfolded affine and scale of
+//   true_relu_requant_kernel, relu_requant_unfolded), stage the int8 tile
+//   per warp in shared memory and write it as 16-byte rows at the geometry's
+//   output pixels. The int32 accumulator never reaches device memory; the
+//   conv runs twice.
 //
 // Tried and measured on the 3x3 (tools/trunk_wgmma_variants_torch.py, which
 // builds variants of this header; H100 80GB HBM3 at 700 W), pass A alone at
@@ -146,10 +155,11 @@
 //
 // Needs Cin % 64 == 0 (% 128 for the 3x3), Cout % 64 == 0 (% 128 for the
 // four-phase conv), a grid of (H/S) * (W/S) pixels, a multiple of 128 (the
-// wrappers check), the statistics block
-// zeroed (the launchers below zero it), and a kernel register count that lets
-// setmaxnreg rebalance (checked before the launch: a shortfall would block
-// the consumers' setmaxnreg.inc).
+// wrappers check), the statistics block at its neutral values (zeroed; in the
+// kTrue mode the extremes at the ends of the int32 range: the launchers below
+// set it on the stream), and a kernel register count that lets setmaxnreg
+// rebalance (checked before the launch: a shortfall would block the
+// consumers' setmaxnreg.inc).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -410,7 +420,10 @@ __device__ __forceinline__ T fold8(T (&v)[8], int lane, Op op) {
 
 // The neutral value of statistics block k: 0 for the sums and the
 // zero-masked extremes; the ends of the int32 range for the true extremes
-// (kTrue: the single-kernel trunk, conv_int8.cuh's kTrueExtremes mode).
+// (kTrue: the v1 sites, the single-kernel trunk), past every value of an
+// accumulator (|y| < 2^29, the wrappers check). A CTA's shared block starts
+// there, and so does the global block of a kTrue site (fill_stats): a CTA
+// then skips what it left at the start, in either block.
 template <bool kTrue>
 __device__ __forceinline__ long long stat_neutral(int k) {
   if constexpr (kTrue) return k == 2 ? 0x7fffffffll : (k == 3 ? -0x80000000ll : 0ll);
@@ -454,11 +467,12 @@ __device__ __forceinline__ void warp_stats(const int (&acc)[BN / 2], long long* 
 // S at BN = 64, where a tile is 4096 outputs and warp_stats per tile would
 // cost more than the tile's products): per column k = 2j + e (column 8j +
 // 2*(lane%4) + e, as in warp_stats) the sum, the sum of squares as the sums of
-// their low and high 32-bit words, and the zero-masked min and max. fold()
-// then does warp_stats' reduction once for all the tiles added. The words
-// stay exact: a square is below 2^58, so a high word below 2^26, and at most
+// their low and high 32-bit words, and the min and max (zero-masked: they
+// start at 0; true where kTrue: at the ends of the int32 range). fold() then
+// does warp_stats' reduction once for all the tiles added. The words stay
+// exact: a square is below 2^58, so a high word below 2^26, and at most
 // kTiles tiles of MB m64 blocks (two rows each) add 2 * 16 = 32 of them.
-template <int BN, int MB>
+template <int BN, int MB, bool kTrue = false>
 struct RegStats {
   static constexpr int kCols = BN / 4;
   static constexpr int kTiles = 16 / MB;
@@ -470,7 +484,9 @@ struct RegStats {
 
   __device__ __forceinline__ void clear() {
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) s[k] = 0, lo[k] = 0, hi[k] = 0, mn[k] = 0, mx[k] = 0;
+    for (int k = 0; k < kCols; ++k)
+      s[k] = 0, lo[k] = 0, hi[k] = 0, mn[k] = (int)stat_neutral<kTrue>(2),
+      mx[k] = (int)stat_neutral<kTrue>(3);
     tiles = 0;
   }
   __device__ __forceinline__ void add(const int (&acc)[BN / 2]) {
@@ -520,11 +536,15 @@ __device__ __forceinline__ void consumer_sync() {
 
 // Sample b's requant from the finished statistics block, by the consumer
 // threads (ct < kConsumerThreads), as relu_requant_kernel computes it with
-// gamma = 1, beta = 0: the zero-masked amax over all Cout channels, the scale,
-// and the folded a2, d2 of the tile's channels n0 .. n0 + BN - 1 into shared
-// memory. n_out: output pixels per sample. Returns amax. The caller syncs the
-// consumers before (the previous tile's map reads a2, d2) and this syncs after.
-template <int BN, class Stage>
+// gamma = 1, beta = 0: the amax over all Cout channels (the affine image of
+// each channel's extremes: relu_hi of the zero-masked ones, or where kTrue
+// true_relu_hi of the true ones), and the folded a2, d2 of the tile's channels
+// n0 .. n0 + BN - 1 into shared memory; where kTrue, as
+// true_relu_requant_kernel computes it, their affine a, d unfolded (the
+// caller maps with relu_scale(amax)). n_out: output pixels per sample.
+// Returns amax. The caller syncs the consumers before (the previous tile's map
+// reads a2, d2) and this syncs after.
+template <int BN, class Stage, bool kTrue = false>
 __device__ __forceinline__ float load_requant(const long long* __restrict__ stats, int b, int B,
                                               int Cout, float n_out, float eps, int n0,
                                               float* a2_s, float* d2_s, float* red, int ct) {
@@ -534,7 +554,10 @@ __device__ __forceinline__ float load_requant(const long long* __restrict__ stat
     const size_t i = (size_t)b * Cout + c;
     float a, d;
     in_affine(stats, nullptr, nullptr, i, BC, n_out, eps, a, d);
-    local = fmaxf(local, relu_hi(stats, BC, i, a, d));
+    if constexpr (kTrue)
+      local = fmaxf(local, true_relu_hi(a, d, (float)stats[2 * BC + i], (float)stats[3 * BC + i]));
+    else
+      local = fmaxf(local, relu_hi(stats, BC, i, a, d));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) local = fmaxf(local, __shfl_xor_sync(0xffffffffu, local, off));
@@ -543,11 +566,11 @@ __device__ __forceinline__ float load_requant(const long long* __restrict__ stat
   float amax = red[0];
 #pragma unroll
   for (int w = 1; w < kConsumerWarps; ++w) amax = fmaxf(amax, red[w]);
-  const float s = relu_scale(amax);
   for (int c = ct; c < BN; c += kConsumerThreads) {
     float a, d;
     in_affine(stats, nullptr, nullptr, (size_t)b * Cout + n0 + c, BC, n_out, eps, a, d);
-    fold_relu(a, d, s, StageOf<Stage>::kUnscale, a2_s[c], d2_s[c]);
+    if constexpr (kTrue) a2_s[c] = a, d2_s[c] = d;
+    else fold_relu(a, d, relu_scale(amax), StageOf<Stage>::kUnscale, a2_s[c], d2_s[c]);
   }
   consumer_sync();
   return amax;
@@ -681,8 +704,8 @@ __device__ __forceinline__ void produce(const Args& p, const Body<Geom, BN, E, M
       mbar_wait(empty + 8 * stage, phase ^ 1);
 #pragma unroll
       for (int sub = 0; sub < KS; ++sub) {
-        int dy, dx, blk;
-        Geom::tap(t.q, tap, dy, dx, blk);
+        int dy, dx;
+        Geom::tap(t.q, tap, dy, dx);
         const int delta = (dy * W + dx) * Cin + c0;  // from a row's pixel to its source
         // the in-map bits of the tap's row and column (see pix)
         const int rb = dy < 0 ? 0 : (dy < S ? 1 : 2), cb = dx < 0 ? 3 : (dx < S ? 4 : 5);
@@ -711,7 +734,8 @@ __device__ __forceinline__ void produce(const Args& p, const Body<Geom, BN, E, M
 }
 
 // The consumer warpgroups' part of a call (threads 128-383): the products,
-// and the tile's way out (Epi). kTrue: the true extremes in the statistics.
+// and the tile's way out (Epi). kTrue: the true extremes in the statistics,
+// and Epi::kRequant's map unfolded (relu_requant_unfolded).
 template <class Geom, int BN, Epi E, class Stage, int MB, bool kTrue>
 __device__ __forceinline__ void consume(const Args& p, const Body<Geom, BN, E, MB>& sm,
                                         RingPos& pos) {
@@ -733,18 +757,21 @@ __device__ __forceinline__ void consume(const Args& p, const Body<Geom, BN, E, M
   int held = -1;     // Epi::kRequant: the key whose requant a2_s, d2_s hold
   // Epi::kStats at BN = 64: the statistics gather in registers over tiles
   constexpr bool kRegStats = E == Epi::kStats && BN == 64;
-  static_assert(!(kRegStats && kTrue), "RegStats keeps the zero-masked extremes");
-  RegStats<kRegStats ? BN : 32, MB> reg;
+  static_assert(!(kTrue && E == Epi::kRequant && !std::is_same_v<Stage, int32_t>),
+                "the true-extremes requant reads the accumulator as int32");
+  RegStats<kRegStats ? BN : 32, MB, kTrue> reg;
   if constexpr (kRegStats) reg.clear();
-  float amax = 0.f;  // and its amax
+  float amax = 0.f, s = 1.f;  // and its amax, and (kTrue) its scale
   int acc[MB][BN / 2];  // m64 block mb: tile rows 64*(MB*cw + mb) ..
   for (int tile = w.first; tile < w.end; tile += w.step) {
     const Tile t = tile_at(tile, tiles_n, Geom::kPhases, mblocks, BM, BN);
     if constexpr (E == Epi::kRequant) {
       if (t.key != held) {
         consumer_sync();  // the last tile's map has read a2_s, d2_s
-        amax = load_requant<BN, Stage>(p.stats, t.b, B, Cout, (float)(Geom::kPhases * GHW),
-                                       p.eps, t.n0, a2_s, d2_s, red, ct);
+        amax = load_requant<BN, Stage, kTrue>(p.stats, t.b, B, Cout,
+                                              (float)(Geom::kPhases * GHW), p.eps, t.n0, a2_s,
+                                              d2_s, red, ct);
+        if constexpr (kTrue) s = relu_scale(amax);
         held = t.key;
       }
     }
@@ -817,10 +844,14 @@ __device__ __forceinline__ void consume(const Args& p, const Body<Geom, BN, E, M
           const float2 d2 = *reinterpret_cast<const float2*>(d2_s + 8 * j + 2 * qd);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const signed char v0 = relu_requant_folded(
-                StageOf<Stage>::through(acc[mb][4 * j + 2 * h]), a2.x, d2.x);
-            const signed char v1 = relu_requant_folded(
-                StageOf<Stage>::through(acc[mb][4 * j + 2 * h + 1]), a2.y, d2.y);
+            const float f0 = StageOf<Stage>::through(acc[mb][4 * j + 2 * h]);
+            const float f1 = StageOf<Stage>::through(acc[mb][4 * j + 2 * h + 1]);
+            signed char v0, v1;
+            if constexpr (kTrue)
+              v0 = relu_requant_unfolded(f0, a2.x, d2.x, s),
+              v1 = relu_requant_unfolded(f1, a2.y, d2.y, s);
+            else
+              v0 = relu_requant_folded(f0, a2.x, d2.x), v1 = relu_requant_folded(f1, a2.y, d2.y);
             *reinterpret_cast<char2*>(stg + ((lane >> 2) + 8 * h) * L::kOutPitch + 8 * j +
                                       2 * qd) = make_char2(v0, v1);
           }
@@ -873,10 +904,10 @@ __device__ __forceinline__ void consume(const Args& p, const Body<Geom, BN, E, M
   pos = RingPos{stage, phase};
 }
 
-template <class Geom, int BN, Epi E, class Stage, int MB>
+template <class Geom, int BN, Epi E, class Stage, int MB, bool kTrue = false>
 __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
   const Body<Geom, BN, E, MB> sm(smem_raw);
-  sm.template init<false>();
+  sm.template init<kTrue>();
   RingPos pos{0, 0};
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -884,7 +915,7 @@ __device__ __forceinline__ void conv_body(Args p, uint8_t* smem_raw) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<Geom, BN, E, Stage, MB, false>(p, sm, pos);
+    consume<Geom, BN, E, Stage, MB, kTrue>(p, sm, pos);
   }
 }
 
@@ -929,6 +960,23 @@ __global__ void __launch_bounds__(kThreads, 1) enc1_phase_i8_wgmma_requant_kerne
   extern __shared__ uint8_t smem_raw[];
   conv_body<Enc1PhaseGeom, BN, Epi::kRequant, int32_t, 1>(p, smem_raw);
 }
+// The v1 sites (the true extremes; the requant unfolded): row 19's pass A,
+// rows 1-4's in the kTrue mode; row 21's pass S and pass Q, the ConvT site's.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_i8_wgmma_true_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<Conv3x3Geom, BN, Epi::kInt32, int32_t, 1, true>(p, smem_raw);
+}
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) convt_i8_wgmma_true_stats_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<ConvT4x4s2Geom, BN, Epi::kStats, int32_t, 1, true>(p, smem_raw);
+}
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1) convt_i8_wgmma_true_requant_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  conv_body<ConvT4x4s2Geom, BN, Epi::kRequant, int32_t, 1, true>(p, smem_raw);
+}
 // The ConvT on this main loop with the int32 round trip (int32 rows and the
 // statistics, then relu_requant_kernel): tools/convt_wgmma_variants_torch.py
 // times it; no site runs it.
@@ -943,11 +991,22 @@ __global__ void __launch_bounds__(kThreads, 1) convt_i8_wgmma_int32_kernel(Args 
 // the per-device state below must not be merged across the libraries loaded
 // in one process, as a template's static locals otherwise are (one symbol
 // for all of them). One instantiation per kernel, so one state each.
-template <class Geom, int BN, Epi E, class Stage = int32_t, int MB = 1>
+template <class Geom, int BN, Epi E, class Stage = int32_t, int MB = 1, bool kTrue = false>
 static int launch(const Args& p, cudaStream_t st, int grid = 0) {
   using L = LayoutOf<Geom, BN, E, MB>;
   void (*kernel)(Args);
-  if constexpr (std::is_same_v<Geom, Conv3x3Geom>) {
+  if constexpr (kTrue) {
+    static_assert(MB == 1 && std::is_same_v<Stage, int32_t>, "the v1 sites run on int32");
+    if constexpr (std::is_same_v<Geom, Conv3x3Geom>) {
+      static_assert(E == Epi::kInt32, "row 19 runs pass A and an epilogue kernel");
+      kernel = conv3x3_i8_wgmma_true_kernel<BN>;
+    } else {
+      static_assert(std::is_same_v<Geom, ConvT4x4s2Geom> && E != Epi::kInt32,
+                    "row 21 runs the ConvT site's two passes");
+      if constexpr (E == Epi::kStats) kernel = convt_i8_wgmma_true_stats_kernel<BN>;
+      else kernel = convt_i8_wgmma_true_requant_kernel<BN>;
+    }
+  } else if constexpr (std::is_same_v<Geom, Conv3x3Geom>) {
     kernel = conv3x3_i8_wgmma_kernel<BN>;
   } else if constexpr (std::is_same_v<Geom, Conv4x4s2Geom>) {
     static_assert(E != Epi::kInt32 && MB == 1 && std::is_same_v<Stage, int32_t>,
@@ -996,17 +1055,47 @@ static int zero_stats(void* stats, int B, int C, cudaStream_t st) {
   return (int)cudaMemsetAsync(stats, 0, ((size_t)kStatBlocks * B * C + B) * sizeof(long long), st);
 }
 
-// Zeroes the statistics block [kStatBlocks*B*C + B] on `st`, then runs rows
-// 1-4's pass A (BN = 256 where C % 256 == 0, else 128). x: [B, H, W, C] int8;
-// wk: [C, 9*C] int8 K-major; y: [B, H*W, C] int32.
+// Sets each entry of a statistics block [kStatBlocks*B*C + B] to the neutral
+// value of its block (stat_neutral; the amax slots to 0). The true-extremes
+// mode's: one kernel where its three values would take four memsets (no byte
+// pattern gives the int32 ends).
+template <bool kTrue>
+__global__ void __launch_bounds__(256) stats_fill_kernel(long long* stats, size_t BC, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t k = i / BC;
+    stats[i] = k < (size_t)kStatBlocks ? stat_neutral<kTrue>((int)k) : 0ll;
+  }
+}
+
+// The statistics block at its neutral values on `st`: zeroed, or where kTrue
+// filled by stats_fill_kernel.
+template <bool kTrue>
+static int fill_stats(void* stats, int B, int C, cudaStream_t st) {
+  if constexpr (!kTrue) {
+    return zero_stats(stats, B, C, st);
+  } else {
+    const size_t BC = (size_t)B * C, n = kStatBlocks * BC + B;
+    const size_t blocks = (n + 255) / 256;
+    stats_fill_kernel<true><<<blocks < 1024 ? (unsigned)blocks : 1024u, 256, 0, st>>>(
+        static_cast<long long*>(stats), BC, n);
+    return (int)cudaGetLastError();
+  }
+}
+
+// Zeroes the statistics block [kStatBlocks*B*C + B] on `st` (kTrue: sets it to
+// the true-extremes mode's neutral values), then runs rows 1-4's pass A (row
+// 19's where kTrue; BN = 256 where C % 256 == 0, else 128). x: [B, H, W, C]
+// int8; wk: [C, 9*C] int8 K-major; y: [B, H*W, C] int32.
+template <bool kTrue = false>
 static int conv3x3_i8_stats(const void* x, const void* wk, void* y, void* stats, int B, int H,
                             int W, int C, cudaStream_t st) {
-  const int err = zero_stats(stats, B, C, st);
+  const int err = fill_stats<kTrue>(stats, B, C, st);
   if (err != 0) return err;
   const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), y,
                static_cast<long long*>(stats), nullptr, B, H, W, C, C, 0.f};
-  return C % 256 == 0 ? launch<Conv3x3Geom, 256, Epi::kInt32>(p, st)
-                      : launch<Conv3x3Geom, 128, Epi::kInt32>(p, st);
+  return C % 256 == 0 ? launch<Conv3x3Geom, 256, Epi::kInt32, int32_t, 1, kTrue>(p, st)
+                      : launch<Conv3x3Geom, 128, Epi::kInt32, int32_t, 1, kTrue>(p, st);
 }
 
 // Pass S, then pass Q (the statistics block zeroed before).
@@ -1022,21 +1111,36 @@ static int two_passes(const Args& p, bool stage_fp16, cudaStream_t st) {
 }
 
 
+// Row 21's pass S, then pass Q, in the kTrue mode (the statistics block at
+// the mode's neutral values before).
+template <int BN>
+static int true_two_passes(const Args& p, cudaStream_t st) {
+  const int err = launch<ConvT4x4s2Geom, BN, Epi::kStats, int32_t, 1, true>(p, st);
+  return err != 0 ? err : launch<ConvT4x4s2Geom, BN, Epi::kRequant, int32_t, 1, true>(p, st);
+}
+
 // The whole ConvT site: zeroes the statistics block on `st`, then pass S and
 // pass Q (BN = 128 where Cout % 128 == 0, else 64). x: [B, H, W, Cin] int8;
 // wk: [4, Cout, 4*Cin] int8 (phase, channel, K = t*Cin + ci); out:
 // [B, 2H, 2W, Cout] int8; out_scale: [B] float32; stage_fp16 reads the
-// accumulator as fp16 x 2^-12 (StageOf<__half>), else as int32.
+// accumulator as fp16 x 2^-12 (StageOf<__half>), else as int32. kTrue: row
+// 21, the true extremes (the block filled, not zeroed) and the unfolded
+// requant, on int32.
+template <bool kTrue = false>
 static int convt4x4s2_i8(const void* x, const void* wk, void* stats, void* out, void* out_scale,
                          int B, int H, int W, int Cin, int Cout, float eps, bool stage_fp16,
                          cudaStream_t st) {
-  const int err = zero_stats(stats, B, Cout, st);
+  if (kTrue && stage_fp16) return (int)cudaErrorInvalidValue;
+  const int err = fill_stats<kTrue>(stats, B, Cout, st);
   if (err != 0) return err;
   const Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk), out,
                static_cast<long long*>(stats), static_cast<float*>(out_scale), B, H, W, Cin,
                Cout, eps};
-  return Cout % 128 == 0 ? two_passes<ConvT4x4s2Geom, 128>(p, stage_fp16, st)
-                         : two_passes<ConvT4x4s2Geom, 64>(p, stage_fp16, st);
+  if constexpr (kTrue)
+    return Cout % 128 == 0 ? true_two_passes<128>(p, st) : true_two_passes<64>(p, st);
+  else
+    return Cout % 128 == 0 ? two_passes<ConvT4x4s2Geom, 128>(p, stage_fp16, st)
+                           : two_passes<ConvT4x4s2Geom, 64>(p, stage_fp16, st);
 }
 
 // The whole 4x4/s2 site: zeroes the statistics block on `st`, then pass S and

@@ -41,53 +41,42 @@
 // 2^12 into the multiplier, the statistics still from the exact int32 values,
 // so both stagings keep their bits without 268 or 537 MB crossing each way.
 //
-// A second entry, msig_convt4x4s2_kcat, takes the 9-tap K-concat weight
-// operand [9*Cin, 4*Cout] (msig_tpu/ops/fused_conv_int8.py::
-// pack_convt_weights) that two more TPU kernels read, and replaces both:
+// A second entry, msig_convt4x4s2_kcat, serves two more TPU kernels, which
+// read the 9-tap K-concat operand [9*Cin, 4*Cout] of msig_tpu/ops/
+// fused_conv_int8.py::pack_convt_weights:
 //  - msig_tpu/ops/fused_conv_int8_v2.py::convt4x4s2_in_relu_requant
 //    (_kernel_up), this site's function with the same zero-masked
-//    statistics and folded requant (true_extremes = 0);
+//    statistics and folded requant (true_extremes = 0): the two passes above;
 //  - msig_tpu/ops/fused_conv_int8.py::convt4x4s2_in_relu_requant (v1,
-//    _kernel_up), the true per-channel extremes (:225-226) and the unfolded
-//    requant (:256-263) (true_extremes = 1).
+//    _kernel_up), the true per-channel extremes (:224-239, the TPU starts
+//    them at +-inf) and the unfolded requant max(y*a + d, 0) * s (:256-263)
+//    (true_extremes = 1): the same two passes in conv_i8_wgmma.cuh's kTrue
+//    mode. Its statistics block starts at the mode's neutral values (the
+//    int32 ends in the extremes' blocks, stat_neutral), set on the stream by
+//    a fill kernel in place of the memset: a CTA's shared block starts at the
+//    same values, so its flush, which skips an entry left at its start, stays
+//    right. Storing the extremes biased so that zero were neutral would have
+//    kept the memset, at the price of a second encoding of the block, which
+//    the single-kernel trunk (fused_trunk_blocks.cu) and
+//    true_relu_requant_kernel read as it is. Pass Q then rebuilds each
+//    channel's a, d unfolded and the sample's s = 127/amax, amax over the
+//    true extremes (true_relu_hi's operations), and maps each register by
+//    relu_requant_unfolded, with the _rn operations of
+//    true_relu_requant_kernel in its order, so both equal their plain
+//    versions to the bit.
 // The TPU kernels multiply all nine row blocks against all four phases'
-// columns, 20 of 36 blocks zero. Here ConvT4x4s2KcatGeom reads each phase's
-// four nonzero blocks where they lie, so the MACs, the bound and the int32
-// sums are those of the phase-split entry, and the operand is not repacked.
-// This entry keeps conv_int8.cuh's mma.sync pass A and the int32 scratch.
-// The four phases' lanes are folded into per-channel statistics by
-// construction (every phase adds to its channel's entries), as the TPU folds
-// them (fused_conv_int8.py:243-249); with a > 0 the max over the phase lanes of
+// columns, 20 of 36 blocks zero. Here both read the K-major copy
+// [4, Cout, 4*Cin] of the operand's 16 nonzero blocks
+// (fused_conv_int8_v2.py::pack_convt_kcat_kmajor, equal to
+// pack_convt_weights_ps_kmajor of the phase-major packing), so the MACs, the
+// bound and the int32 sums are those of the phase-split entry. The four
+// phases' lanes are folded into per-channel statistics by construction
+// (every phase adds to its channel's entries), as the TPU folds them
+// (fused_conv_int8.py:243-249); with a > 0 the max over the phase lanes of
 // a*max y + d is a*(max over phases of max y) + d, so the folded true extremes
 // give the TPU's amax.
 #include "conv_i8_wgmma.cuh"
 #include "conv_int8.cuh"
-
-namespace msig {
-
-template <int BN, bool kTrueExtremes>
-int convt4x4s2_kcat_launch(const int8_t* x, const int8_t* w, int32_t* y, long long* stats,
-                           int8_t* out, float* out_scale, int B, int H, int W, int Cin, int Cout,
-                           float eps, cudaStream_t st) {
-  const int HW = H * W;
-  dim3 grid_a(B * ConvT4x4s2KcatGeom::kPhases * (HW / kBM), Cout / BN);
-  conv_i8_stats_kernel<ConvT4x4s2KcatGeom, BN, int32_t, kTrueExtremes>
-      <<<grid_a, kConvThreads, 0, st>>>(x, w, y, stats, B, H, W, Cin, Cout);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int HWo = 4 * HW;
-  dim3 grid_b(epilogue_blocks(HWo, Cout), B);
-  const size_t smem = 2 * Cout * sizeof(float);
-  if constexpr (kTrueExtremes)
-    true_relu_requant_kernel<<<grid_b, kEpiThreads, smem, st>>>(y, stats, nullptr, nullptr, out,
-                                                                out_scale, B, HWo, Cout, eps);
-  else
-    relu_requant_kernel<int32_t><<<grid_b, kEpiThreads, smem, st>>>(
-        y, stats, nullptr, nullptr, out, out_scale, B, HWo, Cout, eps);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace msig
 
 // Returns a CUDA error code (0 = success) after the launches. Launches on
 // `stream` and does not synchronise. wk: [4, Cout, 4*Cin] int8 from
@@ -123,32 +112,19 @@ extern "C" int msig_convt_i8_wgmma_config(int* out) {
   return 0;
 }
 
-// The K-concat entry (see above). w: [9*Cin, 4*Cout] int8, phase q's block of
-// tap (dy, dx) at rows ((dy+1)*3 + dx+1)*Cin, columns q*Cout; y_scratch:
-// [B, 4*H*W, Cout] int32; stats: int64 [5*B*Cout + B], zeroed, or with
-// true_extremes != 0 in the true-extremes mode (block 2 at INT64_MAX, block 3
-// at INT64_MIN); out: [B, 2H, 2W, Cout] int8; out_scale: [B] float32. Needs
-// Cin % 64 == 0, Cout % 64 == 0, H*W % 128 == 0.
-extern "C" int msig_convt4x4s2_kcat(const void* x, const void* w, void* y_scratch, void* stats,
-                                    void* out, void* out_scale, int B, int H, int W, int Cin,
-                                    int Cout, float eps, int true_extremes, void* stream) {
-  using namespace msig;
+// The K-concat entry (see above). wk: [4, Cout, 4*Cin] int8, the K-major
+// copy of the [9*Cin, 4*Cout] operand (pack_convt_kcat_kmajor); stats: int64
+// [5*B*Cout + B], set here to the neutral values of the mode (zeroed, or with
+// true_extremes != 0 the extremes' blocks at the int32 ends); out:
+// [B, 2H, 2W, Cout] int8; out_scale: [B] float32. Needs Cin % 64 == 0,
+// Cout % 64 == 0, H*W % 128 == 0.
+extern "C" int msig_convt4x4s2_kcat(const void* x, const void* wk, void* stats, void* out,
+                                    void* out_scale, int B, int H, int W, int Cin, int Cout,
+                                    float eps, int true_extremes, void* stream) {
+  using namespace msig::wgmma;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  int32_t* yp = static_cast<int32_t*>(y_scratch);
-  long long* sp = static_cast<long long*>(stats);
-  int8_t* op = static_cast<int8_t*>(out);
-  float* osp = static_cast<float*>(out_scale);
-  if (Cout % 128 == 0)
-    return true_extremes
-               ? convt4x4s2_kcat_launch<128, true>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout,
-                                                   eps, st)
-               : convt4x4s2_kcat_launch<128, false>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout,
-                                                    eps, st);
   return true_extremes
-             ? convt4x4s2_kcat_launch<64, true>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout, eps,
-                                                st)
-             : convt4x4s2_kcat_launch<64, false>(xp, wp, yp, sp, op, osp, B, H, W, Cin, Cout, eps,
-                                                 st);
+             ? convt4x4s2_i8<true>(x, wk, stats, out, out_scale, B, H, W, Cin, Cout, eps, false,
+                                   st)
+             : convt4x4s2_i8(x, wk, stats, out, out_scale, B, H, W, Cin, Cout, eps, false, st);
 }

@@ -62,7 +62,7 @@
 //   channel, below 2^61 at 1024²), zero-masked min and max in registers per
 //   half unit over a sample, and folds them over the 4 lanes of a channel,
 //   then by atomics into the block, the sum of squares as its two 32-bit
-//   words: the same integers as conv_int8.cuh's fold.
+//   words: the same integers as conv_int8.cuh's statistics block keeps.
 // - Pass Q writes each int8 value into a staged [256 pixels][64 channels]
 //   tile (rows padded to 80 bytes, so that the 4 pixels of one store
 //   instruction meet 4 bank groups) and then writes whole 16-byte chunks: a

@@ -25,13 +25,18 @@ per-channel extremes (the TPU starts them at +-inf) and the unfolded
 ``max(y*a + d, 0) * s`` (``fc.relu_requant_true``), where v2 zero-masks the
 extremes and folds s into a and d. The residual site computes v2's function.
 
-Kernels (``msig_tpu_torch/csrc``): the relu site is the second entry of
-``conv3x3_adain_relu_requant.cu``, the residual site the entry of
+Kernels (``msig_tpu_torch/csrc``), all on the ``wgmma`` main loop of
+``conv_i8_wgmma.cuh``: the relu site is the second entry of
+``conv3x3_adain_relu_requant.cu`` (row 1's pass A with the true extremes,
+then the unfolded epilogue), the residual site row 2's entry of
 ``conv3x3_adain_residual_requant.cu``, the ConvT site the K-concat entry of
-``convt4x4s2_in_relu_requant.cu`` in its true-extremes mode. Each wrapper
-launches its kernel for CUDA tensors and adds one to its entry of
-``LAUNCHES``, or raises; for CPU tensors it runs its plain version. Both
-check the shapes the JAX wrapper asserts.
+``convt4x4s2_in_relu_requant.cu`` in its true-extremes mode (the phase-split
+site's two passes). They read K-major weights: each wrapper takes them as
+the keyword ``w_kmajor`` (``fc.pack_weights_kmajor(w_packed)`` for the 3x3
+sites, ``fc.pack_convt_kcat_kmajor(w_kcat)`` for the ConvT), or makes them
+where a caller passes none. Each wrapper launches its kernel for CUDA tensors
+and adds one to its entry of ``LAUNCHES``, or raises; for CPU tensors it
+runs its plain version. Both check the shapes the JAX wrapper asserts.
 """
 
 from __future__ import annotations
@@ -64,9 +69,12 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _RELU_ENTRY = "msig_conv3x3_adain_relu_requant_v1"
 
-# The packings are v1's (fused_conv_int8.py:69-73, :162-191).
+# The packings are v1's (fused_conv_int8.py:69-73, :162-191), and the
+# kernels' K-major copies of them.
 pack_weights = fc.pack_weights
 pack_convt_weights = fc.pack_convt_weights
+pack_weights_kmajor = fc.pack_weights_kmajor
+pack_convt_kcat_kmajor = fc.pack_convt_kcat_kmajor
 
 
 def reset_launch_counts() -> None:
@@ -164,19 +172,23 @@ def convt4x4s2_in_relu_requant_plain(x_i8, w_kcat, eps: float = _EPS):
 # ------------------------------------------------------------------ wrappers
 
 
-def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS):
+def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS, *,
+                               w_kmajor=None):
     """v1 resblock conv1 site: x_i8 [B, 64, 64, C] int8, w_packed [9C, C] int8,
-    gamma/beta [B, C] float32 -> int8 [B, 64, 64, C]."""
+    gamma/beta [B, C] float32 -> int8 [B, 64, 64, C]; w_kmajor, optional,
+    ``fc.pack_weights_kmajor(w_packed)``, which the kernel reads."""
     _check_trunk_site(x_i8, w_packed)
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, (x_i8.shape[-1], 9 * x_i8.shape[-1]))
         return conv3x3_adain_relu_requant_plain(x_i8, w_packed, gamma, beta, eps)
     fc._check("x", x_i8, torch.int8, tuple(x_i8.shape))
     b, h, w, c = fc._check_site(x_i8, w_packed, gamma, beta)
+    wk = fc._kmajor(w_packed, w_kmajor, fc.pack_weights_kmajor, (c, 9 * c))
     fn = _build.load(fc.RELU_SITE, fc._ARGTYPES[fc.RELU_SITE], entry=_RELU_ENTRY)
-    y = torch.empty((b, h * w, c), dtype=torch.int32, device=x_i8.device)
-    stats = fc.true_extremes_stats(1, b, c, x_i8.device)[0]
+    # the int32 scratch and the statistics block, which the C entry sets
+    y, stats = fc._scratch(x_i8, b, h * w, c)
     out = torch.empty_like(x_i8)
-    err = fn(x_i8.data_ptr(), w_packed.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+    err = fn(x_i8.data_ptr(), wk.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
              y.data_ptr(), stats.data_ptr(), out.data_ptr(), b, h, w, c, eps,
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(RELU_SITE, err)
@@ -185,27 +197,34 @@ def conv3x3_adain_relu_requant(x_i8, w_packed, gamma, beta, eps: float = _EPS):
 
 
 def conv3x3_adain_residual_requant(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
-                                   eps: float = _EPS):
+                                   eps: float = _EPS, *, w_kmajor=None):
     """v1 resblock conv2 site: y1_i8, h_i8 [B, 64, 64, C] int8, h_scale [B, 1]
     float32, w_packed [9C, C] int8, gamma/beta [B, C] float32 -> (int8, new
-    scale [B, 1])."""
+    scale [B, 1]); w_kmajor, optional, ``fc.pack_weights_kmajor(w_packed)``,
+    which the kernel reads."""
     _check_trunk_site(y1_i8, w_packed)
     if y1_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, (y1_i8.shape[-1], 9 * y1_i8.shape[-1]))
         return conv3x3_adain_residual_requant_plain(y1_i8, h_i8, h_scale, w_packed, gamma, beta,
                                                     eps)
-    out = fc.residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps)
+    out = fc.residual_kernel(y1_i8, h_i8, h_scale, w_packed, gamma, beta, eps,
+                             w_kmajor=w_kmajor)
     LAUNCHES[RESIDUAL_SITE] += 1
     return out
 
 
-def convt4x4s2_in_relu_requant(x_i8, w_kcat, eps: float = _EPS):
-    """v1 up site: x_i8 [B, H, H, Cin] int8, w_kcat [9*Cin, 4*Cout] int8 from
-    ``pack_convt_weights`` -> (int8 [B, 2H, 2H, Cout], inverse scale [B, 1]).
+def convt4x4s2_in_relu_requant(x_i8, w_kcat, eps: float = _EPS, *, w_kmajor=None):
+    """v1 up site: x_i8 [B, H, H, Cin] int8, w_kcat [9*Cin, 4*Cout] int8, which
+    must come from ``pack_convt_weights`` (as the TPU kernel's docstring
+    requires: the kernel reads only the 16 blocks that packing fills) ->
+    (int8 [B, 2H, 2H, Cout], inverse scale [B, 1]); w_kmajor, optional,
+    ``fc.pack_convt_kcat_kmajor(w_kcat)``, which the kernel reads.
 
     The TPU's ``w_img`` is H; its ``guard`` and ``chunk`` shape the slab only."""
     _check_convt_site(x_i8, w_kcat)
     if x_i8.device.type == "cpu":
+        fc._check_kmajor_shape(w_kmajor, fc.convt_kcat_kmajor_shape(w_kcat))
         return convt4x4s2_in_relu_requant_plain(x_i8, w_kcat, eps)
-    out = fc.convt4x4s2_kcat_kernel(x_i8, w_kcat, eps, true_extremes=True)
+    out = fc.convt4x4s2_kcat_kernel(x_i8, w_kcat, eps, true_extremes=True, w_kmajor=w_kmajor)
     LAUNCHES[CONVT_SITE] += 1
     return out

@@ -23,14 +23,14 @@ Each site has:
   wrapper runs for CPU tensors and which ``chip_smoke.py`` holds the kernel
   against on the card.
 
-The conv1 site, the three conv2 sites and the phase-split ConvT site run their
-conv on ``wgmma`` (``csrc/conv_i8_wgmma.cuh``), which reads the weights
-K-major: their wrappers take the ``[C, 9C]`` copy of ``pack_weights_kmajor``
-(the ConvT's ``[4, Cout, 4*Cin]`` copy of ``pack_convt_weights_ps_kmajor``) as
-the keyword ``w_kmajor`` (made once at quantization) and make it themselves
-when a caller passes only the packed weights. The ConvT site runs its conv
-twice, once for the statistics and once to write int8, and allocates no
-accumulator scratch.
+Every site runs its conv on ``wgmma`` (``csrc/conv_i8_wgmma.cuh``), which
+reads the weights K-major: the wrappers take the ``[C, 9C]`` copy of
+``pack_weights_kmajor`` (the ConvT's ``[4, Cout, 4*Cin]`` copy of
+``pack_convt_weights_ps_kmajor``, the 9-tap site's of
+``pack_convt_kcat_kmajor``) as the keyword ``w_kmajor`` (made once at
+quantization) and make it themselves when a caller passes only the packed
+weights. Both ConvT sites run their conv twice, once for the statistics and
+once to write int8, and allocate no accumulator scratch.
 
 The int8 convolution is exact in both: the plain version convolves in float64,
 where every partial sum of int8 products is an exact integer, and reduces the
@@ -88,7 +88,7 @@ _ARGTYPES = {
     CONVT_SOURCE: [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P],
 }
 # entry msig_convt4x4s2_kcat of CONVT_SOURCE
-_KCAT_ARGTYPES = [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P]
+_KCAT_ARGTYPES = [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, _P]
 
 # Per-phase (dy, dx) taps of the phase-split ConvT, phase q = 2*qy + qx, in
 # the block order of ``pack_convt_weights_ps``.
@@ -187,6 +187,28 @@ def pack_convt_weights_ps_kmajor(w_ps: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected packed ConvT weights [16*Cin, Cout], got {tuple(w_ps.shape)}")
     return w_ps.to(torch.int8).reshape(4, w_ps.shape[0] // 4, w_ps.shape[1]).transpose(1, 2) \
         .contiguous()
+
+
+def pack_convt_kcat_kmajor(w_kcat: torch.Tensor) -> torch.Tensor:
+    """[9*Cin, 4*Cout] 9-tap K-concat ConvT weights (``pack_convt_weights``) ->
+    [4, Cout, 4*Cin], the K-major copy of its 16 nonzero blocks: phase q's
+    K index t*Cin + ci is tap t of ``PS_TAPS[q]``, (dy, dx), read from row
+    block (dy+1)*3 + dx+1 of column block q. For an operand made by
+    ``pack_convt_weights(w)`` it equals
+    ``pack_convt_weights_ps_kmajor(pack_convt_weights_ps(w))``; the 20 blocks
+    that packing leaves zero are not read."""
+    if w_kcat.dim() != 2 or w_kcat.shape[0] % 9 or w_kcat.shape[1] % 4:
+        raise ValueError(f"expected K-concat ConvT weights [9*Cin, 4*Cout], got "
+                         f"{tuple(w_kcat.shape)}")
+    cin, cout = w_kcat.shape[0] // 9, w_kcat.shape[1] // 4
+    w = w_kcat.to(torch.int8).contiguous()
+    # Phase q = (qy, qx) takes tap t = (a, b) from row block (qy + a, qx + b) of
+    # the 3 x 3 and column block q (PS_TAPS: dy + 1 = qy + a, dx + 1 = qx + b):
+    # one strided view [qy, qx, a, b, ci, co] of the operand, copied once.
+    s_ry, s_rx, s_qy, s_qx = 3 * cin * 4 * cout, cin * 4 * cout, 2 * cout, cout
+    v = w.as_strided((2, 2, 2, 2, cin, cout),
+                     (s_ry + s_qy, s_rx + s_qx, s_ry, s_rx, 4 * cout, 1))
+    return v.permute(0, 1, 5, 2, 3, 4).reshape(4, cout, 4 * cin).contiguous()
 
 
 # ----------------------------------------------------------- plain versions
@@ -534,23 +556,26 @@ def _check_convt_kcat(x: torch.Tensor, w_kcat: torch.Tensor) -> Tuple[int, int, 
 
 
 def convt4x4s2_kcat_kernel(x_i8: torch.Tensor, w_kcat: torch.Tensor, eps: float = _EPS,
-                           true_extremes: bool = False):
-    """Launch the K-concat ConvT kernel (entry ``msig_convt4x4s2_kcat``) on dense
-    NHWC int8; returns (int8 [B, 2H, 2W, Cout], inv_scale [B, 1]).
+                           true_extremes: bool = False, *, w_kmajor=None):
+    """Launch the K-concat ConvT kernel (entry ``msig_convt4x4s2_kcat``: the
+    ConvT site's two ``wgmma`` passes) on dense NHWC int8; returns (int8
+    [B, 2H, 2W, Cout], inv_scale [B, 1]).
 
-    ``true_extremes`` picks the v1 statistics and requant (true per-channel
-    extremes, unfolded) over the v2 ones (zero-masked, folded). It counts no
-    launch: ``convt4x4s2_in_relu_requant`` here and the v1 site of
-    ``fused_conv_int8`` each count their own."""
-    b, h, w, _, cout = _check_convt_kcat(x_i8, w_kcat)
+    The kernel reads the K-major copy of the operand's nonzero blocks:
+    ``w_kmajor`` (``pack_convt_kcat_kmajor(w_kcat)``), checked, or the copy
+    made here where it is None. ``true_extremes`` picks the v1 statistics and
+    requant (true per-channel extremes, unfolded) over the v2 ones
+    (zero-masked, folded). It counts no launch: ``convt4x4s2_in_relu_requant``
+    here and the v1 site of ``fused_conv_int8`` each count their own."""
+    b, h, w, cin, cout = _check_convt_kcat(x_i8, w_kcat)
+    wk = _kmajor(w_kcat, w_kmajor, pack_convt_kcat_kmajor, convt_kcat_kmajor_shape(w_kcat))
     fn = _build.load(CONVT_SOURCE, _KCAT_ARGTYPES, entry="msig_convt4x4s2_kcat")
-    y = torch.empty((b, 4 * h * w, cout), dtype=torch.int32, device=x_i8.device)
-    stats = (true_extremes_stats(1, b, cout, x_i8.device)[0] if true_extremes
-             else torch.zeros(5 * b * cout + b, dtype=torch.int64, device=x_i8.device))
+    # the statistics block only: the C entry sets it on the stream
+    stats = torch.empty(5 * b * cout + b, dtype=torch.int64, device=x_i8.device)
     out = torch.empty((b, 2 * h, 2 * w, cout), dtype=torch.int8, device=x_i8.device)
     out_scale = torch.empty((b, 1), dtype=torch.float32, device=x_i8.device)
-    err = fn(x_i8.data_ptr(), w_kcat.data_ptr(), y.data_ptr(), stats.data_ptr(), out.data_ptr(),
-             out_scale.data_ptr(), b, h, w, x_i8.shape[3], cout, eps, int(true_extremes),
+    err = fn(x_i8.data_ptr(), wk.data_ptr(), stats.data_ptr(), out.data_ptr(),
+             out_scale.data_ptr(), b, h, w, cin, cout, eps, int(true_extremes),
              torch.cuda.current_stream(x_i8.device).cuda_stream)
     _build.check(CONVT_SOURCE, err)
     return out, out_scale
@@ -559,6 +584,11 @@ def convt4x4s2_kcat_kernel(x_i8: torch.Tensor, w_kcat: torch.Tensor, eps: float 
 def convt_kmajor_shape(w_ps: torch.Tensor) -> Tuple[int, int, int]:
     """The shape [4, Cout, 4*Cin] of ``pack_convt_weights_ps_kmajor(w_ps)``."""
     return 4, w_ps.shape[1], w_ps.shape[0] // 4
+
+
+def convt_kcat_kmajor_shape(w_kcat: torch.Tensor) -> Tuple[int, int, int]:
+    """The shape [4, Cout, 4*Cin] of ``pack_convt_kcat_kmajor(w_kcat)``."""
+    return 4, w_kcat.shape[1] // 4, 4 * (w_kcat.shape[0] // 9)
 
 
 def convt4x4s2_kernel(x_i8: torch.Tensor, w_ps: torch.Tensor, eps: float = _EPS,
@@ -626,8 +656,9 @@ def _scratch(x: torch.Tensor, b: int, hw: int, c: int, stage: str = "int32"):
 
 def true_extremes_stats(n_sites: int, b: int, c: int, device) -> torch.Tensor:
     """``n_sites`` statistics blocks [n_sites, 5*b*c + b] for the true-extremes
-    mode of ``csrc/conv_int8.cuh``: zero, but the min block at INT64_MAX and
-    the max block at INT64_MIN."""
+    mode of ``csrc/conv_int8.cuh`` (the single-kernel trunk's): zero, but the
+    min block at INT64_MAX and the max block at INT64_MIN. (The v1 sites' C
+    entries set theirs on the stream, the extremes at the int32 ends.)"""
     stats = torch.zeros((n_sites, 5 * b * c + b), dtype=torch.int64, device=device)
     stats[:, 2 * b * c:3 * b * c] = torch.iinfo(torch.int64).max
     stats[:, 3 * b * c:4 * b * c] = torch.iinfo(torch.int64).min
@@ -780,14 +811,18 @@ def convt4x4s2_in_relu_requant_ps(x_i8, w_ps, eps: float = _EPS, *, w_kmajor=Non
     return out
 
 
-def convt4x4s2_in_relu_requant(x_i8, w_kcat, eps: float = _EPS):
+def convt4x4s2_in_relu_requant(x_i8, w_kcat, eps: float = _EPS, *, w_kmajor=None):
     """The 9-tap K-concat up site on dense NHWC int8; returns (int8 [B, 2H, 2W,
     Cout], inv_scale [B, 1]).
 
     x_i8 [B, H, W, Cin] int8 of a square map, H % 16 == 0 (the TPU kernel's
-    16-row chunks), w_kcat [9*Cin, 4*Cout] int8 from ``pack_convt_weights``.
-    The kernel reads the operand in place, skipping its zero blocks; the
-    result is ``convt4x4s2_in_relu_requant_ps``'s on the same weights."""
+    16-row chunks), w_kcat [9*Cin, 4*Cout] int8, which must come from
+    ``pack_convt_weights`` (as the TPU kernel's docstring requires): the
+    kernel reads only the 16 blocks that packing fills, through their K-major
+    copy ``w_kmajor`` (``pack_convt_kcat_kmajor(w_kcat)``, optional, made
+    here where it is None), so the result is ``convt4x4s2_in_relu_requant_ps``'s
+    on the same weights, its kernel's to the bit. The plain version multiplies
+    all nine row blocks, as the TPU does."""
     if x_i8.dim() != 4 or x_i8.shape[1] != x_i8.shape[2] or x_i8.shape[1] % 16:
         raise ValueError(f"expected a square map [B, H, H, Cin] with H % 16 == 0, got "
                          f"{tuple(x_i8.shape)}")
@@ -795,7 +830,8 @@ def convt4x4s2_in_relu_requant(x_i8, w_kcat, eps: float = _EPS):
         raise ValueError(f"expected weights [9*Cin, 4*Cout] for Cin {x_i8.shape[3]}, got "
                          f"{tuple(w_kcat.shape)}")
     if x_i8.device.type == "cpu":
+        _check_kmajor_shape(w_kmajor, convt_kcat_kmajor_shape(w_kcat))
         return convt4x4s2_in_relu_requant_plain(x_i8, w_kcat, eps)
-    out = convt4x4s2_kcat_kernel(x_i8, w_kcat, eps)
+    out = convt4x4s2_kcat_kernel(x_i8, w_kcat, eps, w_kmajor=w_kmajor)
     LAUNCHES[KCAT_SITE] += 1
     return out

@@ -9,7 +9,10 @@ its v2 form (``ops/fused_conv_int8_v2.py``: rows 1, 2 and, for the ConvT
 sites, the 9-tap K-concat site of row 6), on the same seeded inputs at the
 256² input's shapes: [B, 64, 64, 256] for the trunk sites, up0 [B, 64, 64,
 256] -> [B, 128, 128, 128], up1 [B, 128, 128, 128] -> [B, 256, 256, 64].
-One pass calls each of the eight once. On ``cuda`` the times are CUDA events
+Every kernel reads K-major weights; the tool makes each copy once
+(``pack_weights_kmajor``, ``pack_convt_kcat_kmajor``) and passes it as
+``w_kmajor``, as the served path passes its own. One pass calls each of the
+eight once. On ``cuda`` the times are CUDA events
 around ``--iters`` passes after ``--warmup``; ``--device cpu`` runs the plain
 versions and times the host. There is no fallback from ``cuda``.
 """
@@ -59,15 +62,20 @@ def _sites(b: int, dev: torch.device) -> Dict[str, object]:
     xb = t(rng.integers(-127, 128, (b, 128, 128, 128), dtype=np.int8))
     wu1 = rng.integers(-16, 17, (4, 4, 128, 64), dtype=np.int8)
     wu1p = v1.pack_convt_weights(torch.from_numpy(wu1), 128, 64).to(dev)
+    wk = {"w_kmajor": v1.pack_weights_kmajor(wp)}
+    wu0k = {"w_kmajor": v1.pack_convt_kcat_kmajor(wu0p)}
+    wu1k = {"w_kmajor": v1.pack_convt_kcat_kmajor(wu1p)}
     return {
-        "relu site   v1": lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta),
-        "relu site   v2": lambda: v2.conv3x3_adain_relu_requant(x, wp, gamma, beta),
-        "res site    v1": lambda: v1.conv3x3_adain_residual_requant(x, x, hs, wp, gamma, beta),
-        "res site    v2": lambda: v2.conv3x3_adain_residual_requant(x, x, hs, wp, gamma, beta),
-        "up0 site    v1": lambda: v1.convt4x4s2_in_relu_requant(x, wu0p),
-        "up0 site    v2": lambda: v2.convt4x4s2_in_relu_requant(x, wu0p),
-        "up1 site    v1": lambda: v1.convt4x4s2_in_relu_requant(xb, wu1p),
-        "up1 site    v2": lambda: v2.convt4x4s2_in_relu_requant(xb, wu1p),
+        "relu site   v1": lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta, **wk),
+        "relu site   v2": lambda: v2.conv3x3_adain_relu_requant(x, wp, gamma, beta, **wk),
+        "res site    v1": lambda: v1.conv3x3_adain_residual_requant(x, x, hs, wp, gamma, beta,
+                                                                    **wk),
+        "res site    v2": lambda: v2.conv3x3_adain_residual_requant(x, x, hs, wp, gamma, beta,
+                                                                    **wk),
+        "up0 site    v1": lambda: v1.convt4x4s2_in_relu_requant(x, wu0p, **wu0k),
+        "up0 site    v2": lambda: v2.convt4x4s2_in_relu_requant(x, wu0p, **wu0k),
+        "up1 site    v1": lambda: v1.convt4x4s2_in_relu_requant(xb, wu1p, **wu1k),
+        "up1 site    v2": lambda: v2.convt4x4s2_in_relu_requant(xb, wu1p, **wu1k),
     }
 
 

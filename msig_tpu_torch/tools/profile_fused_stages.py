@@ -23,6 +23,10 @@ them:
   9-tap K-concat packing of dec_up0, then of dec_up1 on up0's output;
 * ``full (one program)``: encoder, fused trunk and fused decoder in turn.
 
+The v1 sites get their kernels' K-major weights as ``w_kmajor``, made once:
+the quantization's ``res0_conv{1,2}_pk`` and ``pack_convt_kcat_kmajor`` of
+the K-concat packings.
+
 Each stage is called ``--warmup`` + ``--iters`` times; on ``cuda`` its time is
 CUDA events around the last ``--iters``; ``--device cpu`` runs the kernels'
 plain versions and times the host. There is no fallback from ``cuda``.
@@ -93,6 +97,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     style = torch.from_numpy(rng.normal(0, 1, (b, STYLE_DIM)).astype(np.float32)).to(dev)
     gammas, betas = tq._style_affines(q, style, N_RES)
     up0_p, up1_p = _convt_kcat(q, "dec_up0"), _convt_kcat(q, "dec_up1")
+    # the kernels' K-major copies, made once as the served path's are
+    up0_k = {"w_kmajor": v1.pack_convt_kcat_kmajor(up0_p)}
+    up1_k = {"w_kmajor": v1.pack_convt_kcat_kmajor(up1_p)}
     print(f"profile_fused_stages: int8 generator (style_dim {STYLE_DIM}, {N_RES} resblocks, "
           f"seed {SEED}), batch {b} at {SIDE}² on {kind}; ms per call, mean of "
           f"{args.iters} calls after {args.warmup} "
@@ -104,7 +111,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     def conv1():
         hq0, inv_s = tq._requant_with_inv_scale(held["h0"])
         held["hq0"], held["hs0"] = hq0, inv_s.reshape(b, 1).to(torch.float32)
-        return v1.conv3x3_adain_relu_requant(hq0, q["res0_conv1_p"], gammas[0], betas[0])
+        return v1.conv3x3_adain_relu_requant(hq0, q["res0_conv1_p"], gammas[0], betas[0],
+                                             w_kmajor=q.get("res0_conv1_pk"))
 
     def full():
         h = tq._xla_encoder(q, img)
@@ -115,11 +123,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         ("fused trunk (16 sites)", "hq", lambda: tq._fused_trunk(q, held["h0"], style, N_RES)),
         ("  conv1 site alone", "y1", conv1),
         ("  conv2 site alone", None, lambda: v1.conv3x3_adain_residual_requant(
-            held["y1"], held["hq0"], held["hs0"], q["res0_conv2_p"], gammas[1], betas[1])),
+            held["y1"], held["hq0"], held["hs0"], q["res0_conv2_p"], gammas[1], betas[1],
+            w_kmajor=q.get("res0_conv2_pk"))),
         ("fused decoder (2 ups+final)", None,
          lambda: tq._fused_decoder(q, held["hq"], torch.bfloat16)),
-        ("  up0 kernel alone", "y0", lambda: v1.convt4x4s2_in_relu_requant(held["hq"], up0_p)[0]),
-        ("  up1 kernel alone", None, lambda: v1.convt4x4s2_in_relu_requant(held["y0"], up1_p)),
+        ("  up0 kernel alone", "y0",
+         lambda: v1.convt4x4s2_in_relu_requant(held["hq"], up0_p, **up0_k)[0]),
+        ("  up1 kernel alone", None,
+         lambda: v1.convt4x4s2_in_relu_requant(held["y0"], up1_p, **up1_k)),
         ("full (one program)", None, full),
     ]
     result: Dict[str, object] = dict(device=kind, batch=b, calls=args.warmup + args.iters,

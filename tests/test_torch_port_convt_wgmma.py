@@ -31,6 +31,13 @@ from msig_tpu_torch.ops import fused_dec_int8 as fd
 # csrc/conv_i8_wgmma.cuh: pixels a tile, bytes of K a stage, consumer warps;
 # the ConvT's channel tile is 128 where Cout % 128 == 0, else 64.
 BM, BK, WARPS, EPS = 128, 128, 8, 1e-5
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def start(true_extremes=False):
+    """stat_neutral of the header for the five blocks: where a CTA's block, a
+    RegStats partial and (the v1 sites' fill) the global block start."""
+    return np.array([0, 0, INT32_MAX, INT32_MIN, 0] if true_extremes else [0] * 5, np.int64)
 
 
 def tile_n(cout: int) -> int:
@@ -114,12 +121,13 @@ def _fold8(v, op):
     return v[..., 0]
 
 
-def _tile_stats(acc):
+def _tile_stats(acc, true_extremes=False):
     """The CTA's [5, BN] share of a tile's int64 outputs acc [BM, BN], as the
-    kernel's warp_stats and its shared atomics build it: per warp (16 rows),
-    lane (g, q) folds its two rows of columns 8j + 2q + e, the 8 lanes of one q
-    halve their columns, and lane g ends with column 32c + 8(g/2) + 2q + g%2
-    of chunk c; the sum of squares is split into 32-bit words per warp."""
+    kernel's warp_stats<BN, kTrue> and its shared atomics build it: per warp
+    (16 rows), lane (g, q) folds its two rows of columns 8j + 2q + e, the 8
+    lanes of one q halve their columns, and lane g ends with column 32c +
+    8(g/2) + 2q + g%2 of chunk c; the sum of squares is split into 32-bit
+    words per warp; the extremes zero-masked, or true."""
     bn = acc.shape[1]
     lane = np.arange(32)
     g, q = lane // 4, lane % 4
@@ -130,11 +138,13 @@ def _tile_stats(acc):
     v0, v1 = acc[rows, cols], acc[rows + 8, cols]
     s = _fold8(v0 + v1, np.add)
     sq = _fold8(v0 * v0 + v1 * v1, np.add)
-    mn = _fold8(np.minimum(0, np.minimum(v0, v1)), np.minimum)
-    mx = _fold8(np.maximum(0, np.maximum(v0, v1)), np.maximum)
+    lo_mn, lo_mx = np.minimum(v0, v1), np.maximum(v0, v1)
+    if not true_extremes:
+        lo_mn, lo_mx = np.minimum(0, lo_mn), np.maximum(0, lo_mx)
+    mn, mx = _fold8(lo_mn, np.minimum), _fold8(lo_mx, np.maximum)
     col = (32 * np.arange(bn // 32)[:, None] + 8 * (g // 2) + 2 * q + g % 2).ravel()
     assert np.array_equal(np.sort(col), np.arange(bn)), "each column ends in one lane"
-    cta = np.zeros((5, bn), np.int64)
+    cta = np.repeat(start(true_extremes)[:, None], bn, axis=1)
     for w in range(WARPS):
         np.add.at(cta[0], col, s[w].ravel())
         np.add.at(cta[1], col, sq[w].ravel() & 0xFFFFFFFF)
@@ -200,13 +210,15 @@ def _merge(block, part):
 class RegStats:
     """RegStats of the header (pass S at BN = 64): per warp, lane and column k
     = 2j + e (column 8j + 2q + e) the sum, the low and high words of the
-    squares, the zero-masked min and max, gathered over tiles; fold() reduces
-    them as warp_stats does and adds them to the CTA's block."""
+    squares, the min and max (zero-masked: from 0; true: from the int32
+    ends), gathered over tiles; fold() reduces them as warp_stats does and
+    adds them to the CTA's block."""
     TILES = 16
 
-    def __init__(self, bn):
+    def __init__(self, bn, true_extremes=False):
         self.bn, self.tiles = bn, 0
-        self.v = np.zeros((5, WARPS, 32, bn // 4), np.int64)
+        self.start = start(true_extremes)[:, None, None, None]
+        self.v = np.zeros((5, WARPS, 32, bn // 4), np.int64) + self.start
         lane = np.arange(32)
         k = np.arange(bn // 4)
         self.rows = 16 * np.arange(WARPS)[:, None, None] + (lane // 4)[None, :, None]
@@ -227,37 +239,40 @@ class RegStats:
         g, q = lane // 4, lane % 4
         for c in range(self.bn // 32):
             col = 32 * c + 8 * (g // 2) + 2 * q + g % 2
-            part = np.zeros((5, self.bn), np.int64)
+            part = np.repeat(self.start[:, 0, 0], self.bn, axis=1)
             for w in range(WARPS):
                 vals = self.v[:, w, :, 8 * c:8 * c + 8]
                 for i, op in enumerate((np.add, np.add, np.minimum, np.maximum, np.add)):
                     op.at(part[i], col, _fold8(vals[i], op))
             _merge(block, part)
-        self.v[:] = 0
+        self.v[:] = self.start
         self.tiles = 0
 
 
-def pass_s(x, wk, cout, grid, seed=0):
+def pass_s(x, wk, cout, grid, seed=0, true_extremes=False):
     """Pass S: every CTA's run of tiles, in a shuffled order of CTAs; a CTA's
     shared block gathers its tiles (by warp_stats per tile, or at BN = 64 by
     the register partials folded every RegStats.TILES tiles) and leaves when
-    the next tile is of another (sample, channel tile), or after its last.
-    Returns stats [5, B, Cout]."""
+    the next tile is of another (sample, channel tile), or after its last,
+    skipping the entries still at their start. The statistics block and the
+    CTA's start at their neutral values (``start``: the memset, or with
+    ``true_extremes`` the v1 sites' fill). Returns stats [5, B, Cout]."""
     b_, h, w, _ = x.shape
     bn = tile_n(cout)
     tiles_n, mblocks = cout // bn, h * w // BM
     runs = _runs(b_ * 4 * mblocks * tiles_n, grid)
-    stats = np.zeros((5, b_, cout), np.int64)
+    neutral = start(true_extremes)[:, None]
+    stats = np.zeros((5, b_, cout), np.int64) + neutral[:, :, None]
     for cta in np.random.default_rng(seed).permutation(len(runs)):
-        block = np.zeros((5, bn), np.int64)
-        reg = RegStats(bn)
+        block = np.repeat(neutral, bn, axis=1)
+        reg = RegStats(bn, true_extremes)
         for tile in runs[cta]:
             b, q, m0, n0, key = _tile_at(tile, tiles_n, mblocks, bn)
             acc = _conv_tile(x, wk, b, q, m0, n0, bn)
             if bn == 64:
                 reg.add(acc)
             else:
-                _merge(block, _tile_stats(acc))
+                _merge(block, _tile_stats(acc, true_extremes))
             nxt = tile + 1
             leaves = nxt >= runs[cta].stop or _tile_at(nxt, tiles_n, mblocks, bn)[4] != key
             if bn == 64:
@@ -266,18 +281,22 @@ def pass_s(x, wk, cout, grid, seed=0):
                     reg.fold(block)
             if leaves:
                 dst = stats[:, b, n0:n0 + bn]
-                dst[[0, 1, 4]] += block[[0, 1, 4]]
-                dst[2], dst[3] = np.minimum(dst[2], block[2]), np.maximum(dst[3], block[3])
-                block[:] = 0
+                keep = block != neutral
+                part = np.where(keep, block, neutral)
+                dst[[0, 1, 4]] += part[[0, 1, 4]]
+                dst[2], dst[3] = np.minimum(dst[2], part[2]), np.maximum(dst[3], part[3])
+                block[:] = neutral
     return stats
 
 
 F32 = np.float32
 
 
-def _load_requant(stats, b, n0, bn, n_out, stage):
+def _load_requant(stats, b, n0, bn, n_out, stage, true_extremes=False):
     """load_requant of the header (in_affine, relu_hi, relu_scale, fold_relu of
-    csrc/conv_int8.cuh) in fp32: (amax, a2 [bn], d2 [bn])."""
+    csrc/conv_int8.cuh) in fp32: (amax, a2 [bn], d2 [bn]); with
+    ``true_extremes`` (the kTrue mode: true_relu_hi's operations on the true
+    extremes) a and d unfolded in place of a2 and d2."""
     sums = stats[0, b].astype(F32)
     sumsq = fc.words_to_f32(torch.from_numpy(stats[4, b]), torch.from_numpy(stats[1, b])).numpy()
     mean = sums / F32(n_out)
@@ -286,6 +305,8 @@ def _load_requant(stats, b, n0, bn, n_out, stage):
     d = F32(0) - mean * a
     hi = np.maximum(a * stats[3, b].astype(F32), a * stats[2, b].astype(F32)) + d
     amax = max(F32(0), hi.max())
+    if true_extremes:
+        return amax, a[n0:n0 + bn], d[n0:n0 + bn]
     s = F32(127) / amax if amax > 0 else F32(1)
     unscale = F32(4096) if stage == "fp16" else F32(1)
     a2, d2 = (a * s) * unscale, d * s
@@ -300,9 +321,10 @@ def _through(acc, stage):
     return v
 
 
-def pass_q(x, wk, stats, cout, grid, stage, seed=1):
+def pass_q(x, wk, stats, cout, grid, stage, seed=1, true_extremes=False):
     """Pass Q: every CTA's run of tiles, the requant rebuilt when the key
-    changes; each tile's values through the staging type and the folded map,
+    changes; each tile's values through the staging type and the folded map
+    (with ``true_extremes`` the unfolded map of relu_requant_unfolded),
     staged per warp (16 rows, lane (g, q) writes columns 8j + 2q, +1 of rows g
     and g + 8) and read back as 16-byte chunks to their output pixels; the
     tile (q 0, pixel 0, channel 0) of a sample writes its inverse scale.
@@ -321,10 +343,14 @@ def pass_q(x, wk, stats, cout, grid, stage, seed=1):
         for tile in runs[cta]:
             b, q, m0, n0, key = _tile_at(tile, tiles_n, mblocks, bn)
             if key != held:
-                amax, a2, d2 = _load_requant(stats, b, n0, bn, 4 * h * w, stage)
+                amax, a2, d2 = _load_requant(stats, b, n0, bn, 4 * h * w, stage, true_extremes)
                 held = key
             t = _through(_conv_tile(x, wk, b, q, m0, n0, bn), stage) * a2 + d2
-            qv = np.rint(np.clip(t, F32(0), F32(127))).astype(np.int32)
+            if true_extremes:  # max(v*a + d, 0) * s, rounded, clipped to +-127
+                s = F32(127) / amax if amax > 0 else F32(1)
+                qv = np.clip(np.rint(np.maximum(t, F32(0)) * s), -127, 127).astype(np.int32)
+            else:
+                qv = np.rint(np.clip(t, F32(0), F32(127))).astype(np.int32)
             for wi in range(WARPS):
                 staging = np.full((16, bn + 16), -1000, np.int32)
                 for j in range(bn // 8):

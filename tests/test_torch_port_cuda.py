@@ -849,22 +849,25 @@ def test_v3_epilogue_im2col_never_take_the_plain_path(cuda_device):
 @pytest.mark.parametrize("b,c,one_sign", [(1, 128, False), (8, 256, False), (2, 128, True)])
 def test_v1_trunk_sites_kernel_match_plain(cuda_device, b, c, one_sign):
     """Rows 19-20 on the 64x64 map they take; (8, 256) is the main path's shape.
-    On one-sign channels row 19 also parts from row 1's kernel by more than
-    the bar, so the two rules are told apart."""
+    Both run on the wgmma pass A (row 19 in its true-extremes mode), exact
+    sums and the plain versions' operations: equal to their plain versions to
+    the bit, with the K-major copy given and made by the wrapper. On one-sign
+    channels row 19 also parts from row 1's kernel by more than the bar, so
+    the two rules are told apart."""
     t = _inputs(b, 64, c, cuda_device, seed=5, one_sign=one_sign)
-    before = dict(v1.LAUNCHES)
-    got = v1.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"])
-    got_q, got_s = v1.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"],
-                                                     t["gamma"], t["beta"])
-    assert v1.LAUNCHES == {**before, v1.RELU_SITE: before[v1.RELU_SITE] + 1,
-                           v1.RESIDUAL_SITE: before[v1.RESIDUAL_SITE] + 1}
     want = v1.conv3x3_adain_relu_requant_plain(t["x"], t["w"], t["gamma"], t["beta"])
     want_q, want_s = v1.conv3x3_adain_residual_requant_plain(t["x"], t["hq"], t["hs"], t["w"],
                                                              t["gamma"], t["beta"])
-    torch.cuda.synchronize()
-    _assert_int8_close(got, want)
-    torch.testing.assert_close(got_s, want_s, rtol=1e-5, atol=0)
-    _assert_int8_close(got_q, want_q)
+    for kw in ({"w_kmajor": v1.pack_weights_kmajor(t["w"])}, {}):
+        before = dict(v1.LAUNCHES)
+        got = v1.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"], **kw)
+        got_q, got_s = v1.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"],
+                                                         t["gamma"], t["beta"], **kw)
+        assert v1.LAUNCHES == {**before, v1.RELU_SITE: before[v1.RELU_SITE] + 1,
+                               v1.RESIDUAL_SITE: before[v1.RESIDUAL_SITE] + 1}
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
     if one_sign:
         _assert_int8_apart(fc.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"]),
                            got)
@@ -885,26 +888,51 @@ def _kcat_inputs(b, side, cin, cout, dev, seed=6, one_sign=False):
     (1, 16, 64, 64, False), (2, 16, 256, 128, False), (8, 64, 256, 128, False),
     (8, 128, 128, 64, False), (2, 16, 64, 64, True), (8, 64, 256, 128, True)])
 def test_kcat_convt_sites_kernel_match_plain(cuda_device, b, side, cin, cout, one_sign):
-    """Rows 21 (v1) and 6 (v2) on the K-concat operand; (8, 64, 256, 128) and
-    (8, 128, 128, 64) are up0's and up1's shapes on the main path. Row 6 equals
-    row 5's kernel to the bit. On one-sign channels rows 21 and 6 part by
-    more than the bar, so the two rules are told apart."""
+    """Rows 21 (v1) and 6 (v2) on the K-concat operand, both on row 5's two
+    wgmma passes (row 21 in their true-extremes mode); (8, 64, 256, 128) and
+    (8, 128, 128, 64) are up0's and up1's shapes on the main path. Equal to
+    their plain versions to the bit, with the K-major copy given and made by
+    the wrapper; row 6 equals row 5's kernel to the bit. On one-sign channels
+    rows 21 and 6 part by more than the bar, so the two rules are told
+    apart."""
     x, wk, wps = _kcat_inputs(b, side, cin, cout, cuda_device, one_sign=one_sign)
-    before1, before2 = v1.LAUNCHES[v1.CONVT_SITE], fc.LAUNCHES[fc.KCAT_SITE]
-    got1 = v1.convt4x4s2_in_relu_requant(x, wk)
-    got6 = fc.convt4x4s2_in_relu_requant(x, wk)
-    assert v1.LAUNCHES[v1.CONVT_SITE] == before1 + 1 and fc.LAUNCHES[fc.KCAT_SITE] == before2 + 1
     want1 = v1.convt4x4s2_in_relu_requant_plain(x, wk)
     want6 = fc.convt4x4s2_in_relu_requant_plain(x, wk)
     got5 = fc.convt4x4s2_in_relu_requant_ps(x, wps)
-    torch.cuda.synchronize()
-    for got, want in ((got1, want1), (got6, want6)):
-        assert got[0].shape == (b, 2 * side, 2 * side, cout)
-        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
-        _assert_int8_close(got[0], want[0])
-    assert torch.equal(got6[0], got5[0]) and torch.equal(got6[1], got5[1])
+    for kw in ({"w_kmajor": fc.pack_convt_kcat_kmajor(wk)}, {}):
+        before1, before2 = v1.LAUNCHES[v1.CONVT_SITE], fc.LAUNCHES[fc.KCAT_SITE]
+        got1 = v1.convt4x4s2_in_relu_requant(x, wk, **kw)
+        got6 = fc.convt4x4s2_in_relu_requant(x, wk, **kw)
+        assert (v1.LAUNCHES[v1.CONVT_SITE] == before1 + 1
+                and fc.LAUNCHES[fc.KCAT_SITE] == before2 + 1)
+        torch.cuda.synchronize()
+        for got, want in ((got1, want1), (got6, want6)):
+            assert got[0].shape == (b, 2 * side, 2 * side, cout)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got6[0], got5[0]) and torch.equal(got6[1], got5[1])
     if one_sign:
         _assert_int8_apart(got6[0], got1[0])
+
+
+@pytest.mark.cuda
+def test_v1_and_kcat_sites_reject_a_wrong_kmajor_copy(cuda_device):
+    """Rows 6, 19, 20 and 21 check the K-major copy they are given: wrong
+    shape, wrong dtype, another device."""
+    t = _inputs(1, 64, 128, cuda_device, seed=7)
+    wk3 = v1.pack_weights_kmajor(t["w"])
+    for bad in (wk3[:64], wk3.to(torch.int32), wk3.cpu()):
+        with pytest.raises(ValueError, match="w_kmajor"):
+            v1.conv3x3_adain_relu_requant(t["x"], t["w"], t["gamma"], t["beta"], w_kmajor=bad)
+        with pytest.raises(ValueError, match="w_kmajor"):
+            v1.conv3x3_adain_residual_requant(t["x"], t["hq"], t["hs"], t["w"], t["gamma"],
+                                              t["beta"], w_kmajor=bad)
+    x, wk, _ = _kcat_inputs(1, 16, 64, 64, cuda_device)
+    wkt = fc.pack_convt_kcat_kmajor(wk)
+    for bad in (wkt[:2], wkt.transpose(1, 2).contiguous(), wkt.to(torch.int32), wkt.cpu()):
+        with pytest.raises(ValueError, match="w_kmajor"):
+            v1.convt4x4s2_in_relu_requant(x, wk, w_kmajor=bad)
+        with pytest.raises(ValueError, match="w_kmajor"):
+            fc.convt4x4s2_in_relu_requant(x, wk, w_kmajor=bad)
 
 
 @pytest.mark.cuda
