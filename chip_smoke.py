@@ -36,7 +36,8 @@ Phases, each reported on its own line:
    on under 1%, uint8 at most 1 apart on under 1e-3; the wgmma rows (conv1,
    the three conv2 sites, the v1 conv1 and conv2 sites, the ConvT site's rows
    5, 12 and 13, the v1 and 9-tap ConvT sites), the encoder's two-pass rows
-   7-11 and row 18 (``EXACT``) equal to their plain versions to the bit,
+   7-11, row 18 and rows 16-17 (``EXACT``) equal to their plain versions to
+   the bit,
    conv1, the conv2 sites, the ConvT rows and enc1, enc2 timed with the
    K-major weight copy given, as the served trunk, decoder and encoder call
    them (rows 6 and 19-21 also with the copy made by the wrapper); times by
@@ -67,7 +68,9 @@ Phases, each reported on its own line:
    the K-major copy given and made (equal to its plain version to the bit)
    and with four equal blocks (equal to row 8 to the bit); row 18 (one cooperative launch) at [8, 4096, 256] with
    |x| < 2^20 and over the whole int32 range: equal to its plain version to
-   the bit, two calls alike, its grid and items; row 14 (``final7_tanh_u8``, mma.sync with
+   the bit, two calls alike, its grid and items; rows 16-17 (one cooperative
+   launch each) likewise, the residual in bf16 and in fp32, h and int8 to the
+   bit; row 14 (``final7_tanh_u8``, mma.sync with
    kx folded into N, packed weights ``fd.pack_final7_weights`` given) equal
    to its plain version to the bit at both inputs' maps; row 15
    (``fused_trunk_blocks``: the whole trunk in one cooperative launch on the
@@ -150,7 +153,8 @@ Phases, each reported on its own line:
    call, the cooperative grid and the 16 convs' int8 rate; row 11 at enc1's
    main-path shape (memset, pass S, pass Q); row 18 at [8, 4096, 256]: its
    device time by kernel, its kernel launches per call on the card (one),
-   and its time by CUDA events with L2 warm and flushed;
+   and its time by CUDA events with L2 warm and flushed; the same for rows
+   16-17 (bf16 residual), with their cooperative grid and items a sample;
    then a ``torch.profiler`` trace of 5 steady 256² batches of the int8
    engine in mode 0: the device's busy and idle share and the trunk's share
    of the busy time;
@@ -296,7 +300,8 @@ EXACT = ("conv3x3_adain_relu_requant", "conv3x3_adain_residual_requant",
          "convt4x4s2_in_relu_requant_ps", "up1_s2d16",
          "up1_s2d16_hbm", "enc0_in_relu_requant", "enc0_hbm", "enc1_in_relu_requant",
          "enc2_in_relu_requant", "final7_tanh_u8", "fused_trunk_blocks",
-         "enc1_in_relu_requant_im2col", "adain_relu_requant_chunked")
+         "enc1_in_relu_requant_im2col", "adain_relu_requant_chunked", "adain_relu_requant",
+         "adain_residual_requant")
 WGMMA_SHAPES = ((1, 16, 128), (2, 16, 256), (8, 64, 256), (8, 128, 256), (1, 96, 256),
                 (1, 16, 384))
 CONVT_SHAPES = ((8, 64, 256, 128, ("int32",)), (8, 128, 128, 64, ("int32",)),
@@ -362,6 +367,7 @@ TRUNK_V3_GROUPS = (("cooperative kernel (wgmma)", "fused_trunk_kernel"),)
 FINAL7_GROUPS = (("mma.sync conv + epilogue", "final7_mma_kernel"),)
 # ... and of row 18's call: its one cooperative kernel.
 CHUNKED_GROUPS = (("cooperative kernel", "chunked_epilogue_kernel"),)
+SLAB_GROUPS = (("cooperative kernel", "slab_epilogue_kernel"),)
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
                 ("reductions", "reduce_kernel"))
 PROFILE_STAGES = {
@@ -641,16 +647,12 @@ def kernel_cases(torch, fc, fd, fe, f3, ec, v1, ep, dev):
 
     def slab(residual: bool):
         def make():
-            rng = np.random.default_rng(8)
-            args = (t(rng.integers(-2 ** 20, 2 ** 20, (B, SIDE * SIDE, C), dtype=np.int32)),
-                    t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32)),
-                    t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32)))
+            args = slab_inputs(torch, dev, 2 ** 20, 8, torch.bfloat16 if residual else None)
             if not residual:
                 return (lambda: ep.adain_relu_requant(*args)), \
                     (lambda: ep.adain_relu_requant_plain(*args))
-            res = t(rng.normal(0, 1.5, (B, SIDE * SIDE, C)).astype(np.float32)).to(torch.bfloat16)
-            return (lambda: ep.adain_residual_requant(*args, res)), \
-                (lambda: ep.adain_residual_requant_plain(*args, res))
+            return (lambda: ep.adain_residual_requant(*args)), \
+                (lambda: ep.adain_residual_requant_plain(*args))
         return make
 
     def epilogue():
@@ -1103,15 +1105,18 @@ def enc_phase(torch, fe, dev) -> None:
 def device_launches(torch, fn, calls: int = 10) -> float:
     """Kernel launches on the card per call of ``fn`` (``torch.profiler``, over
     ``calls`` calls after one; memsets count), or nan where the trace holds no
-    device events."""
+    device events in each of three tries (a trace that lost its events)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n / calls if n else float("nan")
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n / calls
+    return float("nan")
 
 
 def epilogue_phase(torch, ec, dev) -> None:
@@ -1139,6 +1144,52 @@ def epilogue_phase(torch, ec, dev) -> None:
               f"{ec.parts(grid, B)} items a sample", flush=True)
         del x, g, be, want, first, again
         torch.cuda.empty_cache()
+
+
+def slab_inputs(torch, dev, lim: int, seed: int, res_dtype=None) -> tuple:
+    """Rows 16-17's inputs at the main path's [8, 4096, 256]: int32 x in
+    (-lim, lim), gamma, beta, and a residual of ``res_dtype`` where given."""
+    rng = np.random.default_rng(seed)
+    shape = (B, SIDE * SIDE, C)
+    args = (torch.from_numpy(rng.integers(-lim, lim, shape, dtype=np.int64).astype(np.int32)),
+            torch.from_numpy(rng.normal(1.0, 0.5, (B, C)).astype(np.float32)),
+            torch.from_numpy(rng.normal(0.0, 0.5, (B, C)).astype(np.float32)))
+    if res_dtype is not None:
+        args += (torch.from_numpy(rng.normal(0, 1.5, shape).astype(np.float32)).to(res_dtype),)
+    return tuple(a.to(dev) for a in args)
+
+
+def slab_phase(torch, ep, dev) -> None:
+    """Rows 16-17 at the main path's [8, 4096, 256] with |x| < 2^20 and over
+    the whole int32 range, the residual in bf16 and in fp32: equal to their
+    plain versions to the bit (int8 and h), two calls alike, one launch a call
+    (the count; the card's trace in ``slab_split_phase``), the cooperative grid
+    and the items (128-row chunks) a sample."""
+    for lim in (2 ** 20, 2 ** 31 - 1):
+        for res_dtype in (None,) + ep.RESIDUAL_DTYPES:
+            args = slab_inputs(torch, dev, lim, lim % 1000 + 3, res_dtype)
+            if res_dtype is None:
+                name, kernel, plain = "adain_relu_requant", ep.adain_relu_requant, \
+                    ep.adain_relu_requant_plain
+            else:
+                name, kernel, plain = "adain_residual_requant", ep.adain_residual_requant, \
+                    ep.adain_residual_requant_plain
+            want = plain(*args)
+            before = ep.LAUNCHES[name]
+            first, again = kernel(*args), kernel(*args)
+            torch.cuda.synchronize()
+            check(ep.LAUNCHES[name] == before + 2, f"{name}: one launch a call")
+            pairs = zip(first, want, again) if isinstance(first, tuple) else ((first, want, again),)
+            check(all(torch.equal(f, w) and torch.equal(a, f) for f, w, a in pairs),
+                  f"{name} ({res_dtype}) at |x| < {lim + 1}: equal to its plain version to the "
+                  f"bit, two calls alike")
+            grid = ep.cooperative_grid(res_dtype)
+            print(f"[kernel] {name}{'' if res_dtype is None else f' ({str(res_dtype)[6:]} residual)'}"
+                  f" at {[B, SIDE * SIDE, C]}, |x| < {lim + 1}: equal to its plain version to the "
+                  f"bit, two calls alike; cooperative grid of {grid} CTAs, "
+                  f"{-(-SIDE * SIDE // ep.ROWS)} items (128-row chunks) a sample", flush=True)
+            del args, want, first, again
+            torch.cuda.empty_cache()
 
 
 def write_inputs(work: str) -> tuple:
@@ -2100,6 +2151,41 @@ def epilogue_split_phase(torch, ec, kernels: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def slab_split_phase(torch, ep, kernels: dict) -> None:
+    """Rows 16-17 at [8, 4096, 256] (|x| < 2^20, the residual in bf16 as in the
+    kernel phase): each one's device time by ``torch.profiler`` (``kernel_split``
+    with ``SLAB_GROUPS``), its kernel launches per call on the card (checked to
+    be 1), its time per call by CUDA events with L2 warm and flushed before each
+    call (three medians of 30 each), its cooperative grid and its items a
+    sample. The parts go into the rows as ``parts_ms``; the time of each phase
+    comes from ``tools/slab_rows_torch.py --parts variants``. Run last, as
+    ``split_phase``."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for name, res_dtype, kernel in (("adain_relu_requant", None, ep.adain_relu_requant),
+                                    ("adain_residual_requant", torch.bfloat16,
+                                     ep.adain_residual_requant)):
+        args = slab_inputs(torch, "cuda", 2 ** 20, 8, res_dtype)
+        call = lambda: kernel(*args)  # noqa: E731
+        warm = [cuda_ms(torch, call, reps=30, warmup=1) for _ in range(3)]
+        cold = [cuda_ms(torch, call, reps=30, warmup=1, flush=flush) for _ in range(3)]
+        parts = kernel_split(torch, call, groups=SLAB_GROUPS)
+        n = device_launches(torch, call)
+        check(n == 1, f"{name}: {n} kernel launches a call on the card")
+        kernels[name]["parts_ms"] = parts
+        print(f"[kernel] {name} ({[B, SIDE * SIDE, C]}"
+              f"{'' if res_dtype is None else ', bf16 residual'}): by CUDA events "
+              f"{', '.join(f'{v:.4f}' for v in warm)} ms with L2 warm, "
+              f"{', '.join(f'{v:.4f}' for v in cold)} ms with L2 flushed before each call "
+              f"(medians of 30); {sum(parts.values()):.4f} ms of device time by torch.profiler: "
+              + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) or "not measured (the trace "
+                 "holds no device events)") + f"; {n:g} kernel launch(es) a call; "
+              f"cooperative grid of {ep.cooperative_grid(res_dtype)} CTAs, "
+              f"{-(-SIDE * SIDE // ep.ROWS)} items a sample", flush=True)
+        del args
+    del flush
+    torch.cuda.empty_cache()
+
+
 def trunk_v3_split_phase(torch, fc, f3, kernels: dict) -> None:
     """Row 15 at the main path's shape with the K-major stack given: the time
     per call by CUDA events (median of 10), the device time by
@@ -2495,6 +2581,7 @@ def main() -> int:
     v1_phase(torch, fc, v1, dev)
     enc_phase(torch, fe, dev)
     epilogue_phase(torch, ec, dev)
+    slab_phase(torch, ep, dev)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=str(_build.BUILD_DIR))
     try:
@@ -2511,6 +2598,7 @@ def main() -> int:
         v1_split_phase(torch, fc, v1, kernels)
         enc_split_phase(torch, fe, kernels)
         epilogue_split_phase(torch, ec, kernels)
+        slab_split_phase(torch, ep, kernels)
         final7_split_phase(torch, fd, kernels)
         serve_profile_phase(torch)
     finally:

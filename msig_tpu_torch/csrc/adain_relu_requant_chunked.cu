@@ -23,6 +23,9 @@
 //   3. (after a second barrier) each CTA takes its sample's amax from the
 //      parts and the scale, then requantizes its own share, last-read rows
 //      first, so that the rows it read last still lie in the 50 MB L2.
+// The frame (the grid, the items, the barrier, the row walk and the warps'
+// fold) is slab_coop.cuh's, shared with the whole-slab epilogues
+// (int8_epilogue.cu).
 // The reduction is a phase of its own so that each CTA reads its sample's
 // C x 12 bytes of affine, not all of its sample's partials: those grow with
 // the grid (parts x C x 32 bytes a sample), and each of a sample's `parts`
@@ -41,20 +44,16 @@
 // the more CTAs meet at them (tools/optin_rows_torch.py times the grid at
 // one, two, three and four CTAs an SM, the unroll, the requant's order and the
 // second barrier replaced by a second launch).
-#include <cooperative_groups.h>
-
 #include <climits>
 
 #include "conv_int8.cuh"
-
-namespace cg = cooperative_groups;
+#include "slab_coop.cuh"
 
 namespace msig {
 namespace chunked {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileC = 128;   // channels a pass over an item's rows: 32 lanes of 4
+using namespace coop;
+
 constexpr int kUnroll = 4;    // 16-byte loads in flight a thread
 constexpr int kSmem = 32768;  // phase 1's fold of the warps, then phase 3's affine
 constexpr int kMaxC = kSmem / 8;
@@ -88,14 +87,6 @@ struct Work {
     aff = reinterpret_cast<float*>(p.ws + 4 * n);
   }
 };
-
-// Item i: share i % parts of sample i / parts, rows [r0, r1).
-__device__ __forceinline__ void item_rows(const Args& p, int item, int& b, int& r0, int& r1) {
-  b = item / p.parts;
-  const int k = item % p.parts;
-  r0 = (int)((long long)k * p.S / p.parts);
-  r1 = (int)((long long)(k + 1) * p.S / p.parts);
-}
 
 // A thread's statistics of its four channels.
 struct Stats4 {
@@ -141,21 +132,14 @@ __global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {
   // k takes rows r0 + k, r0 + k + 8, ..., lane l channels 4l .. 4l + 3.
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     int b, r0, r1;
-    item_rows(p, item, b, r0, r1);
+    item_rows(item, p.parts, p.S, 1, b, r0, r1);
     for (int ct = 0; ct < C / kTileC; ++ct) {
       const int4* xc = reinterpret_cast<const int4*>(p.x + (size_t)b * p.S * C) + ct * 32 + lane;
       Stats4 a;
       a.clear();
-      for (int r = r0 + warp; r < r1; r += kWarps * kUnroll) {
-        int4 v[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          v[u] = r + u * kWarps < r1 ? __ldg(xc + (size_t)(r + u * kWarps) * C4)
-                                     : make_int4(0, 0, 0, 0);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (r + u * kWarps < r1) a.add(v[u]);
-      }
+      walk_rows<false, kUnroll>(
+          r0, r1, warp, [&](int r) { return __ldg(xc + (size_t)r * C4); },
+          [&](const int4& v, int) { a.add(v); });
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = 4 * lane + j;
@@ -165,19 +149,17 @@ __global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {
       __syncthreads();
       if (threadIdx.x < kTileC) {  // channel c of the tile, the warps in order
         const int c = threadIdx.x;
-        long long s = 0;
-        unsigned long long lo = 0, hi = 0;
-        int mn = INT_MAX, mx = INT_MIN;
-        for (int k = 0; k < kWarps; ++k)
-          s += f.s[k][c], lo += f.lo[k][c], hi += f.hi[k][c], mn = min(mn, f.mn[k][c]),
-              mx = max(mx, f.mx[k][c]);
         const size_t i = (size_t)item * C + ct * kTileC + c;
-        w.sum[i] = s, w.lo[i] = lo, w.hi[i] = hi, w.mn[i] = mn, w.mx[i] = mx;
+        w.sum[i] = fold_warps(f.s, c, 0LL, Plus<long long>());
+        w.lo[i] = fold_warps(f.lo, c, 0ull, Plus<unsigned long long>());
+        w.hi[i] = fold_warps(f.hi, c, 0ull, Plus<unsigned long long>());
+        w.mn[i] = fold_warps(f.mn, c, INT_MAX, Min());
+        w.mx[i] = fold_warps(f.mx, c, INT_MIN, Max());
       }
       __syncthreads();
     }
   }
-  cg::this_grid().sync();
+  grid_barrier();
 
   // 2. (sample, 32 channels) unit by unit: warp k sums items k, k + 8, ... of
   // the sample (read past L1: written in this launch), lane l channel l; the
@@ -197,18 +179,19 @@ __global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {
     f.mn[warp][lane] = mn, f.mx[warp][lane] = mx;
     __syncthreads();
     if (threadIdx.x < 32) {
-      for (int k = 1; k < kWarps; ++k)
-        s += f.s[k][lane], lo += f.lo[k][lane], hi += f.hi[k][lane],
-            mn = min(mn, f.mn[k][lane]), mx = max(mx, f.mx[k][lane]);
       const size_t i = (size_t)b * C + c;
       float a, d;
-      affine_of(s, lo, hi, p.gamma[i], p.beta[i], (float)p.S, p.eps, a, d);
+      affine_of(fold_warps(f.s, lane, 0LL, Plus<long long>()),
+                fold_warps(f.lo, lane, 0ull, Plus<unsigned long long>()),
+                fold_warps(f.hi, lane, 0ull, Plus<unsigned long long>()), p.gamma[i], p.beta[i],
+                (float)p.S, p.eps, a, d);
       w.aff[i] = a, w.aff[BC + i] = d;
-      w.aff[2 * BC + i] = true_relu_hi(a, d, (float)mn, (float)mx);
+      w.aff[2 * BC + i] = true_relu_hi(a, d, (float)fold_warps(f.mn, lane, INT_MAX, Min()),
+                                       (float)fold_warps(f.mx, lane, INT_MIN, Max()));
     }
     __syncthreads();
   }
-  cg::this_grid().sync();
+  grid_barrier();
 
   // 3. The CTA's items in reverse order, each item's tiles and rows from the
   // last read; the sample's affine and scale loaded where the sample changes.
@@ -220,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {
   const int last = blockIdx.x + (items - 1 - blockIdx.x) / gridDim.x * gridDim.x;
   for (int item = last; item >= (int)blockIdx.x; item -= gridDim.x) {
     int b, r0, r1;
-    item_rows(p, item, b, r0, r1);
+    item_rows(item, p.parts, p.S, 1, b, r0, r1);
     if (b != held) {
       __syncthreads();  // the last item's rows have read a_s, d_s
       float local = 0.f;  // max(hi, 0)
@@ -238,45 +221,22 @@ __global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {
       const int g = ct * 32 + lane;  // the thread's group of four channels
       const float4 a = reinterpret_cast<const float4*>(a_s)[g];
       const float4 d = reinterpret_cast<const float4*>(d_s)[g];
-      for (int r = r1 - 1 - warp; r >= r0; r -= kWarps * kUnroll) {
-        int4 v[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          v[u] = r - u * kWarps >= r0 ? __ldg(xb + (size_t)(r - u * kWarps) * C4 + g)
-                                      : make_int4(0, 0, 0, 0);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (r - u * kWarps >= r0)
-            ob[(size_t)(r - u * kWarps) * C4 + g] =
-                make_char4(relu_requant_unfolded((float)v[u].x, a.x, d.x, sc),
-                           relu_requant_unfolded((float)v[u].y, a.y, d.y, sc),
-                           relu_requant_unfolded((float)v[u].z, a.z, d.z, sc),
-                           relu_requant_unfolded((float)v[u].w, a.w, d.w, sc));
-      }
+      walk_rows<true, kUnroll>(
+          r0, r1, warp, [&](int r) { return __ldg(xb + (size_t)r * C4 + g); },
+          [&](const int4& v, int r) {
+            ob[(size_t)r * C4 + g] = make_char4(relu_requant_unfolded((float)v.x, a.x, d.x, sc),
+                                                relu_requant_unfolded((float)v.y, a.y, d.y, sc),
+                                                relu_requant_unfolded((float)v.z, a.z, d.z, sc),
+                                                relu_requant_unfolded((float)v.w, a.w, d.w, sc));
+          });
     }
   }
 }
 
 // The cooperative grid on the current device: as many CTAs as fit at once.
 static int cooperative_grid(int* grid) {
-  constexpr int kMaxDevices = 64;
   static int cached[kMaxDevices] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunked_epilogue_kernel,
-                                                          kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    cached[dev] = per_sm * sms;
-  }
-  *grid = cached[dev];
-  return 0;
+  return coop::cooperative_grid((const void*)chunked_epilogue_kernel, cached, grid);
 }
 
 }  // namespace chunked

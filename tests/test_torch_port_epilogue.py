@@ -252,7 +252,7 @@ def test_variants_tool_edits_apply_to_the_source():
     for name, edits in tool.VARIANTS.items():
         assert (tool.variant_text(source, edits) == source) == (name == "as built"), name
     split = tool.variant_text(source, "split")
-    assert split.count("cg::this_grid().sync();") == 1 and "chunked_requant_kernel<<<" in split
+    assert split.count("grid_barrier();") == 1 and "chunked_requant_kernel<<<" in split
 
 
 # ------------------------------------------------------ no silent fallback

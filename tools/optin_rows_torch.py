@@ -54,8 +54,9 @@ SOURCE = "adain_relu_requant_chunked.cu"
 
 _KERNEL = "__global__ void __launch_bounds__(kThreads, 2) chunked_epilogue_kernel(Args p) {"
 _PHASE1 = "  // 1. Each item's statistics"
-_BARRIER2 = "  cg::this_grid().sync();\n\n  // 3."
+_BARRIER2 = "  grid_barrier();\n\n  // 3."
 _RETURN = "  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();"
+_GRID = "  return coop::cooperative_grid((const void*)chunked_epilogue_kernel, cached, grid);"
 # The phase clock: thread 0 of CTA 0 writes clock64() into the int64 words past
 # the workspace (the tool allocates them): at the start, after each barrier,
 # at its end.
@@ -67,14 +68,14 @@ __device__ __forceinline__ void stamp(const Args& p, int k) {
 """
 _CLOCK = [(_KERNEL, _STAMP + _KERNEL),
           (_PHASE1, "  stamp(p, 0);\n" + _PHASE1),
-          ("  cg::this_grid().sync();\n\n  // 2.", "  cg::this_grid().sync();\n  stamp(p, 1);\n  // 2."),
-          (_BARRIER2, "  cg::this_grid().sync();\n  stamp(p, 2);\n  // 3."),
-          ("sc));\n      }\n    }\n  }\n}\n", "sc));\n      }\n    }\n  }\n  stamp(p, 3);\n}\n")]
+          ("  grid_barrier();\n\n  // 2.", "  grid_barrier();\n  stamp(p, 1);\n  // 2."),
+          (_BARRIER2, "  grid_barrier();\n  stamp(p, 2);\n  // 3."),
+          ("sc));\n          });\n    }\n  }\n}\n", "sc));\n          });\n    }\n  }\n  stamp(p, 3);\n}\n")]
 _CUTS = {
     "no statistics": ("for (int item = blockIdx.x; item < items; item += gridDim.x) {\n    int b, r0, r1;"
-                      "\n    item_rows(p, item, b, r0, r1);\n    for (int ct = 0;",
+                      "\n    item_rows(item, p.parts, p.S, 1, b, r0, r1);\n    for (int ct = 0;",
                       "for (int item = blockIdx.x; item < 0; item += gridDim.x) {\n    int b, r0, r1;"
-                      "\n    item_rows(p, item, b, r0, r1);\n    for (int ct = 0;"),
+                      "\n    item_rows(item, p.parts, p.S, 1, b, r0, r1);\n    for (int ct = 0;"),
     "no reduction": ("unit < p.B * groups;", "unit < 0;"),
     "no requant": ("item >= (int)blockIdx.x; item -= gridDim.x)", "item >= 1 << 30; item -= gridDim.x)"),
 }
@@ -82,10 +83,7 @@ _ROWS_FORWARD = [
     ("for (int item = last; item >= (int)blockIdx.x; item -= gridDim.x)",
      "for (int item = blockIdx.x; item < items; item += gridDim.x)"),
     ("for (int ct = C / kTileC - 1; ct >= 0; --ct)", "for (int ct = 0; ct < C / kTileC; ++ct)"),
-    ("for (int r = r1 - 1 - warp; r >= r0; r -= kWarps * kUnroll)",
-     "for (int r = r0 + warp; r < r1; r += kWarps * kUnroll)"),
-    ("r - u * kWarps >= r0", "r + u * kWarps < r1", 2),
-    ("(size_t)(r - u * kWarps)", "(size_t)(r + u * kWarps)", 2)]
+    ("walk_rows<true, kUnroll>(", "walk_rows<false, kUnroll>(")]
 VARIANTS = {
     "as built": [],
     "phase clock": _CLOCK,
@@ -95,7 +93,13 @@ VARIANTS = {
     "rows forward": _ROWS_FORWARD,
     "unroll 2": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 2;")],
     "unroll 8": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")],
-    "1 CTA an SM": [("cached[dev] = per_sm * sms;", "cached[dev] = sms;")],
+    "1 CTA an SM": [(_GRID, "  const int err = " + _GRID[9:] + """
+  int dev = 0, sms = 0;
+  if (err == 0 && cudaGetDevice(&dev) == cudaSuccess &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess &&
+      *grid > sms)
+    *grid = sms;
+  return err;""")],
     "3 CTAs an SM": [("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 3)")],
     "4 CTAs an SM": [("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 4)")],
 }
