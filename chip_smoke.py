@@ -171,7 +171,24 @@ Phases, each reported on its own line:
    synthetic tree of 8 sources and 9 target domains, and
    ``python -m msig_tpu_torch.inference --quantize int8`` on the checkpoint it
    wrote (``MSIG_SKIP_EPOCH_ART=1`` where matplotlib is missing);
-7. a ``{"kernels": [...]}`` line of the twenty-five kernels (the two
+   Then the bf16 train step (``compute_dtype=bfloat16``) at the same
+   full width from the same parameters and batch, as ``stock`` and
+   ``level1+pallas`` (``conv3x3_bwd`` fed fp32 at its autograd boundary):
+   step 1 finite and within 1e-2 across the two, each route's kernels 48
+   launches a step and no other, ms per step; then ``DeviceData``
+   (``--device_data``) on the card against the CPU: the same draws, images
+   within 1 uint8 step;
+7. bench: the served int8 chain at the bench's batches (``BENCH_BATCHES``:
+   128 and 256 at 256², 32 at 512²) on the bench's seeded weights, the first
+   8 samples of each call equal to the bit to a batch-8 call's (one-hot
+   styles, whose affines are exact at any batch; dense styles reported
+   beside), each site launched once a call; ``bench.run_inference_worker``
+   in this process at 256², batches 8 and 128, the launch counts set to 0
+   before and read after (each int8 call runs 256/hifi0's 22 sites, the bf16
+   configs none); then ``python -m msig_tpu_torch.bench`` in its five modes
+   at short settings (``BENCH_RUNS``), the five processes at once: exit 0 and
+   one JSON line each with the JAX bench's metric name and unit;
+8. a ``{"kernels": [...]}`` line of the twenty-five kernels (the two
    whole-slab epilogues with 0 launches: no path of the JAX package runs
    them), then the card line,
    then the last line ``{"ok": true, "device": {...}}``.
@@ -282,6 +299,18 @@ BENCH_SITES = {
     "up1 site    v1": {_UP1: 1}, "up1 site    v2": {"convt4x4s2_in_relu_requant": 1},
 }
 _TRUNK = {"conv3x3_adain_relu_requant": N_RES, "conv3x3_adain_residual_requant": N_RES}
+# (input side, batches held against a batch-8 call, path of their launches): bench.py's defaults
+BENCH_BATCHES = ((256, (128, 256), "256/hifi0"), (512, (32,), "512"))
+BENCH_WORKER = ((B, 128), 256)  # the in-process worker's batches and side
+# bench mode -> (arguments of the smoke run, metric, unit)
+BENCH_RUNS = {
+    "inference": (["--batches", "8,128", "--iters", "5"],
+                  "img_per_s_256px_ref_guided_inference", "img/s/chip"),
+    "latency": (["--batches", "1,8", "--iters", "5"], "latency_ms_per_img_256px_int8_b1", "ms"),
+    "train": (["--train_batch", "4", "--iters", "2"], "train_step_ms_b4_256", "ms"),
+    "data": ([], "input_pipeline_img_per_s_256", "img/s/host"),
+    "e2e": (["--batches", "32"], "e2e_img_per_s_256_incl_decode", "img/s"),
+}
 # Rows 1-4 and 20 (the trunk's 3x3) and rows 5, 12 and 13 (the ConvT site's
 # two passes) run the conv on wgmma (csrc/conv_i8_wgmma.cuh): exact integer
 # sums and the plain versions' epilogue operations, so they are held equal to
@@ -2375,6 +2404,21 @@ def compare_grads(label: str, names, got, want) -> None:
               f"[train level2] all {4 * N_RES} resblock conv biases have a zero gradient")
 
 
+def train_inputs(torch, dev) -> tuple:
+    """The train phases' seeded batch, random VGG and loss weights (the defaults,
+    gan..style, at full warmup)."""
+    from msig_tpu_torch.losses import init_random_vgg
+
+    rng = np.random.default_rng(4)
+    shape = (TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3)
+    batch = {"source": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
+             "target": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
+             "source_domain": torch.zeros(TRAIN_B, dtype=torch.int32, device=dev),
+             "target_domain": torch.from_numpy(rng.integers(1, N_DOMAINS, TRAIN_B,
+                                                            dtype=np.int32)).to(dev)}
+    return batch, init_random_vgg(1234, device=dev), [1.0, 10.0, 5.0, 1.0, 1.0]
+
+
 def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
     """The train step at full width in the three configurations, from the same
     parameters and batch. Step 1's losses and grad norms are held against the
@@ -2389,19 +2433,10 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
     step, differ in the last bit of the forward.)
     Returns {config: launches of step 1} and the step times."""
     from msig_tpu_torch.config import TrainConfig
-    from msig_tpu_torch.losses import init_random_vgg
     from msig_tpu_torch.train import create_train_state, make_train_step
     from msig_tpu_torch.train.state import G_KEYS
 
-    rng = np.random.default_rng(4)
-    shape = (TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3)
-    batch = {"source": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
-             "target": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
-             "source_domain": torch.zeros(TRAIN_B, dtype=torch.int32, device=dev),
-             "target_domain": torch.from_numpy(rng.integers(1, N_DOMAINS, TRAIN_B,
-                                                            dtype=np.int32)).to(dev)}
-    vgg = init_random_vgg(1234, device=dev)
-    weights = [1.0, 10.0, 5.0, 1.0, 1.0]  # the default loss weights, gan..style, at full warmup
+    batch, vgg, weights = train_inputs(torch, dev)
     first, launches, step_ms = {}, {}, {}
     torch.backends.cudnn.deterministic = True
     for label, level, pallas in TRAIN_CONFIGS:
@@ -2533,6 +2568,229 @@ def train_cli_phase(torch, work: str, device: str = "cuda", extra=()) -> None:
           f"on its checkpoint: rc 0, 8 images", flush=True)
 
 
+def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
+    """The bf16 train step (``compute_dtype=bfloat16``) at full width, as ``stock``
+    and ``level1+pallas`` (``MSIG_CONV_VJP=1``: ``conv3x3_bwd`` takes its inputs
+    cast to fp32 at the autograd boundary; ``adain_pallas`` takes bf16), from
+    the same parameters and batch as the fp32 train phase: step 1's metrics
+    finite and within 1e-2 of each other, each kernel of the route launched 48
+    times a step and no other, ms per step (median of 3 after a warm-up step,
+    CUDA events)."""
+    from msig_tpu_torch.config import TrainConfig
+    from msig_tpu_torch.train import create_train_state, make_train_step
+
+    batch, vgg, weights = train_inputs(torch, dev)
+    first, step_ms = {}, {}
+    for label, level, pallas in TRAIN_CONFIGS[:2]:
+        cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
+                          style_dim=256, use_pallas=pallas, compute_dtype="bfloat16",
+                          device=dev.type)
+        torch.cuda.reset_peak_memory_stats()
+        with env(MSIG_CONV_VJP=level):
+            state = create_train_state(cfg, N_DOMAINS)
+            step = make_train_step(cfg.ema_beta, torch.bfloat16)
+            reset_counts((ap, cv) + int8_mods)
+            metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+            torch.cuda.synchronize()
+            counts = {**ap.LAUNCHES, **cv.LAUNCHES}
+            int8 = sum(v for m in int8_mods for v in m.LAUNCHES.values())
+            first[label] = {k: float(v) for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in first[label].values()),
+                  f"[train bf16 {label}] step 1 metrics finite: {first[label]}")
+            want = {k: (2 * N_RES * 3 if TRAIN_KERNELS[k][2] == label else 0) for k in counts}
+            check(counts == want and int8 == 0,
+                  f"[train bf16 {label}] launches per step {counts} (int8 {int8}), want {want}")
+            step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)  # warm-up
+            events = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(torch.stack(list(m.values()))).all()),
+                  f"[train bf16 {label}] 3 more steps stay finite")
+            step_ms[label] = float(np.median([a.elapsed_time(b) for a, b in events]))
+        print(f"[train bf16 {label}] {TRAIN_SIZE}², batch {TRAIN_B}, {N_RES} resblocks, "
+              f"compute_dtype bfloat16: step 1 "
+              f"{json.dumps({k: round(v, 6) for k, v in first[label].items()})}; "
+              f"{step_ms[label]:.2f} ms per step (median of 3 after a warm-up step, CUDA events); "
+              f"launches per step {({k: v for k, v in counts.items() if v})}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    base, other = first["stock"], first["level1+pallas"]
+    worst = max(abs(other[k] - base[k]) / abs(base[k]) for k in base)
+    check(worst <= 1e-2, f"[train bf16] level1+pallas's step 1 within 1e-2 of stock's ({worst:.2e})")
+    print(f"[train bf16] step 1 of level1+pallas within {worst:.2e} of stock's (bar 1e-2: the "
+          "routes round bf16 differently)", flush=True)
+
+
+def device_data_phase(torch, work: str) -> None:
+    """``DeviceData`` (``--device_data``) on the card against the same dataset on
+    the CPU: the bank uploaded alike, an epoch's draws (domains) equal and its
+    augmented images within 1 uint8 step; one batch's time by CUDA events."""
+    from PIL import Image
+
+    from msig_tpu_torch.data import DeviceData, MultiDomainDataset
+
+    rng = np.random.default_rng(6)
+    src, ref = os.path.join(work, "dd_src"), os.path.join(work, "dd_ref")
+    os.makedirs(src)
+    for i in range(8):  # two of them off the base size: resized when the bank is built
+        side = 256 if i % 4 else 300
+        Image.fromarray(rng.integers(0, 256, (side, side, 3), dtype=np.uint8)).save(
+            os.path.join(src, f"s{i}.png"))
+    for d in range(2):
+        os.makedirs(os.path.join(ref, f"dom{d}"))
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)).save(
+                os.path.join(ref, f"dom{d}", f"r{i}.png"))
+    ds = MultiDomainDataset.build(src, ref)
+    card, host = DeviceData(ds, 256, device="cuda"), DeviceData(ds, 256, device="cpu")
+    check(torch.equal(card.bank_src.cpu(), host.bank_src)
+          and torch.equal(card.bank_trg.cpu(), host.bank_trg), "[device data] banks equal")
+    worst, differing, n = 0, 0, 0
+    for g, h in zip(card.epoch(0, 4, seed=1), host.epoch(0, 4, seed=1)):
+        check(g["source"].device.type == "cuda", "[device data] batches on the card")
+        check(torch.equal(g["target_domain"].cpu(), h["target_domain"]), "[device data] domains")
+        for k in ("source", "target"):
+            d = (g[k].cpu().to(torch.int32) - h[k].to(torch.int32)).abs()
+            worst, differing, n = max(worst, int(d.max())), differing + int((d > 0).sum()), n + d.numel()
+    check(worst <= 1, f"[device data] card vs CPU max step {worst} <= 1")
+    idx = np.arange(4)
+    ms = cuda_ms(torch, lambda: card.batch(idx, np.random.default_rng(0)), reps=5)
+    print(f"[device data] DeviceData(256², 8 sources, 2 domains) on the card vs the CPU: epoch 0 "
+          f"at batch 4, draws equal, images max step {worst}, {differing} of {n} elements "
+          f"differing; one batch {ms:.3f} ms (CUDA events, median of 5, host draws included)",
+          flush=True)
+
+
+def bench_batches_phase(torch, mods) -> None:
+    """The served int8 chain at the bench's batches: at 256², batches 128 and 256,
+    and at 512², batch 32 (bench.py's defaults), on the bench's seeded weights:
+    the first 8 samples equal to the bit to a batch-8 call on the same images and
+    styles, each kernel site launched as on its path once a call; time per call
+    by CUDA events. The styles are one-hot rows scaled by a normal draw, so that
+    the style affines (``tq._style_affines``, one batched fp32 product) are exact
+    whatever the batch: with dense styles the library's product rounds its last
+    bit by the batch's size (the CPU shows it from batch 2), which the kernel
+    sites then carry; the same comparison with dense styles is reported beside
+    it, the pixels it moves counted, not checked."""
+    from msig_tpu_torch import bench
+    from msig_tpu_torch.infer import quantized as tq
+
+    gen = bench._seeded_generator(torch)
+    q = {k: v.to("cuda") for k, v in tq.quantize_generator_params(gen.state_dict(), N_RES).items()}
+    rng = np.random.default_rng(9)
+    with env(MSIG_TRUNK_HIFI="0", MSIG_TRUNK_V3="0", MSIG_ENC1_IM2COL="0"), torch.inference_mode():
+        for size, batches, path in BENCH_BATCHES:
+            n = max(batches)
+            imgs = torch.from_numpy(rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)).cuda()
+            one_hot = torch.zeros((n, 256))
+            one_hot[torch.arange(n), torch.from_numpy(rng.integers(0, 256, n))] = \
+                torch.from_numpy(rng.normal(0, 2, n).astype(np.float32))
+            dense = torch.from_numpy(rng.normal(0, 1, (n, 256)).astype(np.float32)).cuda()
+            one_hot = one_hot.cuda()
+
+            def call(styles, bs):
+                return tq.quantized_generator_apply(q, imgs[:bs], styles[:bs], n_res=N_RES,
+                                                    out_dtype=torch.uint8)
+            ref, ref_dense = call(one_hot, B), call(dense, B)
+            for bs in batches:
+                reset_counts(mods)
+                out = call(one_hot, bs)
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in read_counts(mods).items() if v}
+                check(launches == PATHS[path],
+                      f"[bench batches {size}²/{bs}] launches {launches}, want {PATHS[path]}")
+                check(out.shape == (bs, size, size, 3) and out.dtype == torch.uint8,
+                      f"[bench batches {size}²/{bs}] output {tuple(out.shape)} {out.dtype}")
+                diff = int((out[:B].to(torch.int32) - ref.to(torch.int32)).abs().max())
+                check(diff == 0, f"[bench batches {size}²/{bs}] the first {B} samples equal a "
+                                 f"batch-{B} call's to the bit (max diff {diff})")
+                del out
+                d = (call(dense, bs)[:B].to(torch.int32) - ref_dense.to(torch.int32)).abs()
+                affine = tq._style_affines(q, dense[:bs], N_RES)[0][:, :B]
+                same_affine = torch.equal(affine, tq._style_affines(q, dense[:B], N_RES)[0])
+                ms = cuda_ms(torch, lambda: call(one_hot, bs), reps=3, warmup=1)
+                print(f"[bench batches {size}²/{bs}] int8 chain, uint8 out, one-hot styles: first "
+                      f"{B} samples equal to a batch-{B} call's to the bit; launches per call "
+                      f"{launches}; {ms:.2f} ms per call ({1000 * bs / ms:.0f} images/s, CUDA "
+                      f"events, median of 3). Dense styles: affines "
+                      f"{'equal' if same_affine else 'not equal'} to the batch-{B} product's, "
+                      f"{int((d > 0).sum())} of {d.numel()} pixels differ, max {int(d.max())}",
+                      flush=True)
+            del imgs, one_hot, dense, ref, ref_dense
+            torch.cuda.empty_cache()
+
+
+def bench_phase(torch, mods, ap, card: str) -> None:
+    """The bench entry point. In this process, its inference worker
+    (``bench.run_inference_worker``) at 256², batches 8 and 128, the launch
+    counts set to 0 before and read after: every int8 call launches each site
+    of ``256/hifi0`` once, the bf16 configs no kernel. Then ``python -m
+    msig_tpu_torch.bench`` in all five modes at short settings (``BENCH_RUNS``),
+    the five processes at once (a check of the entry point's contract, whose
+    numbers share the card: the bench is measured alone, not here): exit 0 and
+    exactly one JSON line each, with its metric name and unit."""
+    import contextlib
+    import io
+
+    from msig_tpu_torch import bench
+
+    lines = io.StringIO()
+    with env(MSIG_TRUNK_HIFI="0", MSIG_TRUNK_V3="0", MSIG_ENC1_IM2COL="0"):
+        reset_counts(mods + (ap,))
+        with contextlib.redirect_stdout(lines):
+            bench.run_inference_worker(BENCH_WORKER[0], iters=3, warmup=1,
+                                       image_size=BENCH_WORKER[1], device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts(mods + (ap,)).items() if v}
+    recs = [json.loads(ln) for ln in lines.getvalue().splitlines() if ln.strip()]
+    rates = {r["config"]: r.get("rate") for r in recs if "config" in r}
+    n_int8 = len(BENCH_WORKER[0])
+    check(recs[-1] == {"done": True} and all(rates.values()) and len(rates) == 2 * n_int8,
+          f"[bench worker] every config measured: {recs}")
+    calls = n_int8 * (1 + 3)  # each int8 config: one warm-up and three timed calls
+    want = {k: v * calls for k, v in PATHS["256/hifi0"].items()}
+    check(launches == want, f"[bench worker] launches {launches}, want {want}")
+    print(f"[bench worker] bench.run_inference_worker({BENCH_WORKER[0]}, iters=3) at "
+          f"{BENCH_WORKER[1]}²: {rates} "
+          f"(img/s); launches {launches}: each int8 call ran the 22 sites of 256/hifi0, the bf16 "
+          f"configs no kernel", flush=True)
+
+    environ = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-m", "msig_tpu_torch.bench", "--mode", mode, *args], cwd=ROOT,
+        env=environ, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode, (args, _, _) in BENCH_RUNS.items()}
+    t0 = time.perf_counter()
+    try:
+        outs = {mode: p.communicate(timeout=600) for mode, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for mode, (args, metric, unit) in BENCH_RUNS.items():
+        out, err = outs[mode]
+        rc = procs[mode].returncode
+        detail = [ln.strip() for ln in err.splitlines() if ln.startswith("  ")]
+        check(rc == 0, f"[bench {mode}] exit code {rc}: {err[-1500:]}")
+        stdout = [ln for ln in out.splitlines() if ln.strip()]
+        check(len(stdout) == 1, f"[bench {mode}] {len(stdout)} stdout lines: {stdout}")
+        rec = json.loads(stdout[0])
+        check(rec["metric"] == metric and rec["unit"] == unit and rec["vs_baseline"] is None
+              and rec["value"] > 0, f"[bench {mode}] {rec}")
+        print(f"[bench {mode}] python -m msig_tpu_torch.bench --mode {mode} {' '.join(args)} "
+              f"(five modes at once on {card}): {stdout[0]}; {' | '.join(detail)}", flush=True)
+    print(f"[bench] five modes in {wall:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2591,6 +2849,10 @@ def main() -> int:
         adain_cluster_phase(torch, ap, dev)
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
+        train_bf16_phase(torch, ap, cv, int8_mods, dev)
+        device_data_phase(torch, work)
+        bench_batches_phase(torch, int8_mods)
+        bench_phase(torch, int8_mods, ap, card)
         split_phase(torch, to_split)
         trunk_split_phase(torch, fc, kernels)
         trunk_v3_split_phase(torch, fc, f3, kernels)

@@ -1,9 +1,13 @@
 """Host-side input pipeline: decode + augment in threads, prefetch.
 
-Copies of ``msig_tpu/data/pipeline.py`` with the PIL backend only (the native
-loader is Queue 1 item 9 of ROADMAP.md): the same numpy RNG draws in the same
-order, so for a seed and an epoch the batches are bit-identical to those of
-the JAX package's ``TrainLoader`` on PIL.
+Copies of ``msig_tpu/data/pipeline.py`` with its two decode backends:
+``backend="auto"`` (the default) takes the native C++ core
+(``data/native_loader.py``: decode + fused crop-resize + rotation) when it
+builds, else PIL; ``"pil"`` always takes PIL; ``"native"`` requires the core.
+Both draw the same numpy RNG calls in the same order (crop parameters, then
+k), so the sampled crops and rotations do not depend on the backend, and for
+a seed and an epoch the batches are bit-identical to those of the JAX
+package's ``TrainLoader`` on the same backend.
 
 Augmentation (torchvision semantics, reference dataset.py:16-22):
   - RandomResizedCrop: 10 attempts of area in scale=(0.08, 1.0) x log-uniform
@@ -24,7 +28,10 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 from PIL import Image
 
+from msig_tpu_torch.data import native_loader
 from msig_tpu_torch.data.dataset import MultiDomainDataset
+
+BACKENDS = ("auto", "pil", "native")
 
 
 def random_resized_crop_params(
@@ -61,10 +68,32 @@ def random_resized_crop_params(
     return top, left, h, w
 
 
-def load_train_image(path: str, size: int, rng: np.random.Generator) -> np.ndarray:
+def _native(backend: str) -> bool:
+    """Whether ``backend`` decodes with the native core (raises for an unknown
+    backend, and for ``"native"`` when the core is unavailable)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "pil":
+        return False
+    if native_loader.available():
+        return True
+    if backend == "native":
+        raise RuntimeError("backend='native' but the native loader is unavailable "
+                           "(no g++, libjpeg or libpng to build native/msig_loader.cpp)")
+    return False
+
+
+def load_train_image(path: str, size: int, rng: np.random.Generator,
+                     backend: str = "auto") -> np.ndarray:
     """Decode + RandomResizedCrop(size) + k*90 rotation -> uint8 [size, size, 3].
 
-    Draws from ``rng`` in the JAX package's order: crop parameters, then k."""
+    Draws from ``rng`` in the JAX package's order, on either backend: crop
+    parameters, then k."""
+    if _native(backend):
+        w, h = native_loader.image_size(path)
+        top, left, ch, cw = random_resized_crop_params(rng, h, w)
+        k = int(rng.integers(4))
+        return native_loader.decode_resize(path, size, (top, left, ch, cw), k)
     with Image.open(path) as img:
         img = img.convert("RGB")
         top, left, h, w = random_resized_crop_params(rng, img.height, img.width)
@@ -76,8 +105,10 @@ def load_train_image(path: str, size: int, rng: np.random.Generator) -> np.ndarr
     return arr
 
 
-def load_inference_image(path: str, size: int) -> np.ndarray:
+def load_inference_image(path: str, size: int, backend: str = "auto") -> np.ndarray:
     """Decode + Resize((size, size)) bilinear -> uint8 [size, size, 3]."""
+    if _native(backend):
+        return native_loader.decode_resize(path, size)
     with Image.open(path) as img:
         img = img.convert("RGB").resize((size, size), Image.BILINEAR)
         return np.asarray(img, dtype=np.uint8)
@@ -88,11 +119,14 @@ class TrainLoader:
 
     Shuffled indices, ``drop_last`` (reference trainer.py:287-290), a uniform
     target domain per sample; ``device_put`` (optional) moves each batch, e.g.
-    to the card, in the producer thread."""
+    to the card, in the producer thread; ``backend`` is
+    :func:`load_train_image`'s."""
 
     def __init__(self, dataset: MultiDomainDataset, batch_size: int, image_size: int,
                  seed: int = 0, num_threads: int = 4, prefetch: int = 2,
-                 device_put: Optional[Callable[[Dict[str, np.ndarray]], Dict]] = None):
+                 device_put: Optional[Callable[[Dict[str, np.ndarray]], Dict]] = None,
+                 backend: str = "auto"):
+        _native(backend)  # an unknown backend raises here, not in the producer thread
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_size = image_size
@@ -100,6 +134,7 @@ class TrainLoader:
         self.num_threads = num_threads
         self.prefetch = prefetch
         self.device_put = device_put
+        self.backend = backend
 
     def steps_per_epoch(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -112,8 +147,8 @@ class TrainLoader:
 
         def load(args):
             j, (src, trg, _) = args
-            return (load_train_image(src, self.image_size, np.random.default_rng(seeds[3 * j])),
-                    load_train_image(trg, self.image_size, np.random.default_rng(seeds[3 * j + 1])))
+            return tuple(load_train_image(p, self.image_size, np.random.default_rng(seeds[3 * j + i]),
+                                          self.backend) for i, p in enumerate((src, trg)))
 
         results = list(pool.map(load, enumerate(picks)))
         return {

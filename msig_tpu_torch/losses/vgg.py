@@ -7,7 +7,8 @@ max pools of VGG19 are run: conv1_1, conv1_2, pool, conv2_1, conv2_2, pool,
 conv3_1. Style loss: L1 between the batch-coupled Grams of (generated,
 real_style) at all five layers; content loss: L1 between the fourth layer's
 features of (generated, real_content). Images come in [-1, 1] NHWC and are
-mapped to [0, 1] and ImageNet-normalized.
+mapped to [0, 1] and ImageNet-normalized; the convs run in the images' dtype,
+the Grams and the L1 means in fp32.
 
 Weights: ``load_vgg_params`` reads the ``conv{i}_kernel`` / ``conv{i}_bias``
 npz that ``tools/convert_vgg_weights.py`` writes (HWIO). Without one,
@@ -52,10 +53,12 @@ class VGGPrefix(nn.Module):
         self.requires_grad_(False)
 
     def features(self, x: torch.Tensor, upto: int = 5) -> List[torch.Tensor]:
-        """ReLU outputs (NCHW) of the first ``upto`` convs for a normalized NCHW input."""
+        """ReLU outputs (NCHW) of the first ``upto`` convs for a normalized NCHW
+        input, computed in its dtype (the fp32 weights cast to it)."""
         feats: List[torch.Tensor] = []
         for i in range(upto):
-            x = torch.relu(getattr(self, f"conv{i}")(x))
+            conv = getattr(self, f"conv{i}")
+            x = torch.relu(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1))
             feats.append(x)
             if i in _POOL_AFTER and i + 1 < upto:
                 x = F.max_pool2d(x, 2)
@@ -104,11 +107,14 @@ def get_vgg(path: Optional[str], *, device: str, seed: int = 1234) -> VGGPrefix:
 
 
 def _normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] NHWC -> [0, 1] -> ImageNet-normalized NCHW (losses.py:49-56)."""
+    """[-1, 1] NHWC -> [0, 1] -> ImageNet-normalized NCHW (losses.py:49-56),
+    computed in fp32 and returned in x's dtype: a bf16 train step runs the
+    perceptual forward in bf16, as the JAX package's ``vgg_features`` does."""
     x01 = (x.to(torch.float32) + 1.0) * 0.5
     mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=x.device)
-    return ((x01 - mean) / std).permute(0, 3, 1, 2)
+    dtype = x.dtype if x.is_floating_point() else torch.float32
+    return ((x01 - mean) / std).to(dtype).permute(0, 3, 1, 2)
 
 
 def _features(vgg: VGGPrefix, img: torch.Tensor, upto: int = 5) -> List[torch.Tensor]:

@@ -6,6 +6,12 @@ and shapes (``weight`` OIHW, ``bias``) and their default init is the
 reference's U(-1/sqrt(fan_in), 1/sqrt(fan_in)). They run on NCHW tensors; the
 networks convert at their NHWC boundary.
 
+Every conv, ConvTranspose and dense layer computes in its input's dtype: the
+fp32 parameters are cast to it at the call, as the JAX layers cast input and
+kernel to their compute dtype (``msig_tpu/models/layers.py:96-97, 218-225,
+249-250``). A bf16 train step feeds bf16 images, so every network runs its
+products in bf16 on fp32 master parameters.
+
 ``MSIG_CONV_VJP`` routes the resblock trunk's 3x3 convs as the JAX package's
 ``TorchConv`` does (``msig_tpu/models/layers.py:98-130``): 0 the stock conv,
 1 the fused backward of ``ops/conv3x3_vjp.py``, 2 the conv + instance norm +
@@ -46,6 +52,10 @@ class TorchConv(nn.Conv2d):
                          padding_mode=pad_mode, bias=use_bias)
         self.pre_relu = pre_relu
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  None if self.bias is None else self.bias.to(x.dtype))
+
     def adain_unit(self, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, level: int,
                    use_pallas: bool) -> torch.Tensor:
         """``gamma * IN(conv([relu](x))) + beta`` on dense NHWC x, routed by ``level``
@@ -53,7 +63,7 @@ class TorchConv(nn.Conv2d):
 
         At level 2 the conv bias is skipped: instance norm removes it, so its
         gradient is exactly zero (the parameter stays, for the state_dict)."""
-        w = self.weight.permute(2, 3, 1, 0)  # HWIO view of the OIHW parameter
+        w = self.weight.to(x.dtype).permute(2, 3, 1, 0)  # HWIO view of the OIHW parameter
         pad = ((self.padding[0],) * 2, (self.padding[1],) * 2)
         if level and conv3x3_vjp.supported(tuple(x.shape), tuple(w.shape), self.stride[0], pad,
                                            self.padding_mode):
@@ -63,10 +73,11 @@ class TorchConv(nn.Conv2d):
             y = (conv3x3_vjp.relu_conv3x3 if self.pre_relu else conv3x3_vjp.conv3x3_same)(x, w)
         else:
             xin = torch.relu(x) if self.pre_relu else x
-            y = F.conv2d(xin.permute(0, 3, 1, 2), self.weight, None, self.stride, self.padding)
+            y = F.conv2d(xin.permute(0, 3, 1, 2), self.weight.to(x.dtype), None, self.stride,
+                         self.padding)
             y = y.permute(0, 2, 3, 1).contiguous()
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(y.dtype)
         return adain_modulate(y, gamma, beta, use_pallas=use_pallas)
 
 
@@ -80,9 +91,16 @@ class TorchConvTranspose(nn.ConvTranspose2d):
                  strides: int = 2, padding: int = 1):
         super().__init__(in_channels, features, kernel_size, stride=strides, padding=padding)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
 
 class TorchDense(nn.Linear):
     """``nn.Linear`` with torch's default init."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

@@ -196,8 +196,8 @@ class MultiDomainDiscriminator(nn.Module):
     def forward(self, img: torch.Tensor, domain_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.shared_layers(_nchw(img))
         heads = [br[1] for br in self.domain_branches]
-        weight = torch.cat([hd.weight for hd in heads])  # [D, 512, 4, 4]
-        bias = torch.cat([hd.bias for hd in heads])
+        weight = torch.cat([hd.weight for hd in heads]).to(h.dtype)  # [D, 512, 4, 4]
+        bias = torch.cat([hd.bias for hd in heads]).to(h.dtype)
         all_heads = F.conv2d(F.pad(h, (2, 1, 2, 1)), weight, bias)  # [B, D, H', W']
         if domain_idx is None:
             return _nhwc(all_heads[:, 0:1])

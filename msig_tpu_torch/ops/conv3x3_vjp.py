@@ -18,6 +18,13 @@ C]``, w HWIO ``[3, 3, C, Co]``, gamma and beta ``[B, Co]``. ``conv3x3_bwd`` and
 tensors and add one to their entry of ``LAUNCHES``, or raise; for CPU tensors
 they run the plain versions (``*_plain``), the TPU kernels' formulas tap by
 tap in PyTorch, which ``chip_smoke.py`` holds the kernels against on the card.
+
+The kernels are fp32 only. Under a bf16 train step the autograd functions
+below cast x, w, the saved conv output and the cotangent to fp32 at their
+boundary (exact: bf16 widens without rounding) and give dx back in x's
+dtype and dW in w's, where the JAX package runs its Pallas kernels in bf16;
+so the unit's dy stays fp32 where JAX rounds it to bf16 before the conv
+backward.
 """
 
 from __future__ import annotations
@@ -285,8 +292,8 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dx, dw = conv3x3_bwd(x, w, _dense(dy, BWD), relu_input=ctx.relu_input)
-        return dx, dw.to(w.dtype), None
+        dx, dw = conv3x3_bwd(_acc(x), _acc(w), _acc(_dense(dy, BWD)), relu_input=ctx.relu_input)
+        return dx.to(x.dtype), dw.to(w.dtype), None
 
 
 def _adain_unit_fwd_impl(x, w, gamma, beta, relu_input):
@@ -318,9 +325,11 @@ class _Conv3x3Adain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, y, mu, r, gamma = ctx.saved_tensors
-        dx, dw, dgm, dbt = conv3x3_adain_bwd(x, w, y, mu, r, gamma,
-                                             _dense(g, ADAIN_BWD), relu_input=ctx.relu_input)
-        return dx, dw.to(w.dtype), dgm.to(ctx.gamma_dtype), dbt.to(ctx.gamma_dtype), None
+        dx, dw, dgm, dbt = conv3x3_adain_bwd(_acc(x), _acc(w), _acc(y), mu, r, gamma,
+                                             _acc(_dense(g, ADAIN_BWD)),
+                                             relu_input=ctx.relu_input)
+        return (dx.to(x.dtype), dw.to(w.dtype), dgm.to(ctx.gamma_dtype), dbt.to(ctx.gamma_dtype),
+                None)
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

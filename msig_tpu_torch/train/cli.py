@@ -13,11 +13,14 @@ Exits 1 on a missing source or target directory and without a VGG choice
 (``--vgg_weights`` or ``--allow_random_vgg``), as ``main.py`` does.
 ``MSIG_CONV_VJP=1|2`` and ``--pallas`` route the resblock trunk through the
 training kernels, as in the JAX package. The number of steps is the dataset's
-size over the batch, times ``--epochs``. Training runs in float32, with TF32
-off on the card. Flags of features not ported yet raise NotImplementedError:
-``--resume``, ``--wandb``, ``--profile_steps``, ``--r1_gamma``, ``--remat``,
-``--device_data``, ``--style_recon_weight``, ``--diversity_weight``,
-``--multihost``, ``--watch_freq`` and ``--compute_dtype bfloat16``.
+size over the batch, times ``--epochs``. ``--compute_dtype`` is float32 (the
+default, TF32 off on the card) or bfloat16 (the convs, ConvTs and dense layers
+in bf16 on fp32 master parameters, the norms' statistics, Grams, losses, clip,
+Adam and EMA in fp32; ``train/step.py``). ``--device_data`` keeps the decoded
+dataset on the device and augments there (``data/device_data.py``). Flags of
+features not ported yet raise NotImplementedError: ``--resume``, ``--wandb``,
+``--profile_steps``, ``--r1_gamma``, ``--remat``, ``--style_recon_weight``,
+``--diversity_weight``, ``--multihost`` and ``--watch_freq``.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb", action="store_true", help="Weights & Biases logging (not ported yet)")
     parser.add_argument("--compute_dtype", type=str, default=default_config.COMPUTE_DTYPE_TRAIN,
                         choices=["float32", "bfloat16"],
-                        help="float32; bfloat16 is not ported yet")
+                        help="float32, or bfloat16: the products in bf16 on fp32 master "
+                             "parameters")
     parser.add_argument("--vgg_weights", type=str, default=default_config.VGG_WEIGHTS_PATH,
                         help=".npz from tools/convert_vgg_weights.py (perceptual-loss weights)")
     parser.add_argument("--allow_random_vgg", action="store_true",
@@ -85,7 +89,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile_steps", type=int, default=0, help="Not ported yet")
     parser.add_argument("--r1_gamma", type=float, default=0.0, help="Not ported yet")
     parser.add_argument("--remat", action="store_true", help="Not ported yet")
-    parser.add_argument("--device_data", action="store_true", help="Not ported yet")
+    parser.add_argument("--device_data", action="store_true",
+                        help="Keep the decoded dataset on the device and augment there "
+                             "(single device)")
     parser.add_argument("--style_recon_weight", type=float, default=0.0, help="Not ported yet")
     parser.add_argument("--diversity_weight", type=float, default=0.0, help="Not ported yet")
     parser.add_argument("--multihost", action="store_true", help="Not ported yet")
@@ -140,12 +146,11 @@ def config_from_args(args) -> TrainConfig:
 
 # Flags of features not ported yet, with the ROADMAP.md Queue 1 item that brings them.
 # The train step's own options (--r1_gamma, --remat, --style_recon_weight,
-# --diversity_weight, --compute_dtype bfloat16) are refused by make_train_step.
+# --diversity_weight) are refused by make_train_step.
 _NOT_PORTED = (
     ("resume", "--resume", "Queue 1 item 8"),
     ("wandb", "--wandb", "Queue 1 item 8"),
     ("profile_steps", "--profile_steps", "Queue 1 item 8"),
-    ("device_data", "--device_data", "Queue 1 item 9"),
     ("multihost", "--multihost", "Queue 1 item 10"),
     ("watch_freq", "--watch_freq", "Queue 1 item 7"),
 )

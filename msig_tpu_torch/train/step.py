@@ -17,6 +17,18 @@ term, in eager PyTorch:
     one network share a launch: 2B, 2B and B generator forwards and one 4B
     VGG forward; above it each runs on its own (``step.py:115-164``).
 
+``compute_dtype=torch.bfloat16`` casts as the JAX step does: the images are
+prepared in bf16, so every conv, ConvTranspose and dense layer (and the VGG
+prefix) runs in bf16 on the fp32 parameters cast at the call; instance-norm
+and AdaIN statistics and the affine run in fp32 and cast back
+(``ops/norm.py``), the Grams and every loss mean in fp32; the master
+parameters, the gradients, clip, Adam and EMA stay fp32. The explicit casts
+are threaded through the modules (``models/layers.py``); no autocast. The
+fp32 training kernels of ``MSIG_CONV_VJP=1|2`` (``conv3x3_bwd``,
+``conv3x3_adain_bwd``) then take their inputs cast to fp32 at the boundary
+and give dx back in bf16 (``ops/conv3x3_vjp.py``); ``adain_pallas`` takes
+bf16 itself.
+
 Parameters, moments and EMA copies are updated in place; the metrics come
 back as 0-d tensors on the device, so a step needs no host sync.
 """
@@ -92,10 +104,9 @@ def make_train_step(
     global grad norms of the G and D groups."""
     check_ported(r1_gamma=r1_gamma, remat=remat, style_recon_weight=style_recon_weight,
                  diversity_weight=diversity_weight, grad_hists=grad_hists)
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(f"compute_dtype {compute_dtype} is not yet ported to "
-                                  "msig_tpu_torch (Queue 1 item 7: bf16 as autocast); the port "
-                                  "trains in float32")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, got "
+                         f"{compute_dtype}")
 
     def adam(params, grads, opt, lr):
         return clip_adam_update_(params, grads, opt, lr, grad_clip_norm, adam_b1, adam_b2)

@@ -3,7 +3,9 @@
 Counterpart of ``msig_tpu/train/trainer.py`` (reference trainer.py:276-360),
 without wandb and profiling (not ported yet):
 
-  - shuffled batches, ``drop_last``;
+  - shuffled batches, ``drop_last``, from the host pipeline (``TrainLoader``)
+    or, with ``--device_data``, from the device-resident dataset
+    (``data/device_data.py``);
   - per epoch the cosine learning rates and the dynamic loss weights
     (their history is per step, like the reference's);
   - an EMA 2x2 sample grid [Real A, Fake B, Real B, Fake A] every
@@ -76,6 +78,16 @@ class Trainer:
 
         self.loader = TrainLoader(dataset, cfg.batch_size, cfg.image_size, seed=cfg.seed,
                                   device_put=to_device)
+        # --device_data: the decoded dataset stays on the device and is augmented
+        # there; per step the host sends indices and crop parameters only.
+        # Single device, as in the JAX package (the port has no data parallelism).
+        self.device_data = None
+        if cfg.device_data:
+            from msig_tpu_torch.data.device_data import DeviceData
+
+            self.device_data = DeviceData(dataset, cfg.image_size,
+                                          second_target=cfg.diversity_weight > 0.0,
+                                          device=cfg.device)
         self.loss_history: Dict[str, List[float]] = {k: [] for k in METRIC_KEYS}
         self.weight_history: Dict[str, List[float]] = {k: [] for k in WEIGHT_KEYS}
         self.step_time_ms: List[float] = []
@@ -128,7 +140,11 @@ class Trainer:
             w_vec = weights_vector(weights)
             epoch_metrics: List[Dict[str, torch.Tensor]] = []
             t0 = time.time()
-            for i, batch in enumerate(self.loader.epoch(epoch)):
+            if self.device_data is not None:
+                batches = self.device_data.epoch(epoch, cfg.batch_size, seed=cfg.seed)
+            else:
+                batches = self.loader.epoch(epoch)
+            for i, batch in enumerate(batches):
                 epoch_metrics.append(self.train_step(self.state, batch, self.vgg, g_lr, d_lr,
                                                      w_vec))
                 for k in WEIGHT_KEYS:

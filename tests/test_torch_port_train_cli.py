@@ -133,8 +133,8 @@ def test_missing_paths_exit_1(tree, flag):
 
 @pytest.mark.parametrize("extra", [
     ["--resume", "somewhere"], ["--wandb"], ["--profile_steps", "3"], ["--r1_gamma", "1.0"],
-    ["--remat"], ["--device_data"], ["--style_recon_weight", "1.0"], ["--diversity_weight", "1.0"],
-    ["--multihost"], ["--watch_freq", "50"], ["--compute_dtype", "bfloat16"]])
+    ["--remat"], ["--style_recon_weight", "1.0"], ["--diversity_weight", "1.0"],
+    ["--multihost"], ["--watch_freq", "50"]])
 def test_flags_not_ported_yet_raise(tree, extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(cli.config_from_args(_args(tree, "--allow_random_vgg", *extra)))

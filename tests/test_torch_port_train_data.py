@@ -2,9 +2,9 @@
 
 Dataset discovery, sampling draws, the RandomResizedCrop parameters, the
 decoded + augmented images and whole ``TrainLoader`` epochs must be
-bit-identical for the same seed. The JAX side is forced onto its PIL backend
-(``native_loader.available`` patched to False): the port has no native
-loader yet (Queue 1 item 9).
+bit-identical for the same seed. Both sides are forced onto their PIL
+backends (``native_loader.available`` patched to False in each); the native
+backends are held together in ``tests/test_torch_port_native_loader.py``.
 """
 
 import os
@@ -18,6 +18,7 @@ from msig_tpu.data import native_loader
 from msig_tpu.data import pipeline as jpipe
 
 from msig_tpu_torch.data import dataset as ds
+from msig_tpu_torch.data import native_loader as port_native_loader
 from msig_tpu_torch.data import pipeline as pipe
 
 
@@ -39,6 +40,7 @@ def tree(tmp_path_factory):
 @pytest.fixture
 def pil_only(monkeypatch):
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(port_native_loader, "available", lambda: False)
 
 
 def test_discovery_matches_jax(tree):
