@@ -175,7 +175,17 @@ Phases, each reported on its own line:
    full width from the same parameters and batch, as ``stock`` and
    ``level1+pallas`` (``conv3x3_bwd`` fed fp32 at its autograd boundary):
    step 1 finite and within 1e-2 across the two, each route's kernels 48
-   launches a step and no other, ms per step; then ``DeviceData``
+   launches a step and no other, ms per step; then ``[train options]``
+   (``train_options_phase``) at the same width, ``level1+pallas``: step 1
+   with ``remat=True`` and ``"cycle"`` equal to the bit to step 1 without
+   (grad norms within rtol 1e-6), each mode's peak memory, ms per step and
+   launches; a step each of ``r1_gamma``, ``style_recon_weight``,
+   ``diversity_weight`` (also with ``remat=True``) and ``grad_hists=64``,
+   finite, with its launches; the train CLI for one epoch and ``--resume``
+   for a second, and ``--profile_steps 2``; latent int8 serving (a seeded
+   mapping network as flax bytes, 22 kernel-site launches a batch); and
+   ``--save_grid`` over two domains with the decode cache and without it,
+   byte-equal; then ``DeviceData``
    (``--device_data``) on the card against the CPU: the same draws, images
    within 1 uint8 step;
 7. bench: the served int8 chain at the bench's batches (``BENCH_BATCHES``:
@@ -2627,6 +2637,275 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
           "routes round bf16 differently)", flush=True)
 
 
+TRAIN_OPTION_STEPS = 3  # timed steps per remat mode, after step 1 and a warm-up
+
+
+def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
+    """``[train options]``: the options of both entry points that the port took
+    last, at the train phase's full width (256², batch 4, 8 resblocks,
+    style_dim 256, 10 domains), ``level1+pallas``, from its parameters and batch:
+
+    - remat: step 1 with ``remat=True`` and ``"cycle"`` against step 1 without:
+      losses equal to the bit, pre-clip grad norms within rtol 1e-6; each
+      mode's peak ``torch.cuda.max_memory_allocated``, ms per step (median of
+      ``TRAIN_OPTION_STEPS`` after a warm-up, CUDA events) and launches;
+    - one step each of ``r1_gamma=1``, ``style_recon_weight=1``,
+      ``diversity_weight=1`` (alone and with ``remat=True``) and
+      ``grad_hists=64``: finite metrics, and each kernel's launches against
+      ``48 * launches / 3`` (diversity adds a generator launch; remat
+      re-runs the AdaIN forwards of the launches it recomputes, at most once
+      each: non-reentrant checkpointing may stop a recomputation once the
+      tensors it needs are back); the histograms' counts sum to each
+      gradient's element count, every gradient finite;
+    - ``python -m msig_tpu_torch.train --device cuda`` for 1 epoch, then
+      ``--resume`` for the second (the step count and loss history carried),
+      and ``--profile_steps 2`` at ``MSIG_CONV_VJP=1 --pallas`` in a process
+      of its own (a trace with the port's kernels);
+    - ``python -m msig_tpu_torch.inference --quantize int8 --style_mode latent``
+      on the demo checkpoint with a seeded mapping network written as flax
+      bytes (``compat/flax_bytes``): one image an input, the served chain's 22
+      kernel-site launches a batch;
+    - ``--save_grid`` over two target domains (a grid in each), served with
+      the decode cache and with ``MSIG_DECODE_CACHE_MB=0``: byte-equal files."""
+    import contextlib
+    import io
+
+    from msig_tpu_torch import inference as infer_cli
+    from msig_tpu_torch.compat import flax_bytes
+    from msig_tpu_torch.compat import from_jax as fj
+    from msig_tpu_torch.config import TrainConfig
+    from msig_tpu_torch.extensions import MappingNetwork
+    from msig_tpu_torch.train import cli, create_train_state, make_train_step
+    from msig_tpu_torch.train.state import torch_default_init_
+
+    t_phase = time.perf_counter()
+    batch, vgg, weights = train_inputs(torch, dev)
+    batch = dict(batch, target2=torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, tuple(batch["target"].shape), dtype=np.uint8)).to(dev))
+    cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
+                      style_dim=256, use_pallas=True, device=dev.type)
+    torch.backends.cudnn.deterministic = True
+    per_launch = 2 * N_RES  # AdaIN sites (and 3x3 conv backwards) a generator launch
+
+    def run(options, steps=0):
+        """Step 1 from the train phase's parameters (and ``steps`` timed steps after a
+        warm-up): metrics, launches of step 1, peak memory, ms per step."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(cfg, N_DOMAINS)
+        step = make_train_step(cfg.ema_beta, **options)
+        reset_counts((ap, cv) + int8_mods)
+        metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+        torch.cuda.synchronize()
+        counts = {"fwd": ap.LAUNCHES[ap.FWD], "bwd": ap.LAUNCHES[ap.BWD],
+                  "conv_bwd": cv.LAUNCHES["conv3x3_bwd"]}
+        others = {k: v for k, v in read_counts((cv,) + int8_mods).items()
+                  if v and k != "conv3x3_bwd"}
+        check(not others, f"[train options {options}] no other kernel launched: {others}")
+        hists = metrics.pop("_grad_hists", None)
+        first = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in first.values()),
+              f"[train options {options}] step 1 finite: {first}")
+        ms = None
+        if steps:
+            step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+            events = []
+            for _ in range(steps):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                b.record()
+                events.append((a, b))
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(v)) for k, v in m.items() if k != "_grad_hists"),
+                  f"[train options {options}] the timed steps stay finite")
+            ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sizes = {f"gradients/{k}.{n}": p.numel() for k, net in state.models.nets.items()
+                 for n, p in net.named_parameters()}
+        del state, step
+        return first, counts, hists, sizes, peak, ms
+
+    with env(MSIG_CONV_VJP="1"):
+        remat = {}
+        for mode in (False, True, "cycle"):
+            remat[mode] = run({"remat": mode}, steps=TRAIN_OPTION_STEPS)
+        base, base_counts = remat[False][0], remat[False][1]
+        check(base_counts == {"fwd": 3 * per_launch, "bwd": 3 * per_launch,
+                              "conv_bwd": 3 * per_launch},
+              f"[train options] launches without remat {base_counts}")
+        for mode, recomputed in ((True, 3), ("cycle", 2)):
+            first, counts = remat[mode][0], remat[mode][1]
+            losses = [k for k in base if not k.endswith("grad_norm")]
+            check(all(first[k] == base[k] for k in losses),
+                  f"[train options remat={mode!r}] step-1 losses equal to the bit: "
+                  f"{[(k, first[k], base[k]) for k in losses if first[k] != base[k]]}")
+            for k in ("g_grad_norm", "d_grad_norm"):
+                check(abs(first[k] - base[k]) <= 1e-6 * abs(base[k]),
+                      f"[train options remat={mode!r}] {k} {first[k]} vs {base[k]} (rtol 1e-6)")
+            top = (3 + recomputed) * per_launch
+            check(3 * per_launch <= counts["fwd"] <= top and counts["bwd"] == 3 * per_launch
+                  and counts["conv_bwd"] == 3 * per_launch,
+                  f"[train options remat={mode!r}] launches {counts}: forwards in "
+                  f"[{3 * per_launch}, {top}], backwards {3 * per_launch}")
+        for mode, (first, counts, _, _, peak, ms) in remat.items():
+            gap = ""
+            if mode:
+                top = (3 + (3 if mode is True else 2)) * per_launch
+                gap = (f" (upper bound {top}: {top - counts['fwd']} recomputed forwards not run)"
+                       if counts["fwd"] != top else f" (= the upper bound {top})")
+            print(f"[train options] remat={mode!r}: step 1 losses "
+                  f"{'equal to the bit' if mode else 'the reference'}, g_grad_norm "
+                  f"{first['g_grad_norm']!r}, d_grad_norm {first['d_grad_norm']!r}; launches "
+                  f"adain_pallas_fwd {counts['fwd']}{gap}, adain_pallas_bwd {counts['bwd']}, "
+                  f"conv3x3_bwd {counts['conv_bwd']}; peak memory {peak:.3f} GiB "
+                  f"(max_memory_allocated); {ms:.2f} ms per step (median of "
+                  f"{TRAIN_OPTION_STEPS} after a warm-up, CUDA events)", flush=True)
+
+        cases = (("r1_gamma=1", {"r1_gamma": 1.0}, 3, 0),
+                 ("style_recon_weight=1", {"style_recon_weight": 1.0}, 3, 0),
+                 ("diversity_weight=1", {"diversity_weight": 1.0}, 4, 0),
+                 ("diversity_weight=1 remat=True", {"diversity_weight": 1.0, "remat": True}, 4, 4),
+                 ("grad_hists=64", {"grad_hists": 64}, 3, 0))
+        for label, options, launches, recomputed in cases:
+            first, counts, hists, sizes, peak, _ = run(options)
+            want = launches * per_launch
+            ok = (want <= counts["fwd"] <= (launches + recomputed) * per_launch
+                  and counts["bwd"] == counts["conv_bwd"] == want)
+            check(ok, f"[train options {label}] launches {counts}, want forwards "
+                      f"{want}..{(launches + recomputed) * per_launch}, backwards {want}")
+            extra = ""
+            if "r1_gamma" in options:
+                check(first["D_loss"] != base["D_loss"], "[train options r1] the D loss moved")
+                extra = f"; D_loss {first['D_loss']!r} (without R1 {base['D_loss']!r})"
+            for key in ("style_recon", "diversity"):
+                if key in first:
+                    extra += f"; {key} {first[key]!r}"
+            if hists is not None:
+                check(set(hists) == set(sizes), f"[train options] {len(hists)} histograms for "
+                                                f"{len(sizes)} parameters")
+                sums = {k: int(h[0].sum()) for k, h in hists.items()}
+                check(all(sums[k] == sizes[k] for k in sizes),
+                      "[train options grad_hists] every histogram's counts sum to its gradient's "
+                      "element count (every gradient finite)")
+                extra += (f"; {len(hists)} histograms of 64 bins, counts summing to "
+                          f"{sum(sums.values())} gradient elements")
+            print(f"[train options] {label}: step 1 finite, G_loss {first['G_loss']!r}; launches "
+                  f"adain_pallas_fwd {counts['fwd']}, adain_pallas_bwd {counts['bwd']}, "
+                  f"conv3x3_bwd {counts['conv_bwd']}; peak memory {peak:.3f} GiB{extra}",
+                  flush=True)
+    torch.cuda.empty_cache()
+
+    # the train CLI: one epoch, --resume for the second, --profile_steps
+    src, ref = os.path.join(work, "train_src"), os.path.join(work, "train_ref")
+    out = os.path.join(work, "opt_results")
+
+    def train(*extra, name="resume", **settings):
+        args = cli.build_arg_parser().parse_args([
+            "--source_dir", src, "--target_dir", ref, "--save_dir_base", out, "--exp_name", name,
+            "--device", "cuda", "--allow_random_vgg", *extra])
+        text = io.StringIO()
+        with env(MSIG_SKIP_EPOCH_ART="1", **settings), contextlib.redirect_stdout(text):
+            rc = cli.main(cli.config_from_args(args))
+        check(rc == 0, f"[train options] train CLI {' '.join(extra)}: exit {rc}\n{text.getvalue()}")
+        return text.getvalue()
+
+    t0 = time.perf_counter()
+    train("--epochs", "1")
+    ckpt = os.path.join(out, "resume", "checkpoints")
+    said = train("--epochs", "2", "--resume", os.path.join(ckpt, "epoch_1"))
+    check("Resuming training from epoch 2" in said, f"[train options] resume said: {said!r}")
+    saved = torch.load(os.path.join(ckpt, "epoch_2", "checkpoint.pth"), map_location="cpu",
+                       weights_only=False)
+    steps = float(saved["g_optimizer"]["state"][0]["step"])
+    check(len(saved["loss_history"]["G_loss"]) == 2 and steps == 4.0,
+          f"[train options] the resumed run's history {saved['loss_history']['G_loss']}, "
+          f"Adam steps {steps}")
+    resume_s = time.perf_counter() - t0
+    # a process of its own: after a torch.profiler session with CUDA activity in
+    # this process, the later phases' traces lost their device events on the card
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "msig_tpu_torch.train", "--source_dir", src, "--target_dir", ref,
+         "--save_dir_base", out, "--exp_name", "profile", "--device", "cuda",
+         "--allow_random_vgg", "--epochs", "1", "--profile_steps", "2", "--batch_size", "2",
+         "--pallas"], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, MSIG_CONV_VJP="1", MSIG_SKIP_EPOCH_ART="1"))
+    trace = os.path.join(out, "profile", "profile", "trace.json")
+    check(run.returncode == 0 and f"Profiler trace written to {os.path.dirname(trace)}"
+          in run.stdout and os.path.exists(trace),
+          f"[train options] --profile_steps: exit {run.returncode}\n{run.stdout[-2000:]}"
+          f"\n{run.stderr[-2000:]}")
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    port = sorted(n for n in names if "msig_" in n)
+    check(bool(port), "[train options] the profile trace holds the port's kernels")
+    print(f"[train options] train CLI: 1 epoch then --resume for epoch 2 (8 sources, batch "
+          f"{TRAIN_B}: 4 Adam steps, 2 epochs of history) in {resume_s:.1f} s; --profile_steps 2 "
+          f"(MSIG_CONV_VJP=1 --pallas, batch 2, its own process) wrote {os.path.getsize(trace)} "
+          f"bytes in {time.perf_counter() - t0:.1f} s, {len(port)} kernels of the port among its "
+          "events", flush=True)
+
+    # latent int8 serving on the demo checkpoint
+    inp, ref_dir = os.path.join(work, "in"), os.path.join(work, "ref")
+    net = MappingNetwork(latent_dim=16, style_dim=256, num_domains=N_DOMAINS)
+    torch_default_init_(net, torch.Generator().manual_seed(11))
+    mapping = os.path.join(work, "mapping.msgpack")
+    with open(mapping, "wb") as f:
+        f.write(flax_bytes.to_bytes(fj.mapping_params(net.state_dict())))
+    n_batches = -(-N_INPUTS // B)
+
+    def serve(out_dir, *extra, **settings):
+        args = infer_cli.build_arg_parser().parse_args([
+            "--input_dir", inp, "--ref_domains_dir", ref_dir, "--checkpoint_dir", DEMO,
+            "--output_dir", out_dir, "--quantize", "int8", "--image_size", "256",
+            "--batch_size", str(B), "--compute_dtype", "float32", "--device", "cuda", *extra])
+        with env(**settings):
+            reset_counts(int8_mods)
+            t0 = time.perf_counter()
+            rc = infer_cli.main(infer_cli.config_from_args(args))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        check(rc == 0, f"[train options] inference {' '.join(extra)}: exit {rc}")
+        return read_counts(int8_mods), secs
+
+    latent_out = os.path.join(work, "out_latent")
+    launches, secs = serve(latent_out, "--target_domain", TARGET, "--style_mode", "latent",
+                           "--mapping_params", mapping, "--latent_dim", "16")
+    names = sorted(os.listdir(latent_out))
+    check(len(names) == N_INPUTS, f"[train options latent] {len(names)} images for {N_INPUTS}")
+    for name, n in launches.items():
+        want = PATHS["256/hifi0"].get(name, 0) * n_batches
+        check(n == want, f"[train options latent] {name} launched {n} times, want {want}")
+    per_batch = sum(launches.values()) // n_batches
+    check(per_batch == 22, f"[train options latent] {per_batch} kernel-site launches a batch")
+    print(f"[train options] latent int8 serving (--style_mode latent, a seeded mapping network "
+          f"written as flax bytes, latent_dim 16): rc 0, {len(names)} images of 256² in "
+          f"{secs:.2f} s, {per_batch} kernel-site launches a batch over {n_batches} batches",
+          flush=True)
+
+    # --save_grid over two domains, with the decode cache and without
+    files = {}
+    for label, mb in (("cache", "2048"), ("no cache", "0")):
+        out_dir = os.path.join(work, "out_grid_" + label.replace(" ", "_"))
+        _, secs = serve(out_dir, "--target_domain", "dom1,dom6", "--style_mode", "average",
+                        "--save_grid", MSIG_DECODE_CACHE_MB=mb)
+        files[label] = {}
+        for d in ("dom1", "dom6"):
+            check(os.path.exists(os.path.join(out_dir, d, "style_modes_grid.png")),
+                  f"[train options grid] {label}: {d}/style_modes_grid.png")
+            for n in sorted(os.listdir(os.path.join(out_dir, d))):
+                if n != "style_modes_grid.png":
+                    with open(os.path.join(out_dir, d, n), "rb") as f:
+                        files[label][f"{d}/{n}"] = f.read()
+        print(f"[train options] --save_grid over dom1,dom6 ({label}, MSIG_DECODE_CACHE_MB={mb}): "
+              f"{len(files[label])} images and a grid a domain in {secs:.2f} s", flush=True)
+    check(len(files["cache"]) == 2 * N_INPUTS and files["cache"] == files["no cache"],
+          "[train options] the decode cache's files equal those decoded per domain, byte for byte")
+    print(f"[train options] decode cache: {len(files['cache'])} files byte-equal with and "
+          f"without it; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def device_data_phase(torch, work: str) -> None:
     """``DeviceData`` (``--device_data``) on the card against the same dataset on
     the CPU: the bank uploaded alike, an epoch's draws (domains) equal and its
@@ -2850,6 +3129,7 @@ def main() -> int:
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         train_cli_phase(torch, work)
         train_bf16_phase(torch, ap, cv, int8_mods, dev)
+        train_options_phase(torch, ap, cv, int8_mods, dev, work)
         device_data_phase(torch, work)
         bench_batches_phase(torch, int8_mods)
         bench_phase(torch, int8_mods, ap, card)

@@ -8,7 +8,8 @@ so the port needs nothing of the JAX package:
     so flip kh/kw back, then ``[I, O, kh, kw]``;
   - Linear kernel ``[I, O]`` -> weight ``[O, I]``;
   - the style encoder's stacked ``[512, D*S]`` head -> one 1x1 conv per domain;
-  - the discriminator's stacked ``[4, 4, 512, D]`` head -> one conv per domain.
+  - the discriminator's stacked ``[4, 4, 512, D]`` head -> one conv per domain;
+  - the mapping network (``extensions/mapping.py``): its Linear layers, names kept.
 
 Input trees are flax variable dicts, ``{"params": {...}}``, holding numpy
 arrays (or anything ``np.asarray`` takes); the demo checkpoint's flat
@@ -120,6 +121,15 @@ def discriminator_state_dict(params: Params, num_domains: int) -> Dict[str, torc
     return sd
 
 
+def mapping_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """flax MappingNetwork params (``fc0..fc{n-1}``, ``heads``) -> the port's
+    ``MappingNetwork`` state_dict; each Linear kernel transposed."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, layer in params["params"].items():
+        _linear(sd, name, layer)
+    return sd
+
+
 def vgg_state_dict(params: Params) -> Dict[str, torch.Tensor]:
     """The JAX package's VGG prefix params ``{"conv{i}": {"kernel", "bias"}}`` (the
     layout of ``msig_tpu/losses/vgg.py``) -> the state_dict of ``losses.vgg.VGGPrefix``."""
@@ -198,3 +208,12 @@ def discriminator_params(sd: Mapping[str, Tensorish], num_domains: int) -> Param
     bs = [_np(sd[f"domain_branches.{d}.1.bias"]) for d in range(num_domains)]
     p["heads"] = {"kernel": np.stack(ks, axis=-1), "bias": np.concatenate(bs)}
     return {"params": p}
+
+
+def mapping_params(sd: Mapping[str, Tensorish]) -> Params:
+    """The port's ``MappingNetwork`` state_dict -> flax params, layers and leaves in
+    the order flax creates them (``fc0..fc{n-1}``, ``heads``; kernel, bias), so
+    that ``compat/flax_bytes.to_bytes`` writes flax's bytes."""
+    names = sorted({k.rsplit(".", 1)[0] for k in sd if k.startswith("fc")},
+                   key=lambda n: int(n[2:]))
+    return {"params": {n: _linear_p(sd, n) for n in names + ["heads"]}}

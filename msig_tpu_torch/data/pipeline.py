@@ -120,12 +120,14 @@ class TrainLoader:
     Shuffled indices, ``drop_last`` (reference trainer.py:287-290), a uniform
     target domain per sample; ``device_put`` (optional) moves each batch, e.g.
     to the card, in the producer thread; ``backend`` is
-    :func:`load_train_image`'s."""
+    :func:`load_train_image`'s. ``second_target`` also draws a second image of
+    each sample's target domain (the ``target2`` key, for the diversity loss),
+    as the JAX loader draws it."""
 
     def __init__(self, dataset: MultiDomainDataset, batch_size: int, image_size: int,
                  seed: int = 0, num_threads: int = 4, prefetch: int = 2,
                  device_put: Optional[Callable[[Dict[str, np.ndarray]], Dict]] = None,
-                 backend: str = "auto"):
+                 backend: str = "auto", second_target: bool = False):
         _native(backend)  # an unknown backend raises here, not in the producer thread
         self.dataset = dataset
         self.batch_size = batch_size
@@ -135,28 +137,41 @@ class TrainLoader:
         self.prefetch = prefetch
         self.device_put = device_put
         self.backend = backend
+        self.second_target = second_target
 
     def steps_per_epoch(self) -> int:
         return len(self.dataset) // self.batch_size
 
     def _make_batch(self, indices, rng: np.random.Generator, pool) -> Dict[str, np.ndarray]:
         picks = [self.dataset.sample_paths(i, rng) for i in indices]
+        # the second target's files are drawn before the seeds, as the JAX loader draws them
+        trg2 = None
+        if self.second_target:
+            names = {v: k for k, v in self.dataset.domain_to_idx.items()}
+            trg2 = []
+            for _, _, d in picks:
+                files = self.dataset.target_files_by_domain[names[d]]
+                trg2.append(files[int(rng.integers(len(files)))])
         # independent child RNGs so threads do not share generator state (three
-        # per sample, as the JAX loader draws, whose third feeds its second target)
+        # per sample, as the JAX loader draws, the third for the second target)
         seeds = rng.integers(0, 2**63 - 1, size=3 * len(picks))
 
         def load(args):
             j, (src, trg, _) = args
+            paths = (src, trg) if trg2 is None else (src, trg, trg2[j])
             return tuple(load_train_image(p, self.image_size, np.random.default_rng(seeds[3 * j + i]),
-                                          self.backend) for i, p in enumerate((src, trg)))
+                                          self.backend) for i, p in enumerate(paths))
 
         results = list(pool.map(load, enumerate(picks)))
-        return {
+        batch = {
             "source": np.stack([r[0] for r in results]),
             "target": np.stack([r[1] for r in results]),
             "source_domain": np.zeros(len(picks), np.int32),
             "target_domain": np.asarray([p[2] for p in picks], np.int32),
         }
+        if trg2 is not None:
+            batch["target2"] = np.stack([r[2] for r in results])
+        return batch
 
     def epoch(self, epoch_idx: int) -> Iterator[Dict]:
         """Yield the batches of one epoch, prefetching in a background thread."""

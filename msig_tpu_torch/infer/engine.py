@@ -13,7 +13,12 @@ Counterpart of ``msig_tpu/infer/engine.py``:
   - ``use_pallas`` (``--pallas``), as ``msig_tpu/infer/engine.py:82-88`` reads
     it: the float generator's AdaIN goes to the fused kernel
     (``ops/adain_pallas.py``). The int8 path needs no switch for it: its chain
-    is already the kernel chain that JAX's ``force_fused`` (:196-200) selects.
+    is already the kernel chain that JAX's ``force_fused`` (:196-200) selects;
+  - ``style_mode='latent'`` (extension): styles from a ``MappingNetwork`` on
+    z drawn from the engine's ``torch.Generator`` (``infer/styles.py``);
+  - ``iter_input_batches(host_tee=list)`` keeps each decoded host batch, and
+    :meth:`InferenceEngine.iter_host_batches` replays them, so that serving
+    several target domains decodes the inputs once.
 
 Data-parallel serving is not ported yet.
 """
@@ -39,7 +44,7 @@ from msig_tpu_torch.infer.quantized import (
     quantized_generator_apply,
     to_out_dtype,
 )
-from msig_tpu_torch.infer.styles import sample_styles
+from msig_tpu_torch.infer.styles import latent_styles, sample_styles
 from msig_tpu_torch.models import MultiDomainStyleEncoder, StyleCycleGANGenerator
 
 logger = logging.getLogger(__name__)
@@ -161,29 +166,48 @@ class InferenceEngine:
     def translate_batches(
         self,
         batches: Iterator[Tuple[np.ndarray, List[str]]],
-        style_bank: torch.Tensor,
+        style_bank: Optional[torch.Tensor],
         style_mode: str,
         noise_level: float = 0.1,
         seed: int = 0,
+        mapping: Optional[Tuple[torch.nn.Module, int]] = None,
     ) -> Iterator[Tuple[np.ndarray, List[str]]]:
-        """uint8 host batches + names -> translated host images + names."""
+        """uint8 host batches + names -> translated host images + names.
+
+        ``style_mode='latent'`` takes ``mapping=(MappingNetwork, domain_idx)``
+        instead of a bank."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        if style_mode == "latent":
+            if mapping is None:
+                raise ValueError("style_mode='latent' requires a mapping network")
+            mapper, domain_idx = mapping
+
+            def draw_styles():
+                return latent_styles(mapper, domain_idx, gen, self.batch_size)
+        else:
+            def draw_styles():
+                return sample_styles(style_bank, style_mode, gen, self.batch_size, noise_level)
+
         for imgs, names in batches:
             n = imgs.shape[0]
             pad = self.batch_size - n
             if pad:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, 0)], 0)
-            styles = sample_styles(style_bank, style_mode, gen, self.batch_size, noise_level)
+            styles = draw_styles()
             out = self.generate(torch.from_numpy(imgs).to(self.device), styles)
             yield out[:n].cpu().numpy(), names
 
-    def iter_input_batches(self, input_dir: str,
-                           prefetch: int = 2) -> Iterator[Tuple[np.ndarray, List[str]]]:
+    def iter_input_batches(
+        self, input_dir: str, prefetch: int = 2,
+        host_tee: Optional[List[Tuple[np.ndarray, List[str]]]] = None,
+    ) -> Iterator[Tuple[np.ndarray, List[str]]]:
         """Decode input images in a thread pool, yielding fixed-size host batches.
 
         A producer thread decodes ``prefetch`` batches ahead. Unreadable files
         are skipped with a warning (reference inference.py:302-305). Closing the
-        generator early stops the producer."""
+        generator early stops the producer. ``host_tee``: a list the producer
+        appends each decoded batch ``(uint8 array, names)`` to, for
+        :meth:`iter_host_batches` to replay."""
         files = list_image_files(input_dir)
         if not files:
             return
@@ -218,8 +242,12 @@ class InferenceEngine:
                         kept = [(a, os.path.basename(p))
                                 for a, p in zip(pool.map(safe_load, chunk), chunk)
                                 if a is not None]
-                        if kept and not put((np.stack([a for a, _ in kept]),
-                                             [n for _, n in kept])):
+                        if not kept:
+                            continue
+                        item = (np.stack([a for a, _ in kept]), [n for _, n in kept])
+                        if host_tee is not None:
+                            host_tee.append(item)
+                        if not put(item):
                             return
             except Exception as e:  # surfaced to the consumer below
                 put(e)
@@ -244,3 +272,13 @@ class InferenceEngine:
                 except queue.Empty:
                     break
             t.join(timeout=30)
+
+    @staticmethod
+    def iter_host_batches(
+        cached: List[Tuple[np.ndarray, List[str]]],
+    ) -> Iterator[Tuple[np.ndarray, List[str]]]:
+        """Replay a ``host_tee`` decode cache: the same host batches, in order.
+
+        ``translate_batches`` pads a partial batch into a new array and writes
+        into no batch it takes, so every pass replays the same images."""
+        yield from cached

@@ -14,7 +14,11 @@ Torch cannot draw ``jax.random``'s numbers, so the random modes also take the
 draws themselves (``draws``): ``index`` [batch] in [0, n), ``second`` [batch]
 in [0, n-1) (mapped past ``index`` to make the pair distinct), ``alpha``
 [batch, 1] and ``normal`` [batch, S] standard normal. Tests hand the same
-draws to both packages. ``latent`` needs the mapping network, not ported yet.
+draws to both packages.
+
+``latent`` (extension, not in the reference; ``msig_tpu/infer/engine.py:278-295``)
+takes no bank: z ~ N(0, I) [batch, latent_dim] through a ``MappingNetwork`` at
+the target domain (:func:`latent_styles`); ``z`` can be handed in the same way.
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import torch
+from torch import nn
 
 STYLE_MODES = ("average", "random", "interpolate", "noise", "specific")
+# 'latent' needs a mapping network; the engine handles it, not sample_styles.
+ALL_STYLE_MODES = STYLE_MODES + ("latent",)
 
 
 def sample_styles(style_bank: torch.Tensor, mode: str, generator: Optional[torch.Generator],
@@ -59,3 +66,15 @@ def sample_styles(style_bank: torch.Tensor, mode: str, generator: Optional[torch
         z = draw("normal", lambda: torch.randn((batch, s), generator=generator, device=dev))
         return style_bank[idx] + z * noise_level
     raise ValueError(f"Unknown style mode: {mode}")
+
+
+def latent_styles(mapping: nn.Module, domain_idx: int, generator: Optional[torch.Generator],
+                  batch: int, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``batch`` style codes [batch, S] (fp32) of domain ``domain_idx`` from z ~ N(0, I)
+    through ``mapping`` (a ``MappingNetwork`` on its device); ``z`` [batch,
+    latent_dim] replaces the draw."""
+    dev = next(mapping.parameters()).device
+    if z is None:
+        z = torch.randn((batch, mapping.latent_dim), generator=generator, device=dev)
+    idx = torch.full((batch,), domain_idx, dtype=torch.long, device=dev)
+    return mapping(z.to(device=dev, dtype=torch.float32), idx).to(torch.float32)

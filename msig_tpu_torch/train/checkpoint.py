@@ -14,7 +14,12 @@ inference loader (``msig_tpu_torch/infer/loading.py``) all read it:
     ``loss_history`` and ``num_domains``;
   - ``ema_checkpoint.pth``: ``ema_G_A2B``, ``ema_G_B2A``, ``ema_SE_A``, ``ema_SE_B``.
 
-Resuming from a checkpoint is not ported yet (Queue 1 item 8; ``--resume`` raises).
+:func:`resume_for_training` reads them back into a train state: the six
+networks, the EMA copies, both Adam moment sets with their step counts and
+``loss_history`` (reference trainer.py:176-207). The JAX package re-initialises
+Adam when it resumes from such a directory (``_resume_from_torch``); the
+reference restores the moments, and so does the port. Orbax directories (the
+JAX package's own checkpoints) cannot be read without JAX and are refused.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -106,3 +111,70 @@ def save_ema_snapshot(snapshot_dir: str, state: TrainState, meta: Dict[str, Any]
     with open(os.path.join(snapshot_dir, "meta.json"), "w") as f:
         json.dump({"ema": True, "num_domains": models.num_domains,
                    "note": "in-training fp16 EMA snapshot", **meta}, f, indent=2)
+
+
+_ORBAX_META = "meta.json"  # what the JAX package's save_checkpoint writes beside its Orbax tree
+
+
+def _load_adam_(opt: AdamState, sd: Dict, what: str) -> None:
+    """Copy a ``torch.optim.Adam`` state_dict's moments and step into ``opt``, in place."""
+    state = sd.get("state", {})
+    if not state:  # saved before the first step
+        for m in opt.mu + opt.nu:
+            m.zero_()
+        opt.count = 0
+        return
+    if len(state) != len(opt.mu):
+        raise ValueError(f"{what} holds {len(state)} parameters' moments, the model has "
+                         f"{len(opt.mu)}")
+    steps = {int(float(s["step"])) for s in state.values()}
+    if len(steps) != 1:
+        raise ValueError(f"{what}: the parameters' step counts differ ({sorted(steps)})")
+    for i, (m, v) in enumerate(zip(opt.mu, opt.nu)):
+        m.copy_(state[i]["exp_avg"])
+        v.copy_(state[i]["exp_avg_sq"])
+    opt.count = steps.pop()
+
+
+@torch.no_grad()
+def resume_for_training(save_dir: str, state: TrainState,
+                        expected_num_domains: int) -> Tuple[TrainState, Dict[str, List[float]], int]:
+    """(state, loss_history, start_epoch) from a directory ``save_checkpoint`` wrote.
+
+    Restores ``state`` in place: the six networks, the EMA copies (the raw
+    networks' when ``ema_checkpoint.pth`` is absent, as the JAX package does),
+    both Adam moment sets and their step counts. ``start_epoch`` is the length
+    of ``loss_history["G_loss"]``. A missing directory or checkpoint, or a
+    ``num_domains`` that differs from the model's, warns and returns ``state``
+    as it was, ``{}`` and 0 (``msig_tpu/train/checkpoint.py:68-145``). An Orbax
+    directory of the JAX package raises ValueError."""
+    path = os.path.join(save_dir, "checkpoint.pth")
+    if not os.path.exists(path):
+        if os.path.exists(os.path.join(save_dir, _ORBAX_META)):
+            raise ValueError(
+                f"{save_dir} is an Orbax checkpoint of the JAX package ({_ORBAX_META}, no "
+                "checkpoint.pth); the port reads reference-format .pth directories only. "
+                "Export it with tools/export_torch_checkpoint.py.")
+        logger.warning("Checkpoint not found at %s. Starting from scratch.", save_dir)
+        return state, {}, 0
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    saved_domains = int(ckpt.get("num_domains", 2))
+    if saved_domains != expected_num_domains:
+        logger.warning("Saved model has %d domains, but current model expects %d - starting "
+                       "from scratch", saved_domains, expected_num_domains)
+        return state, {}, 0
+    models = state.models
+    for k in G_KEYS + D_KEYS:
+        models.nets[k].load_state_dict(ckpt[k], strict=True)
+    ema_path = os.path.join(save_dir, "ema_checkpoint.pth")
+    ema = torch.load(ema_path, map_location="cpu", weights_only=True) \
+        if os.path.exists(ema_path) else {f"ema_{k}": ckpt[k] for k in G_KEYS}
+    for k in G_KEYS:
+        models.ema[k].load_state_dict(ema[f"ema_{k}"], strict=True)
+    _load_adam_(state.opt_g, ckpt["g_optimizer"], "g_optimizer")
+    _load_adam_(state.opt_d, ckpt["d_optimizer"], "d_optimizer")
+    state.step = state.opt_g.count
+    loss_history = {k: [float(x) for x in v] for k, v in ckpt.get("loss_history", {}).items()}
+    start_epoch = len(loss_history.get("G_loss", []))
+    logger.info("Resumed from %s (epoch %d, step %d)", save_dir, start_epoch, state.step)
+    return state, loss_history, start_epoch

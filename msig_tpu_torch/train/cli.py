@@ -17,10 +17,26 @@ size over the batch, times ``--epochs``. ``--compute_dtype`` is float32 (the
 default, TF32 off on the card) or bfloat16 (the convs, ConvTs and dense layers
 in bf16 on fp32 master parameters, the norms' statistics, Grams, losses, clip,
 Adam and EMA in fp32; ``train/step.py``). ``--device_data`` keeps the decoded
-dataset on the device and augments there (``data/device_data.py``). Flags of
-features not ported yet raise NotImplementedError: ``--resume``, ``--wandb``,
-``--profile_steps``, ``--r1_gamma``, ``--remat``, ``--style_recon_weight``,
-``--diversity_weight``, ``--multihost`` and ``--watch_freq``.
+dataset on the device and augments there (``data/device_data.py``).
+
+The root ``main.py``'s other single-device options:
+
+  - ``--resume DIR``: the whole train state from a checkpoint directory the
+    port wrote (networks, EMA, Adam moments, loss history), then training from
+    the next epoch; nothing to resume from (or another domain count) starts
+    from scratch with a warning;
+  - ``--profile_steps N``: trace N steps with ``torch.profiler`` into
+    ``<save_dir>/<exp>/profile/trace.json``, print where, and exit 0;
+  - ``--remat``: recompute every generator launch in the backward
+    (``torch.utils.checkpoint``) instead of keeping its activations;
+  - ``--r1_gamma``, ``--style_recon_weight``, ``--diversity_weight``: the
+    extension losses (0 = off, the reference's losses);
+  - ``--watch_freq N``: gradient histograms every N steps, logged to a wandb
+    run; without one (``--wandb`` is not ported) it does nothing, as in
+    ``main.py`` without ``--wandb``.
+
+``--wandb`` and ``--multihost`` raise NotImplementedError naming the ROADMAP.md
+item that brings them.
 """
 
 from __future__ import annotations
@@ -53,7 +69,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_dir_base", type=str, default=default_config.SAVE_DIR_BASE,
                         help="Base directory for saving results")
     parser.add_argument("--resume", type=str, default=default_config.RESUME_CHECKPOINT,
-                        help="Checkpoint directory to resume from (not ported yet)")
+                        help="Checkpoint directory to resume from")
     parser.add_argument("--exp_name", type=str,
                         help="Experiment name. If not provided, it will be auto-generated.")
     parser.add_argument("--gpu", type=int, default=default_config.GPU,
@@ -86,16 +102,25 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="Route the resblock AdaINs through the fused kernel (adain_pallas)")
     parser.add_argument("--no_pallas", dest="pallas", action="store_false",
                         help="Keep the resblock AdaINs on plain PyTorch")
-    parser.add_argument("--profile_steps", type=int, default=0, help="Not ported yet")
-    parser.add_argument("--r1_gamma", type=float, default=0.0, help="Not ported yet")
-    parser.add_argument("--remat", action="store_true", help="Not ported yet")
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="Trace N train steps with torch.profiler into <save dir>/profile, "
+                             "then exit")
+    parser.add_argument("--r1_gamma", type=float, default=0.0,
+                        help="R1 gradient penalty weight on real images (extension; 0 = off)")
+    parser.add_argument("--remat", action="store_true",
+                        help="Recompute the generator forwards in the backward "
+                             "(torch.utils.checkpoint) instead of keeping their activations")
     parser.add_argument("--device_data", action="store_true",
                         help="Keep the decoded dataset on the device and augment there "
                              "(single device)")
-    parser.add_argument("--style_recon_weight", type=float, default=0.0, help="Not ported yet")
-    parser.add_argument("--diversity_weight", type=float, default=0.0, help="Not ported yet")
+    parser.add_argument("--style_recon_weight", type=float, default=0.0,
+                        help="Style-reconstruction loss weight (extension; 0 = off)")
+    parser.add_argument("--diversity_weight", type=float, default=0.0,
+                        help="Diversity loss weight (extension; 0 = off); draws a second "
+                             "target image per sample")
     parser.add_argument("--multihost", action="store_true", help="Not ported yet")
-    parser.add_argument("--watch_freq", type=int, default=0, help="Not ported yet")
+    parser.add_argument("--watch_freq", type=int, default=0,
+                        help="Log gradient histograms to the wandb run every N steps (0 = off)")
     parser.add_argument("--checkpoint_every", type=int,
                         default=default_config.CHECKPOINT_EVERY_EPOCHS,
                         help="Write a checkpoint every N epochs (the final epoch always does)")
@@ -145,14 +170,9 @@ def config_from_args(args) -> TrainConfig:
 
 
 # Flags of features not ported yet, with the ROADMAP.md Queue 1 item that brings them.
-# The train step's own options (--r1_gamma, --remat, --style_recon_weight,
-# --diversity_weight) are refused by make_train_step.
 _NOT_PORTED = (
-    ("resume", "--resume", "Queue 1 item 8"),
-    ("wandb", "--wandb", "Queue 1 item 8"),
-    ("profile_steps", "--profile_steps", "Queue 1 item 8"),
+    ("wandb", "--wandb", "Queue 1 item 8: no wandb package on the card's machine"),
     ("multihost", "--multihost", "Queue 1 item 10"),
-    ("watch_freq", "--watch_freq", "Queue 1 item 7"),
 )
 
 
@@ -206,9 +226,18 @@ def main(cfg: TrainConfig) -> int:
           + ", ".join(f"{i} {n} ({len(dataset.target_files_by_domain[n])} images)"
                       for i, n in enumerate(dataset.domains) if i) + ")")
     trainer = Trainer(cfg, dataset)
+    if cfg.profile_steps:
+        trace_dir = trainer.profile_steps(cfg.profile_steps)
+        print(f"Profiler trace written to {trace_dir}")
+        return 0
+    start_epoch = 0
+    if cfg.resume:
+        print(f"Attempting to resume from checkpoint: {cfg.resume}")
+        start_epoch = trainer.resume(cfg.resume)
+        print(f"Resuming training from epoch {start_epoch + 1}")
     print("Starting multi-domain training...")
     try:
-        trainer.train()
+        trainer.train(start_epoch=start_epoch)
     except Exception as e:  # the reference prints the error and exits 1 (main.py:243-250)
         print(f"An error occurred during training: {e}")
         import traceback

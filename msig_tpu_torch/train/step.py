@@ -29,16 +29,38 @@ fp32 training kernels of ``MSIG_CONV_VJP=1|2`` (``conv3x3_bwd``,
 and give dx back in bf16 (``ops/conv3x3_vjp.py``); ``adain_pallas`` takes
 bf16 itself.
 
+The JAX step's options, each off by default (``step.py:52-101``):
+
+  - ``remat``: ``True`` recomputes every generator launch in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+    activations, ``"cycle"`` only the cycle launches (the ``G_B2A`` launch
+    over [real_B, fake_B] and ``cyc_B``; unbatched, ``cyc_A`` and ``cyc_B``);
+    the losses and gradients are those of the step without it, to the bit
+    where the recomputed forward gives the first one's bits;
+  - ``style_recon_weight`` (extension): + w * (L1(SE_B(fake_B), style_B) +
+    L1(SE_A(fake_A), style_A)) / 2, the term ``style_recon``;
+  - ``diversity_weight`` (extension): with a second image of the target
+    domain (``batch["target2"]``, ``TrainLoader(second_target=True)``),
+    + w * -L1(G_A2B(real_A, SE_B(target2)), fake_B), the term
+    ``diversity``, one more generator launch;
+  - ``r1_gamma`` (extension): + gamma / 2 * (R1(D_A, real_A) + R1(D_B, real_B))
+    on the D loss (``extensions/r1.py``), a double backward through D;
+  - ``grad_hists``: also the histogram of every gradient, ``grad_hists`` bins
+    each, binned on the device from the gradients that clip and Adam take
+    (``train/watch.py``), under ``metrics["_grad_hists"]``.
+
 Parameters, moments and EMA copies are updated in place; the metrics come
 back as 0-d tensors on the device, so a step needs no host sync.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from msig_tpu_torch.extensions.r1 import r1_penalty
 from msig_tpu_torch.losses import (
     l1_loss,
     lsgan_fake,
@@ -48,7 +70,14 @@ from msig_tpu_torch.losses import (
 )
 from msig_tpu_torch.losses.vgg import VGGPrefix
 from msig_tpu_torch.train.schedule import WEIGHT_KEYS
-from msig_tpu_torch.train.state import G_KEYS, TrainState, clip_adam_update_, ema_update_
+from msig_tpu_torch.train.state import (
+    D_KEYS,
+    G_KEYS,
+    TrainState,
+    clip_adam_update_,
+    ema_update_,
+)
+from msig_tpu_torch.train.watch import gradient_histograms
 
 Batch = Dict[str, torch.Tensor]
 StepFn = Callable[[TrainState, Batch, VGGPrefix, float, float, Sequence[float]],
@@ -66,30 +95,20 @@ def prepare_images(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return x.to(dtype)
 
 
-# Options of the JAX step that this port does not run yet, with the ROADMAP.md
-# Queue 1 item that brings them.
-_NOT_PORTED = {
-    "r1_gamma": "Queue 1 item 11 (extensions: R1 penalty)",
-    "style_recon_weight": "Queue 1 item 11 (extensions: style reconstruction loss)",
-    "diversity_weight": "Queue 1 item 11 (extensions: diversity loss)",
-    "remat": "Queue 1 item 7 (remat as torch.utils.checkpoint)",
-    "grad_hists": "Queue 1 item 7 (train/watch.py gradient histograms)",
-}
+def _run(net, *args):
+    return net(*args)
 
 
-def check_ported(**options) -> None:
-    """Raise NotImplementedError for a non-default value of an option not ported yet."""
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"{name}={value!r} is not yet ported to msig_tpu_torch: "
-                                      f"{_NOT_PORTED[name]}")
+def _remat(net, *args):
+    """``net(*args)``, its activations recomputed in the backward instead of kept."""
+    return checkpoint(net, *args, use_reentrant=False)
 
 
 def make_train_step(
     ema_beta: float,
     compute_dtype=torch.float32,
     r1_gamma: float = 0.0,
-    remat: bool = False,
+    remat: Union[bool, str] = False,
     style_recon_weight: float = 0.0,
     diversity_weight: float = 0.0,
     grad_hists: int = 0,
@@ -100,10 +119,13 @@ def make_train_step(
     """Returns ``fn(state, batch, vgg, g_lr, d_lr, loss_weights) -> metrics``.
 
     ``loss_weights`` are the five weights in ``WEIGHT_KEYS`` order. The
-    metrics are D_loss, G_loss, the five unweighted terms and the pre-clip
-    global grad norms of the G and D groups."""
-    check_ported(r1_gamma=r1_gamma, remat=remat, style_recon_weight=style_recon_weight,
-                 diversity_weight=diversity_weight, grad_hists=grad_hists)
+    metrics are D_loss, G_loss, the five unweighted terms (and ``style_recon``
+    and ``diversity`` when their weights are on), the pre-clip global grad
+    norms of the G and D groups and, with ``grad_hists``, ``_grad_hists``."""
+    if remat not in (False, True, "cycle"):
+        raise ValueError(f"remat must be False, True or 'cycle', got {remat!r}")
+    gen_apply = _remat if remat is True else _run
+    gen_apply_cyc = _remat if remat else _run  # "cycle" (or True) remats the cycle launches
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, got "
                          f"{compute_dtype}")
@@ -130,17 +152,17 @@ def make_train_step(
             style_A = SE_A(real_A, y_org)
             style_B = SE_B(real_B, y_trg)
             if batched:
-                id_B, fake_B = G_A2B(torch.cat([real_B, real_A]),
-                                     torch.cat([style_B, style_B])).chunk(2)
-                fake_A, cyc_A = G_B2A(torch.cat([real_B, fake_B]),
-                                      torch.cat([style_A, style_A])).chunk(2)
+                id_B, fake_B = gen_apply(G_A2B, torch.cat([real_B, real_A]),
+                                         torch.cat([style_B, style_B])).chunk(2)
+                fake_A, cyc_A = gen_apply_cyc(G_B2A, torch.cat([real_B, fake_B]),
+                                              torch.cat([style_A, style_A])).chunk(2)
             else:
-                id_B = G_A2B(real_B, style_B)
-                fake_B = G_A2B(real_A, style_B)
-                fake_A = G_B2A(real_B, style_A)
-                cyc_A = G_B2A(fake_B, style_A)
+                id_B = gen_apply(G_A2B, real_B, style_B)
+                fake_B = gen_apply(G_A2B, real_A, style_B)
+                fake_A = gen_apply(G_B2A, real_B, style_A)
+                cyc_A = gen_apply_cyc(G_B2A, fake_B, style_A)
             loss_identity = l1_loss(id_B, real_B)
-            cyc_B = G_A2B(fake_A, style_B)
+            cyc_B = gen_apply_cyc(G_A2B, fake_A, style_B)
 
             loss_gan_A2B = lsgan_real(D_B(fake_B, y_trg))
             loss_gan_B2A = lsgan_real(D_A(fake_A, y_org))
@@ -160,11 +182,22 @@ def make_train_step(
             }
             w = dict(zip(WEIGHT_KEYS, loss_weights))
             g_loss = sum(individual[k] * w[k] for k in WEIGHT_KEYS)
+            if style_recon_weight > 0.0:
+                individual["style_recon"] = (l1_loss(SE_B(fake_B, y_trg), style_B)
+                                             + l1_loss(SE_A(fake_A, y_org), style_A)) / 2
+                g_loss = g_loss + style_recon_weight * individual["style_recon"]
+            if diversity_weight > 0.0:
+                style_B2 = SE_B(prepare_images(batch["target2"], compute_dtype), y_trg)
+                individual["diversity"] = -l1_loss(gen_apply(G_A2B, real_A, style_B2), fake_B)
+                g_loss = g_loss + diversity_weight * individual["diversity"]
             g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
         finally:
             for p in d_params:
                 p.requires_grad_(True)
 
+        # clip and Adam read the gradients without writing them: the histograms
+        # below bin the same values
+        g_by_net = _by_net(nets, G_KEYS, g_grads) if grad_hists else None
         g_norm = adam(g_params, g_grads, state.opt_g, g_lr)
         del g_grads
         # ---------------- EMA (after the G update, reference trainer.py:131-134)
@@ -181,12 +214,30 @@ def make_train_step(
             pb_real, pb_fake = D_B(real_B, y_trg), D_B(fake_B_sg, y_trg)
         d_loss = (lsgan_real(pa_real) + lsgan_fake(pa_fake)
                   + lsgan_real(pb_real) + lsgan_fake(pb_fake)) / 2
+        if r1_gamma > 0.0:
+            d_loss = d_loss + (r1_gamma / 2.0) * (r1_penalty(D_A, real_A, y_org)
+                                                  + r1_penalty(D_B, real_B, y_trg))
         d_grads = torch.autograd.grad(d_loss, d_params)
         d_norm = adam(d_params, d_grads, state.opt_d, d_lr)
         state.step += 1
 
         metrics = {"D_loss": d_loss, "G_loss": g_loss, **individual,
                    "g_grad_norm": g_norm, "d_grad_norm": d_norm}
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if grad_hists:
+            names = {k: [n for n, _ in nets[k].named_parameters()] for k in G_KEYS + D_KEYS}
+            metrics["_grad_hists"] = gradient_histograms(
+                g_by_net, _by_net(nets, D_KEYS, d_grads), names, bins=grad_hists)
+        return metrics
 
     return train_step
+
+
+def _by_net(nets, keys, grads) -> Dict[str, list]:
+    """A group's flat gradient list -> {net: its gradients}, a None (an unused
+    parameter) as zeros, as clip and Adam take it."""
+    out, it = {}, iter(grads)
+    for k in keys:
+        out[k] = [g if g is not None else torch.zeros_like(p)
+                  for p, g in zip(nets[k].parameters(), it)]
+    return out

@@ -1,11 +1,11 @@
 """The training loop: epochs, logging, sample grids, plots, checkpoints.
 
-Counterpart of ``msig_tpu/train/trainer.py`` (reference trainer.py:276-360),
-without wandb and profiling (not ported yet):
+Counterpart of ``msig_tpu/train/trainer.py`` (reference trainer.py:276-360):
 
   - shuffled batches, ``drop_last``, from the host pipeline (``TrainLoader``)
     or, with ``--device_data``, from the device-resident dataset
-    (``data/device_data.py``);
+    (``data/device_data.py``); with a diversity weight both also draw
+    ``target2``;
   - per epoch the cosine learning rates and the dynamic loss weights
     (their history is per step, like the reference's);
   - an EMA 2x2 sample grid [Real A, Fake B, Real B, Fake A] every
@@ -14,7 +14,17 @@ without wandb and profiling (not ported yet):
   - per-epoch loss averages into ``loss_history``, fetched from the device
     once per epoch;
   - reference-format checkpoints every ``checkpoint_every`` epochs and at the
-    end, and optional fp16 EMA snapshots.
+    end, and optional fp16 EMA snapshots;
+  - :meth:`Trainer.resume` from such a checkpoint, after which ``train``
+    starts at the resumed epoch with that epoch's learning rates and weights;
+  - :meth:`Trainer.profile_steps`: a ``torch.profiler`` trace of a few steps;
+  - given a wandb run (``wandb_run``, which the CLI never passes: ``--wandb``
+    is not ported), per-step losses under ``loss/*``, per-epoch ``avg_loss/*``,
+    ``lr/*``, ``weight/*``, and every ``watch_freq`` steps the gradient
+    histograms of a second step function with ``grad_hists=64``
+    (``train/watch.py``), logged with that step's losses (reference
+    trainer.py:294, 308-346). Without a run, ``watch_freq`` does nothing, as
+    in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,7 +41,8 @@ from msig_tpu_torch import resolve_device
 from msig_tpu_torch.config import TrainConfig
 from msig_tpu_torch.data import MultiDomainDataset, TrainLoader
 from msig_tpu_torch.losses import get_vgg
-from msig_tpu_torch.train.checkpoint import save_checkpoint, save_ema_snapshot
+from msig_tpu_torch.train import watch
+from msig_tpu_torch.train.checkpoint import resume_for_training, save_checkpoint, save_ema_snapshot
 from msig_tpu_torch.train.schedule import (
     WEIGHT_KEYS,
     cosine_lr,
@@ -55,21 +66,30 @@ def _skip_epoch_art() -> bool:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, dataset: MultiDomainDataset):
+    def __init__(self, cfg: TrainConfig, dataset: MultiDomainDataset, wandb_run=None):
         self.cfg = cfg
         self.dataset = dataset
+        self.wandb = wandb_run
         self.device = device = resolve_device(cfg.device)
         # With cuDNN's default algorithms the decoders' ConvTranspose2d differs
         # in its last bits from run to run on the card; the deterministic ones
         # cost 0.5-3.3% of a step (tools/train_step_determinism_torch.py).
         torch.backends.cudnn.deterministic = True
         self.num_domains = dataset.num_domains
-        # first, so that an option not ported yet raises before any network is built
-        self.train_step = make_train_step(
-            cfg.ema_beta, getattr(torch, cfg.compute_dtype), r1_gamma=cfg.r1_gamma,
-            remat=cfg.remat, style_recon_weight=cfg.style_recon_weight,
-            diversity_weight=cfg.diversity_weight, grad_clip_norm=cfg.grad_clip_norm,
-            adam_b1=cfg.adam_b1, adam_b2=cfg.adam_b2)
+        # first, so that an unknown option raises before any network is built
+        options = dict(r1_gamma=cfg.r1_gamma, remat=cfg.remat,
+                       style_recon_weight=cfg.style_recon_weight,
+                       diversity_weight=cfg.diversity_weight, grad_clip_norm=cfg.grad_clip_norm,
+                       adam_b1=cfg.adam_b1, adam_b2=cfg.adam_b2)
+        dtype = getattr(torch, cfg.compute_dtype)
+        self.train_step = make_train_step(cfg.ema_beta, dtype, **options)
+        # wandb.watch (reference trainer.py:294): a second step function that also
+        # bins every gradient on the device, taken every watch_freq-th step, and
+        # only when a wandb run is given, as the reference's `if cfg.wandb`.
+        self.watch_freq = cfg.watch_freq
+        self.train_step_watch = None
+        if self.watch_freq > 0 and wandb_run is not None:
+            self.train_step_watch = make_train_step(cfg.ema_beta, dtype, grad_hists=64, **options)
         self.state = create_train_state(cfg, self.num_domains)
         self.vgg = get_vgg(cfg.vgg_weights_path, device=device)
 
@@ -77,7 +97,8 @@ class Trainer:
             return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items()}
 
         self.loader = TrainLoader(dataset, cfg.batch_size, cfg.image_size, seed=cfg.seed,
-                                  device_put=to_device)
+                                  device_put=to_device,
+                                  second_target=cfg.diversity_weight > 0.0)
         # --device_data: the decoded dataset stays on the device and is augmented
         # there; per step the host sends indices and crop parameters only.
         # Single device, as in the JAX package (the port has no data parallelism).
@@ -114,6 +135,56 @@ class Trainer:
                             f"epoch_{epoch + 1:03d}_batch_{batch_idx:04d}_{name}.png")
         save_sample_grid(grid, path, nrow=2, domain_names=labels)
 
+    def resume(self, checkpoint_dir: str) -> int:
+        """Restore the whole train state and the loss history from a checkpoint
+        directory; returns the epoch to start at (0 when there is nothing to
+        resume from)."""
+        self.state, loss_history, start_epoch = resume_for_training(
+            checkpoint_dir, self.state, self.num_domains)
+        for k, v in loss_history.items():
+            if k in self.loss_history:
+                self.loss_history[k] = list(v)
+        return start_epoch
+
+    def profile_steps(self, n_steps: int = 5, trace_dir: Optional[str] = None) -> str:
+        """Trace ``n_steps`` train steps with ``torch.profiler`` (the card's kernels
+        too on ``cuda``) after one untraced step, at epoch 0's learning rates and
+        weights; writes ``trace.json`` (Chrome trace format) into ``trace_dir``
+        (default ``save_dir/profile``) and returns the directory."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cfg = self.cfg
+        trace_dir = trace_dir or os.path.join(self.save_dir, "profile")
+        os.makedirs(trace_dir, exist_ok=True)
+        w_vec = weights_vector(current_loss_weights(cfg.loss_weights, 0))
+        it = self.loader.epoch(0)
+
+        def step(batch):
+            return self.train_step(self.state, batch, self.vgg, cfg.lr_g, cfg.lr_d, w_vec)
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        try:
+            step(next(it))  # the first step's one-time work stays out of the trace
+            sync()
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                for batch in it:
+                    step(batch)
+                    n_steps -= 1
+                    if n_steps <= 0:
+                        break
+                sync()
+        finally:
+            it.close()
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        logger.info("Wrote profiler trace to %s", trace_dir)
+        return trace_dir
+
     def save(self, checkpoint_dir: str) -> None:
         cfg = self.cfg
         save_checkpoint(checkpoint_dir, self.state, self.loss_history, cfg.lr_g, cfg.lr_d,
@@ -145,10 +216,21 @@ class Trainer:
             else:
                 batches = self.loader.epoch(epoch)
             for i, batch in enumerate(batches):
-                epoch_metrics.append(self.train_step(self.state, batch, self.vgg, g_lr, d_lr,
-                                                     w_vec))
+                watching = (self.train_step_watch is not None
+                            and (epoch * steps + i) % self.watch_freq == 0)
+                step_fn = self.train_step_watch if watching else self.train_step
+                metrics = step_fn(self.state, batch, self.vgg, g_lr, d_lr, w_vec)
+                hists = watch.to_host(metrics.pop("_grad_hists")) if watching else None
+                epoch_metrics.append(metrics)
                 for k in WEIGHT_KEYS:
                     self.weight_history[k].append(weights[k])
+                if self.wandb is not None:
+                    logs = {f"loss/{k}": float(v) for k, v in metrics.items()}
+                    if hists is not None:
+                        # in the same log call as the step's losses, so that the
+                        # histograms share their step
+                        logs.update(watch.to_wandb(hists))
+                    self.wandb.log(logs)
                 if i % cfg.save_freq == 0 and not _skip_epoch_art():
                     self._save_grid(batch, epoch, i)
             # one device -> host transfer for the whole epoch's metrics
@@ -164,6 +246,13 @@ class Trainer:
             self.step_time_ms.append(ms_per_step)
             logger.info("epoch %d/%d  %.1fs (%.1f ms/step)  %s", epoch + 1, cfg.epochs, dt,
                         ms_per_step, "  ".join(f"{k}={v:.3f}" for k, v in avg.items()))
+            if self.wandb is not None:
+                logs = {"epoch": epoch + 1, "perf/step_time_ms": ms_per_step}
+                logs.update({f"avg_loss/{k}": v for k, v in avg.items()})
+                logs["lr/generator"] = g_lr
+                logs["lr/discriminator"] = d_lr
+                logs.update({f"weight/{k}": weights[k] for k in WEIGHT_KEYS})
+                self.wandb.log(logs)
             if not _skip_epoch_art():
                 plot_losses(self.loss_history, os.path.join(self.save_dir, "losses.png"))
                 plot_weight_history(self.weight_history,

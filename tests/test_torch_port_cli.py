@@ -129,8 +129,8 @@ def test_cli_multi_domain_writes_per_domain_dirs(cli_dirs, tmp_path):
 
 @pytest.mark.parametrize("extra,msg", [
     (("--target_domain", "nope"), "not found"),
-    (("--save_grid",), "--save_grid is not ported"),
-    (("--style_mode", "latent"), "latent is not ported"),
+    (("--target_domain", " , "), "names no domain"),
+    (("--style_mode", "latent"), "--style_mode latent requires --mapping_params"),
     (("--data_parallel",), "--data_parallel is not ported"),
 ])
 def test_cli_refusals_exit_1(cli_dirs, tmp_path, extra, msg, capsys):

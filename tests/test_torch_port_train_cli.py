@@ -10,7 +10,8 @@
 - ``python -m msig_tpu_torch.inference --device cpu`` serves from the same
   directory;
 - exit 1 without a VGG choice or with a missing directory, as ``main.py``;
-  every flag of a feature not ported yet raises NotImplementedError.
+  the flags of features not ported yet (``--wandb``, ``--multihost``) raise
+  NotImplementedError.
 """
 
 import os
@@ -131,10 +132,7 @@ def test_missing_paths_exit_1(tree, flag):
     assert cli.main(cli.config_from_args(args)) == 1
 
 
-@pytest.mark.parametrize("extra", [
-    ["--resume", "somewhere"], ["--wandb"], ["--profile_steps", "3"], ["--r1_gamma", "1.0"],
-    ["--remat"], ["--style_recon_weight", "1.0"], ["--diversity_weight", "1.0"],
-    ["--multihost"], ["--watch_freq", "50"]])
+@pytest.mark.parametrize("extra", [["--wandb"], ["--multihost"]])
 def test_flags_not_ported_yet_raise(tree, extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(cli.config_from_args(_args(tree, "--allow_random_vgg", *extra)))

@@ -241,3 +241,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         strided = g.reshape(2, 64, 256).transpose(1, 2).contiguous().transpose(1, 2)
         ap.adain_bwd(x.reshape(2, 64, 256), gamma, gamma, gamma, strided)
+
+
+def _options_step(dev, remat, diversity: bool = False):
+    """Step 1 of the port's train step at ``MSIG_CONV_VJP=1`` + ``use_pallas`` on the
+    card (64², batch 2, 2 resblocks: trunk maps of 16x16x256): metrics and the
+    launches of the three kernels of the route."""
+    import os
+
+    from msig_tpu_torch.config import TrainConfig
+    from msig_tpu_torch.losses import init_random_vgg
+    from msig_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    cfg = TrainConfig(image_size=64, batch_size=2, n_residual_blocks=2, style_dim=64,
+                      use_pallas=True, device="cuda")
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)).to(dev)
+             for k in ("source", "target", "target2")}
+    batch["source_domain"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    batch["target_domain"] = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    old = os.environ.get("MSIG_CONV_VJP")
+    os.environ["MSIG_CONV_VJP"] = "1"
+    try:
+        state = create_train_state(cfg, 3)
+        ap.reset_launch_counts()
+        cv.reset_launch_counts()
+        met = make_train_step(cfg.ema_beta, remat=remat,
+                              diversity_weight=1.0 if diversity else 0.0)(
+            state, batch, init_random_vgg(1234, device="cuda"), 2e-4, 1e-4, [1, 10, 5, 1, 1])
+        torch.cuda.synchronize()
+    finally:
+        if old is None:
+            del os.environ["MSIG_CONV_VJP"]
+        else:
+            os.environ["MSIG_CONV_VJP"] = old
+    counts = (ap.LAUNCHES[ap.FWD], ap.LAUNCHES[ap.BWD], cv.LAUNCHES["conv3x3_bwd"])
+    return {k: float(v) for k, v in met.items()}, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,launches", [(True, 3), ("cycle", 2)])
+def test_remat_on_the_card_equals_no_remat_and_recomputes_its_launches(cuda_device, remat,
+                                                                        launches):
+    """Remat at level 1 + use_pallas: the losses equal step 1 without remat to the
+    bit (the recomputed forwards give the first ones' bits), the grad norms within
+    rtol 1e-6; 4 AdaIN sites a generator launch, 3 launches: 12 backwards of each
+    kernel, and at most 12 + 4 x (recomputed launches) forwards."""
+    base, (f0, b0, c0) = _options_step(cuda_device, False)
+    got, (f1, b1, c1) = _options_step(cuda_device, remat)
+    assert (f0, b0, c0) == (12, 12, 12)
+    assert 12 <= f1 <= 12 + 4 * launches and (b1, c1) == (12, 12), (f1, b1, c1)
+    for k in base:
+        if k.endswith("grad_norm"):
+            assert abs(got[k] - base[k]) <= 1e-6 * abs(base[k]), k
+        else:
+            assert got[k] == base[k], k
+
+
+@pytest.mark.cuda
+def test_diversity_adds_a_generator_launch_on_the_card(cuda_device):
+    _, counts = _options_step(cuda_device, False, diversity=True)
+    assert counts == (16, 16, 16)
+    _, (f, b, c) = _options_step(cuda_device, True, diversity=True)
+    assert 16 <= f <= 32 and (b, c) == (16, 16)

@@ -37,12 +37,15 @@ G_LR, D_LR = 2e-4, 1e-4
 TIGHT_FRACTION, TIGHT_ATOL = 1e-3, 1e-7
 
 
-def run_both(level: str, use_pallas: bool, batched: bool = True):
+def run_both(level: str, use_pallas: bool, batched: bool = True, options=None):
     """Run one step in both packages at ``MSIG_CONV_VJP=level``; returns a dict.
 
     ``batched=False`` takes both steps' unbatched branch (each forward on its
     own, the path of a batch above 16): the JAX step by its ``batch_forwards``
-    and ``vgg_pair`` switches, the port's by lowering its ``BATCH_FORWARDS_MAX``."""
+    and ``vgg_pair`` switches, the port's by lowering its ``BATCH_FORWARDS_MAX``.
+    ``options`` (``r1_gamma``, ``style_recon_weight``, ``diversity_weight``) go
+    to both steps; with a diversity weight the batch carries ``target2``."""
+    options = dict(options or {})
     import torch
 
     from msig_tpu.config import TrainConfig as JConfig
@@ -73,11 +76,14 @@ def run_both(level: str, use_pallas: bool, batched: bool = True):
         src = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
         trg = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
         dom = np.array([1, 2], np.int32)
+        trg2 = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
         w = weights_vector(current_loss_weights(jcfg.loss_weights, 0))
         jbatch = {"source": jnp.asarray(src), "target": jnp.asarray(trg),
                   "source_domain": jnp.zeros((BATCH,), jnp.int32), "target_domain": jnp.asarray(dom)}
+        if options.get("diversity_weight"):
+            jbatch["target2"] = jnp.asarray(trg2)
         switches = {} if batched else {"batch_forwards": False, "vgg_pair": False}
-        step = jax.jit(j_make(jm, tx_g, tx_d, jcfg.ema_beta, **switches))
+        step = jax.jit(j_make(jm, tx_g, tx_d, jcfg.ema_beta, **switches, **options))
         jnew, jmet = step(js, jbatch, vgg, jnp.float32(G_LR), jnp.float32(D_LR),
                           jnp.asarray(w, jnp.float32))
         jnew, jmet, js = jax.device_get((jnew, jmet, js))
@@ -99,6 +105,8 @@ def run_both(level: str, use_pallas: bool, batched: bool = True):
         batch = {"source": torch.from_numpy(src), "target": torch.from_numpy(trg),
                  "source_domain": torch.zeros(BATCH, dtype=torch.int32),
                  "target_domain": torch.from_numpy(dom)}
+        if options.get("diversity_weight"):
+            batch["target2"] = torch.from_numpy(trg2)
         # count the calls of each kernel wrapper during the port's step
         calls, wrapped = {}, [(cv, "conv3x3_bwd"), (cv, "conv3x3_adain_bwd"), (ap, "adain_fwd"),
                               (ap, "adain_bwd")]
@@ -111,7 +119,7 @@ def run_both(level: str, use_pallas: bool, batched: bool = True):
                 return _f(*a, **k)
             setattr(mod, name, spy)
         try:
-            met = make_train_step(cfg.ema_beta)(st, batch, v, G_LR, D_LR, w)
+            met = make_train_step(cfg.ema_beta, **options)(st, batch, v, G_LR, D_LR, w)
         finally:
             port_step.BATCH_FORWARDS_MAX = batch_max
             for (mod, name), fn in zip(wrapped, originals):
