@@ -198,7 +198,22 @@ Phases, each reported on its own line:
    configs none); then ``python -m msig_tpu_torch.bench`` in its five modes
    at short settings (``BENCH_RUNS``), the five processes at once: exit 0 and
    one JSON line each with the JAX bench's metric name and unit;
-8. a ``{"kernels": [...]}`` line of the twenty-five kernels (the two
+8. parallel (after every ``torch.profiler`` session): the demo checkpoint's
+   int8 engine at 256², mode 0, batch 8 with ``data_parallel`` over
+   ``PAR_DEVICES`` (two shards of 4 on the one card, each with its own copy of
+   the networks): 44 kernel-site launches a batch, the batch equal to the
+   single-device engine's to the bit on one-hot styles, dense styles
+   reported; the full-width train step at level 1 + ``--pallas``, global
+   batch 4, as two gloo ranks on the one card (spawned processes; NCCL
+   refuses two ranks on one GPU): rows 22-23 launched 48 times on each rank,
+   the ranks' parameters equal, step 1's metrics and gradients held against
+   the one-process step; a one-rank NCCL group's step: metrics equal to the
+   bit, gradients within the bars beside a rerun of the no-group step;
+9. eval: InceptionV3 pool3 on a seeded random torchvision-layout npz, from
+   uint8 256² images, on the card within rtol 1e-3 / atol 1e-4 of the CPU;
+   ms per 32-image 299² batch; ``python -m msig_tpu_torch.tools.evaluate_fid``
+   over two synthetic directories: exit 0, one JSON line;
+10. a ``{"kernels": [...]}`` line of the twenty-five kernels (the two
    whole-slab epilogues with 0 launches: no path of the JAX package runs
    them), then the card line,
    then the last line ``{"ok": true, "device": {...}}``.
@@ -3070,6 +3085,308 @@ def bench_phase(torch, mods, ap, card: str) -> None:
     print(f"[bench] five modes in {wall:.1f} s", flush=True)
 
 
+PAR_DEVICES = ("cuda:0", "cuda:0")  # [parallel]: two data-parallel shards on the one card
+PAR_LOSS_RTOL, PAR_NORM_RTOL = 1e-4, 1e-3  # step-1 losses, grad norms (the train phase's bars)
+EVAL_B, EVAL_SIDE = 32, 299                # [eval]: the timed Inception batch
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_step(torch, dev, distributed: bool, split: bool = False):
+    """Step 1 of the full-width train step at level 1 + ``--pallas`` (rows 22-23)
+    from the seeded parameters and batch of ``train_inputs``; ``split``: this
+    rank's rows of that global batch. Returns (metrics, state, launches of the
+    training kernels)."""
+    from msig_tpu_torch.config import TrainConfig
+    from msig_tpu_torch.ops import adain_pallas as ap
+    from msig_tpu_torch.ops import conv3x3_vjp as cv
+    from msig_tpu_torch.parallel import shard_batch
+    from msig_tpu_torch.train import create_train_state, make_train_step
+
+    batch, vgg, weights = train_inputs(torch, dev)
+    if split:
+        batch = shard_batch(batch)
+    cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
+                      style_dim=256, use_pallas=True, device=dev.type)
+    with env(MSIG_CONV_VJP="1"):
+        state = create_train_state(cfg, N_DOMAINS)
+        step = make_train_step(cfg.ema_beta, distributed=distributed)
+        ap.reset_launch_counts()
+        cv.reset_launch_counts()
+        metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in {**ap.LAUNCHES, **cv.LAUNCHES}.items() if v}
+    return {k: float(v) for k, v in metrics.items()}, state, launches
+
+
+def _first_moments(state) -> list:
+    """Adam's first moments after step 1, G group then D group, on the host:
+    (1 - b1) times the clipped step-1 gradients."""
+    return [m.cpu() for m in state.opt_g.mu + state.opt_d.mu]
+
+
+def parallel_rank(rank: int, port: int, out: str) -> None:
+    """One of the two ranks of ``[parallel]``'s train step: a gloo group on the one
+    card (NCCL refuses two ranks on one GPU), this rank's half of the batch."""
+    import torch
+    import torch.distributed as dist
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from msig_tpu_torch.parallel import replicated
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        metrics, state, launches = parallel_step(torch, torch.device("cuda"), True, split=True)
+        same = all(replicated(net) for net in state.models.nets.values())
+        torch.save({"metrics": metrics, "launches": launches, "replicated": same,
+                    "mu": _first_moments(state) if rank == 0 else None},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(torch, mods, work: str) -> None:
+    """Data parallelism on the one card.
+
+    Serving: the demo checkpoint's int8 engine at 256², mode 0, batch 8, with
+    ``--data_parallel`` over ``PAR_DEVICES`` (two shards of 4, each with its own
+    copy of the networks and the int8 weights): each shard runs the 22 kernel
+    sites, 44 a batch; the served batch equals the single-device engine's to
+    the bit on one-hot styles (exact style affines), dense styles reported
+    beside (each shard forms its own affines, as JAX's ``shard_map`` body
+    does). Training: the full-width step at level 1 + ``--pallas``, global
+    batch 4, as two ranks over gloo on the one card (two spawned processes):
+    rows 22-23 launched on each rank, the ranks' parameters equal, the metrics
+    and the step-1 gradients (Adam's first moments) held against the
+    one-process step (losses rtol 1e-4, grad norms 1e-3, gradients within
+    ``GRAD_RTOL`` / ``GRAD_ATOL_REL``); then a one-rank NCCL group's step
+    (every collective on NCCL): its metrics equal to the no-group step's to the
+    bit, its step-1 gradients within the bars, reported beside a rerun of the
+    no-group step (whose gradients are not bitwise reproducible either)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from msig_tpu_torch.config import InferenceConfig
+    from msig_tpu_torch.infer.engine import InferenceEngine
+    from msig_tpu_torch.infer.loading import load_inference_params
+
+    t0 = time.perf_counter()
+    cfg = InferenceConfig(image_size=256, batch_size=B, quantize="int8", device="cuda")
+    gen_sd, se_sd, meta, _ = load_inference_params(DEMO, cfg, 10)
+    args = (10, gen_sd, se_sd, meta["n_residual_blocks"], meta["style_dim"])
+    single = InferenceEngine.build(cfg, *args)
+    dp = InferenceEngine.build(dataclasses.replace(cfg, data_parallel=True), *args,
+                               devices=PAR_DEVICES)
+    check(dp.replicas is not None and len(dp.replicas) == 2, "[parallel] two shards")
+    single.out_uint8 = dp.out_uint8 = True
+    rng = np.random.default_rng(12)
+    imgs = torch.from_numpy(rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8)).cuda()
+    one_hot = torch.zeros((B, 256))
+    one_hot[torch.arange(B), torch.from_numpy(rng.integers(0, 256, B))] = \
+        torch.from_numpy(rng.normal(0, 2, B).astype(np.float32))
+    one_hot = one_hot.cuda()
+    dense = torch.from_numpy(rng.normal(0, 1, (B, 256)).astype(np.float32)).cuda()
+    want_launches = {k: 2 * v for k, v in PATHS["256/hifi0"].items()}
+    with env(MSIG_TRUNK_HIFI="0", MSIG_TRUNK_V3="0", MSIG_ENC1_IM2COL="0"):
+        ref, ref_dense = single.generate(imgs, one_hot).cpu(), single.generate(imgs, dense).cpu()
+        reset_counts(mods)
+        out = dp.generate(imgs, one_hot)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts(mods).items() if v}
+        check(launches == want_launches and sum(launches.values()) == 44,
+              f"[parallel] launches of a two-shard batch {launches}, want {want_launches}")
+        check(out.shape == (B, 256, 256, 3) and out.dtype == torch.uint8,
+              f"[parallel] output {tuple(out.shape)} {out.dtype}")
+        diff = int((out.to(torch.int32) - ref.to(torch.int32)).abs().max())
+        check(diff == 0, f"[parallel] two shards equal the single-device batch to the bit on "
+                         f"one-hot styles (max diff {diff})")
+        d = (dp.generate(imgs, dense).to(torch.int32) - ref_dense.to(torch.int32)).abs()
+        ms_dp = cuda_ms(torch, lambda: dp.generate(imgs, one_hot), reps=10)
+        ms_one = cuda_ms(torch, lambda: single.generate(imgs, one_hot).cpu(), reps=10)
+    print(f"[parallel] --data_parallel int8 at 256², mode 0, batch {B} over {PAR_DEVICES}: "
+          f"launches per batch {sum(launches.values())} ({launches['final7_tanh_u8']} per site "
+          f"of the decoder, {launches['conv3x3_adain_relu_requant']} conv1); equal to the "
+          f"single-device batch to the bit on one-hot styles; dense styles: "
+          f"{int((d > 0).sum())} of {d.numel()} pixels differ, max {int(d.max())}; "
+          f"{ms_dp:.2f} ms a batch with the host's concatenation (single device "
+          f"{ms_one:.2f} with its copy to the host; CUDA events, median of 10; one card: no "
+          f"speed-up to show)", flush=True)
+    del single, dp, imgs, out
+    torch.cuda.empty_cache()
+
+    # two ranks over gloo on the one card
+    out_dir = os.path.join(work, "parallel")
+    os.makedirs(out_dir)
+    t1 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(_free_port(), out_dir), nprocs=2,
+                       start_method="spawn")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    t_ranks = time.perf_counter() - t1
+    dev = torch.device("cuda")
+    torch.backends.cudnn.deterministic = True
+    ref_metrics, ref_state, ref_launches = parallel_step(torch, dev, False)
+    want = {"adain_pallas_fwd": 6 * N_RES, "adain_pallas_bwd": 6 * N_RES,
+            "conv3x3_bwd": 6 * N_RES}
+    check(ref_launches == want, f"[parallel] one-process launches {ref_launches}")
+    for r, rk in enumerate(ranks):
+        check(rk["launches"] == want, f"[parallel] rank {r} launches {rk['launches']}, want {want}")
+        check(rk["replicated"], f"[parallel] rank {r}'s parameters equal rank 0's")
+        for k, v in ref_metrics.items():
+            rtol = PAR_NORM_RTOL if k.endswith("grad_norm") else PAR_LOSS_RTOL
+            check(abs(rk["metrics"][k] - v) <= rtol * abs(v),
+                  f"[parallel] rank {r} {k} {rk['metrics'][k]} vs one process {v} (rtol {rtol})")
+    ref_mu = _first_moments(ref_state)
+    n_g = len(ref_state.opt_g.mu)
+    worst = 0.0
+    for lo, hi in ((0, n_g), (n_g, len(ref_mu))):
+        atol = GRAD_ATOL_REL * max(float(m.abs().max()) for m in ref_mu[lo:hi])
+        for g, w in zip(ranks[0]["mu"][lo:hi], ref_mu[lo:hi]):
+            worst = max(worst, float(((g - w).abs() / (GRAD_RTOL * w.abs() + atol)).max()))
+    check(worst <= 1.0, f"[parallel] two-rank step-1 gradients within their bars ({worst:.3f})")
+    print(f"[parallel] train step at {TRAIN_SIZE}², level1+pallas, global batch {TRAIN_B} as 2 "
+          f"gloo ranks on the one card: launches per rank {ranks[0]['launches']}; parameters "
+          f"equal across ranks; metrics vs one process: "
+          + ", ".join(f"{k} {ranks[0]['metrics'][k]:.6g}/{v:.6g}" for k, v in ref_metrics.items())
+          + f"; step-1 gradients at {worst:.3f} of their bars (rtol {GRAD_RTOL} / atol "
+          f"{GRAD_ATOL_REL} x max of the group); the ranks took {t_ranks:.1f} s "
+          "(spawn, start, step 1)", flush=True)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        nccl_metrics, nccl_state, _ = parallel_step(torch, dev, True)
+    finally:
+        dist.destroy_process_group()
+    apart = {k: (v, ref_metrics[k]) for k, v in nccl_metrics.items() if v != ref_metrics[k]}
+    check(not apart, f"[parallel] a one-rank NCCL group's step-1 metrics equal the no-group "
+                     f"step's to the bit (apart: {apart})")
+    nccl_mu = _first_moments(nccl_state)
+    del nccl_state
+    rerun_metrics, rerun_state, _ = parallel_step(torch, dev, False)
+    rerun_mu = _first_moments(rerun_state)
+    del rerun_state
+
+    def spread(mus) -> tuple:
+        """(leaves apart from the first no-group step's, max |diff|, worst share of the bar)"""
+        n, top, worst = 0, 0.0, 0.0
+        for lo, hi in ((0, n_g), (n_g, len(ref_mu))):
+            atol = GRAD_ATOL_REL * max(float(m.abs().max()) for m in ref_mu[lo:hi])
+            for g, w in zip(mus[lo:hi], ref_mu[lo:hi]):
+                n += not torch.equal(g, w)
+                top = max(top, float((g - w).abs().max()))
+                worst = max(worst, float(((g - w).abs() / (GRAD_RTOL * w.abs() + atol)).max()))
+        return n, top, worst
+
+    nccl, rerun = spread(nccl_mu), spread(rerun_mu)
+    check(rerun_metrics == ref_metrics and nccl[2] <= 1.0,
+          f"[parallel] one-rank NCCL step-1 gradients within their bars ({nccl}, rerun {rerun})")
+    print(f"[parallel] one-rank NCCL group (every collective of the step on NCCL): step 1's "
+          f"metrics equal the no-group step's to the bit; first moments: {nccl[0]} of "
+          f"{len(ref_mu)} leaves apart, max |diff| {nccl[1]:.3g}, {nccl[2]:.3f} of their bars; "
+          f"a rerun of the no-group step itself: metrics equal to the bit, {rerun[0]} leaves "
+          f"apart, max |diff| {rerun[1]:.3g}, {rerun[2]:.3f} of the bars (the fp32 step's "
+          f"backward is not bitwise reproducible on the card); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del ref_state
+    torch.cuda.empty_cache()
+
+
+def inception_npz(path: str) -> str:
+    """A seeded random InceptionV3 in torchvision's state_dict layout, written as
+    ``tools/convert_inception_weights.py`` writes it (``.`` -> ``__``), with the
+    train-time ``AuxLogits`` head and a ``num_batches_tracked`` counter for the
+    loader to drop; per-tensor seeds from ``zlib.crc32`` of the key."""
+    import zlib
+
+    from msig_tpu_torch.eval.inception import InceptionV3Pool3
+
+    out = {}
+    for k, v in InceptionV3Pool3().state_dict().items():
+        rng = np.random.default_rng(zlib.crc32(k.encode()))
+        shape = tuple(v.shape)
+        if k.endswith("conv.weight"):
+            a = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith("running_var"):
+            a = 1.0 + 0.1 * np.abs(rng.standard_normal(shape))
+        elif k.endswith("bn.weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        out[k.replace(".", "__")] = a.astype(np.float32)
+    out["AuxLogits__conv0__conv__weight"] = np.zeros((128, 768, 1, 1), np.float32)
+    out["Mixed_5b__branch1x1__bn__num_batches_tracked"] = np.zeros((), np.int64)
+    np.savez(path, **out)
+    return path
+
+
+def eval_phase(torch, card: str, work: str) -> None:
+    """Eval on the card: InceptionV3 pool3 (stock PyTorch, cuDNN, TF32 off) of a
+    seeded random torchvision-layout npz, end to end from uint8 256² images
+    (resized to 299), within the fp32 bars (rtol 1e-3, atol 1e-4) of the CPU
+    forward; ms per 32-image 299² batch (the network alone, and with the resize
+    from 256²; CUDA events, median of 10); then ``python -m
+    msig_tpu_torch.tools.evaluate_fid`` over two directories of synthetic
+    images (the proxy FID on the port's seeded random VGG): exit 0, one JSON line."""
+    from PIL import Image
+
+    from msig_tpu_torch.eval import inception as inc
+
+    t0 = time.perf_counter()
+    npz = inception_npz(os.path.join(work, "inception_rand.npz"))
+    rng = np.random.default_rng(13)
+    imgs = rng.integers(0, 256, (4, 256, 256, 3), dtype=np.uint8)
+    got = inc.inception_feature_fn(npz, "cuda")(imgs)
+    want = inc.inception_feature_fn(npz, "cpu")(imgs)
+    err = float(np.abs(got - want).max())
+    check(got.shape == (4, 2048) and np.allclose(got, want, rtol=1e-3, atol=1e-4),
+          f"[eval] pool3 on the card within rtol 1e-3 / atol 1e-4 of the CPU (max |diff| {err:.3g})")
+    model = inc.load_inception(npz, "cuda")
+    x = torch.rand((EVAL_B, 3, EVAL_SIDE, EVAL_SIDE), device="cuda")
+    x256 = torch.rand((EVAL_B, 3, 256, 256), device="cuda")
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: model(x), reps=10)
+        ms_resize = cuda_ms(torch, lambda: model(inc.resize_299(x256)), reps=10)
+    del model, x, x256
+    torch.cuda.empty_cache()
+    dirs = []
+    for name, lo in (("a", 0), ("b", 80)):
+        d = os.path.join(work, "fid", name)
+        os.makedirs(d)
+        for i in range(8):
+            Image.fromarray(rng.integers(lo, lo + 176, (256, 256, 3), dtype=np.uint8)).save(
+                os.path.join(d, f"img{i}.png"))
+        dirs.append(d)
+    r = subprocess.run([sys.executable, "-m", "msig_tpu_torch.tools.evaluate_fid", "--dir_a",
+                        dirs[0], "--dir_b", dirs[1], "--device", "cuda"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and len(lines) == 1,
+          f"[eval] evaluate_fid exit {r.returncode}, stdout {r.stdout[-500:]!r}, "
+          f"stderr {r.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    check(set(line) == {"metric", "value", "dir_a", "dir_b"} and np.isfinite(line["value"]),
+          f"[eval] evaluate_fid's JSON line {line}")
+    print(f"[eval] InceptionV3 pool3 (seeded random torchvision-layout npz) on the card: 4 "
+          f"uint8 256² images within rtol 1e-3 / atol 1e-4 of the CPU (max |diff| {err:.3g}); "
+          f"{ms:.2f} ms per {EVAL_B}-image {EVAL_SIDE}² batch ({1000 * EVAL_B / ms:.0f} images/s), "
+          f"{ms_resize:.2f} with the resize from 256² (CUDA events, median of 10; {card}); "
+          f"evaluate_fid: {lines[0]}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3143,6 +3460,9 @@ def main() -> int:
         slab_split_phase(torch, ep, kernels)
         final7_split_phase(torch, fd, kernels)
         serve_profile_phase(torch)
+        # last: NCCL and the spawned ranks come after every torch.profiler session
+        parallel_phase(torch, int8_mods, work)
+        eval_phase(torch, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -9,7 +9,9 @@ so the port needs nothing of the JAX package:
   - Linear kernel ``[I, O]`` -> weight ``[O, I]``;
   - the style encoder's stacked ``[512, D*S]`` head -> one 1x1 conv per domain;
   - the discriminator's stacked ``[4, 4, 512, D]`` head -> one conv per domain;
-  - the mapping network (``extensions/mapping.py``): its Linear layers, names kept.
+  - the mapping network (``extensions/mapping.py``): its Linear layers, names kept;
+  - the InceptionV3 of ``eval/inception.py``: HWIO -> OIHW, and ``scale``, ``bias``,
+    ``mean``, ``var`` -> the BatchNorm's ``weight``, ``bias``, ``running_mean``, ``running_var``.
 
 Input trees are flax variable dicts, ``{"params": {...}}``, holding numpy
 arrays (or anything ``np.asarray`` takes); the demo checkpoint's flat
@@ -136,6 +138,19 @@ def vgg_state_dict(params: Params) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for name in sorted(params):
         _conv(sd, name, params[name])
+    return sd
+
+
+def inception_params(params: Mapping[str, Mapping[str, Any]]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception params (``msig_tpu/eval/inception.py::
+    load_inception_params``: ``{"<Module>.<branch>": {w HWIO, scale, bias, mean,
+    var}}``) -> the state_dict of ``eval.inception.InceptionV3Pool3``."""
+    bn = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    sd: Dict[str, torch.Tensor] = {}
+    for name, m in params.items():
+        sd[f"{name}.conv.weight"] = _t(np.transpose(np.asarray(m["w"], np.float32), (3, 2, 0, 1)))
+        for leaf, torch_leaf in bn.items():
+            sd[f"{name}.bn.{torch_leaf}"] = _t(m[leaf])
     return sd
 
 

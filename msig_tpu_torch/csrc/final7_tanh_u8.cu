@@ -222,13 +222,18 @@ extern "C" int msig_final7_tanh_u8(const void* x, const void* wpk, const void* w
                                    const void* bias, const void* inv_s, void* out, int B, int H,
                                    int W, void* stream) {
   using namespace msig::final7;
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(final7_mma_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kSmemBytes);
+  // a kernel attribute holds for one device: set it once on each
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {false};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(final7_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   final7_mma_kernel<<<B * (H / kTH) * (W / kTW), kThreads, kSmemBytes,
                       reinterpret_cast<cudaStream_t>(stream)>>>(

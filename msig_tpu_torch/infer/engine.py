@@ -1,4 +1,4 @@
-"""Batched inference engine (reference-guided synthesis) on one device.
+"""Batched inference engine (reference-guided synthesis), on one device or data parallel.
 
 Counterpart of ``msig_tpu/infer/engine.py``:
 
@@ -19,19 +19,32 @@ Counterpart of ``msig_tpu/infer/engine.py``:
   - ``iter_input_batches(host_tee=list)`` keeps each decoded host batch, and
     :meth:`InferenceEngine.iter_host_batches` replays them, so that serving
     several target domains decodes the inputs once.
-
-Data-parallel serving is not ported yet.
+  - ``data_parallel`` (``--data_parallel``): the batch splits over the most
+    devices that divide it (``parallel/mesh.py::data_mesh_for_batch``; by
+    default every visible card, or the ``devices`` given to ``build``), each
+    holding its own copy of the generator, the style encoder and the int8
+    weights. A padded batch and its styles split into contiguous shards in
+    order; every shard's call is enqueued before any result is read back, and
+    the host concatenates the results in order. This is JAX's split
+    (``msig_tpu/infer/engine.py:200-260``: replicated parameters, the batch on
+    the mesh's axis, the int8 body per shard with no collectives), run from one
+    process. Each shard forms its own style affines, as JAX's ``shard_map``
+    body does: with dense styles a shard's last bits may differ from a whole
+    batch's (``ROADMAP.md`` Queue 3, "the served image depends on the batch's
+    size").
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import logging
 import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +59,7 @@ from msig_tpu_torch.infer.quantized import (
 )
 from msig_tpu_torch.infer.styles import latent_styles, sample_styles
 from msig_tpu_torch.models import MultiDomainStyleEncoder, StyleCycleGANGenerator
+from msig_tpu_torch.parallel.mesh import data_mesh_for_batch, local_devices
 
 logger = logging.getLogger(__name__)
 
@@ -62,6 +76,21 @@ def prepare_images(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class Replica:
+    """One data-parallel shard's device and its own copy of the networks."""
+
+    generator: StyleCycleGANGenerator
+    style_encoder: MultiDomainStyleEncoder
+    q: Optional[Dict[str, torch.Tensor]]
+    device: torch.device
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for the kernels' C entries, which launch on it."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+@dataclasses.dataclass
 class InferenceEngine:
     generator: StyleCycleGANGenerator
     style_encoder: MultiDomainStyleEncoder
@@ -73,16 +102,26 @@ class InferenceEngine:
     q: Optional[Dict[str, torch.Tensor]] = None
     # Yield uint8 images from translate_batches; False yields [-1,1] float32.
     out_uint8: bool = False
+    # Data-parallel shards in batch order (the first holds the fields above);
+    # None = one device.
+    replicas: Optional[List[Replica]] = None
 
     @staticmethod
     def build(cfg: InferenceConfig, num_domains: int, gen_sd: Mapping[str, torch.Tensor],
               se_sd: Mapping[str, torch.Tensor], n_residual_blocks: Optional[int] = None,
-              style_dim: Optional[int] = None) -> "InferenceEngine":
+              style_dim: Optional[int] = None,
+              devices: Optional[Sequence[Union[str, torch.device]]] = None,
+              ) -> "InferenceEngine":
+        """``devices``: the data-parallel candidates under ``cfg.data_parallel``
+        (default every visible device of ``cfg.device``'s type)."""
+        mesh = None
         if cfg.data_parallel:
-            raise NotImplementedError(
-                "data_parallel serving is not ported to msig_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 item 10: data parallelism)")
-        device = resolve_device(cfg.device)
+            mesh = data_mesh_for_batch(
+                cfg.batch_size, devices if devices is not None else local_devices(cfg.device))
+        shard_devices = [resolve_device(str(d)) for d in mesh] if mesh else [
+            resolve_device(cfg.device)]
+        logger.info("serving on %d device(s): %s", len(shard_devices),
+                    ", ".join(map(str, shard_devices)))
         dtype = _DTYPES[cfg.compute_dtype]
         n_res = n_residual_blocks or cfg.n_residual_blocks
         sdim = style_dim or cfg.style_dim
@@ -93,18 +132,39 @@ class InferenceEngine:
         se.load_state_dict(se_sd, strict=True)
         q = None
         if cfg.quantize == "int8":
-            q = {k: v.to(device) for k, v in quantize_generator_params(gen_sd, n_res).items()}
+            q = quantize_generator_params(gen_sd, n_res)
         elif cfg.quantize is not None:
             raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
+
+        def replica(d: torch.device) -> Replica:
+            return Replica(
+                copy.deepcopy(gen).to(device=d, dtype=dtype).eval().requires_grad_(False),
+                copy.deepcopy(se).to(device=d, dtype=dtype).eval().requires_grad_(False),
+                None if q is None else {k: v.to(d, copy=True) for k, v in q.items()}, d)
+
+        replicas = [replica(d) for d in shard_devices]
+        first = replicas[0]
         return InferenceEngine(
-            generator=gen.to(device=device, dtype=dtype).eval().requires_grad_(False),
-            style_encoder=se.to(device=device, dtype=dtype).eval().requires_grad_(False),
+            generator=first.generator,
+            style_encoder=first.style_encoder,
             image_size=cfg.image_size,
             batch_size=cfg.batch_size,
-            device=device,
+            device=first.device,
             compute_dtype=dtype,
-            q=q,
+            q=first.q,
+            replicas=replicas if len(replicas) > 1 else None,
         )
+
+    def _map_shards(self, fn: Callable[..., torch.Tensor], *xs: torch.Tensor) -> torch.Tensor:
+        """``fn(replica, *parts)`` on each shard's contiguous part of every
+        tensor of ``xs``, all enqueued before the first result is read back;
+        the results concatenated in order on the host."""
+        k = len(self.replicas)
+        outs = []
+        for r, parts in zip(self.replicas, zip(*(torch.tensor_split(x, k) for x in xs))):
+            with _on(r.device):
+                outs.append(fn(r, *(p.to(r.device, non_blocking=True) for p in parts)))
+        return torch.cat([o.cpu() for o in outs])
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -118,9 +178,15 @@ class InferenceEngine:
             pad = b - chunk.shape[0]
             if pad:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)], 0)
-            x = prepare_images(torch.from_numpy(chunk).to(self.device), self.compute_dtype)
-            idx = torch.full((b,), domain_idx, dtype=torch.long, device=self.device)
-            bank.append(self.style_encoder(x, idx).to(torch.float32)[:b - pad])
+            idx = torch.full((b,), domain_idx, dtype=torch.long)
+            if self.replicas is None:
+                x = prepare_images(torch.from_numpy(chunk).to(self.device), self.compute_dtype)
+                out = self.style_encoder(x, idx.to(self.device))
+            else:
+                out = self._map_shards(
+                    lambda r, c, i: r.style_encoder(prepare_images(c, self.compute_dtype), i),
+                    torch.from_numpy(chunk), idx)
+            bank.append(out.to(self.device, torch.float32)[:b - pad])
         return torch.cat(bank, 0)
 
     def preload_style_bank(self, ref_domain_dir: str, domain_idx: int,
@@ -153,14 +219,21 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def generate(self, imgs_u8: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
-        """One batch on the device: uint8 NHWC + styles [B,S] -> uint8 or [-1,1] float32."""
+        """One batch: uint8 NHWC + styles [B,S] (on any device) -> uint8 or [-1,1]
+        float32, on the engine's device, or on the host when data parallel."""
+        if self.replicas is None:
+            return self._generate(self.generator, self.q, imgs_u8.to(self.device),
+                                  styles.to(self.device))
+        return self._map_shards(lambda r, x, s: self._generate(r.generator, r.q, x, s),
+                                imgs_u8, styles)
+
+    def _generate(self, generator, q, imgs_u8: torch.Tensor, styles: torch.Tensor):
         out_dtype = torch.uint8 if self.out_uint8 else torch.float32
-        if self.q is not None:
-            return quantized_generator_apply(self.q, imgs_u8, styles.to(torch.float32),
-                                             n_res=self.generator.n_residual_blocks,
+        if q is not None:
+            return quantized_generator_apply(q, imgs_u8, styles.to(torch.float32),
+                                             n_res=generator.n_residual_blocks,
                                              out_dtype=out_dtype)
-        out = self.generator(prepare_images(imgs_u8, self.compute_dtype),
-                             styles.to(self.compute_dtype))
+        out = generator(prepare_images(imgs_u8, self.compute_dtype), styles.to(self.compute_dtype))
         return to_out_dtype(out.to(torch.float32), out_dtype)
 
     def translate_batches(
@@ -194,7 +267,7 @@ class InferenceEngine:
             if pad:
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, 0)], 0)
             styles = draw_styles()
-            out = self.generate(torch.from_numpy(imgs).to(self.device), styles)
+            out = self.generate(torch.from_numpy(imgs), styles)
             yield out[:n].cpu().numpy(), names
 
     def iter_input_batches(

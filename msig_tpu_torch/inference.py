@@ -24,8 +24,10 @@ on ``cuda`` the int8 trunk always runs the CUDA kernels.
   - several target domains decode the inputs once and replay them from the
     host (the decode cache) while they fit under ``MSIG_DECODE_CACHE_MB``
     (default 2048; a whole number, 0 turns the cache off; anything else raises).
-
-``--data_parallel`` is refused with a message (ROADMAP.md Queue 1 item 10).
+  - ``--data_parallel``: each batch splits over the most visible cards that
+    divide ``--batch_size`` (every card holding its own copy of the networks;
+    ``infer/engine.py``); on one card, or with ``--device cpu``, it serves on
+    one device, as the JAX CLI does on one chip.
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "(ops/adain_pallas.py) and run the int8 generator on its kernel trunk")
     parser.add_argument("--no_pallas", dest="pallas", action="store_false")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="Not ported yet (ROADMAP.md Queue 1 item 10)")
+                        help="Split each batch over the visible cards (the most that divide "
+                             "--batch_size)")
     parser.add_argument("--device", type=str, default=default_config.DEVICE,
                         choices=["cuda", "cpu"],
                         help="Device to run on (default cuda; no fallback to cpu)")
@@ -169,10 +172,6 @@ def main(cfg: InferenceConfig) -> int:
     # would run fp32 convolutions in TF32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if cfg.data_parallel:
-        print("Failed: --data_parallel is not ported to msig_tpu_torch yet (ROADMAP.md Queue 1 "
-              "item 10)")
-        return 1
     if cfg.style_mode == "latent" and not cfg.mapping_params:
         print("Failed: --style_mode latent requires --mapping_params")
         return 1

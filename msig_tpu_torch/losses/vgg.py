@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import logging
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,28 +131,34 @@ def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def style_content_loss(vgg: VGGPrefix, generated: torch.Tensor, real_style: torch.Tensor,
-                       real_content: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(content_loss, style_loss), reference losses.py:100-115."""
+                       real_content: torch.Tensor,
+                       gram: Callable[[torch.Tensor], torch.Tensor] = gram_nchw,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(content_loss, style_loss), reference losses.py:100-115. ``gram`` forms
+    each batch-coupled Gram (a data-parallel step passes one over the global
+    batch)."""
     gen_feats = _features(vgg, generated)
     sty_feats = _features(vgg, real_style)
     con_feats = _features(vgg, real_content, upto=_CONTENT_INDEX + 1)
     style_loss = torch.zeros((), dtype=torch.float32, device=generated.device)
     for g, s in zip(gen_feats, sty_feats):
-        style_loss = style_loss + _l1(gram_nchw(g), gram_nchw(s))
+        style_loss = style_loss + _l1(gram(g), gram(s))
     content_loss = _l1(gen_feats[_CONTENT_INDEX].float(), con_feats[_CONTENT_INDEX].float())
     return content_loss, style_loss
 
 
-def style_content_loss_pair(vgg: VGGPrefix, fake_B, real_B, real_A, fake_A):
+def style_content_loss_pair(vgg: VGGPrefix, fake_B, real_B, real_A, fake_A,
+                            gram: Callable[[torch.Tensor], torch.Tensor] = gram_nchw):
     """Both perceptual directions with one VGG forward over the 4B images
-    ``[fake_B, fake_A, real_A, real_B]``; Grams stay coupled within each B-group.
+    ``[fake_B, fake_A, real_A, real_B]``; Grams stay coupled within each B-group
+    (``gram`` as in :func:`style_content_loss`).
     Returns ((content_B, style_B), (content_A, style_A))."""
     b = fake_B.shape[0]
     feats = _features(vgg, torch.cat([fake_B, fake_A, real_A, real_B], dim=0))
     zero = torch.zeros((), dtype=torch.float32, device=fake_B.device)
     style_B, style_A = zero, zero
     for f in feats:
-        g_fb, g_fa, g_ra, g_rb = (gram_nchw(f[i * b:(i + 1) * b]) for i in range(4))
+        g_fb, g_fa, g_ra, g_rb = (gram(f[i * b:(i + 1) * b]) for i in range(4))
         style_B = style_B + _l1(g_fb, g_rb)
         style_A = style_A + _l1(g_fa, g_ra)
     f4 = feats[_CONTENT_INDEX].float()

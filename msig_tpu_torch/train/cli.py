@@ -35,8 +35,23 @@ The root ``main.py``'s other single-device options:
     run; without one (``--wandb`` is not ported) it does nothing, as in
     ``main.py`` without ``--wandb``.
 
-``--wandb`` and ``--multihost`` raise NotImplementedError naming the ROADMAP.md
-item that brings them.
+Data parallelism (``parallel/mesh.py``; the step and trainer average the
+gradients and metrics of one process per device):
+
+  - by default (``--no_data_parallel`` turns it off), with no launcher in the
+    environment, the run takes the most local cards that divide
+    ``--batch_size`` (``data_mesh_for_batch``, the JAX package's "all local
+    devices") and starts one worker process per card itself
+    (``torch.multiprocessing``, NCCL); on one card (or ``--device cpu``) it is
+    the single-process run;
+  - under a launcher (``torchrun``, which sets ``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``), or with
+    ``--multihost``, it joins the launcher's group (NCCL on ``cuda``, gloo on
+    ``cpu``); a group that fails to start fails the run, a global batch the
+    world size does not divide raises, and ``--multihost`` with no launcher
+    in the environment runs as one process.
+
+``--wandb`` raises NotImplementedError naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -45,6 +60,8 @@ import argparse
 import json
 import logging
 import os
+import socket
+import sys
 
 import msig_tpu_torch.config as default_config
 from msig_tpu_torch.config import TrainConfig
@@ -97,7 +114,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "numbers are not the JAX package's random VGG's")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no_data_parallel", action="store_true",
-                        help="Accepted for parity; the port trains on one device")
+                        help="Train in one process on one device even with several cards")
     parser.add_argument("--pallas", dest="pallas", action="store_true", default=None,
                         help="Route the resblock AdaINs through the fused kernel (adain_pallas)")
     parser.add_argument("--no_pallas", dest="pallas", action="store_false",
@@ -118,7 +135,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--diversity_weight", type=float, default=0.0,
                         help="Diversity loss weight (extension; 0 = off); draws a second "
                              "target image per sample")
-    parser.add_argument("--multihost", action="store_true", help="Not ported yet")
+    parser.add_argument("--multihost", action="store_true",
+                        help="Join the process group a launcher (torchrun) configured in the "
+                             "environment; without one, run as one process")
     parser.add_argument("--watch_freq", type=int, default=0,
                         help="Log gradient histograms to the wandb run every N steps (0 = off)")
     parser.add_argument("--checkpoint_every", type=int,
@@ -172,7 +191,6 @@ def config_from_args(args) -> TrainConfig:
 # Flags of features not ported yet, with the ROADMAP.md Queue 1 item that brings them.
 _NOT_PORTED = (
     ("wandb", "--wandb", "Queue 1 item 8: no wandb package on the card's machine"),
-    ("multihost", "--multihost", "Queue 1 item 10"),
 )
 
 
@@ -183,12 +201,43 @@ def check_ported_flags(cfg: TrainConfig) -> None:
             raise NotImplementedError(f"{flag} is not yet ported to msig_tpu_torch ({item})")
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _local_worker(local_rank: int, cfg: TrainConfig, n_workers: int, port: int) -> None:
+    """One rank of :func:`launch_local_workers`: the launcher's environment, then main."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(local_rank),
+                      WORLD_SIZE=str(n_workers), LOCAL_RANK=str(local_rank))
+    rc = main(cfg)
+    if rc:
+        sys.exit(rc)
+
+
+def launch_local_workers(cfg: TrainConfig, n_workers: int) -> int:
+    """Run :func:`main` in ``n_workers`` spawned processes, one a local device,
+    as one process group on a free port of this host; 0 if every worker exits 0."""
+    import torch.multiprocessing as mp
+
+    try:
+        mp.start_processes(_local_worker, args=(cfg, n_workers, _free_port()),
+                           nprocs=n_workers, start_method="spawn")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        print(f"ERROR: a training worker failed: {e}")
+        return 1
+    return 0
+
+
 def main(cfg: TrainConfig) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     check_ported_flags(cfg)
     import torch
+    import torch.distributed as dist
 
     from msig_tpu_torch import resolve_device
+    from msig_tpu_torch.parallel import mesh
 
     try:
         resolve_device(cfg.device)
@@ -200,8 +249,6 @@ def main(cfg: TrainConfig) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     # Two runs of a step give the same bits (the Trainer sets it too).
     torch.backends.cudnn.deterministic = True
-    from msig_tpu_torch.data import MultiDomainDataset
-    from msig_tpu_torch.train.trainer import Trainer
 
     print(f"--- Starting Multi-Domain Experiment: {cfg.experiment_name} ---")
     for path, what in ((cfg.source_dir, "Source"), (cfg.target_dir, "Target domains")):
@@ -219,6 +266,30 @@ def main(cfg: TrainConfig) -> int:
     if cfg.vgg_weights_path and not os.path.exists(cfg.vgg_weights_path):
         print(f"ERROR: --vgg_weights file not found: {cfg.vgg_weights_path}")
         return 1
+
+    launched = mesh.rendezvous_configured()
+    started = False
+    if cfg.multihost or launched:
+        started = not dist.is_initialized() and mesh.initialize_multihost(cfg.device)
+    try:
+        rank, n_ranks = mesh.world()
+        if n_ranks > 1:
+            print(f"Process group: rank {rank} of {n_ranks} "
+                  f"({'data parallel' if cfg.data_parallel else 'no data parallelism'})")
+        elif cfg.data_parallel and not launched:
+            devices = mesh.data_mesh_for_batch(cfg.batch_size, mesh.local_devices(cfg.device))
+            print(f"Data parallel: {len(devices) if devices else 1} device(s)")
+            if devices:
+                return launch_local_workers(cfg, len(devices))
+        return _train(cfg)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(cfg: TrainConfig) -> int:
+    from msig_tpu_torch.data import MultiDomainDataset
+    from msig_tpu_torch.train.trainer import Trainer
 
     dataset = MultiDomainDataset.build(cfg.source_dir, cfg.target_dir)
     print(f"Found {len(dataset.source_files)} source images")

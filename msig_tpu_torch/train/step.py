@@ -49,6 +49,17 @@ The JAX step's options, each off by default (``step.py:52-101``):
     each, binned on the device from the gradients that clip and Adam take
     (``train/watch.py``), under ``metrics["_grad_hists"]``.
 
+``distributed=True`` (data parallelism over the default process group,
+``parallel/mesh.py``): each rank runs the step on its rows of the global
+batch; the batch-coupled Grams of the style loss are formed over the global
+batch (``gather_rows``), as the JAX step forms them under its mesh; after each
+phase's backward, before clip, Adam and EMA, its gradients are averaged over
+the ranks in one flat bucket, and so are the metrics. Every other term is a
+per-sample mean, so the mean of the ranks' gradients of equal shards is the
+gradient of the global batch: every rank applies the same update, and the
+parameters stay equal without a broadcast. The structure choice below keys
+off the rows a rank holds, as the JAX step's ``n_devices`` does.
+
 Parameters, moments and EMA copies are updated in place; the metrics come
 back as 0-d tensors on the device, so a step needs no host sync.
 """
@@ -69,6 +80,8 @@ from msig_tpu_torch.losses import (
     style_content_loss_pair,
 )
 from msig_tpu_torch.losses.vgg import VGGPrefix
+from msig_tpu_torch.ops.gram import gram_nchw
+from msig_tpu_torch.parallel.mesh import all_reduce_mean_, gather_rows
 from msig_tpu_torch.train.schedule import WEIGHT_KEYS
 from msig_tpu_torch.train.state import (
     D_KEYS,
@@ -115,6 +128,7 @@ def make_train_step(
     grad_clip_norm: float = 1.0,
     adam_b1: float = 0.5,
     adam_b2: float = 0.999,
+    distributed: bool = False,
 ) -> StepFn:
     """Returns ``fn(state, batch, vgg, g_lr, d_lr, loss_weights) -> metrics``.
 
@@ -129,6 +143,19 @@ def make_train_step(
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, got "
                          f"{compute_dtype}")
+
+    def global_gram(f):
+        return gram_nchw(gather_rows(f))
+
+    gram = global_gram if distributed else gram_nchw
+
+    def average(params, grads):
+        """Each gradient (zeros for an unused parameter) as its mean over the ranks."""
+        if not distributed:
+            return grads
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        all_reduce_mean_(grads)
+        return grads
 
     def adam(params, grads, opt, lr):
         return clip_adam_update_(params, grads, opt, lr, grad_clip_norm, adam_b1, adam_b2)
@@ -168,10 +195,10 @@ def make_train_step(
             loss_gan_B2A = lsgan_real(D_A(fake_A, y_org))
             if batched:
                 (content_B, style_loss_B), (content_A, style_loss_A) = \
-                    style_content_loss_pair(vgg, fake_B, real_B, real_A, fake_A)
+                    style_content_loss_pair(vgg, fake_B, real_B, real_A, fake_A, gram=gram)
             else:
-                content_B, style_loss_B = style_content_loss(vgg, fake_B, real_B, real_A)
-                content_A, style_loss_A = style_content_loss(vgg, fake_A, real_A, real_B)
+                content_B, style_loss_B = style_content_loss(vgg, fake_B, real_B, real_A, gram)
+                content_A, style_loss_A = style_content_loss(vgg, fake_A, real_A, real_B, gram)
 
             individual = {
                 "gan": (loss_gan_A2B + loss_gan_B2A) / 2,
@@ -190,7 +217,7 @@ def make_train_step(
                 style_B2 = SE_B(prepare_images(batch["target2"], compute_dtype), y_trg)
                 individual["diversity"] = -l1_loss(gen_apply(G_A2B, real_A, style_B2), fake_B)
                 g_loss = g_loss + diversity_weight * individual["diversity"]
-            g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
+            g_grads = average(g_params, torch.autograd.grad(g_loss, g_params, allow_unused=True))
         finally:
             for p in d_params:
                 p.requires_grad_(True)
@@ -217,13 +244,15 @@ def make_train_step(
         if r1_gamma > 0.0:
             d_loss = d_loss + (r1_gamma / 2.0) * (r1_penalty(D_A, real_A, y_org)
                                                   + r1_penalty(D_B, real_B, y_trg))
-        d_grads = torch.autograd.grad(d_loss, d_params)
+        d_grads = average(d_params, torch.autograd.grad(d_loss, d_params))
         d_norm = adam(d_params, d_grads, state.opt_d, d_lr)
         state.step += 1
 
         metrics = {"D_loss": d_loss, "G_loss": g_loss, **individual,
                    "g_grad_norm": g_norm, "d_grad_norm": d_norm}
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if distributed:
+            all_reduce_mean_(list(metrics.values()))
         if grad_hists:
             names = {k: [n for n, _ in nets[k].named_parameters()] for k in G_KEYS + D_KEYS}
             metrics["_grad_hists"] = gradient_histograms(

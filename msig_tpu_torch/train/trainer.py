@@ -18,6 +18,13 @@ Counterpart of ``msig_tpu/train/trainer.py`` (reference trainer.py:276-360):
   - :meth:`Trainer.resume` from such a checkpoint, after which ``train``
     starts at the resumed epoch with that epoch's learning rates and weights;
   - :meth:`Trainer.profile_steps`: a ``torch.profiler`` trace of a few steps;
+  - data parallelism (``cfg.data_parallel`` in a process group of k > 1
+    ranks, ``parallel/mesh.py``): every rank builds the same global batch
+    from the same seed and keeps its rows, the networks, EMA copies and Adam
+    moments start from rank 0's (after construction and after a resume), the
+    step averages gradients and metrics over the ranks; only rank 0 writes
+    checkpoints, grids, plots, snapshots and the profile. ``--device_data``
+    stays single-device (ValueError in a group, as the JAX trainer raises);
   - given a wandb run (``wandb_run``, which the CLI never passes: ``--wandb``
     is not ported), per-step losses under ``loss/*``, per-epoch ``avg_loss/*``,
     ``lr/*``, ``weight/*``, and every ``watch_freq`` steps the gradient
@@ -41,6 +48,7 @@ from msig_tpu_torch import resolve_device
 from msig_tpu_torch.config import TrainConfig
 from msig_tpu_torch.data import MultiDomainDataset, TrainLoader
 from msig_tpu_torch.losses import get_vgg
+from msig_tpu_torch.parallel import replicate, shard_batch, world
 from msig_tpu_torch.train import watch
 from msig_tpu_torch.train.checkpoint import resume_for_training, save_checkpoint, save_ema_snapshot
 from msig_tpu_torch.train.schedule import (
@@ -71,6 +79,22 @@ class Trainer:
         self.dataset = dataset
         self.wandb = wandb_run
         self.device = device = resolve_device(cfg.device)
+        if device.type == "cuda" and device.index is None:
+            # name the card: the loader's prefetch thread moves the batches, and the
+            # current card (torch.cuda.set_device, one a rank) is per thread
+            self.device = device = torch.device("cuda", torch.cuda.current_device())
+        # without data_parallel each rank of a group trains alone; rank 0 writes
+        self.rank, n_ranks = world()
+        self.world = n_ranks if cfg.data_parallel else 1
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size={cfg.batch_size} does not split over {self.world} "
+                             "data-parallel ranks: every launched rank takes an equal share")
+        if cfg.device_data and self.world > 1:
+            raise ValueError(
+                "--device_data is single-device only: it keeps the decoded dataset resident "
+                f"on ONE device, which conflicts with the {self.world}-rank data-parallel "
+                "group. Run with --no_data_parallel, or use the host-fed pipeline for "
+                "multi-device training.")
         # With cuDNN's default algorithms the decoders' ConvTranspose2d differs
         # in its last bits from run to run on the card; the deterministic ones
         # cost 0.5-3.3% of a step (tools/train_step_determinism_torch.py).
@@ -82,6 +106,7 @@ class Trainer:
                        diversity_weight=cfg.diversity_weight, grad_clip_norm=cfg.grad_clip_norm,
                        adam_b1=cfg.adam_b1, adam_b2=cfg.adam_b2)
         dtype = getattr(torch, cfg.compute_dtype)
+        options["distributed"] = self.world > 1
         self.train_step = make_train_step(cfg.ema_beta, dtype, **options)
         # wandb.watch (reference trainer.py:294): a second step function that also
         # bins every gradient on the device, taken every watch_freq-th step, and
@@ -91,9 +116,12 @@ class Trainer:
         if self.watch_freq > 0 and wandb_run is not None:
             self.train_step_watch = make_train_step(cfg.ema_beta, dtype, grad_hists=64, **options)
         self.state = create_train_state(cfg, self.num_domains)
+        self._replicate_state()
         self.vgg = get_vgg(cfg.vgg_weights_path, device=device)
 
         def to_device(batch):
+            if self.world > 1:
+                batch = shard_batch(batch, self.rank, self.world)
             return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items()}
 
         self.loader = TrainLoader(dataset, cfg.batch_size, cfg.image_size, seed=cfg.seed,
@@ -101,7 +129,6 @@ class Trainer:
                                   second_target=cfg.diversity_weight > 0.0)
         # --device_data: the decoded dataset stays on the device and is augmented
         # there; per step the host sends indices and crop parameters only.
-        # Single device, as in the JAX package (the port has no data parallelism).
         self.device_data = None
         if cfg.device_data:
             from msig_tpu_torch.data.device_data import DeviceData
@@ -115,6 +142,15 @@ class Trainer:
         self.save_dir = os.path.join(cfg.save_dir_base, cfg.experiment_name)
         self.images_dir = os.path.join(self.save_dir, "images")
         self.checkpoints_dir = os.path.join(self.save_dir, "checkpoints")
+
+    def _replicate_state(self) -> None:
+        """Rank 0's networks, EMA copies and Adam moments on every rank."""
+        if self.world == 1:
+            return
+        st = self.state
+        for net in [*st.models.nets.values(), *st.models.ema.values()]:
+            replicate(net)
+        replicate([*st.opt_g.mu, *st.opt_g.nu, *st.opt_d.mu, *st.opt_d.nu])
 
     @torch.no_grad()
     def _save_grid(self, batch, epoch: int, batch_idx: int) -> None:
@@ -144,6 +180,7 @@ class Trainer:
         for k, v in loss_history.items():
             if k in self.loss_history:
                 self.loss_history[k] = list(v)
+        self._replicate_state()
         return start_epoch
 
     def profile_steps(self, n_steps: int = 5, trace_dir: Optional[str] = None) -> str:
@@ -155,7 +192,6 @@ class Trainer:
 
         cfg = self.cfg
         trace_dir = trace_dir or os.path.join(self.save_dir, "profile")
-        os.makedirs(trace_dir, exist_ok=True)
         w_vec = weights_vector(current_loss_weights(cfg.loss_weights, 0))
         it = self.loader.epoch(0)
 
@@ -181,8 +217,10 @@ class Trainer:
                 sync()
         finally:
             it.close()
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-        logger.info("Wrote profiler trace to %s", trace_dir)
+        if self.rank == 0:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            logger.info("Wrote profiler trace to %s", trace_dir)
         return trace_dir
 
     def save(self, checkpoint_dir: str) -> None:
@@ -198,11 +236,14 @@ class Trainer:
 
     def train(self, start_epoch: int = 0) -> None:
         cfg = self.cfg
-        os.makedirs(self.images_dir, exist_ok=True)
-        os.makedirs(self.checkpoints_dir, exist_ok=True)
+        writer = self.rank == 0  # the one rank that writes files
+        if writer:
+            os.makedirs(self.images_dir, exist_ok=True)
+            os.makedirs(self.checkpoints_dir, exist_ok=True)
         steps = self.loader.steps_per_epoch()
-        logger.info("Training %d epochs x %d steps, batch %d, %d domains, device %s",
-                    cfg.epochs, steps, cfg.batch_size, self.num_domains, self.device)
+        logger.info("Training %d epochs x %d steps, batch %d, %d domains, device %s, rank %d of %d",
+                    cfg.epochs, steps, cfg.batch_size, self.num_domains, self.device, self.rank,
+                    self.world)
         for epoch in range(start_epoch, cfg.epochs):
             g_lr = cosine_lr(cfg.lr_g, epoch, cfg.epochs, cfg.lr_eta_min)
             d_lr = cosine_lr(cfg.lr_d, epoch, cfg.epochs, cfg.lr_eta_min)
@@ -231,7 +272,7 @@ class Trainer:
                         # histograms share their step
                         logs.update(watch.to_wandb(hists))
                     self.wandb.log(logs)
-                if i % cfg.save_freq == 0 and not _skip_epoch_art():
+                if writer and i % cfg.save_freq == 0 and not _skip_epoch_art():
                     self._save_grid(batch, epoch, i)
             # one device -> host transfer for the whole epoch's metrics
             avg = {}
@@ -253,14 +294,15 @@ class Trainer:
                 logs["lr/discriminator"] = d_lr
                 logs.update({f"weight/{k}": weights[k] for k in WEIGHT_KEYS})
                 self.wandb.log(logs)
-            if not _skip_epoch_art():
+            if writer and not _skip_epoch_art():
                 plot_losses(self.loss_history, os.path.join(self.save_dir, "losses.png"))
                 plot_weight_history(self.weight_history,
                                     os.path.join(self.save_dir, "weight_history.png"))
-            if (epoch + 1) % cfg.checkpoint_every == 0 or (epoch + 1) == cfg.epochs:
+            last = (epoch + 1) == cfg.epochs
+            if writer and ((epoch + 1) % cfg.checkpoint_every == 0 or last):
                 self.save(os.path.join(self.checkpoints_dir, f"epoch_{epoch + 1}"))
             snap = cfg.ema_snapshot_every
-            if snap and ((epoch + 1) % snap == 0 or (epoch + 1) == cfg.epochs):
+            if writer and snap and ((epoch + 1) % snap == 0 or last):
                 self.save_ema_snapshot(
                     os.path.join(self.save_dir, "ema_snapshots", f"epoch_{epoch + 1}"))
         logger.info("Multi-domain training completed!")

@@ -131,12 +131,20 @@ def test_cli_multi_domain_writes_per_domain_dirs(cli_dirs, tmp_path):
     (("--target_domain", "nope"), "not found"),
     (("--target_domain", " , "), "names no domain"),
     (("--style_mode", "latent"), "--style_mode latent requires --mapping_params"),
-    (("--data_parallel",), "--data_parallel is not ported"),
 ])
 def test_cli_refusals_exit_1(cli_dirs, tmp_path, extra, msg, capsys):
     args = _args(cli_dirs, "--output_dir", str(tmp_path / "o"), *extra)
     assert cli.main(cli.config_from_args(args)) == 1
     assert msg in capsys.readouterr().out
+
+
+def test_cli_serves_with_data_parallel_on_cpu(cli_dirs, tmp_path):
+    """``--data_parallel --device cpu``: one CPU device, so the single-device
+    engine serves, as the JAX CLI does on one chip."""
+    out = tmp_path / "out"
+    args = _args(cli_dirs, "--output_dir", str(out), "--quantize", "int8", "--data_parallel")
+    assert cli.main(cli.config_from_args(args)) == 0
+    assert sorted(os.listdir(out)) == ["leaf0.jpg", "leaf1.jpg", "leaf2.jpg"]
 
 
 def test_cli_empty_input_exit_1(cli_dirs, tmp_path):

@@ -1014,3 +1014,31 @@ def test_new_sites_reject_bad_inputs_and_never_take_the_plain_path(cuda_device):
         torch.cuda.synchronize()
     for plain in (p19, p20, p21, p6, p16, p17):
         plain.assert_not_called()
+
+
+@pytest.mark.cuda
+def test_int8_generator_on_every_card_equals_card_0(cuda_device):
+    """Each card of the host runs the served int8 chain to card 0's bits: every C
+    entry sets its kernel attributes on each device (the final conv once set
+    them for the first device only and failed on the second, cudaError 1)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from msig_tpu_torch.infer.quantized import quantize_generator_params, quantized_generator_apply
+    from msig_tpu_torch.models import StyleCycleGANGenerator
+
+    torch.manual_seed(0)
+    gen = StyleCycleGANGenerator(style_dim=64, n_residual_blocks=2)
+    q = quantize_generator_params(gen.state_dict(), 2)
+    rng = np.random.default_rng(3)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8))
+    style = torch.zeros((2, 64))
+    style[0, 5], style[1, 9] = 1.5, -0.7
+    outs = []
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            outs.append(quantized_generator_apply(
+                {k: v.to(dev) for k, v in q.items()}, imgs.to(dev), style.to(dev), n_res=2,
+                out_dtype=torch.uint8).cpu())
+    for d, out in enumerate(outs[1:], 1):
+        assert torch.equal(out, outs[0]), f"card {d}"

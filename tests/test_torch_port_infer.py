@@ -383,9 +383,10 @@ def _engine(demo_params, **kw):
     return InferenceEngine.build(cfg, 10, gen, se, meta["n_residual_blocks"], meta["style_dim"])
 
 
-def test_engine_refuses_data_parallel(demo_params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(demo_params, data_parallel=True)
+def test_engine_data_parallel_on_one_device_is_single(demo_params):
+    """One candidate device (the CPU): no shards, the single-device engine."""
+    eng = _engine(demo_params, data_parallel=True)
+    assert eng.replicas is None and eng.device == torch.device("cpu")
 
 
 def test_engine_without_card_raises(demo_params):

@@ -132,10 +132,24 @@ def test_missing_paths_exit_1(tree, flag):
     assert cli.main(cli.config_from_args(args)) == 1
 
 
-@pytest.mark.parametrize("extra", [["--wandb"], ["--multihost"]])
+@pytest.mark.parametrize("extra", [["--wandb"]])
 def test_flags_not_ported_yet_raise(tree, extra):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(cli.config_from_args(_args(tree, "--allow_random_vgg", *extra)))
+
+
+def test_multihost_without_rendezvous_runs_one_process(tree, monkeypatch, capsys):
+    """``--multihost`` with no launcher in the environment: one process, as the
+    JAX CLI logs and runs single-host without a coordinator."""
+    import torch.distributed as dist
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    args = _args(tree, "--allow_random_vgg", "--multihost", "--epochs", "0",
+                 "--exp_name", "multihost")
+    assert cli.main(cli.config_from_args(args)) == 0
+    assert "Data parallel: 1 device(s)" in capsys.readouterr().out
+    assert not dist.is_initialized()
 
 
 def test_cuda_without_a_card_exits_1(tree):
