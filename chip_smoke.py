@@ -121,15 +121,17 @@ Phases, each reported on its own line:
 5. train kernels: the four training kernels (the fused AdaIN forward and
    backward, ``conv3x3_bwd`` and ``conv3x3_adain_bwd``, each with and without
    the relu input) against their plain versions at the trunk shapes of a 256²
-   train step, [8, 64, 64, 256] and [4, 64, 64, 256], fp32 with TF32 off, and
+   train step, [8, 64, 64, 256] and [4, 64, 64, 256], and of a 512² one,
+   [8, 128, 128, 256] and [4, 128, 128, 256], fp32 with TF32 off, and
    the two conv kernels at [1, 24, 24, 256] (a 96² trunk: 576 pixels, no
    multiple of the 128-pixel tile). Bars: every output within rtol 1e-4 and
    atol 1e-5 x max|plain|; dgamma and dbeta within rtol 1e-5 and atol 1e-6 x
    max|plain|; dx exactly 0 under the relu mask; a second call gives
    bit-identical dW, and every output of the AdaIN kernels (row 22: one
    thread-block cluster a sample and 32 channels, partials summed in rank
-   order). Row 22 also at [8|4, 4096, 256] and [1, 16384, 256] in fp32 and
-   bf16 (the TPU kernel's largest fp32 slab): within the bars (bf16 y and
+   order). Row 22 also at [8|4, 4096, 256], [8|4, 16384, 256] and
+   [1, 16384, 256] in fp32 and bf16 (the TPU kernel's largest fp32 slab):
+   within the bars (bf16 y and
    dx 2e-2, one bf16 rounding), bit-identical over two calls, each with its
    plan (cluster size, CTAs, shared memory) and the card's
    cudaOccupancyMaxActiveClusters. The conv core's tiles, ring and CTAs per
@@ -141,7 +143,8 @@ Phases, each reported on its own line:
    [8, 128, 128, 256]: the wgmma pass A, the epilogue kernels, the memset,
    with pass A's int8 rate and share of 1,979 TOP/s, beside the call's time by
    CUDA events, and the memory the call allocates at its peak;
-   the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
+   the same for rows 19 and 20 at [8, 64, 64, 256] (row 20: pass A, max|hn|,
+   requant, memset); the same for rows 5 and 12 at their main-path shapes and row 13 at a 512²
    input's in both stagings: the memset, pass S and pass Q, each pass's int8
    rate; for rows 21 and 6 at up0's and up1's shapes and row 19 at
    [8, 64, 64, 256] (the fill or memset, the passes; their times by events
@@ -166,11 +169,22 @@ Phases, each reported on its own line:
    across the three; each configuration launches each of its kernels 48 times
    a step and no other kernel; 5 more steps stay finite; ms per step, median of
    5 after a warm-up step, by CUDA events, with cuDNN held to its
-   deterministic algorithms as the Trainer holds it. Then ``python -m
-   msig_tpu_torch.train --device cuda --allow_random_vgg --epochs 1`` on a
-   synthetic tree of 8 sources and 9 target domains, and
-   ``python -m msig_tpu_torch.inference --quantize int8`` on the checkpoint it
-   wrote (``MSIG_SKIP_EPOCH_ART=1`` where matplotlib is missing);
+   deterministic algorithms as the Trainer holds it. Then ``[train 512]``
+   (``train512_phase``): the same three configurations and bars at the JAX
+   package's 512² configuration (batch 4, trunk maps of 128x128), and
+   ``level1+pallas`` with ``remat=True`` and ``"cycle"`` (step 1's losses equal
+   to the bit to the no-remat step's), each with launches, ms per step and
+   peak memory. Then ``python -m msig_tpu_torch.train --device cuda
+   --allow_random_vgg --epochs 2 --ema_snapshot_every 1 --wandb --watch_freq 1``
+   on a synthetic tree of 8 sources and 9 target domains against a STUB wandb
+   module first on the import path (the card's machine has no wandb): one
+   init with the JAX CLI's arguments, each step's log with its losses and the
+   watch step's histograms, one finish; ``python -m msig_tpu_torch.inference
+   --quantize int8`` on the checkpoint it wrote (``MSIG_SKIP_EPOCH_ART=1``
+   where matplotlib is missing); ``[quality]``: ``export_demo_checkpoint`` of
+   that checkpoint, ``eval_quality`` of the export over the tree's sources and
+   two target domains, ``eval_trajectory_fast`` over the run's two EMA
+   snapshots;
    Then the bf16 train step (``compute_dtype=bfloat16``) at the same
    full width from the same parameters and batch, as ``stock`` and
    ``level1+pallas`` (``conv3x3_bwd`` fed fp32 at its autograd boundary):
@@ -181,7 +195,7 @@ Phases, each reported on its own line:
    (grad norms within rtol 1e-6), each mode's peak memory, ms per step and
    launches; a step each of ``r1_gamma``, ``style_recon_weight``,
    ``diversity_weight`` (also with ``remat=True``) and ``grad_hists=64``,
-   finite, with its launches; the train CLI for one epoch and ``--resume``
+   finite, with its launches; a step of ``r1_gamma=1`` in the bf16 step; the train CLI for one epoch and ``--resume``
    for a second, and ``--profile_steps 2``; latent int8 serving (a seeded
    mapping network as flax bytes, 22 kernel-site launches a batch); and
    ``--save_grid`` over two domains with the decode cache and without it,
@@ -225,6 +239,7 @@ the repository (the port is imported from beside this file).
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -250,6 +265,10 @@ TRAIN_B, N_DOMAINS = 4, 10         # train step: batch 4 (the default), 10 domai
 TRAIN_SIZE = 256
 TRAIN_CONFIGS = (("stock", "0", False), ("level1+pallas", "1", True), ("level2", "2", False))
 TRAIN_STEPS = 5                    # timed steps per configuration, after step 1 and a warm-up
+# [train 512]: the JAX package's 512² configuration, whose trunk (128x128 maps)
+# the training kernels take; the three configurations at TRAIN_512_B, and
+# level1+pallas under remat at TRAIN_512_REMAT_B
+TRAIN_512, TRAIN_512_B, TRAIN_512_REMAT_B, TRAIN_512_STEPS = 512, 4, 4, 3
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4  # step-1 gradients: rtol, atol x max|reference| of the group
 FT, FV = "msig_tpu/ops/adain_pallas.py", "msig_tpu/ops/conv3x3_vjp.py"
 # training kernel -> (TPU kernel it replaces, CUDA source, the train configuration that runs it)
@@ -1159,7 +1178,8 @@ def enc_phase(torch, fe, dev) -> None:
 def device_launches(torch, fn, calls: int = 10) -> float:
     """Kernel launches on the card per call of ``fn`` (``torch.profiler``, over
     ``calls`` calls after one; memsets count), or nan where the trace holds no
-    device events in each of three tries (a trace that lost its events)."""
+    device events, or a count that is no multiple of ``calls`` (a trace that
+    lost events), in each of three tries."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -1168,7 +1188,7 @@ def device_launches(torch, fn, calls: int = 10) -> float:
                 fn()
             torch.cuda.synchronize()
         n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-        if n:
+        if n and n % calls == 0:
             return n / calls
     return float("nan")
 
@@ -1706,9 +1726,9 @@ def tools_phase(torch, mods) -> dict:
     return launches
 
 
-def train_bound(name: str, b: int) -> tuple:
+def train_bound(name: str, b: int, side: int = SIDE) -> tuple:
     """(bound_ms, bound_by, fp32_fma_ms) of one call of a training kernel on
-    the [b, 64, 64, 256] trunk.
+    the [b, side, side, 256] trunk (64: a 256² input's, 128: a 512² input's).
 
     Bytes: each fp32 input read once, each output written once. Operations:
     per element of the map about 8 flops for an instance-norm pass
@@ -1719,7 +1739,7 @@ def train_bound(name: str, b: int) -> tuple:
     the least time is 3x the products at the dense TF32 rate. fp32_fma_ms:
     the same work with the products at the fp32 FMA rate of the CUDA cores
     (TF32 off; the first version's route), None for the AdaIN rows."""
-    px, vec = b * SIDE * SIDE, 4 * b * C
+    px, vec = b * side * side, 4 * b * C
     elems = px * C
     t_fma = None
     if name == "adain_pallas_fwd":
@@ -1821,13 +1841,14 @@ def adain_plan_line(torch, ap, b: int, s: int, c: int, dtype, backward: bool) ->
 
 def adain_cluster_phase(torch, ap, dev) -> None:
     """Row 22 (forward and backward, one cluster per sample and 32 channels)
-    at the train step's trunk, [8|4, 4096, 256], and at the TPU kernel's
-    largest fp32 slab, [1, 16384, 256], in fp32 and
-    bf16: each output within its bar of the plain version (fp32 rtol 1e-4 /
+    at the train step's trunk, [8|4, 4096, 256], at a 512² train step's,
+    [8|4, 16384, 256], and at the TPU kernel's largest fp32 slab,
+    [1, 16384, 256], in fp32 and bf16: each output within its bar of the plain version (fp32 rtol 1e-4 /
     atol 1e-5 x max, dgamma and dbeta 1e-5 / 1e-6; bf16 y and dx 2e-2, one
     bf16 rounding), bit-identical over two calls, one launch a call; the plan
     of each."""
-    for b, s in ((2 * TRAIN_B, SIDE * SIDE), (TRAIN_B, SIDE * SIDE), (1, 16384)):
+    for b, s in ((2 * TRAIN_B, SIDE * SIDE), (TRAIN_B, SIDE * SIDE), (2 * TRAIN_B, 16384),
+                 (TRAIN_B, 16384), (1, 16384)):
         for dtype in (torch.float32, torch.bfloat16):
             rng = np.random.default_rng(s + b)
             t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
@@ -1864,9 +1885,10 @@ def adain_cluster_phase(torch, ap, dev) -> None:
 
 def train_kernel_phase(torch, ap, cv, dev) -> tuple:
     """The four training kernels against their plain versions at both train
-    shapes, and the two conv kernels at a ragged pixel count. Returns the
-    rows and, for ``split_phase``, (row, label, call) of each conv case
-    without the relu input."""
+    batches, [8|4, side, side, 256], at the trunk of a 256² input (side 64) and
+    of a 512² input (side 128, ``TRAIN_512``), and the two conv kernels at a
+    ragged pixel count. Returns the rows and, for ``split_phase``, (row,
+    label, call) of each conv case without the relu input."""
     results, to_split = {}, []
 
     def t(a):
@@ -1909,9 +1931,9 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
           f"cp.async ring, {cfg['smem_bytes']} bytes of shared memory, at most {cfg['max_k']} of "
           f"K a tile; {cfg['ctas_per_sm']} CTAs per SM resident ({cfg['ctas_per_sm_relu']} with "
           f"the relu input; occupancy API)", flush=True)
-    for b in (2 * TRAIN_B, TRAIN_B):
-        x, w, gamma, beta, g = unit(b, SIDE, b)
-        x3, g3 = x.reshape(b, SIDE * SIDE, C), g.reshape(b, SIDE * SIDE, C)
+    for side, b in ((side, b) for side in (SIDE, 2 * SIDE) for b in (2 * TRAIN_B, TRAIN_B)):
+        x, w, gamma, beta, g = unit(b, side, b if side == SIDE else b + side)
+        x3, g3 = x.reshape(b, side * side, C), g.reshape(b, side * side, C)
         y, mean, rstd = ap.adain_fwd_plain(x3, gamma, beta)
         nchw = lambda v: v.permute(0, 3, 1, 2)  # noqa: E731  (channels_last views for cuDNN)
         library = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
@@ -1928,8 +1950,8 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
             tag = ", relu input" if relu else ""
             ms = cuda_ms(torch, kernel, reps=20 if name.startswith("conv") else 50)
             plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
-            bound_ms, bound_by, fma_ms = train_bound(name, b)
-            row = dict(case=f"[{b}, {SIDE}, {SIDE}, {C}]{tag}", ms=ms, plain_ms=plain_ms,
+            bound_ms, bound_by, fma_ms = train_bound(name, b, side)
+            row = dict(case=f"[{b}, {side}, {side}, {C}]{tag}", ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bound_fp32_fma_ms=fma_ms,
                        library_ms=lib_ms[False] if name == "conv3x3_bwd" else None,
                        library_deterministic_ms=lib_ms[True] if name == "conv3x3_bwd" else None)
@@ -1946,7 +1968,7 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
                 results[name]["also"].append(row)
             else:
                 results[name] = row = dict(row, max_abs_err=err, also=[])
-            if name.startswith("conv") and not relu:
+            if name.startswith("conv") and not relu and side == SIDE:
                 to_split.append((row, f"{name} ({row['case']})", kernel))
             print(f"[train kernel] {name} ({row['case']}): {report}; {ms:.4f} ms (median of "
                   f"{20 if name.startswith('conv') else 50}, CUDA events), plain {plain_ms:.3f} ms, "
@@ -2065,18 +2087,20 @@ def convt_split_phase(torch, fc, fd, kernels: dict) -> None:
 
 
 def v1_split_phase(torch, fc, v1, kernels: dict) -> None:
-    """Rows 21 and 6 at up0's and up1's main-path shapes and row 19 at
+    """Rows 21 and 6 at up0's and up1's main-path shapes and rows 19 and 20 at
     [8, 64, 64, 256], with the K-major copy given: the time per call by CUDA
     events (median of 30; and with the copy made by the wrapper), and by
     ``torch.profiler`` device time per kernel (``kernel_split`` with
-    ``V1_GROUPS``: the fill or memset and the passes), each pass's int8 rate
+    ``V1_GROUPS``, row 20 ``TRUNK_GROUPS``: the fill or memset, the passes, the
+    epilogue kernels), each pass's int8 rate
     (the conv's operations, once per pass) and its share of the card's
     1,979 TOP/s. The parts go into the row as ``parts_ms``. Run last, as
     ``split_phase``."""
     cases = [(name, side, cin) for name in ("convt4x4s2_in_relu_requant_v1",
                                            "convt4x4s2_in_relu_requant")
              for side, cin in ((SIDE, C), (2 * SIDE, C // 2))]
-    for name, side, cin in cases + [("conv3x3_adain_relu_requant_v1", SIDE, C)]:
+    for name, side, cin in cases + [("conv3x3_adain_relu_requant_v1", SIDE, C),
+                                    ("conv3x3_adain_residual_requant_v1", SIDE, C)]:
         rng = np.random.default_rng(side + cin)
         t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
         if name.startswith("convt"):
@@ -2098,12 +2122,20 @@ def v1_split_phase(torch, fc, v1, kernels: dict) -> None:
             wk = fc.pack_weights_kmajor(wp)
             gamma = t(rng.normal(1.0, 0.5, (B, C)).astype(np.float32))
             beta = t(rng.normal(0.0, 0.5, (B, C)).astype(np.float32))
-            call = lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta, w_kmajor=wk)  # noqa: E731
-            made = lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta)  # noqa: E731
+            if name.startswith("conv3x3_adain_relu"):
+                call = lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta, w_kmajor=wk)  # noqa: E731
+                made = lambda: v1.conv3x3_adain_relu_requant(x, wp, gamma, beta)  # noqa: E731
+            else:  # row 20, on row 2's entry: the residual in int8 with its scale
+                hq = t(rng.integers(-127, 128, (B, side, side, C), dtype=np.int8))
+                hs = t(rng.uniform(0.01, 0.05, (B, 1)).astype(np.float32))
+                call = lambda: v1.conv3x3_adain_residual_requant(  # noqa: E731
+                    x, hq, hs, wp, gamma, beta, w_kmajor=wk)
+                made = lambda: v1.conv3x3_adain_residual_requant(x, hq, hs, wp, gamma, beta)  # noqa: E731
             ops = 2 * B * side * side * C * 9 * C
             case, shape = "256² input", f"{[B, side, side, C]}"
         ms, made_ms = cuda_ms(torch, call, reps=30), cuda_ms(torch, made, reps=30)
-        parts = kernel_split(torch, call, groups=V1_GROUPS)
+        groups = TRUNK_GROUPS if name == "conv3x3_adain_residual_requant_v1" else V1_GROUPS
+        parts = kernel_split(torch, call, groups=groups)
         device = sum(parts.values())
         row = next(r for r in [kernels[name], *kernels[name]["also"]] if r["case"] == case)
         row["parts_ms"] = parts
@@ -2405,7 +2437,7 @@ class plain_backwards:
             setattr(m, n, fn)
 
 
-def compare_grads(label: str, names, got, want) -> None:
+def compare_grads(label: str, names, got, want, tag: str = "train") -> None:
     """Hold a configuration's step-1 gradients against those of the same step with
     the backward kernels' plain versions, leaf by leaf:
     |got - want| <= GRAD_RTOL * |want| + GRAD_ATOL_REL * max|want over the group|."""
@@ -2418,35 +2450,38 @@ def compare_grads(label: str, names, got, want) -> None:
             bad.append(f"{name} ({ratio:.2f})")
     zero = [n for n, g in zip(names, got) if ".conv" in n and n.endswith(".bias")
             and n.split(".")[1] == "decoder" and not bool(g.any())]
-    print(f"[train {label}] step-1 gradients vs the same step with the plain backwards, "
+    print(f"[{tag} {label}] step-1 gradients vs the same step with the plain backwards, "
           f"{len(names)} leaves of the G group: rtol {GRAD_RTOL} / atol {GRAD_ATOL_REL} x "
           f"max|plain| = {atol:.3e}; worst leaf "
           f"{worst[1]} at {worst[0]:.3f} of its bar; {len(bad)} beyond; resblock conv biases "
           f"with an exactly zero gradient: {len(zero)}", flush=True)
-    check(not bad, f"[train {label}] step-1 gradients within their bars (beyond: {bad[:8]})")
+    check(not bad, f"[{tag} {label}] step-1 gradients within their bars (beyond: {bad[:8]})")
     if label == "level2":  # the unit skips the bias, which instance norm removes
         check(len(zero) == 4 * N_RES,
-              f"[train level2] all {4 * N_RES} resblock conv biases have a zero gradient")
+              f"[{tag} level2] all {4 * N_RES} resblock conv biases have a zero gradient")
 
 
-def train_inputs(torch, dev) -> tuple:
+def train_inputs(torch, dev, size: int = TRAIN_SIZE, batch_size: int = TRAIN_B) -> tuple:
     """The train phases' seeded batch, random VGG and loss weights (the defaults,
     gan..style, at full warmup)."""
     from msig_tpu_torch.losses import init_random_vgg
 
     rng = np.random.default_rng(4)
-    shape = (TRAIN_B, TRAIN_SIZE, TRAIN_SIZE, 3)
+    shape = (batch_size, size, size, 3)
     batch = {"source": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
              "target": torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev),
-             "source_domain": torch.zeros(TRAIN_B, dtype=torch.int32, device=dev),
-             "target_domain": torch.from_numpy(rng.integers(1, N_DOMAINS, TRAIN_B,
+             "source_domain": torch.zeros(batch_size, dtype=torch.int32, device=dev),
+             "target_domain": torch.from_numpy(rng.integers(1, N_DOMAINS, batch_size,
                                                             dtype=np.int32)).to(dev)}
     return batch, init_random_vgg(1234, device=dev), [1.0, 10.0, 5.0, 1.0, 1.0]
 
 
-def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
+def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict, size: int = TRAIN_SIZE,
+                batch_size: int = TRAIN_B, tag: str = "train", steps: int = TRAIN_STEPS,
+                warmup: bool = True) -> dict:
     """The train step at full width in the three configurations, from the same
-    parameters and batch. Step 1's losses and grad norms are held against the
+    parameters and batch (``size``² inputs, ``batch_size``; ``tag`` labels the lines;
+    the timed steps follow step 1 and, with ``warmup``, one more untimed step). Step 1's losses and grad norms are held against the
     stock step's, and the step-1 gradients of each kernel configuration, leaf by
     leaf, against a rerun of its step 1 with the backward kernels' plain versions.
     (Not against the stock step's: at random init the generators' tanh saturates,
@@ -2456,16 +2491,19 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
     held to its deterministic algorithms, as the Trainer holds it: with its
     default choice the decoders' ConvTranspose2d, and so two runs of the same
     step, differ in the last bit of the forward.)
-    Returns {config: launches of step 1} and the step times."""
+    Returns {config: launches of step 1}, the step times, the peak memory (GiB,
+    before the plain rerun) and step 1's metrics."""
     from msig_tpu_torch.config import TrainConfig
     from msig_tpu_torch.train import create_train_state, make_train_step
     from msig_tpu_torch.train.state import G_KEYS
 
-    batch, vgg, weights = train_inputs(torch, dev)
-    first, launches, step_ms = {}, {}, {}
+    batch, vgg, weights = train_inputs(torch, dev, size, batch_size)
+    first, launches, step_ms, peak = {}, {}, {}, {}
     torch.backends.cudnn.deterministic = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     for label, level, pallas in TRAIN_CONFIGS:
-        cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
+        cfg = TrainConfig(image_size=size, batch_size=batch_size, n_residual_blocks=N_RES,
                           style_dim=256, use_pallas=pallas, device=dev.type)
         with env(MSIG_CONV_VJP=level):
             state = create_train_state(cfg, N_DOMAINS)  # the same seed: the same parameters
@@ -2481,11 +2519,12 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
             grads = step1_grads(state, cfg, first[label]["g_grad_norm"])
             want = {k: (2 * N_RES * 3 if TRAIN_KERNELS[k][2] == label else 0) for k in counts}
             check(counts == want and int8 == 0,
-                  f"[train {label}] launches per step {counts} (int8 {int8}), want {want}")
+                  f"[{tag} {label}] launches per step {counts} (int8 {int8}), want {want}")
             launches[label] = counts
-            step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)  # warm-up
+            if warmup:
+                step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
             events, finite = [], []
-            for _ in range(TRAIN_STEPS):
+            for _ in range(steps):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
                 m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
@@ -2494,9 +2533,9 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
                 finite.append(torch.stack(list(m.values())))
             torch.cuda.synchronize()
             check(bool(torch.isfinite(torch.stack(finite)).all()),
-                  f"[train {label}] {TRAIN_STEPS} more steps stay finite")
+                  f"[{tag} {label}] {steps} more steps stay finite")
             step_ms[label] = float(np.median([a.elapsed_time(b) for a, b in events]))
-            mem = torch.cuda.max_memory_allocated() / 2**30
+            peak[label] = mem = torch.cuda.max_memory_allocated() / 2**30
             if label != "stock":  # step 1 again, from the same parameters, plain backwards
                 names = [f"{k}.{n}" for k in G_KEYS for n, _ in state.models.nets[k].named_parameters()]
                 del state
@@ -2506,26 +2545,29 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
                 with plain_backwards(ap, cv):
                     m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
                 bwd = {k: v for k, v in {**ap.LAUNCHES, **cv.LAUNCHES}.items() if k != ap.FWD}
-                check(not any(bwd.values()), f"[train {label}] no backward kernel in the plain rerun {bwd}")
+                check(not any(bwd.values()), f"[{tag} {label}] no backward kernel in the plain rerun {bwd}")
                 losses = [k for k in m if not k.endswith("grad_norm")]
                 check(all(float(m[k]) == first[label][k] for k in losses),
-                      f"[train {label}] the plain rerun's step-1 losses equal the kernel run's to the "
+                      f"[{tag} {label}] the plain rerun's step-1 losses equal the kernel run's to the "
                       f"bit: {[(k, float(m[k]), first[label][k]) for k in losses]}")
-                compare_grads(label, names, grads, step1_grads(state, cfg, float(m["g_grad_norm"])))
+                compare_grads(label, names, grads, step1_grads(state, cfg, float(m["g_grad_norm"])),
+                              tag)
             del grads
         share = ""
+        side = size // 4
         for k, n in counts.items():
-            if n:
-                also = {r["case"]: r["ms"] for r in [kernels[k]] + kernels[k]["also"]}
-                t8, t4 = (also[f"[{bb}, {SIDE}, {SIDE}, {C}]"] for bb in (2 * TRAIN_B, TRAIN_B))
-                est = 2 * N_RES * (2 * t8 + t4)  # the 2B, 2B and B generator launches
+            also = {r["case"]: r["ms"] for r in [kernels[k]] + kernels[k]["also"]}
+            cases = [f"[{bb}, {side}, {side}, {C}]" for bb in (2 * batch_size, batch_size)]
+            if n and all(c in also for c in cases):
+                t2, t1 = (also[c] for c in cases)
+                est = 2 * N_RES * (2 * t2 + t1)  # the 2B, 2B and B generator launches
                 share += f"; {k} x{n}: ~{est:.1f} ms ({100 * est / step_ms[label]:.0f}%)"
-        print(f"[train {label}] {TRAIN_SIZE}², batch {TRAIN_B}, {N_RES} resblocks, {N_DOMAINS} domains: "
-              f"step 1 losses {json.dumps({k: round(v, 6) for k, v in first[label].items()})}; "
-              f"{step_ms[label]:.2f} ms per step (median of {TRAIN_STEPS} after a warm-up step, "
-              f"CUDA events); launches per step {({k: v for k, v in counts.items() if v})}, "
+        print(f"[{tag} {label}] {size}², batch {batch_size}, {N_RES} resblocks, {N_DOMAINS} "
+              f"domains: step 1 losses {json.dumps({k: round(v, 6) for k, v in first[label].items()})}; "
+              f"{step_ms[label]:.2f} ms per step (median of {steps} after step 1"
+              f"{' and a warm-up step' if warmup else ''}, CUDA events); launches per step {({k: v for k, v in counts.items() if v})}, "
               f"layout copies {({k: v for k, v in copies.items() if v})}{share}; peak memory "
-              f"{mem:.1f} GiB", flush=True)
+              f"{mem:.3f} GiB (max_memory_allocated)", flush=True)
         del state, step
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2534,21 +2576,117 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
         for k, v in m.items():
             rtol = 1e-3 if k.endswith("grad_norm") else 1e-4
             check(abs(v - base[k]) <= rtol * abs(base[k]),
-                  f"[train {label}] step 1 {k} {v} vs stock {base[k]} (rtol {rtol})")
-    print(f"[train] step 1 agrees across {', '.join(first)}: losses within rtol 1e-4, grad norms "
+                  f"[{tag} {label}] step 1 {k} {v} vs stock {base[k]} (rtol {rtol})")
+    print(f"[{tag}] step 1 agrees across {', '.join(first)}: losses within rtol 1e-4, grad norms "
           f"within 1e-3 (largest relative difference "
           f"{max(abs(m[k] - base[k]) / abs(base[k]) for m in first.values() for k in m):.2e})",
           flush=True)
-    return dict(launches=launches, step_ms=step_ms)
+    return dict(launches=launches, step_ms=step_ms, peak=peak, first=first)
 
 
-def train_cli_phase(torch, work: str, device: str = "cuda", extra=()) -> None:
-    """``python -m msig_tpu_torch.train`` on a synthetic tree, then serving its checkpoint."""
+def train512_phase(torch, ap, cv, int8_mods, dev, kernels: dict) -> dict:
+    """``[train 512]``: the step at the JAX package's 512² configuration
+    (``TrainConfig(image_size=512, batch_size=4)``, 8 resblocks, 10 domains,
+    fp32 with TF32 off, the 256² phases' seeded inputs at 512²), whose trunk
+    maps of 128x128 route to rows 22-24: ``train_phase``'s three configurations
+    and bars (step 1 across them; each kernel configuration's step-1 gradients
+    against its plain-backward rerun), then ``level1+pallas`` with
+    ``remat=True`` and ``"cycle"``, step 1's losses equal to the bit to the
+    no-remat step's (at the same batch). For each: launches a step per
+    kernel, ms per step (median of ``TRAIN_512_STEPS`` after step 1, which
+    warms every kernel and library up; CUDA events) and peak
+    ``max_memory_allocated``."""
+    from msig_tpu_torch.config import TrainConfig
+
+    t0 = time.perf_counter()
+    out = train_phase(torch, ap, cv, int8_mods, dev, kernels, size=TRAIN_512,
+                      batch_size=TRAIN_512_B, tag="train 512", steps=TRAIN_512_STEPS,
+                      warmup=False)
+    cfg = TrainConfig(image_size=TRAIN_512, batch_size=TRAIN_512_REMAT_B, n_residual_blocks=N_RES,
+                      style_dim=256, use_pallas=True, device=dev.type)
+    inputs = train_inputs(torch, dev, TRAIN_512, TRAIN_512_REMAT_B)
+    per_launch = 2 * N_RES
+    remat = {}
+    with env(MSIG_CONV_VJP="1"):
+        modes = (True, "cycle") if TRAIN_512_REMAT_B == TRAIN_512_B else (False, True, "cycle")
+        for mode in modes:
+            remat[mode] = option_step(torch, ap, cv, int8_mods, cfg, inputs, {"remat": mode},
+                                      TRAIN_512_STEPS, tag="train 512", warmup=False)
+    if False not in remat:  # the no-remat step is train_phase's level1+pallas, at this batch
+        remat[False] = (out["first"]["level1+pallas"], None, None, None,
+                        out["peak"]["level1+pallas"], out["step_ms"]["level1+pallas"])
+    base = remat[False][0]
+    for mode, recomputed in ((True, 3), ("cycle", 2)):
+        first, counts, _, _, peak, ms = remat[mode]
+        losses = [k for k in base if not k.endswith("grad_norm")]
+        check(all(first[k] == base[k] for k in losses),
+              f"[train 512 remat={mode!r}] step-1 losses equal to the bit: "
+              f"{[(k, first[k], base[k]) for k in losses if first[k] != base[k]]}")
+        for k in ("g_grad_norm", "d_grad_norm"):
+            check(abs(first[k] - base[k]) <= 1e-6 * abs(base[k]),
+                  f"[train 512 remat={mode!r}] {k} {first[k]} vs {base[k]} (rtol 1e-6)")
+        top = (3 + recomputed) * per_launch
+        check(3 * per_launch <= counts["fwd"] <= top and counts["bwd"] == 3 * per_launch
+              and counts["conv_bwd"] == 3 * per_launch,
+              f"[train 512 remat={mode!r}] launches {counts}: forwards in "
+              f"[{3 * per_launch}, {top}], backwards {3 * per_launch}")
+        print(f"[train 512] level1+pallas remat={mode!r}, {TRAIN_512}², batch "
+              f"{TRAIN_512_REMAT_B}: step 1 losses equal to the bit to remat=False's, g_grad_norm "
+              f"{first['g_grad_norm']!r} ({base['g_grad_norm']!r} without); launches a step "
+              f"adain_pallas_fwd {counts['fwd']}, adain_pallas_bwd {counts['bwd']}, conv3x3_bwd "
+              f"{counts['conv_bwd']}; {ms:.2f} ms per step (median of {TRAIN_512_STEPS} after "
+              f"step 1, CUDA events); peak memory {peak:.3f} GiB (max_memory_allocated)",
+              flush=True)
+    print(f"[train 512] peak memory (GiB) by remat: "
+          + ", ".join(f"{m!r} {r[4]:.3f}" for m, r in remat.items())
+          + "; ms per step: " + ", ".join(f"{m!r} {r[5]:.2f}" for m, r in remat.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# [train cli]: a stand-in for the wandb package, which the card's machine lacks
+WANDB_STUB = '''"""A STUB of the wandb package (chip_smoke.py's [train cli]): it records
+init's arguments, each log() call's keys (a histogram as its count total) and
+finish() calls, and sends nothing anywhere."""
+RECORD = {"init": [], "logs": [], "finish": 0}
+
+
+class Histogram:
+    def __init__(self, np_histogram=None, **kwargs):
+        self.counts, self.edges = np_histogram
+
+
+class Run:
+    def log(self, data):
+        RECORD["logs"].append({k: int(v.counts.sum()) if isinstance(v, Histogram) else v
+                               for k, v in data.items()})
+
+    def finish(self):
+        RECORD["finish"] += 1
+
+
+def init(**kwargs):
+    RECORD["init"].append(kwargs)
+    return Run()
+'''
+CLI_EPOCHS = 2  # [train cli]: epochs, each with its EMA snapshot (for [quality])
+
+
+def train_cli_phase(torch, work: str, device: str = "cuda", extra=()) -> str:
+    """``python -m msig_tpu_torch.train`` on a synthetic tree with ``--wandb
+    --watch_freq 1`` against a STUB wandb module (``WANDB_STUB``, first on
+    the import path; the card's machine has no wandb), ``CLI_EPOCHS`` epochs
+    with an EMA snapshot each; the stub's record: one ``init`` with the JAX
+    CLI's arguments, each step's losses with the watch step's histograms from
+    the card, each epoch's averages, one ``finish``. Then serving the
+    checkpoint. Returns the run's directory."""
     import importlib.util
 
     from PIL import Image
 
     from msig_tpu_torch import inference as infer_cli
+    from msig_tpu_torch.config import TrainConfig
     from msig_tpu_torch.train import cli
 
     rng = np.random.default_rng(5)
@@ -2566,19 +2704,54 @@ def train_cli_phase(torch, work: str, device: str = "cuda", extra=()) -> None:
     if not art:
         print("[train cli] matplotlib is not installed here: MSIG_SKIP_EPOCH_ART=1 (no sample "
               "grids, no loss plots)", flush=True)
+    stub_dir = os.path.join(work, "wandb_stub")
+    os.makedirs(stub_dir)
+    with open(os.path.join(stub_dir, "wandb.py"), "w") as f:
+        f.write(WANDB_STUB)
     out = os.path.join(work, "train_results")
     args = cli.build_arg_parser().parse_args([
         "--source_dir", src, "--target_dir", ref, "--save_dir_base", out, "--exp_name", "smoke",
-        "--device", device, "--allow_random_vgg", "--epochs", "1", *extra])
-    with env(MSIG_SKIP_EPOCH_ART="0" if art else "1"):
-        t0 = time.perf_counter()
-        rc = cli.main(cli.config_from_args(args))
-        train_s = time.perf_counter() - t0
-    ckpt = os.path.join(out, "smoke", "checkpoints", "epoch_1")
+        "--device", device, "--allow_random_vgg", "--epochs", str(CLI_EPOCHS),
+        "--ema_snapshot_every", "1", "--wandb", "--watch_freq", "1", *extra])
+    cfg = cli.config_from_args(args)
+    sys.path.insert(0, stub_dir)
+    saved = sys.modules.pop("wandb", None)
+    try:
+        with env(MSIG_SKIP_EPOCH_ART="0" if art else "1"):
+            t0 = time.perf_counter()
+            rc = cli.main(cfg)
+            train_s = time.perf_counter() - t0
+        stub = sys.modules["wandb"]
+        check(os.path.dirname(stub.__file__) == stub_dir, f"the stub wandb ran: {stub.__file__}")
+        record = stub.RECORD
+    finally:
+        sys.path.remove(stub_dir)
+        sys.modules.pop("wandb", None)
+        if saved is not None:
+            sys.modules["wandb"] = saved
+    run_dir = os.path.join(out, "smoke")
+    ckpt = os.path.join(run_dir, "checkpoints", f"epoch_{CLI_EPOCHS}")
     check(rc == 0, f"python -m msig_tpu_torch.train exit code {rc} == 0")
     check(all(os.path.exists(os.path.join(ckpt, f)) for f in ("checkpoint.pth",
                                                               "ema_checkpoint.pth")),
           "the train CLI wrote checkpoint.pth and ema_checkpoint.pth")
+    # the stub's record: main.py:203-209's init, the trainer's logs, one finish
+    init = record["init"]
+    check(len(init) == 1 and init[0]["project"] == cli.WANDB_PROJECT
+          and init[0]["name"] == "smoke"
+          and set(init[0]["config"]) == {f.name for f in dataclasses.fields(TrainConfig)},
+          f"[train cli] one wandb.init with main.py's arguments: {init}")
+    steps = 8 // TRAIN_B
+    step_logs = [lg for lg in record["logs"] if "epoch" not in lg]
+    epoch_logs = [lg for lg in record["logs"] if "epoch" in lg]
+    hists = [{k: v for k, v in lg.items() if k.startswith("gradients/")} for lg in step_logs]
+    check(len(step_logs) == CLI_EPOCHS * steps and len(epoch_logs) == CLI_EPOCHS
+          and record["finish"] == 1,
+          f"[train cli] {len(step_logs)} step logs, {len(epoch_logs)} epoch logs, "
+          f"{record['finish']} finish")
+    check(all(h and all(v > 0 for v in h.values()) for h in hists)
+          and all({"loss/D_loss", "loss/G_loss"} <= set(lg) for lg in step_logs),
+          "[train cli] every step's log() holds its losses and the watch step's histograms")
     served = os.path.join(work, "train_served")
     args = infer_cli.build_arg_parser().parse_args([
         "--input_dir", src, "--ref_domains_dir", ref, "--checkpoint_dir", ckpt, "--output_dir",
@@ -2587,10 +2760,79 @@ def train_cli_phase(torch, work: str, device: str = "cuda", extra=()) -> None:
     rc = infer_cli.main(infer_cli.config_from_args(args))
     check(rc == 0 and len(os.listdir(served)) == 8,
           f"the inference CLI on the trained checkpoint: exit {rc}, {len(os.listdir(served))} images")
-    print(f"[train cli] python -m msig_tpu_torch.train --device cuda --allow_random_vgg --epochs 1: "
-          f"rc 0 in {train_s:.1f} s (8 sources, {N_DOMAINS - 1} target domains, 256², batch "
-          f"{TRAIN_B}: 2 steps + checkpoint); python -m msig_tpu_torch.inference --quantize int8 "
-          f"on its checkpoint: rc 0, 8 images", flush=True)
+    print(f"[train cli] python -m msig_tpu_torch.train --device cuda --allow_random_vgg --epochs "
+          f"{CLI_EPOCHS} --ema_snapshot_every 1 --wandb --watch_freq 1, wandb a STUB module "
+          f"(records its calls, sends nothing): rc 0 in {train_s:.1f} s (8 sources, "
+          f"{N_DOMAINS - 1} target domains, 256², batch {TRAIN_B}: {CLI_EPOCHS * steps} steps + "
+          f"checkpoint and snapshots); the stub saw one init (project {init[0]['project']!r}, name "
+          f"'smoke', {len(init[0]['config'])} config fields), {len(step_logs)} step logs each "
+          f"with {len(hists[0])} gradient histograms from the card ({sum(hists[0].values())} "
+          f"gradient elements), {len(epoch_logs)} epoch logs, {record['finish']} finish; python -m "
+          f"msig_tpu_torch.inference --quantize int8 on its checkpoint: rc 0, 8 images",
+          flush=True)
+    return run_dir
+
+
+def quality_phase(torch, work: str, run_dir: str, device: str = "cuda") -> None:
+    """``[quality]``: the quality tools on the card, in this process, on what
+    ``[train cli]`` trained: ``export_demo_checkpoint`` of its final checkpoint
+    (then served by ``eval_quality``), ``eval_quality`` over the synthetic
+    tree's sources and its first two target domains, and
+    ``eval_trajectory_fast`` over its two EMA snapshots (every domain)."""
+    import contextlib
+    import io
+
+    from msig_tpu_torch.tools import eval_quality, eval_trajectory_fast, export_demo_checkpoint
+
+    t0 = time.perf_counter()
+    src, ref = os.path.join(work, "train_src"), os.path.join(work, "train_ref")
+    demo = os.path.join(work, "demo_export")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        meta = export_demo_checkpoint.main([
+            "--checkpoint", os.path.join(run_dir, "checkpoints", f"epoch_{CLI_EPOCHS}"),
+            "--out", demo, "--num_domains", str(N_DOMAINS), "--device", device])
+    with np.load(os.path.join(demo, "ema_g_se_fp16.npz")) as z:
+        n_arrays = len(z.files)
+        fp16 = all(z[k].dtype == np.float16 for k in z.files)
+    check(meta["ema"] and meta["num_domains"] == N_DOMAINS and fp16,
+          f"[quality] export_demo_checkpoint: meta {meta}, fp16 arrays {fp16}")
+    qdir = os.path.join(work, "quality")
+    with contextlib.redirect_stdout(text):
+        report = eval_quality.main([
+            "--checkpoint", demo, "--source_dir", src, "--ref_dir", ref, "--out", qdir,
+            "--n_images", "8", "--domains", "2", "--batch_size", "4", "--samples", "2",
+            "--device", device])
+    with open(os.path.join(qdir, "quality.json")) as f:
+        saved = json.load(f)
+    keys = {"proxy_fid_generated_vs_ref", "proxy_fid_source_vs_ref",
+            "color_frechet_generated_vs_ref", "color_frechet_source_vs_ref",
+            "hist_tv_generated_vs_ref", "hist_tv_source_vs_ref"}
+    check(saved == report and sorted(report) == ["dom0", "dom1"]
+          and all(set(r) == keys and all(np.isfinite(list(r.values()))) for r in report.values())
+          and all(len(os.listdir(os.path.join(qdir, "generated", d))) == 8 for d in report)
+          and all(os.path.exists(os.path.join(qdir, f"samples_{d}.jpg")) for d in report),
+          f"[quality] eval_quality: {report}")
+    tdir = os.path.join(work, "trajectory")
+    with contextlib.redirect_stdout(text):
+        rows = eval_trajectory_fast.main([
+            "--snap_root", os.path.join(run_dir, "ema_snapshots"), "--out", tdir,
+            "--source_dir", src, "--ref_dir", ref, "--n_images", "8", "--batch_size", "4",
+            "--samples", "1", "--device", device])
+    with open(os.path.join(tdir, "trajectory.csv")) as f:
+        csv = f.read().splitlines()
+    check(sorted(rows) == list(range(1, CLI_EPOCHS + 1))
+          and len(csv) == 1 + CLI_EPOCHS * (N_DOMAINS - 1),
+          f"[quality] eval_trajectory_fast: epochs {sorted(rows)}, {len(csv)} CSV lines")
+    said = [ln for ln in text.getvalue().splitlines() if "trajectory.png" in ln or "wrote" in ln]
+    print(f"[quality] export_demo_checkpoint of the train CLI's epoch_{CLI_EPOCHS}: {n_arrays} fp16 "
+          f"arrays, meta {json.dumps(meta)}; eval_quality on the export (8 sources, dom0 and dom1, "
+          f"proxy-FID on the port's seeded random VGG): {json.dumps(report)}; "
+          f"eval_trajectory_fast over {len(rows)} EMA snapshots x {N_DOMAINS - 1} domains: "
+          f"{len(csv) - 1} CSV rows, mean proxy-FID gen by epoch "
+          + ", ".join(f"{e} {np.mean([r['proxy_fid_generated_vs_ref'] for r in rows[e].values()]):.6f}"
+                      for e in sorted(rows))
+          + f"; {'; '.join(said)}; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
@@ -2655,6 +2897,55 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
 TRAIN_OPTION_STEPS = 3  # timed steps per remat mode, after step 1 and a warm-up
 
 
+def option_step(torch, ap, cv, int8_mods, cfg, inputs, options: dict, steps: int = 0,
+                dtype=None, tag: str = "train options", warmup: bool = True) -> tuple:
+    """Step 1 of ``make_train_step(**options)`` from a new train state of ``cfg``
+    (the train phase's parameters) on ``inputs`` (batch, VGG, weights), and
+    ``steps`` timed steps after it (and, with ``warmup``, one more untimed
+    step): step 1's metrics, its launches of the
+    AdaIN and conv backward kernels (no other kernel may launch), the
+    histograms, the parameters' sizes, the peak memory (GiB) and ms per step
+    (median, CUDA events)."""
+    from msig_tpu_torch.train import create_train_state, make_train_step
+
+    batch, vgg, weights = inputs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, N_DOMAINS)
+    step = make_train_step(cfg.ema_beta, dtype or torch.float32, **options)
+    reset_counts((ap, cv) + int8_mods)
+    metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+    torch.cuda.synchronize()
+    counts = {"fwd": ap.LAUNCHES[ap.FWD], "bwd": ap.LAUNCHES[ap.BWD],
+              "conv_bwd": cv.LAUNCHES["conv3x3_bwd"]}
+    others = {k: v for k, v in read_counts((cv,) + int8_mods).items()
+              if v and k != "conv3x3_bwd"}
+    check(not others, f"[{tag} {options}] no other kernel launched: {others}")
+    hists = metrics.pop("_grad_hists", None)
+    first = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in first.values()), f"[{tag} {options}] step 1 finite: {first}")
+    ms = None
+    if steps:
+        if warmup:
+            step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+        events = []
+        for _ in range(steps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(v)) for k, v in m.items() if k != "_grad_hists"),
+              f"[{tag} {options}] the timed steps stay finite")
+        ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sizes = {f"gradients/{k}.{n}": p.numel() for k, net in state.models.nets.items()
+             for n, p in net.named_parameters()}
+    del state, step
+    return first, counts, hists, sizes, peak, ms
+
+
 def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
     """``[train options]``: the options of both entry points that the port took
     last, at the train phase's full width (256², batch 4, 8 resblocks,
@@ -2671,7 +2962,9 @@ def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
       re-runs the AdaIN forwards of the launches it recomputes, at most once
       each: non-reentrant checkpointing may stop a recomputation once the
       tensors it needs are back); the histograms' counts sum to each
-      gradient's element count, every gradient finite;
+      gradient's element count, every gradient finite; ``r1_gamma=1`` in the
+      bf16 step (``compute_dtype=bfloat16``) beside the bf16 step without it:
+      finite, the D loss moved, the same launches;
     - ``python -m msig_tpu_torch.train --device cuda`` for 1 epoch, then
       ``--resume`` for the second (the step count and loss history carried),
       and ``--profile_steps 2`` at ``MSIG_CONV_VJP=1 --pallas`` in a process
@@ -2690,7 +2983,7 @@ def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
     from msig_tpu_torch.compat import from_jax as fj
     from msig_tpu_torch.config import TrainConfig
     from msig_tpu_torch.extensions import MappingNetwork
-    from msig_tpu_torch.train import cli, create_train_state, make_train_step
+    from msig_tpu_torch.train import cli
     from msig_tpu_torch.train.state import torch_default_init_
 
     t_phase = time.perf_counter()
@@ -2703,43 +2996,7 @@ def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
     per_launch = 2 * N_RES  # AdaIN sites (and 3x3 conv backwards) a generator launch
 
     def run(options, steps=0):
-        """Step 1 from the train phase's parameters (and ``steps`` timed steps after a
-        warm-up): metrics, launches of step 1, peak memory, ms per step."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        state = create_train_state(cfg, N_DOMAINS)
-        step = make_train_step(cfg.ema_beta, **options)
-        reset_counts((ap, cv) + int8_mods)
-        metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
-        torch.cuda.synchronize()
-        counts = {"fwd": ap.LAUNCHES[ap.FWD], "bwd": ap.LAUNCHES[ap.BWD],
-                  "conv_bwd": cv.LAUNCHES["conv3x3_bwd"]}
-        others = {k: v for k, v in read_counts((cv,) + int8_mods).items()
-                  if v and k != "conv3x3_bwd"}
-        check(not others, f"[train options {options}] no other kernel launched: {others}")
-        hists = metrics.pop("_grad_hists", None)
-        first = {k: float(v) for k, v in metrics.items()}
-        check(all(np.isfinite(v) for v in first.values()),
-              f"[train options {options}] step 1 finite: {first}")
-        ms = None
-        if steps:
-            step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
-            events = []
-            for _ in range(steps):
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                m = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
-                b.record()
-                events.append((a, b))
-            torch.cuda.synchronize()
-            check(all(bool(torch.isfinite(v)) for k, v in m.items() if k != "_grad_hists"),
-                  f"[train options {options}] the timed steps stay finite")
-            ms = float(np.median([a.elapsed_time(b) for a, b in events]))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        sizes = {f"gradients/{k}.{n}": p.numel() for k, net in state.models.nets.items()
-                 for n, p in net.named_parameters()}
-        del state, step
-        return first, counts, hists, sizes, peak, ms
+        return option_step(torch, ap, cv, int8_mods, cfg, (batch, vgg, weights), options, steps)
 
     with env(MSIG_CONV_VJP="1"):
         remat = {}
@@ -2809,6 +3066,23 @@ def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
                   f"adain_pallas_fwd {counts['fwd']}, adain_pallas_bwd {counts['bwd']}, "
                   f"conv3x3_bwd {counts['conv_bwd']}; peak memory {peak:.3f} GiB{extra}",
                   flush=True)
+
+        # R1 in the bf16 step (compute_dtype=bfloat16, the penalty's gradient on an fp32 leaf)
+        cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        got = {}
+        for label, options in (("bf16", {}), ("bf16 r1_gamma=1", {"r1_gamma": 1.0})):
+            got[label] = option_step(torch, ap, cv, int8_mods, cfg16, (batch, vgg, weights),
+                                     options, dtype=torch.bfloat16)
+            counts = got[label][1]
+            check(counts == base_counts, f"[train options {label}] launches {counts}, want "
+                                         f"{base_counts}")
+        (b16, _, _, _, _, _), (r1, counts, _, _, peak, _) = got["bf16"], got["bf16 r1_gamma=1"]
+        check(r1["D_loss"] != b16["D_loss"], "[train options bf16 r1] the D loss moved")
+        print(f"[train options] r1_gamma=1 in the bf16 step (compute_dtype bfloat16): step 1 "
+              f"finite, D_loss {r1['D_loss']!r} (without R1 {b16['D_loss']!r}), d_grad_norm "
+              f"{r1['d_grad_norm']!r} ({b16['d_grad_norm']!r}); launches adain_pallas_fwd "
+              f"{counts['fwd']}, adain_pallas_bwd {counts['bwd']}, conv3x3_bwd "
+              f"{counts['conv_bwd']}; peak memory {peak:.3f} GiB", flush=True)
     torch.cuda.empty_cache()
 
     # the train CLI: one epoch, --resume for the second, --profile_steps
@@ -3444,7 +3718,9 @@ def main() -> int:
         train_kernels, to_split = train_kernel_phase(torch, ap, cv, dev)
         adain_cluster_phase(torch, ap, dev)
         train = train_phase(torch, ap, cv, int8_mods, dev, train_kernels)
-        train_cli_phase(torch, work)
+        train512_phase(torch, ap, cv, int8_mods, dev, train_kernels)
+        run_dir = train_cli_phase(torch, work)
+        quality_phase(torch, work, run_dir)
         train_bf16_phase(torch, ap, cv, int8_mods, dev)
         train_options_phase(torch, ap, cv, int8_mods, dev, work)
         device_data_phase(torch, work)

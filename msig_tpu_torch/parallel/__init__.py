@@ -8,6 +8,7 @@ from msig_tpu_torch.parallel.mesh import (  # noqa: F401
     gather_rows,
     initialize_multihost,
     local_devices,
+    local_rank,
     make_mesh,
     replicate,
     replicated,

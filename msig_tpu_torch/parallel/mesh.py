@@ -117,6 +117,11 @@ def world() -> tuple:
     return 0, 1
 
 
+def local_rank() -> int:
+    """This process's rank on its host (the launcher's ``LOCAL_RANK``); 0 without a group."""
+    return int(os.environ.get("LOCAL_RANK", "0")) if _grouped() else 0
+
+
 def batch_rows(n: int, rank: int, world_size: int) -> slice:
     """Rank ``rank``'s contiguous share of ``n`` rows; ``world_size`` must divide ``n``."""
     if n % world_size:

@@ -1,10 +1,13 @@
 """Measurement tools of the port, each ``python -m msig_tpu_torch.tools.<name>``.
 
 ``bench_v1_v2`` and ``profile_fused_stages`` port the JAX package's
-``tools/bench_v1_v2.py`` and ``tools/profile_fused_stages.py``. Both run on
-``cuda`` unless ``--device cpu`` is given (then they run the kernels' plain
-versions and time the host), and both expose ``main(argv)``, which returns
-what they printed as a dictionary.
+``tools/bench_v1_v2.py`` and ``tools/profile_fused_stages.py``; ``evaluate_fid``
+and the quality tools (``export_demo_checkpoint``, ``eval_quality``,
+``eval_trajectory_fast``, ``eval_trajectory_batch``,
+``eval_quality_trajectory``; their shared pieces in ``_quality``) the root
+tools of those names. Each runs on ``cuda`` unless ``--device cpu`` is given
+(then the kernels' plain versions run, and the timing tools time the host),
+and each exposes ``main(argv)``, which returns what it printed or wrote.
 """
 
 from __future__ import annotations

@@ -87,14 +87,13 @@ def save_checkpoint(save_dir: str, state: TrainState, loss_history: Dict[str, Li
     logger.info("Saved checkpoint to %s", save_dir)
 
 
-def save_ema_snapshot(snapshot_dir: str, state: TrainState, meta: Dict[str, Any]) -> None:
-    """The fp16 EMA G_A2B + SE_B in the demo-npz layout (``msig_tpu/train/trainer.py:235-278``):
-    ``ema_g_se_fp16.npz`` with '/'-joined flax keys (``gen/params/...``,
-    ``se/params/...``) and ``meta.json``; the inference CLIs of both packages load it."""
-    models = state.models
-    n_res = int(meta["n_residual_blocks"])
-    trees = {"gen": generator_params(models.ema["G_A2B"].state_dict(), n_res),
-             "se": style_encoder_params(models.ema["SE_B"].state_dict(), models.num_domains)}
+def demo_npz_arrays(gen_sd: Dict[str, torch.Tensor], se_sd: Dict[str, torch.Tensor],
+                    n_residual_blocks: int, num_domains: int) -> Dict[str, np.ndarray]:
+    """A G_A2B and an SE_B state_dict as the demo npz's arrays: '/'-joined flax
+    keys (``gen/params/...``, ``se/params/...``), float16 (the flatten of
+    ``tools/export_demo_checkpoint.py`` and ``msig_tpu/train/trainer.py:235-278``)."""
+    trees = {"gen": generator_params(gen_sd, n_residual_blocks),
+             "se": style_encoder_params(se_sd, num_domains)}
     flat: Dict[str, np.ndarray] = {}
 
     def _flatten(tree, prefix):
@@ -106,6 +105,16 @@ def save_ema_snapshot(snapshot_dir: str, state: TrainState, meta: Dict[str, Any]
 
     for name, tree in trees.items():
         _flatten(tree, name)
+    return flat
+
+
+def save_ema_snapshot(snapshot_dir: str, state: TrainState, meta: Dict[str, Any]) -> None:
+    """The fp16 EMA G_A2B + SE_B in the demo-npz layout (``msig_tpu/train/trainer.py:235-278``):
+    ``ema_g_se_fp16.npz`` (:func:`demo_npz_arrays`) and ``meta.json``; the
+    inference CLIs of both packages load it."""
+    models = state.models
+    flat = demo_npz_arrays(models.ema["G_A2B"].state_dict(), models.ema["SE_B"].state_dict(),
+                           int(meta["n_residual_blocks"]), models.num_domains)
     os.makedirs(snapshot_dir, exist_ok=True)
     np.savez(os.path.join(snapshot_dir, "ema_g_se_fp16.npz"), **flat)
     with open(os.path.join(snapshot_dir, "meta.json"), "w") as f:

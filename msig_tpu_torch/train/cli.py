@@ -31,9 +31,20 @@ The root ``main.py``'s other single-device options:
     (``torch.utils.checkpoint``) instead of keeping its activations;
   - ``--r1_gamma``, ``--style_recon_weight``, ``--diversity_weight``: the
     extension losses (0 = off, the reference's losses);
-  - ``--watch_freq N``: gradient histograms every N steps, logged to a wandb
-    run; without one (``--wandb`` is not ported) it does nothing, as in
-    ``main.py`` without ``--wandb``.
+  - ``--watch_freq N``: with ``--wandb``, gradient histograms every N steps,
+    logged with that step's losses; without ``--wandb`` it does nothing, as in
+    ``main.py``.
+
+``--wandb`` (``main.py:197-253``): ``wandb`` is imported only under the flag
+(without the package the run fails at the import, as ``main.py`` does), the
+run starts after the CLI's checks with the JAX CLI's project, ``name`` the
+experiment and ``config`` every field of the config, the trainer logs to it,
+and ``finish()`` runs in a ``finally`` on the ``--profile_steps`` branch and
+the train branch. One run a host: the rank whose local rank is 0 starts it (the
+one process of a single-process run, local rank 0 of the CLI's own workers,
+of ``torchrun`` or of ``--multihost``), as each JAX process starts one, one a
+host. Every rank steps the watch step on the same steps; only the rank holding
+the run logs (``train/trainer.py``).
 
 Data parallelism (``parallel/mesh.py``; the step and trainer average the
 gradients and metrics of one process per device):
@@ -50,8 +61,6 @@ gradients and metrics of one process per device):
     ``cpu``); a group that fails to start fails the run, a global batch the
     world size does not divide raises, and ``--multihost`` with no launcher
     in the environment runs as one process.
-
-``--wandb`` raises NotImplementedError naming the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -101,7 +110,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="Loss weights as a JSON string.")
     parser.add_argument("--use_ema", type=_parse_bool, default=default_config.TRAINING_USE_EMA,
                         help="Use EMA models for the sample grids (true/false).")
-    parser.add_argument("--wandb", action="store_true", help="Weights & Biases logging (not ported yet)")
+    parser.add_argument("--wandb", action="store_true", help="Enable Weights & Biases logging")
     parser.add_argument("--compute_dtype", type=str, default=default_config.COMPUTE_DTYPE_TRAIN,
                         choices=["float32", "bfloat16"],
                         help="float32, or bfloat16: the products in bf16 on fp32 master "
@@ -188,17 +197,20 @@ def config_from_args(args) -> TrainConfig:
     )
 
 
-# Flags of features not ported yet, with the ROADMAP.md Queue 1 item that brings them.
-_NOT_PORTED = (
-    ("wandb", "--wandb", "Queue 1 item 8: no wandb package on the card's machine"),
-)
+WANDB_PROJECT = "Multi-Domain Style-Injected CycleGAN"  # main.py:206
 
 
-def check_ported_flags(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for a flag whose feature is not ported yet."""
-    for field, flag, item in _NOT_PORTED:
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{flag} is not yet ported to msig_tpu_torch ({item})")
+def start_wandb_run(cfg: TrainConfig):
+    """``wandb.init`` with ``main.py:203-209``'s arguments on the rank whose
+    local rank is 0; None on every other rank and without ``--wandb``."""
+    from msig_tpu_torch.parallel import local_rank
+
+    if not cfg.wandb or local_rank() != 0:
+        return None
+    import wandb
+
+    return wandb.init(project=WANDB_PROJECT, name=cfg.experiment_name,
+                      config={k: v for k, v in vars(cfg).items()})
 
 
 def _free_port() -> int:
@@ -232,7 +244,6 @@ def launch_local_workers(cfg: TrainConfig, n_workers: int) -> int:
 
 def main(cfg: TrainConfig) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
-    check_ported_flags(cfg)
     import torch
     import torch.distributed as dist
 
@@ -291,30 +302,35 @@ def _train(cfg: TrainConfig) -> int:
     from msig_tpu_torch.data import MultiDomainDataset
     from msig_tpu_torch.train.trainer import Trainer
 
-    dataset = MultiDomainDataset.build(cfg.source_dir, cfg.target_dir)
-    print(f"Found {len(dataset.source_files)} source images")
-    print(f"Total domains: {dataset.num_domains} (source: index 0; targets: "
-          + ", ".join(f"{i} {n} ({len(dataset.target_files_by_domain[n])} images)"
-                      for i, n in enumerate(dataset.domains) if i) + ")")
-    trainer = Trainer(cfg, dataset)
-    if cfg.profile_steps:
-        trace_dir = trainer.profile_steps(cfg.profile_steps)
-        print(f"Profiler trace written to {trace_dir}")
-        return 0
-    start_epoch = 0
-    if cfg.resume:
-        print(f"Attempting to resume from checkpoint: {cfg.resume}")
-        start_epoch = trainer.resume(cfg.resume)
-        print(f"Resuming training from epoch {start_epoch + 1}")
-    print("Starting multi-domain training...")
+    # after the checks of main(): an early error return leaves no empty run behind
+    wandb_run = start_wandb_run(cfg)
     try:
-        trainer.train(start_epoch=start_epoch)
-    except Exception as e:  # the reference prints the error and exits 1 (main.py:243-250)
-        print(f"An error occurred during training: {e}")
-        import traceback
+        dataset = MultiDomainDataset.build(cfg.source_dir, cfg.target_dir)
+        print(f"Found {len(dataset.source_files)} source images")
+        print(f"Total domains: {dataset.num_domains} (source: index 0; targets: "
+              + ", ".join(f"{i} {n} ({len(dataset.target_files_by_domain[n])} images)"
+                          for i, n in enumerate(dataset.domains) if i) + ")")
+        trainer = Trainer(cfg, dataset, wandb_run=wandb_run)
+        if cfg.profile_steps:
+            trace_dir = trainer.profile_steps(cfg.profile_steps)
+            print(f"Profiler trace written to {trace_dir}")
+            return 0
+        start_epoch = 0
+        if cfg.resume:
+            print(f"Attempting to resume from checkpoint: {cfg.resume}")
+            start_epoch = trainer.resume(cfg.resume)
+            print(f"Resuming training from epoch {start_epoch + 1}")
+        print("Starting multi-domain training...")
+        try:
+            trainer.train(start_epoch=start_epoch)
+        except Exception as e:  # the reference prints the error and exits 1 (main.py:243-250)
+            print(f"An error occurred during training: {e}")
+            import traceback
 
-        traceback.print_exc()
-        return 1
+            traceback.print_exc()
+            return 1
+    finally:
+        if wandb_run is not None:
+            wandb_run.finish()
     print(f"--- Multi-Domain Experiment {cfg.experiment_name} Completed ---")
     return 0
-

@@ -25,13 +25,18 @@ Counterpart of ``msig_tpu/train/trainer.py`` (reference trainer.py:276-360):
     step averages gradients and metrics over the ranks; only rank 0 writes
     checkpoints, grids, plots, snapshots and the profile. ``--device_data``
     stays single-device (ValueError in a group, as the JAX trainer raises);
-  - given a wandb run (``wandb_run``, which the CLI never passes: ``--wandb``
-    is not ported), per-step losses under ``loss/*``, per-epoch ``avg_loss/*``,
-    ``lr/*``, ``weight/*``, and every ``watch_freq`` steps the gradient
-    histograms of a second step function with ``grad_hists=64``
-    (``train/watch.py``), logged with that step's losses (reference
-    trainer.py:294, 308-346). Without a run, ``watch_freq`` does nothing, as
-    in the JAX trainer.
+  - given a wandb run (``wandb_run``; the CLI's ``--wandb`` passes one on the
+    rank of each host whose local rank is 0), per-step losses under ``loss/*``,
+    per-epoch ``avg_loss/*``, ``lr/*``, ``weight/*``, and every ``watch_freq``
+    steps the gradient histograms of a second step function with
+    ``grad_hists=64`` (``train/watch.py``), logged with that step's losses
+    (reference trainer.py:294, 308-346). With ``cfg.wandb`` every rank steps
+    that watch step on the same steps, with or without a run, so that the
+    ranks run one program (the histograms, of all-reduced gradients, are equal
+    on every rank); only a rank holding a run copies them to the host and
+    logs. With neither a run nor ``cfg.wandb``, ``watch_freq`` does nothing,
+    as in the JAX trainer. ``watch_steps`` lists the global steps that took
+    the watch step.
 """
 
 from __future__ import annotations
@@ -110,10 +115,12 @@ class Trainer:
         self.train_step = make_train_step(cfg.ema_beta, dtype, **options)
         # wandb.watch (reference trainer.py:294): a second step function that also
         # bins every gradient on the device, taken every watch_freq-th step, and
-        # only when a wandb run is given, as the reference's `if cfg.wandb`.
+        # only under wandb, as the reference's `if cfg.wandb`: on every rank of a
+        # --wandb run, also on those that hold no run.
         self.watch_freq = cfg.watch_freq
         self.train_step_watch = None
-        if self.watch_freq > 0 and wandb_run is not None:
+        self.watch_steps: List[int] = []
+        if self.watch_freq > 0 and (wandb_run is not None or cfg.wandb):
             self.train_step_watch = make_train_step(cfg.ema_beta, dtype, grad_hists=64, **options)
         self.state = create_train_state(cfg, self.num_domains)
         self._replicate_state()
@@ -261,7 +268,10 @@ class Trainer:
                             and (epoch * steps + i) % self.watch_freq == 0)
                 step_fn = self.train_step_watch if watching else self.train_step
                 metrics = step_fn(self.state, batch, self.vgg, g_lr, d_lr, w_vec)
-                hists = watch.to_host(metrics.pop("_grad_hists")) if watching else None
+                hists = metrics.pop("_grad_hists") if watching else None
+                if watching:
+                    self.watch_steps.append(epoch * steps + i)
+                    hists = watch.to_host(hists) if self.wandb is not None else None
                 epoch_metrics.append(metrics)
                 for k in WEIGHT_KEYS:
                     self.weight_history[k].append(weights[k])

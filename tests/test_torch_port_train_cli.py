@@ -10,11 +10,12 @@
 - ``python -m msig_tpu_torch.inference --device cpu`` serves from the same
   directory;
 - exit 1 without a VGG choice or with a missing directory, as ``main.py``;
-  the flags of features not ported yet (``--wandb``, ``--multihost``) raise
-  NotImplementedError.
+  ``--wandb`` without the wandb package fails at its import, as ``main.py``
+  does (``tests/test_torch_port_wandb.py`` holds the run).
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -133,8 +134,12 @@ def test_missing_paths_exit_1(tree, flag):
 
 
 @pytest.mark.parametrize("extra", [["--wandb"]])
-def test_flags_not_ported_yet_raise(tree, extra):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_flags_not_ported_yet_raise(tree, extra, monkeypatch):
+    """Every flag of ``main.py`` is ported: ``--wandb`` (the last) imports the
+    package after the CLI's checks and, without it, fails at that import as
+    ``main.py`` does; ``tests/test_torch_port_wandb.py`` holds the run itself."""
+    monkeypatch.setitem(sys.modules, "wandb", None)  # the package is absent
+    with pytest.raises(ImportError, match="wandb"):
         cli.main(cli.config_from_args(_args(tree, "--allow_random_vgg", *extra)))
 
 
