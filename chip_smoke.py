@@ -129,13 +129,21 @@ Phases, each reported on its own line:
    max|plain|; dx exactly 0 under the relu mask; a second call gives
    bit-identical dW, and every output of the AdaIN kernels (row 22: one
    thread-block cluster a sample and 32 channels, partials summed in rank
-   order). Row 22 also at [8|4, 4096, 256], [8|4, 16384, 256] and
+   order). The conv kernels' bf16 entries (bf16 operands, fp32
+   accumulation: the configuration of the JAX package's bf16 train step) at
+   the same five shapes on the same inputs rounded to bf16, against the plain
+   versions on those: fewer than 0.5% of each output's elements differ (dW,
+   dgamma and dbeta rounded to bf16), each by at most 2 bf16 steps or 1e-3 x
+   max|plain|, dx bf16 and exactly 0 under the relu mask, every output the
+   same bits over two calls; timed beside cuDNN's bf16
+   ``convolution_backward`` and their bound at the dense bf16 rate. Row 22
+   also at [8|4, 4096, 256], [8|4, 16384, 256] and
    [1, 16384, 256] in fp32 and bf16 (the TPU kernel's largest fp32 slab):
    within the bars (bf16 y and
    dx 2e-2, one bf16 rounding), bit-identical over two calls, each with its
    plan (cluster size, CTAs, shared memory) and the card's
-   cudaOccupancyMaxActiveClusters. The conv core's tiles, ring and CTAs per
-   SM (occupancy API). Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
+   cudaOccupancyMaxActiveClusters. The conv cores' tiles, ring and CTAs per
+   SM (occupancy API), fp32 and bf16. Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
    ``convolution_backward`` (dx and dW) beside it under its default and its
    deterministic algorithms; after phase 6, the device time of each kernel of
    a conv call (``torch.profiler``): row 24's IN backward, the conv core, the
@@ -186,9 +194,10 @@ Phases, each reported on its own line:
    two target domains, ``eval_trajectory_fast`` over the run's two EMA
    snapshots;
    Then the bf16 train step (``compute_dtype=bfloat16``) at the same
-   full width from the same parameters and batch, as ``stock`` and
-   ``level1+pallas`` (``conv3x3_bwd`` fed fp32 at its autograd boundary):
-   step 1 finite and within 1e-2 across the two, each route's kernels 48
+   full width from the same parameters and batch, as ``stock``,
+   ``level1+pallas`` and ``level2`` (the conv backwards' bf16 entries, their
+   wrappers given bf16 x, w and cotangent at every call): step 1 finite and
+   each kernel route within 1e-2 of stock's, each route's kernels 48
    launches a step and no other, ms per step; then ``[train options]``
    (``train_options_phase``) at the same width, ``level1+pallas``: step 1
    with ``remat=True`` and ``"cycle"`` equal to the bit to step 1 without
@@ -210,8 +219,10 @@ Phases, each reported on its own line:
    in this process at 256², batches 8 and 128, the launch counts set to 0
    before and read after (each int8 call runs 256/hifi0's 22 sites, the bf16
    configs none); then ``python -m msig_tpu_torch.bench`` in its five modes
-   at short settings (``BENCH_RUNS``), the five processes at once: exit 0 and
-   one JSON line each with the JAX bench's metric name and unit;
+   at short settings (``BENCH_RUNS``) and its train mode again under
+   ``MSIG_CONV_VJP=1`` and ``=2`` (``BENCH_TRAIN_ROUTES``), the seven
+   processes at once: exit 0 and one JSON line each with the JAX bench's
+   metric name and unit;
 8. parallel (after every ``torch.profiler`` session): the demo checkpoint's
    int8 engine at 256², mode 0, batch 8 with ``data_parallel`` over
    ``PAR_DEVICES`` (two shards of 4 on the one card, each with its own copy of
@@ -229,7 +240,8 @@ Phases, each reported on its own line:
    over two synthetic directories: exit 0, one JSON line;
 10. a ``{"kernels": [...]}`` line of the twenty-five kernels (the two
    whole-slab epilogues with 0 launches: no path of the JAX package runs
-   them), then the card line,
+   them; rows 23-24 with their bf16 entries under ``"bf16"``, launches from
+   the bf16 step), then the card line,
    then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the run exits non-zero without the last line. It
@@ -254,8 +266,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(ROOT, "results", "tomato_r3b", "demo_checkpoint")
 
-# NVIDIA H100 SXM data sheet, dense: int8 and TF32 tensor cores, fp32 outside them, HBM3.
+# NVIDIA H100 SXM data sheet, dense: int8, bf16 and TF32 tensor cores, fp32 outside them, HBM3.
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -355,6 +368,8 @@ BENCH_RUNS = {
     "data": ([], "input_pipeline_img_per_s_256", "img/s/host"),
     "e2e": (["--batches", "32"], "e2e_img_per_s_256_incl_decode", "img/s"),
 }
+# the train mode again on each kernel route of the trunk (MSIG_CONV_VJP), beside the five
+BENCH_TRAIN_ROUTES = ("1", "2")
 # Rows 1-4 and 20 (the trunk's 3x3) and rows 5, 12 and 13 (the ConvT site's
 # two passes) run the conv on wgmma (csrc/conv_i8_wgmma.cuh): exact integer
 # sums and the plain versions' epilogue operations, so they are held equal to
@@ -1726,7 +1741,7 @@ def tools_phase(torch, mods) -> dict:
     return launches
 
 
-def train_bound(name: str, b: int, side: int = SIDE) -> tuple:
+def train_bound(name: str, b: int, side: int = SIDE, bf16: bool = False) -> tuple:
     """(bound_ms, bound_by, fp32_fma_ms) of one call of a training kernel on
     the [b, side, side, 256] trunk (64: a 256² input's, 128: a 512² input's).
 
@@ -1738,10 +1753,21 @@ def train_bound(name: str, b: int, side: int = SIDE) -> tuple:
     fp32 accuracy (3xTF32, the conv kernels' route; one pass misses the bars)
     the least time is 3x the products at the dense TF32 rate. fp32_fma_ms:
     the same work with the products at the fp32 FMA rate of the CUDA cores
-    (TF32 off; the first version's route), None for the AdaIN rows."""
+    (TF32 off; the first version's route), None for the AdaIN rows.
+    ``bf16``: the conv kernels' bf16 entries: the maps and W read, and dx
+    written, in 2 bytes (dW, mu, r, gamma, dgamma, dbeta in 4), the products
+    once at the dense bf16 rate; fp32_fma_ms None."""
     px, vec = b * side * side, 4 * b * C
     elems = px * C
     t_fma = None
+    if bf16:
+        conv, w = 2 * 2 * px * C * 9 * C, (2 + 4) * 9 * C * C  # W read in bf16, dW written in fp32
+        if name == "conv3x3_bwd":
+            nbytes, fp = 3 * 2 * elems + w, 0                     # x, dy -> dx
+        else:
+            nbytes, fp = 4 * 2 * elems + w + 5 * vec, 8 * elems   # x, y, g -> dx
+        t_ops, t_bytes = conv / PEAK_BF16_FLOPS + fp / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), None
     if name == "adain_pallas_fwd":
         nbytes, t_ops = 2 * 4 * elems + 4 * vec, 8 * elems / PEAK_FP32_FLOPS  # x -> y
     elif name == "adain_pallas_bwd":
@@ -1827,6 +1853,51 @@ def hold_train_kernel(torch, name: str, kernel, plain, x, relu: bool) -> tuple:
               f"{name}: a second call gives the same bits")
         report += ", every output bit-identical over two calls"
     return max(errs), report
+
+
+BF16_SHARE, BF16_STEPS, BF16_ATOL_OF_MAX = 5e-3, 2, 1e-3  # the bar of the bf16 entries
+
+
+def bf16_bar(torch, name: str, got, want) -> tuple:
+    """Hold an output of a bf16 entry against the plain version's, both rounded
+    to bf16 (dW, dgamma and dbeta are fp32): fewer than 0.5% of the elements
+    differ, each by at most 2 bf16 steps or 1e-3 x max|plain| (the two sum in
+    other orders in fp32, so a sum near a rounding boundary of bf16 may round
+    the other way). Returns (max abs error, share of elements that differ)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    g16, w16 = got.to(torch.bfloat16), want.to(torch.bfloat16)
+    steps = bf16_ulps(torch, g16, w16)
+    share = float((steps > 0).double().mean())
+    diff = (g16.float() - w16.float()).abs()
+    far = int(((steps > BF16_STEPS) & (diff > BF16_ATOL_OF_MAX * float(w16.float().abs().max())))
+              .sum())
+    check(share < BF16_SHARE and far == 0,
+          f"{name}: {share:.2e} of the elements differ (bar {BF16_SHARE}), {far} beyond "
+          f"{BF16_STEPS} bf16 steps and {BF16_ATOL_OF_MAX} x max|plain|")
+    return float((got.float() - want.float()).abs().max()), share
+
+
+def hold_bf16_kernel(torch, name: str, kernel, plain, x, relu: bool) -> tuple:
+    """One call of a conv kernel's bf16 entry against its plain version on the
+    same bf16 inputs: every output within ``bf16_bar``, dx in bf16 and exactly 0
+    under the relu mask, every output the same bits on a second call. Returns
+    (max abs error, report)."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(got[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in got[1:]),
+          f"{name} bf16: outputs {[t.dtype for t in got]}")
+    errs, shares = zip(*(bf16_bar(torch, f"{name} bf16 output {k}", g, w)
+                         for k, (g, w) in enumerate(zip(got, want))))
+    report = (f"max abs err {max(errs):.3e}, share of elements differing (bf16) "
+              f"{', '.join(f'{v:.2e}' for v in shares)} (outputs in order)")
+    if relu:
+        check(bool((got[0][x <= 0] == 0).all()), f"{name} bf16: dx is 0 where x <= 0")
+        report += ", dx exactly 0 under the relu mask"
+    again = kernel()
+    check(all(torch.equal(a, g) for a, g in zip(again, got)),
+          f"{name} bf16: a second call gives the same bits")
+    return max(errs), report + ", every output bit-identical over two calls"
 
 
 def adain_plan_line(torch, ap, b: int, s: int, c: int, dtype, backward: bool) -> str:
@@ -1923,14 +1994,59 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
         finally:
             torch.backends.cudnn.deterministic = prev
 
-    cfg = cv.kernel_config()
-    check(cfg["max_k"] == cv._MAX_K and cfg["ctas_per_sm"] >= 1 and cfg["ctas_per_sm_relu"] >= 1,
-          f"conv core configuration {cfg} (max_k {cv._MAX_K} in ops/conv3x3_vjp.py)")
-    print(f"[train kernel] conv core: CTA tile {cfg['tile_m']} x {cfg['tile_n']}, "
-          f"{cfg['threads']} threads, K {cfg['tile_k']} a stage through a {cfg['stages']}-stage "
-          f"cp.async ring, {cfg['smem_bytes']} bytes of shared memory, at most {cfg['max_k']} of "
-          f"K a tile; {cfg['ctas_per_sm']} CTAs per SM resident ({cfg['ctas_per_sm_relu']} with "
-          f"the relu input; occupancy API)", flush=True)
+    for dtype, label in ((torch.float32, "conv core (3xTF32)"), (torch.bfloat16, "bf16 conv core")):
+        cfg = cv.kernel_config(dtype)
+        check(cfg["max_k"] == cv._MAX_K and cfg["ctas_per_sm"] >= 1
+              and cfg["ctas_per_sm_relu"] >= 1,
+              f"{label} configuration {cfg} (max_k {cv._MAX_K} in ops/conv3x3_vjp.py)")
+        print(f"[train kernel] {label}: CTA tile {cfg['tile_m']} x {cfg['tile_n']}, "
+              f"{cfg['threads']} threads, K {cfg['tile_k']} a stage through a {cfg['stages']}-stage "
+              f"cp.async ring, {cfg['smem_bytes']} bytes of shared memory, at most {cfg['max_k']} "
+              f"of K a tile; {cfg['ctas_per_sm']} CTAs per SM resident ({cfg['ctas_per_sm_relu']} "
+              f"with the relu input; occupancy API)", flush=True)
+
+    def bf16_cases(b, side, x, w, gamma, beta, g):
+        """The conv kernels' bf16 entries on the same inputs rounded to bf16, each
+        against its plain version, timed, beside cuDNN's bf16 convolution_backward."""
+        x, w, g = x.bfloat16(), w.bfloat16(), g.bfloat16()
+        nchw = lambda v: v.permute(0, 3, 1, 2)  # noqa: E731
+        library = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            nchw(g), nchw(x), w.permute(3, 2, 0, 1).contiguous(), None, [1, 1], [1, 1], [1, 1],
+            False, [0, 0], 1, [True, True, False])
+        lib = {} if side == 24 else {False: cudnn_ms(library, False), True: cudnn_ms(library, True)}
+        for name, relu, kernel, plain in conv_cases(x, w, gamma, beta, g):
+            err, report = hold_bf16_kernel(torch, name, kernel, plain, x, relu)
+            tag = ", relu input" if relu else ""
+            if side == 24:
+                results[name]["bf16"]["max_abs_err"] = max(results[name]["bf16"]["max_abs_err"],
+                                                           err)
+                print(f"[train kernel] {name} bf16 ([1, 24, 24, {C}]{tag}; 576 pixels, a ragged "
+                      f"edge): {report}", flush=True)
+                continue
+            ms = cuda_ms(torch, kernel, reps=20)
+            plain_ms = cuda_ms(torch, plain, reps=3, warmup=1)
+            bound_ms, bound_by, _ = train_bound(name, b, side, bf16=True)
+            row = dict(case=f"[{b}, {side}, {side}, {C}]{tag}", ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib[False] if name == "conv3x3_bwd" else None,
+                       library_deterministic_ms=lib[True] if name == "conv3x3_bwd" else None)
+            sub = results[name].get("bf16")
+            if sub is None:
+                results[name]["bf16"] = dict(row, max_abs_err=err, also=[])
+            else:
+                sub["max_abs_err"] = max(sub["max_abs_err"], err)
+                sub["also"].append(row)
+            if not relu and side == SIDE:
+                to_split.append((results[name]["bf16"] if sub is None else row,
+                                 f"{name} bf16 ({row['case']})", kernel))
+            faster = ms < min(lib.values())
+            print(f"[train kernel] {name} bf16 ({row['case']}): {report}; {ms:.4f} ms (median "
+                  f"of 20, CUDA events), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; bf16 at 989 TFLOP/s), cuDNN bf16 convolution_backward "
+                  f"{lib[False]:.4f} ms (default algorithms) / {lib[True]:.4f} ms "
+                  f"(deterministic): the kernel is {'faster than' if faster else 'NOT faster than'}"
+                  f" both", flush=True)
+
     for side, b in ((side, b) for side in (SIDE, 2 * SIDE) for b in (2 * TRAIN_B, TRAIN_B)):
         x, w, gamma, beta, g = unit(b, side, b if side == SIDE else b + side)
         x3, g3 = x.reshape(b, side * side, C), g.reshape(b, side * side, C)
@@ -1973,6 +2089,7 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
             print(f"[train kernel] {name} ({row['case']}): {report}; {ms:.4f} ms (median of "
                   f"{20 if name.startswith('conv') else 50}, CUDA events), plain {plain_ms:.3f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by}){extra}", flush=True)
+        bf16_cases(b, side, x, w, gamma, beta, g)
         del x, w, g, y
         torch.cuda.empty_cache()
     # a 96² trunk: 576 pixels, which the 128-pixel tiles cover with a ragged edge
@@ -1982,7 +2099,9 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         print(f"[train kernel] {name} ([1, 24, 24, {C}]{', relu input' if relu else ''}; 576 "
               f"pixels, a ragged edge): {report}", flush=True)
+    bf16_cases(1, 24, x, w, gamma, beta, g)
     check(set(results) == set(TRAIN_KERNELS), f"train kernel cases cover {sorted(results)}")
+    check(all("bf16" in results[n] for n in cv.KERNELS), "both conv kernels' bf16 entries held")
     return results, to_split
 
 
@@ -2835,20 +2954,49 @@ def quality_phase(torch, work: str, run_dir: str, device: str = "cuda") -> None:
           + f"; {'; '.join(said)}; phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
-    """The bf16 train step (``compute_dtype=bfloat16``) at full width, as ``stock``
-    and ``level1+pallas`` (``MSIG_CONV_VJP=1``: ``conv3x3_bwd`` takes its inputs
-    cast to fp32 at the autograd boundary; ``adain_pallas`` takes bf16), from
-    the same parameters and batch as the fp32 train phase: step 1's metrics
-    finite and within 1e-2 of each other, each kernel of the route launched 48
-    times a step and no other, ms per step (median of 3 after a warm-up step,
-    CUDA events)."""
+class wrapper_types:
+    """Records the types of the tensors each conv backward wrapper receives, for
+    the length of a ``with`` block (the autograd functions call the module's
+    wrappers)."""
+
+    def __init__(self, cv):
+        self.cv, self.seen = cv, {name: [] for name in cv.KERNELS}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.cv, name) for name in self.cv.KERNELS}
+        for name, fn in self.saved.items():
+            def spy(*args, _fn=fn, _seen=self.seen[name], **kwargs):
+                _seen.append(tuple(str(a.dtype)[6:] for a in args if hasattr(a, "dtype")))
+                return _fn(*args, **kwargs)
+            setattr(self.cv, name, spy)
+        return self.seen
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cv, name, fn)
+
+
+# what each wrapper receives in the bf16 step: x, w, dy | x, w, y, mu, r, gamma, g
+BF16_WRAPPER_TYPES = {"conv3x3_bwd": ("bfloat16",) * 3,
+                      "conv3x3_adain_bwd": ("bfloat16",) * 3 + ("float32",) * 3 + ("bfloat16",)}
+
+
+def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> dict:
+    """The bf16 train step (``compute_dtype=bfloat16``) at full width in the three
+    configurations of ``TRAIN_CONFIGS``, from the same parameters and batch as
+    the fp32 train phase: ``stock``, ``level1+pallas`` (``conv3x3_bwd``'s and
+    ``adain_pallas``'s bf16 entries) and ``level2`` (``conv3x3_adain_bwd``'s):
+    step 1's metrics finite, each kernel configuration's within 1e-2 of stock's
+    (the routes round bf16 at other places); each kernel of the route launched
+    48 times a step and no other, the conv backward wrappers given bf16 x, w
+    and cotangent (mu, r and gamma fp32) at every call; ms per step (median of
+    3 after a warm-up step, CUDA events). Returns {config: launches of step 1}."""
     from msig_tpu_torch.config import TrainConfig
     from msig_tpu_torch.train import create_train_state, make_train_step
 
     batch, vgg, weights = train_inputs(torch, dev)
-    first, step_ms = {}, {}
-    for label, level, pallas in TRAIN_CONFIGS[:2]:
+    first, step_ms, launches = {}, {}, {}
+    for label, level, pallas in TRAIN_CONFIGS:
         cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
                           style_dim=256, use_pallas=pallas, compute_dtype="bfloat16",
                           device=dev.type)
@@ -2857,8 +3005,9 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
             state = create_train_state(cfg, N_DOMAINS)
             step = make_train_step(cfg.ema_beta, torch.bfloat16)
             reset_counts((ap, cv) + int8_mods)
-            metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
-            torch.cuda.synchronize()
+            with wrapper_types(cv) as seen:
+                metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                torch.cuda.synchronize()
             counts = {**ap.LAUNCHES, **cv.LAUNCHES}
             int8 = sum(v for m in int8_mods for v in m.LAUNCHES.values())
             first[label] = {k: float(v) for k, v in metrics.items()}
@@ -2867,6 +3016,12 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
             want = {k: (2 * N_RES * 3 if TRAIN_KERNELS[k][2] == label else 0) for k in counts}
             check(counts == want and int8 == 0,
                   f"[train bf16 {label}] launches per step {counts} (int8 {int8}), want {want}")
+            for name, calls in seen.items():
+                check(len(calls) == counts[name]
+                      and all(t == BF16_WRAPPER_TYPES[name] for t in calls),
+                      f"[train bf16 {label}] {name} received {sorted(set(calls))} in "
+                      f"{len(calls)} calls, want {BF16_WRAPPER_TYPES[name]} x {counts[name]}")
+            launches[label] = counts
             step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)  # warm-up
             events = []
             for _ in range(3):
@@ -2879,19 +3034,27 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> None:
             check(bool(torch.isfinite(torch.stack(list(m.values()))).all()),
                   f"[train bf16 {label}] 3 more steps stay finite")
             step_ms[label] = float(np.median([a.elapsed_time(b) for a, b in events]))
+        received = "; ".join(f"{k} received {BF16_WRAPPER_TYPES[k]} at each of its {len(v)} calls"
+                             for k, v in seen.items() if v)
         print(f"[train bf16 {label}] {TRAIN_SIZE}², batch {TRAIN_B}, {N_RES} resblocks, "
               f"compute_dtype bfloat16: step 1 "
               f"{json.dumps({k: round(v, 6) for k, v in first[label].items()})}; "
               f"{step_ms[label]:.2f} ms per step (median of 3 after a warm-up step, CUDA events); "
-              f"launches per step {({k: v for k, v in counts.items() if v})}; peak memory "
+              f"launches per step {({k: v for k, v in counts.items() if v})}"
+              f"{'; ' + received if received else ''}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
         del state, step
         torch.cuda.empty_cache()
-    base, other = first["stock"], first["level1+pallas"]
-    worst = max(abs(other[k] - base[k]) / abs(base[k]) for k in base)
-    check(worst <= 1e-2, f"[train bf16] level1+pallas's step 1 within 1e-2 of stock's ({worst:.2e})")
-    print(f"[train bf16] step 1 of level1+pallas within {worst:.2e} of stock's (bar 1e-2: the "
-          "routes round bf16 differently)", flush=True)
+    base = first["stock"]
+    worst = {label: max(abs(m[k] - base[k]) / abs(base[k]) for k in base)
+             for label, m in first.items() if label != "stock"}
+    for label, v in worst.items():
+        check(v <= 1e-2, f"[train bf16] {label}'s step 1 within 1e-2 of stock's ({v:.2e})")
+    print(f"[train bf16] step 1 within 1e-2 of stock's: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (largest relative difference; "
+          f"the routes round bf16 at other places); ms per step "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in step_ms.items())}", flush=True)
+    return launches
 
 
 TRAIN_OPTION_STEPS = 3  # timed steps per remat mode, after step 1 and a warm-up
@@ -3331,32 +3494,39 @@ def bench_phase(torch, mods, ap, card: str) -> None:
 
     environ = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
-    procs = {mode: subprocess.Popen(
-        [sys.executable, "-m", "msig_tpu_torch.bench", "--mode", mode, *args], cwd=ROOT,
-        env=environ, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for mode, (args, _, _) in BENCH_RUNS.items()}
+    runs = {mode: (mode, {}) for mode in BENCH_RUNS}
+    runs.update({f"train MSIG_CONV_VJP={v}": ("train", {"MSIG_CONV_VJP": v})
+                 for v in BENCH_TRAIN_ROUTES})
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "msig_tpu_torch.bench", "--mode", mode, *BENCH_RUNS[mode][0]],
+        cwd=ROOT, env=dict(environ, **extra), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for label, (mode, extra) in runs.items()}
     t0 = time.perf_counter()
     try:
-        outs = {mode: p.communicate(timeout=600) for mode, p in procs.items()}
+        outs = {label: p.communicate(timeout=600) for label, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    for mode, (args, metric, unit) in BENCH_RUNS.items():
-        out, err = outs[mode]
-        rc = procs[mode].returncode
+    for label, (mode, extra) in runs.items():
+        args, metric, unit = BENCH_RUNS[mode]
+        out, err = outs[label]
+        rc = procs[label].returncode
         detail = [ln.strip() for ln in err.splitlines() if ln.startswith("  ")]
-        check(rc == 0, f"[bench {mode}] exit code {rc}: {err[-1500:]}")
+        check(rc == 0, f"[bench {label}] exit code {rc}: {err[-1500:]}")
         stdout = [ln for ln in out.splitlines() if ln.strip()]
-        check(len(stdout) == 1, f"[bench {mode}] {len(stdout)} stdout lines: {stdout}")
+        check(len(stdout) == 1, f"[bench {label}] {len(stdout)} stdout lines: {stdout}")
         rec = json.loads(stdout[0])
         check(rec["metric"] == metric and rec["unit"] == unit and rec["vs_baseline"] is None
-              and rec["value"] > 0, f"[bench {mode}] {rec}")
-        print(f"[bench {mode}] python -m msig_tpu_torch.bench --mode {mode} {' '.join(args)} "
-              f"(five modes at once on {card}): {stdout[0]}; {' | '.join(detail)}", flush=True)
-    print(f"[bench] five modes in {wall:.1f} s", flush=True)
+              and rec["value"] > 0, f"[bench {label}] {rec}")
+        setting = "".join(f"{k}={v} " for k, v in extra.items())
+        print(f"[bench {label}] {setting}python -m msig_tpu_torch.bench --mode {mode} "
+              f"{' '.join(args)} ({len(runs)} runs at once on {card}): {stdout[0]}; "
+              f"{' | '.join(detail)}", flush=True)
+    print(f"[bench] five modes and the train mode on {len(BENCH_TRAIN_ROUTES)} kernel routes in "
+          f"{wall:.1f} s", flush=True)
 
 
 PAR_DEVICES = ("cuda:0", "cuda:0")  # [parallel]: two data-parallel shards on the one card
@@ -3721,7 +3891,7 @@ def main() -> int:
         train512_phase(torch, ap, cv, int8_mods, dev, train_kernels)
         run_dir = train_cli_phase(torch, work)
         quality_phase(torch, work, run_dir)
-        train_bf16_phase(torch, ap, cv, int8_mods, dev)
+        bf16_launches = train_bf16_phase(torch, ap, cv, int8_mods, dev)
         train_options_phase(torch, ap, cv, int8_mods, dev, work)
         device_data_phase(torch, work)
         bench_batches_phase(torch, int8_mods)
@@ -3759,14 +3929,22 @@ def main() -> int:
             for name, k in kernels.items()]
     # the training rows: launches from step 1 of the configuration that runs them;
     # the first case's bound_fp32_fma_ms, library_deterministic_ms and parts_ms beside.
+    # Rows 23-24 carry their bf16 entries as "bf16": the same keys, the
+    # launches from step 1 of the bf16 step in the configuration that runs them.
     rows += [dict(k, name=name, route="cuda",
                   source=f"msig_tpu_torch/csrc/{TRAIN_KERNELS[name][1]}",
                   replaces=TRAIN_KERNELS[name][0],
                   launches=train["launches"][TRAIN_KERNELS[name][2]][name],
-                  path=f"train/{TRAIN_KERNELS[name][2]}")
+                  path=f"train/{TRAIN_KERNELS[name][2]}",
+                  **({"bf16": dict(k["bf16"], name=f"{name} (bf16 entry)", route="cuda",
+                                   source=f"msig_tpu_torch/csrc/{TRAIN_KERNELS[name][1]}",
+                                   replaces=TRAIN_KERNELS[name][0],
+                                   launches=bf16_launches[TRAIN_KERNELS[name][2]][name],
+                                   path=f"train bf16/{TRAIN_KERNELS[name][2]}")}
+                     if "bf16" in k else {}))
              for name, k in train_kernels.items()]
     check(len(rows) == len(SITES) + len(TRAIN_KERNELS), f"{len(rows)} kernel rows")
-    for row in rows:
+    for row in rows + [r["bf16"] for r in rows if "bf16" in r]:
         if row["path"] is not None:
             check(row["launches"] > 0, f"{row['name']} was launched on its path {row['path']}")
     print(json.dumps({"kernels": rows}))

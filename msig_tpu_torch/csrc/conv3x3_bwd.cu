@@ -3,13 +3,19 @@
 //
 // Replaces the TPU kernel msig_tpu/ops/conv3x3_vjp.py::conv3x3_bwd
 // (_bwd_kernel -> _conv_bwd_core), the fused backward of conv3x3_same and
-// relu_conv3x3 at MSIG_CONV_VJP=1. Bound on an H100 at [8, 64, 64, 256]: 77.3
-// GFLOP, 0.47 ms as three TF32 tensor-core passes (1.15 ms at the fp32 FMA
-// rate of the CUDA cores, which the first version used). Design
-// (conv3x3_bwd.cuh): both products as 3xTF32 implicit GEMMs on mma.sync in
-// one launch, operands through a 3-stage cp.async ring, then the in-order
-// reduction of the partials.
+// relu_conv3x3 at MSIG_CONV_VJP=1, in its two configurations:
+//  - fp32 (msig_conv3x3_bwd): bound on an H100 at [8, 64, 64, 256] 77.3 GFLOP,
+//    0.47 ms as three TF32 tensor-core passes (1.15 ms at the fp32 FMA rate of
+//    the CUDA cores, which the first version used). Design (conv3x3_bwd.cuh):
+//    both products as 3xTF32 implicit GEMMs on mma.sync in one launch,
+//    operands through a 3-stage cp.async ring, then the in-order reduction of
+//    the partials;
+//  - bf16 operands, fp32 accumulation (msig_conv3x3_bwd_bf16, the JAX
+//    package's bf16 train step): the same 77.3 GFLOP at dense bf16, 0.078 ms.
+//    Design (conv3x3_bwd_bf16.cuh): the same grid and reductions, one
+//    mma.sync.m16n8k16 bf16 a product, fragments by ldmatrix.
 #include "conv3x3_bwd.cuh"
+#include "conv3x3_bwd_bf16.cuh"
 
 // x, dy: [B, H, W, C] and [B, H, W, Co] fp32; wt: the taps transposed, [9, Co, C];
 // dx: [B, H, W, C]; dw: [9, C, Co] (HWIO); part: scratch of
@@ -26,6 +32,19 @@ extern "C" int msig_conv3x3_bwd(const void* x, const void* dy, const void* wt, v
       reinterpret_cast<cudaStream_t>(stream));
 }
 
+// As msig_conv3x3_bwd with x, dy and wt in bf16 and dx written in bf16; dw
+// and part stay fp32, part of the same size.
+extern "C" int msig_conv3x3_bwd_bf16(const void* x, const void* dy, const void* wt, void* dx,
+                                     void* dw, void* part, int B, int H, int W, int C, int Co,
+                                     int relu, void* stream) {
+  using msig_bf16::bf16;
+  const msig_f32::Map g{B, H, W, C, Co};
+  return (int)msig_bf16::conv3x3_bwd_launch(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const bf16*>(wt),
+      static_cast<bf16*>(dx), static_cast<float*>(dw), static_cast<float*>(part), g, relu != 0,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
 // The core's configuration, into out[0 .. 8]: tile M, N, K per stage, ring
 // stages, threads, the most K a tile accumulates (dW's chunk of pixels),
 // dynamic shared memory (bytes), and the CTAs resident per SM without and with
@@ -33,6 +52,15 @@ extern "C" int msig_conv3x3_bwd(const void* x, const void* dy, const void* wt, v
 // Returns 0, or the CUDA error of the queries.
 extern "C" int msig_conv3x3_bwd_config(int* out) {
   using namespace msig_f32;
+  const int v[9] = {kBM, kBN, kBK, kStages, kThreads, kMaxK, kSmemBytes, ctas_per_sm<false>(),
+                    ctas_per_sm<true>()};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return (int)cudaGetLastError();
+}
+
+// The bf16 core's configuration, as msig_conv3x3_bwd_config.
+extern "C" int msig_conv3x3_bwd_bf16_config(int* out) {
+  using namespace msig_bf16;
   const int v[9] = {kBM, kBN, kBK, kStages, kThreads, kMaxK, kSmemBytes, ctas_per_sm<false>(),
                     ctas_per_sm<true>()};
   for (int i = 0; i < 9; ++i) out[i] = v[i];

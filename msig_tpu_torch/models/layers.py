@@ -16,7 +16,9 @@ products in bf16 on fp32 master parameters.
 ``TorchConv`` does (``msig_tpu/models/layers.py:98-130``): 0 the stock conv,
 1 the fused backward of ``ops/conv3x3_vjp.py``, 2 the conv + instance norm +
 modulation unit with its one fused backward. Only ``0``, ``1`` and ``2`` are
-accepted; the JAX package maps any other value to 1.
+accepted; the JAX package maps any other value to 1. The kernel routes take
+the unit's input and its taps in the input's dtype, as the JAX layers pass
+them: in a bf16 step the fused backwards run their bf16 entries.
 """
 
 from __future__ import annotations

@@ -19,12 +19,15 @@ tensors and add one to their entry of ``LAUNCHES``, or raise; for CPU tensors
 they run the plain versions (``*_plain``), the TPU kernels' formulas tap by
 tap in PyTorch, which ``chip_smoke.py`` holds the kernels against on the card.
 
-The kernels are fp32 only. Under a bf16 train step the autograd functions
-below cast x, w, the saved conv output and the cotangent to fp32 at their
-boundary (exact: bf16 widens without rounding) and give dx back in x's
-dtype and dW in w's, where the JAX package runs its Pallas kernels in bf16;
-so the unit's dy stays fp32 where JAX rounds it to bf16 before the conv
-backward.
+Each kernel has an fp32 entry (3xTF32 products, ``csrc/conv3x3_bwd.cuh``)
+and a bf16 one (bf16 operands, fp32 accumulation, ``csrc/conv3x3_bwd_bf16.cuh``),
+the configuration the JAX package's bf16 train step runs its Pallas kernels
+in. x, dy (or y and g) and w are of one of the two types; dx comes back in
+it, dW, dgamma and dbeta in fp32. The autograd functions below cast w to x's
+type, as the JAX wrappers cast the taps (``conv3x3_vjp.py:143, 298``), pass
+bf16 tensors through as they are, and give dW back in w's type; the unit's
+dy is rounded to x's type before the conv backward, where JAX rounds it
+(its padded slab is in x's type, ``conv3x3_vjp.py:279-282, 329-330``).
 """
 
 from __future__ import annotations
@@ -55,6 +58,9 @@ _ARGTYPES = {
     BWD: [_P] * 6 + [ctypes.c_int] * 6 + [_P],
     ADAIN_BWD: [_P] * 13 + [ctypes.c_int] * 7 + [_P],
 }
+# The C entry of each kernel and its configuration query, by operand type.
+_DTYPES = (torch.float32, torch.bfloat16)
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 _CONFIG_KEYS = ("tile_m", "tile_n", "tile_k", "stages", "threads", "max_k", "smem_bytes",
                 "ctas_per_sm", "ctas_per_sm_relu")
 
@@ -152,11 +158,11 @@ def conv3x3_adain_bwd_plain(x, w, y, mu, r, gamma, g, relu_input: bool = False):
 # ------------------------------------------------------------------ kernels
 
 
-def _check(name: str, t: torch.Tensor, shape, device, dense: bool = True) -> None:
+def _check(name: str, t: torch.Tensor, shape, device, dtype, dense: bool = True) -> None:
     if t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32 (the CUDA kernels are fp32), got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if dense and not t.is_contiguous():
@@ -184,10 +190,12 @@ def _check_conv(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int, i
     err = kernel_shape_error(tuple(x.shape), tuple(w.shape))
     if err:
         raise ValueError(err)
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 (the CUDA kernels' types), got {x.dtype}")
     b, h, wd, c = x.shape
     co = w.shape[-1]
-    _check("x", x, x.shape, x.device)
-    _check("w", w, (3, 3, c, co), x.device, dense=False)  # any strides: _taps_t copies it
+    _check("x", x, x.shape, x.device, x.dtype)
+    _check("w", w, (3, 3, c, co), x.device, x.dtype, dense=False)  # any strides: _taps_t copies it
     return b, h, wd, c, co
 
 
@@ -211,12 +219,12 @@ def _part(x: torch.Tensor, c: int, co: int) -> torch.Tensor:
     return torch.empty(scratch_floats(*x.shape[:3], c, co), dtype=torch.float32, device=x.device)
 
 
-def kernel_config() -> Dict[str, int]:
+def kernel_config(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """The conv core's tiles, ring stages, longest K a tile accumulates (dW's
     chunk) and shared memory, and the CTAs the card keeps resident per SM
-    (occupancy API); builds the kernel."""
+    (occupancy API), for operands of ``dtype``; builds the kernel."""
     out = (ctypes.c_int * len(_CONFIG_KEYS))()
-    fn = _build.load(BWD, [_P], entry="msig_conv3x3_bwd_config")
+    fn = _build.load(BWD, [_P], entry=f"msig_conv3x3_bwd{_SUFFIX[dtype]}_config")
     _build.check(BWD, fn(ctypes.addressof(out)))
     return dict(zip(_CONFIG_KEYS, out))
 
@@ -224,12 +232,13 @@ def kernel_config() -> Dict[str, int]:
 def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, relu_input: bool = False):
     """(dx, dW) for y = conv3x3_same([relu](x), w); x, dy NHWC, w HWIO.
 
-    The CUDA kernel for CUDA tensors (fp32 only), else the plain version."""
+    The CUDA kernel for CUDA tensors (x, w, dy all fp32 or all bf16; dx in
+    that type, dW fp32), else the plain version."""
     if x.device.type == "cpu":
         return conv3x3_bwd_plain(x, w, dy, relu_input)
     b, h, wd, c, co = _check_conv(x, w)
-    _check("dy", dy, (b, h, wd, co), x.device)
-    fn = _build.load(BWD, _ARGTYPES[BWD])
+    _check("dy", dy, (b, h, wd, co), x.device, x.dtype)
+    fn = _build.load(BWD, _ARGTYPES[BWD], entry=f"msig_{BWD}{_SUFFIX[x.dtype]}")
     wt, part = _taps_t(w), _part(x, c, co)
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
@@ -245,22 +254,23 @@ def conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input: bool = False):
     """(dx, dW, dgamma, dbeta) for z = gamma * IN(conv3x3([relu](x), w)) + beta.
 
     y is the saved conv output, mu and r its per-(B, Co) mean and rsqrt(var +
-    eps), g the cotangent of z. The CUDA kernel for CUDA tensors (fp32 only),
-    else the plain version."""
+    eps), g the cotangent of z. The CUDA kernel for CUDA tensors (x, w, y, g
+    all fp32 or all bf16, mu, r, gamma fp32; dx in x's type, dW, dgamma and
+    dbeta fp32), else the plain version."""
     if x.device.type == "cpu":
         return conv3x3_adain_bwd_plain(x, w, y, mu, r, gamma, g, relu_input)
     b, h, wd, c, co = _check_conv(x, w)
     for name, t in (("y", y), ("g", g)):
-        _check(name, t, (b, h, wd, co), x.device)
+        _check(name, t, (b, h, wd, co), x.device, x.dtype)
     for name, t in (("mu", mu), ("r", r), ("gamma", gamma)):
-        _check(name, t, (b, co), x.device)
-    fn = _build.load(ADAIN_BWD, _ARGTYPES[ADAIN_BWD])
-    p = ap._launch_plan(x.device.index, h * wd, co, torch.float32, True)  # the IN backward
+        _check(name, t, (b, co), x.device, torch.float32)
+    fn = _build.load(ADAIN_BWD, _ARGTYPES[ADAIN_BWD], entry=f"msig_{ADAIN_BWD}{_SUFFIX[x.dtype]}")
+    p = ap._launch_plan(x.device.index, h * wd, co, x.dtype, True)  # the IN backward
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
     dgamma = torch.empty((b, co), dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
-    dy, wt, part = torch.empty_like(y), _taps_t(w), _part(x, c, co)
+    dy, wt, part = torch.empty_like(y), _taps_t(w), _part(x, c, co)  # dy in x's type, as JAX's slab
     err = fn(x.data_ptr(), y.data_ptr(), g.data_ptr(), mu.data_ptr(), r.data_ptr(),
              gamma.data_ptr(), wt.data_ptr(), dx.data_ptr(), dw.data_ptr(), dgamma.data_ptr(),
              dbeta.data_ptr(), dy.data_ptr(), part.data_ptr(), b, h, wd, c, co, int(relu_input),
@@ -285,15 +295,16 @@ class _Conv3x3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, relu_input):
-        ctx.save_for_backward(x, w)
-        ctx.relu_input = relu_input
-        return conv3x3_nhwc(torch.relu(x) if relu_input else x, w)
+        wc = w.to(x.dtype)
+        ctx.save_for_backward(x, wc)
+        ctx.relu_input, ctx.w_dtype = relu_input, w.dtype
+        return conv3x3_nhwc(torch.relu(x) if relu_input else x, wc)
 
     @staticmethod
     def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dx, dw = conv3x3_bwd(_acc(x), _acc(w), _acc(_dense(dy, BWD)), relu_input=ctx.relu_input)
-        return dx.to(x.dtype), dw.to(w.dtype), None
+        x, wc = ctx.saved_tensors
+        dx, dw = conv3x3_bwd(x, wc, _dense(dy, BWD).to(x.dtype), relu_input=ctx.relu_input)
+        return dx, dw.to(ctx.w_dtype), None
 
 
 def _adain_unit_fwd_impl(x, w, gamma, beta, relu_input):
@@ -316,20 +327,19 @@ class _Conv3x3Adain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, relu_input):
-        z, (y, mu, r) = _adain_unit_fwd_impl(x, w, gamma, beta, relu_input)
-        ctx.save_for_backward(x, w, y, mu, r, _acc(gamma).contiguous())
-        ctx.relu_input = relu_input
-        ctx.gamma_dtype = gamma.dtype
+        wc = w.to(x.dtype)
+        z, (y, mu, r) = _adain_unit_fwd_impl(x, wc, gamma, beta, relu_input)
+        ctx.save_for_backward(x, wc, y, mu, r, _acc(gamma).contiguous())
+        ctx.relu_input, ctx.w_dtype, ctx.gamma_dtype = relu_input, w.dtype, gamma.dtype
         return z
 
     @staticmethod
     def backward(ctx, g):
-        x, w, y, mu, r, gamma = ctx.saved_tensors
-        dx, dw, dgm, dbt = conv3x3_adain_bwd(_acc(x), _acc(w), _acc(y), mu, r, gamma,
-                                             _acc(_dense(g, ADAIN_BWD)),
+        x, wc, y, mu, r, gamma = ctx.saved_tensors
+        dx, dw, dgm, dbt = conv3x3_adain_bwd(x, wc, y, mu, r, gamma,
+                                             _dense(g, ADAIN_BWD).to(x.dtype),
                                              relu_input=ctx.relu_input)
-        return (dx.to(x.dtype), dw.to(w.dtype), dgm.to(ctx.gamma_dtype), dbt.to(ctx.gamma_dtype),
-                None)
+        return (dx, dw.to(ctx.w_dtype), dgm.to(ctx.gamma_dtype), dbt.to(ctx.gamma_dtype), None)
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -24,10 +24,11 @@ and AdaIN statistics and the affine run in fp32 and cast back
 (``ops/norm.py``), the Grams and every loss mean in fp32; the master
 parameters, the gradients, clip, Adam and EMA stay fp32. The explicit casts
 are threaded through the modules (``models/layers.py``); no autocast. The
-fp32 training kernels of ``MSIG_CONV_VJP=1|2`` (``conv3x3_bwd``,
-``conv3x3_adain_bwd``) then take their inputs cast to fp32 at the boundary
-and give dx back in bf16 (``ops/conv3x3_vjp.py``); ``adain_pallas`` takes
-bf16 itself.
+training kernels of ``MSIG_CONV_VJP=1|2`` (``conv3x3_bwd``,
+``conv3x3_adain_bwd``) then run their bf16 entries, as the JAX package's
+Pallas kernels run in bf16: bf16 x, taps and cotangent, fp32 accumulation,
+the unit's dy rounded to bf16, dx in bf16 and dW in fp32
+(``ops/conv3x3_vjp.py``); ``adain_pallas`` takes bf16 too.
 
 The JAX step's options, each off by default (``step.py:52-101``):
 

@@ -22,10 +22,13 @@ Bars, and why (measured here: losses within 1.6e-3, grad norms within
     least 0.2 of its group's largest (where bf16 rounding cannot flip the
     sign); the EMA likewise, the step bound scaled by 1 - beta.
 
-The fp32 training kernels of ``MSIG_CONV_VJP=1|2`` (rows 23-24) stay fp32
-under bf16: their inputs are cast to fp32 at the autograd boundary and dx
-comes back in bf16. ``test_kernel_routes_take_fp32_under_bf16`` holds both
-routes to the same bars and checks what their wrappers receive.
+The training kernels of ``MSIG_CONV_VJP=1|2`` (rows 23-24) take bf16 under
+bf16, as the JAX package's do: ``test_kernel_routes_take_bf16_under_bf16``
+checks what their wrappers receive and holds each route to its own golden,
+the JAX step on that route (``tools/train_bf16_kernels_golden.py``,
+``tests/golden/torch_port_train_bf16_kernels.npz``: ``MSIG_CONV_VJP=1`` with
+``use_pallas``, and ``=2``, the Pallas kernels in interpret mode), to the
+bars above.
 """
 
 from __future__ import annotations
@@ -45,10 +48,16 @@ from msig_tpu_torch.ops import conv3x3_vjp as cv
 from msig_tpu_torch.train import create_train_state, make_train_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_spec = importlib.util.spec_from_file_location(
-    "train_bf16_golden", os.path.join(ROOT, "tools", "train_bf16_golden.py"))
-tg = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(tg)
+
+
+def _tool(name: str):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+tg, tk = _tool("train_bf16_golden"), _tool("train_bf16_kernels_golden")
 
 LOSS_RTOL, NORM_RTOL = 1e-2, 5e-2
 MU_RTOL, MU_ATOL_OF_MAX = 0.15, 0.05
@@ -165,18 +174,29 @@ def test_bf16_step_parts_from_the_fp32_step(stock):
     np.testing.assert_allclose(stock["metric/G_loss"], fp32, rtol=LOSS_RTOL)
 
 
+@pytest.fixture(scope="module")
+def kernels_golden():
+    g = dict(np.load(tk.GOLDEN))
+    for route in tk.ROUTES:
+        assert tk.route_arrays(g, route)["config"].tolist() == [
+            tg.BATCH, tg.SIZE, tg.SDIM, tg.ND, tg.N_RES, tg.SEED, tg.VGG_SEED, tg.SAMPLES]
+    return g
+
+
 @pytest.mark.parametrize("level,use_pallas", [("1", True), ("2", False)])
-def test_kernel_routes_take_fp32_under_bf16(golden, monkeypatch, level, use_pallas):
+def test_kernel_routes_take_bf16_under_bf16(kernels_golden, monkeypatch, level, use_pallas):
     """``MSIG_CONV_VJP=1`` (+ ``--pallas``) and ``=2`` under bf16: the conv backward
-    wrappers get fp32 tensors (cast at the boundary), once per trunk site and
-    generator launch (2 sites x 2 resblocks x 3 launches), and the step holds
-    the JAX golden's bars."""
+    wrappers get bf16 tensors (mu, r and gamma fp32, as JAX casts them), once
+    per trunk site and generator launch (2 sites x 2 resblocks x 3 launches),
+    and the step holds the bars against the JAX step on the same route."""
+    route = next(r for r, v in tk.ROUTES.items() if v == (level, use_pallas))
+    want = tk.route_arrays(kernels_golden, route)
     calls = []
     name = "conv3x3_bwd" if level == "1" else "conv3x3_adain_bwd"
     fn = getattr(cv, name)
 
     def spy(*args, **kwargs):
-        calls.append({a.dtype for a in args if isinstance(a, torch.Tensor)})
+        calls.append([a.dtype for a in args if isinstance(a, torch.Tensor)])
         return fn(*args, **kwargs)
 
     monkeypatch.setattr(cv, name, spy)
@@ -185,9 +205,13 @@ def test_kernel_routes_take_fp32_under_bf16(golden, monkeypatch, level, use_pall
         fwd = ap.adain_fwd
         monkeypatch.setattr(ap, "adain_fwd", lambda x, *a, **k: (pallas_calls.append(x.dtype),
                                                                  fwd(x, *a, **k))[1])
-    check_step1(port_step1(level, use_pallas), golden)
+    got = port_step1(level, use_pallas)
+    assert set(got) == set(want)
+    check_step1(got, want)
     assert len(calls) == 2 * tg.N_RES * 3
-    assert all(dtypes == {torch.float32} for dtypes in calls)
+    bf, f32 = torch.bfloat16, torch.float32
+    types = [bf] * 3 if level == "1" else [bf] * 3 + [f32] * 3 + [bf]  # x, w, dy | y, mu, r, gamma, g
+    assert all(dtypes == types for dtypes in calls)
     if use_pallas:  # row 22 takes bf16 itself
         assert pallas_calls and set(pallas_calls) == {torch.bfloat16}
 

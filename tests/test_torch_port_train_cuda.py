@@ -203,6 +203,88 @@ def test_conv3x3_adain_bwd_matches_plain(cuda_device, b, side, c, relu):
     assert torch.equal(got[1], again[1]), "dW must be bit-identical over two calls"
 
 
+def _bf16_steps(a, b):
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits >= 0, bits, -(bits & 0x7FFF))
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _bf16_bar(got, want, name):
+    """The bar of the bf16 entries (rounded to bf16 where fp32): fewer than 0.5%
+    of the elements differ, each by at most 2 bf16 steps or 1e-3 x max|plain|."""
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    got, want = got.to(torch.bfloat16), want.to(torch.bfloat16)
+    steps = _bf16_steps(got, want)
+    share = float((steps > 0).double().mean())
+    far = (steps > 2) & ((got.float() - want.float()).abs() > 1e-3 * float(want.float().abs().max()))
+    print(f"{name}: {share:.2e} of the elements differ, max {int(steps.max())} steps")
+    assert share < 5e-3 and not bool(far.any()), name
+
+
+def _bf16_unit(b, side, c, dev, seed, co=None):
+    rng = np.random.default_rng(seed)
+    co = co or c
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = t(rng.normal(0, 1, (b, side, side, c))).bfloat16()
+    w = t(rng.uniform(-1, 1, (3, 3, c, co)) / np.sqrt(9 * c)).bfloat16()
+    gamma, beta = t(rng.normal(1.0, 0.5, (b, co))), t(rng.normal(0.0, 0.5, (b, co)))
+    g = t(rng.normal(0, 1, (b, side, side, co))).bfloat16()
+    return x, w, gamma, beta, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,c,co", [s + (s[2],) for s in SHAPES] + [(3, 8, 128, 384)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_kernels_bf16_entries_match_plain(cuda_device, b, side, c, co, relu):
+    """The bf16 entries (bf16 x, dy or y and g, and taps; fp32 accumulation): dx
+    in bf16, dW, dgamma and dbeta in fp32, within the bf16 bar of the plain
+    versions on the same bf16 inputs, one launch a call, the same bits over two
+    calls; Co = 384 splits dx's K in two parts."""
+    x, w, gamma, beta, g = _bf16_unit(b, side, c, cuda_device, seed=5 * side + b + co, co=co)
+    before = cv.LAUNCHES[cv.BWD]
+    dx, dw = cv.conv3x3_bwd(x, w, g, relu_input=relu)
+    assert cv.LAUNCHES[cv.BWD] == before + 1
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    dx_p, dw_p = cv.conv3x3_bwd_plain(x, w, g, relu_input=relu)
+    _bf16_bar(dx, dx_p, "dx")
+    _bf16_bar(dw, dw_p, "dw")
+    if relu:
+        assert bool((dx[x <= 0] == 0).all()), "dx must be exactly 0 where x <= 0"
+    assert all(torch.equal(a, b_) for a, b_ in zip((dx, dw), cv.conv3x3_bwd(x, w, g, relu)))
+    _, (y, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
+    before = cv.LAUNCHES[cv.ADAIN_BWD]
+    got = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input=relu)
+    assert cv.LAUNCHES[cv.ADAIN_BWD] == before + 1
+    want = cv.conv3x3_adain_bwd_plain(x, w, y, mu, r, gamma, g, relu_input=relu)
+    assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 3
+    for name, a, b_ in zip(("dx", "dw", "dgamma", "dbeta"), got, want):
+        _bf16_bar(a, b_, name)
+    again = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input=relu)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "two calls, the same bits"
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_mixed_dtypes(cuda_device):
+    """x, w and dy (or y and g) of one type, mu, r and gamma fp32: anything else
+    raises (a bf16 tensor is never cast to fp32 quietly); the autograd
+    functions cast w to x's type themselves and launch the bf16 entry."""
+    x, w, gamma, beta, g = _bf16_unit(2, 8, 256, cuda_device, seed=3)
+    for args in ((x, w.float(), g), (x, w, g.float()), (x.float(), w, g.float())):
+        with pytest.raises(ValueError, match="must be"):
+            cv.conv3x3_bwd(*args)
+    _, (y, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, False)
+    for args in ((x, w, y.float(), mu, r, gamma, g), (x, w, y, mu, r, gamma.bfloat16(), g),
+                 (x, w, y, mu, r, gamma, g.float())):
+        with pytest.raises(ValueError, match="must be"):
+            cv.conv3x3_adain_bwd(*args)
+    cv.reset_launch_counts()
+    xg, wg = x.clone().requires_grad_(), w.float().requires_grad_()
+    cv.relu_conv3x3(xg, wg).backward(g)
+    assert cv.LAUNCHES[cv.BWD] == 1 and xg.grad.dtype == torch.bfloat16
+    assert wg.grad.dtype == torch.float32
+
+
 @pytest.mark.cuda
 def test_autograd_functions_launch_their_kernels(cuda_device):
     x, w, gamma, g = _unit_inputs(2, 8, 256, cuda_device, seed=7)

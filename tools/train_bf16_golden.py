@@ -85,9 +85,11 @@ def port_state():
     return cfg, create_train_state(cfg, ND)
 
 
-def jax_step1():
-    """The JAX bf16 step 1 from the port's initial state: (metrics, {net: new
-    params}, {net: Adam mu}, {net: EMA}), numpy leaves in flax layout."""
+def jax_step1(level: str = "0", use_pallas: bool = False):
+    """The JAX bf16 step 1 from the port's initial state at ``MSIG_CONV_VJP=level``
+    (``use_pallas``: the AdaIN kernel too; the Pallas kernels run in interpret
+    mode on the CPU): (metrics, {net: new params}, {net: Adam mu}, {net: EMA}),
+    numpy leaves in flax layout."""
     import jax
     import jax.numpy as jnp
 
@@ -103,7 +105,7 @@ def jax_step1():
                          "bias": jnp.asarray(getattr(vgg, f"conv{i}").bias.numpy())}
             for i in range(5)}
     jcfg = JConfig(image_size=SIZE, batch_size=BATCH, style_dim=SDIM, n_residual_blocks=N_RES,
-                   compute_dtype="bfloat16")
+                   compute_dtype="bfloat16", use_pallas=use_pallas)
     models = Models.from_config(jcfg, num_domains=ND, dtype=jnp.bfloat16)
     tx_g, tx_d = make_optimizers(jcfg)
     gen = {k: {"params": jax.tree.map(jnp.asarray, trees[k])} for k in G_KEYS}
@@ -114,7 +116,7 @@ def jax_step1():
     jbatch = {"source": jnp.asarray(src), "target": jnp.asarray(trg),
               "source_domain": jnp.asarray(sdom), "target_domain": jnp.asarray(tdom)}
     old = os.environ.get("MSIG_CONV_VJP")
-    os.environ["MSIG_CONV_VJP"] = "0"
+    os.environ["MSIG_CONV_VJP"] = level
     try:
         step = jax.jit(make_train_step(models, tx_g, tx_d, jcfg.ema_beta, jnp.bfloat16))
         new, met = step(js, jbatch, jvgg, jnp.float32(G_LR), jnp.float32(D_LR),
