@@ -131,19 +131,22 @@ Phases, each reported on its own line:
    thread-block cluster a sample and 32 channels, partials summed in rank
    order). The conv kernels' bf16 entries (bf16 operands, fp32
    accumulation: the configuration of the JAX package's bf16 train step) at
-   the same five shapes on the same inputs rounded to bf16, against the plain
-   versions on those: fewer than 0.5% of each output's elements differ (dW,
+   the same five shapes on the same inputs rounded to bf16, and at the bench
+   train mode's kernel batches [64|32, 64, 64, 256] (the step's 2B and B at
+   batch 32), against the plain versions on those: fewer than 0.5% of each output's elements differ (dW,
    dgamma and dbeta rounded to bf16), each by at most 2 bf16 steps or 1e-3 x
    max|plain|, dx bf16 and exactly 0 under the relu mask, every output the
    same bits over two calls; timed beside cuDNN's bf16
-   ``convolution_backward`` and their bound at the dense bf16 rate. Row 22
+   ``convolution_backward`` and their bound at the dense bf16 rate, with the
+   share of the bound. Row 22
    also at [8|4, 4096, 256], [8|4, 16384, 256] and
    [1, 16384, 256] in fp32 and bf16 (the TPU kernel's largest fp32 slab):
    within the bars (bf16 y and
    dx 2e-2, one bf16 rounding), bit-identical over two calls, each with its
    plan (cluster size, CTAs, shared memory) and the card's
    cudaOccupancyMaxActiveClusters. The conv cores' tiles, ring and CTAs per
-   SM (occupancy API), fp32 and bf16. Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
+   SM (occupancy API), fp32 and bf16 (the bf16 core's registers after
+   setmaxnreg and as compiled, and its chunks of dW's K). Times by CUDA events; for ``conv3x3_bwd`` cuDNN's
    ``convolution_backward`` (dx and dW) beside it under its default and its
    deterministic algorithms; after phase 6, the device time of each kernel of
    a conv call (``torch.profiler``): row 24's IN backward, the conv core, the
@@ -275,6 +278,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 B, SIDE, C = 8, 64, 256            # trunk shape of the main path: 256² input, batch 8
 TRAIN_B, N_DOMAINS = 4, 10         # train step: batch 4 (the default), 10 domains, full width
+BENCH_KERNEL_BATCHES = (64, 32)     # the bench train mode's conv backwards (2B and B at batch 32)
 TRAIN_SIZE = 256
 TRAIN_CONFIGS = (("stock", "0", False), ("level1+pallas", "1", True), ("level2", "2", False))
 TRAIN_STEPS = 5                    # timed steps per configuration, after step 1 and a warm-up
@@ -457,7 +461,8 @@ FINAL7_GROUPS = (("mma.sync conv + epilogue", "final7_mma_kernel"),)
 CHUNKED_GROUPS = (("cooperative kernel", "chunked_epilogue_kernel"),)
 SLAB_GROUPS = (("cooperative kernel", "slab_epilogue_kernel"),)
 TRAIN_GROUPS = (("IN backward", "in_bwd_kernel"), ("conv core", "conv3x3_bwd_kernel"),
-                ("reductions", "reduce_kernel"))
+                ("conv core", "conv3x3_bwd_bf16_kernel"), ("reductions", "reduce_kernel"),
+                ("counter memset", "Memset"))
 PROFILE_STAGES = {
     "encoder (3 convs)": {},
     "fused trunk (16 sites)": _TRUNK,
@@ -1790,8 +1795,9 @@ def kernel_split(torch, fn, calls: int = 10, groups=TRAIN_GROUPS) -> dict:
     ``torch.profiler`` over ``calls`` calls after one, grouped by the first
     (label, name part) of ``groups`` whose part the kernel's name holds, else
     as PyTorch's own kernels (for the conv backwards, ``TRAIN_GROUPS``: row
-    24's IN backward, the conv core, the in-order reductions, and the taps'
-    transposed copy); {} if the trace holds no device events, or holds a
+    24's IN backward, the conv core, the in-order reductions, the bf16 core's
+    counter memset, and the fp32 core's transposed taps among PyTorch's
+    kernels); {} if the trace holds no device events, or holds a
     kernel's launches in a number that is no multiple of ``calls`` (a trace
     that lost events, which would read as a rate past the card's peak) in
     each of three tries."""
@@ -1994,16 +2000,33 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
         finally:
             torch.backends.cudnn.deterministic = prev
 
-    for dtype, label in ((torch.float32, "conv core (3xTF32)"), (torch.bfloat16, "bf16 conv core")):
-        cfg = cv.kernel_config(dtype)
-        check(cfg["max_k"] == cv._MAX_K and cfg["ctas_per_sm"] >= 1
-              and cfg["ctas_per_sm_relu"] >= 1,
-              f"{label} configuration {cfg} (max_k {cv._MAX_K} in ops/conv3x3_vjp.py)")
-        print(f"[train kernel] {label}: CTA tile {cfg['tile_m']} x {cfg['tile_n']}, "
-              f"{cfg['threads']} threads, K {cfg['tile_k']} a stage through a {cfg['stages']}-stage "
-              f"cp.async ring, {cfg['smem_bytes']} bytes of shared memory, at most {cfg['max_k']} "
-              f"of K a tile; {cfg['ctas_per_sm']} CTAs per SM resident ({cfg['ctas_per_sm_relu']} "
-              f"with the relu input; occupancy API)", flush=True)
+    cfg = cv.kernel_config(torch.float32)
+    check(cfg["max_k"] == cv._MAX_K and cfg["ctas_per_sm"] >= 1 and cfg["ctas_per_sm_relu"] >= 1,
+          f"conv core (3xTF32) configuration {cfg} (max_k {cv._MAX_K} in ops/conv3x3_vjp.py)")
+    print(f"[train kernel] conv core (3xTF32): CTA tile {cfg['tile_m']} x {cfg['tile_n']}, "
+          f"{cfg['threads']} threads, K {cfg['tile_k']} a stage through a {cfg['stages']}-stage "
+          f"cp.async ring, {cfg['smem_bytes']} bytes of shared memory, at most {cfg['max_k']} "
+          f"of K a tile; {cfg['ctas_per_sm']} CTAs per SM resident ({cfg['ctas_per_sm_relu']} "
+          f"with the relu input; occupancy API)", flush=True)
+    cfg = cv.kernel_config(torch.bfloat16)
+    budget = 128 * cfg["producer_regs"] + 256 * cfg["consumer_regs"]
+    check(cfg["ctas_per_sm"] >= 1 and cfg["kernel_regs"] * cfg["threads"] >= budget
+          and (cfg["tile_m"], cfg["tile_n"], cfg["tile_k"]) == (cv._BF16_TILE, 256, cv._BF16_BK)
+          and cfg["least_kernel_regs"] * cfg["threads"] >= budget
+          and (cfg["max_chunks"], cfg["max_chunk_pixels"])
+          == (cv._BF16_MAX_CHUNKS, cv._BF16_MAX_CHUNK_PX),
+          f"bf16 conv core configuration {cfg} (ops/conv3x3_vjp.py: tile {cv._BF16_TILE}, "
+          f"chunks {cv._BF16_MAX_CHUNKS} / {cv._BF16_MAX_CHUNK_PX})")
+    print(f"[train kernel] bf16 conv core (wgmma): tile {cfg['tile_m']} x {cfg['tile_n']}, "
+          f"{cfg['threads']} threads (a producer warpgroup at {cfg['producer_regs']} registers, "
+          f"two consumer warpgroups at {cfg['consumer_regs']}; {cfg['kernel_regs']} as compiled, "
+          f"at least {cfg['least_kernel_regs']} in its four kernels), K {cfg['tile_k']} a stage "
+          f"through a {cfg['stages']}-stage ring filled by TMA (cp.async where a 128-pixel tile "
+          f"is not whole rows; {cfg['stages_n128']} stages at a tile of 128 columns), "
+          f"{cfg['smem_bytes']} bytes of shared memory, {cfg['ctas_per_sm']} CTA per SM "
+          f"(occupancy API), a persistent grid; dW's K in a chunk per 9*Co / 2 pixels, at "
+          f"most {cfg['max_chunks']} unless a chunk would pass {cfg['max_chunk_pixels']} "
+          f"pixels", flush=True)
 
     def bf16_cases(b, side, x, w, gamma, beta, g):
         """The conv kernels' bf16 entries on the same inputs rounded to bf16, each
@@ -2042,7 +2065,8 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
             faster = ms < min(lib.values())
             print(f"[train kernel] {name} bf16 ({row['case']}): {report}; {ms:.4f} ms (median "
                   f"of 20, CUDA events), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}; bf16 at 989 TFLOP/s), cuDNN bf16 convolution_backward "
+                  f"({bound_by}; bf16 at 989 TFLOP/s; {bound_ms / ms:.1%} of it), cuDNN bf16 "
+                  f"convolution_backward "
                   f"{lib[False]:.4f} ms (default algorithms) / {lib[True]:.4f} ms "
                   f"(deterministic): the kernel is {'faster than' if faster else 'NOT faster than'}"
                   f" both", flush=True)
@@ -2091,6 +2115,12 @@ def train_kernel_phase(torch, ap, cv, dev) -> tuple:
                   f"bound {bound_ms:.4f} ms ({bound_by}){extra}", flush=True)
         bf16_cases(b, side, x, w, gamma, beta, g)
         del x, w, g, y
+        torch.cuda.empty_cache()
+    # the bench train mode's kernel batches (its step's 2B and B at batch 32): bf16 entries only
+    for b in BENCH_KERNEL_BATCHES:
+        x, w, gamma, beta, g = unit(b, SIDE, b)
+        bf16_cases(b, SIDE, x, w, gamma, beta, g)
+        del x, w, g
         torch.cuda.empty_cache()
     # a 96² trunk: 576 pixels, which the 128-pixel tiles cover with a ragged edge
     x, w, gamma, beta, g = unit(1, 24, 24)

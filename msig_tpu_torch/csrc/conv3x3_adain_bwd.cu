@@ -26,9 +26,9 @@
 // train step): x, y, g and the taps in bf16. The IN backward runs as
 // in_bwd_kernel<bf16> and writes dy to a bf16 scratch, the rounding point of
 // the TPU kernel's slab (dyp_ref is in x's type); then the bf16 core of
-// conv3x3_bwd_bf16.cuh runs on it: one mma.sync.m16n8k16 bf16 a product with
-// fp32 accumulators, bound by the conv's 77.3 GFLOP at dense bf16, 0.078 ms.
-// dW, dgamma and dbeta stay fp32.
+// conv3x3_bwd_bf16.cuh runs on it (wgmma, a producer warpgroup, a persistent
+// grid over dx and dW tiles), bound by the conv's 77.3 GFLOP at dense bf16,
+// 0.078 ms. dW, dgamma and dbeta stay fp32.
 #include "conv3x3_bwd.cuh"
 #include "conv3x3_bwd_bf16.cuh"
 #include "in_norm.cuh"
@@ -54,11 +54,13 @@ extern "C" int msig_conv3x3_adain_bwd(const void* x, const void* y, const void* 
       static_cast<float*>(part), geom, relu != 0, st);
 }
 
-// As msig_conv3x3_adain_bwd with x, y, g, wt and dy_scratch in bf16 and dx
-// written in bf16; mu, r, gamma, dw, dgamma, dbeta and part stay fp32.
+// As msig_conv3x3_adain_bwd with x, y, g and dy_scratch in bf16, the taps w
+// in bf16 as they are (HWIO, [9, C, Co], dense), and dx written in bf16; mu,
+// r, gamma, dw, dgamma, dbeta and part fp32, part of msig_bf16::part_floats
+// floats.
 extern "C" int msig_conv3x3_adain_bwd_bf16(const void* x, const void* y, const void* g,
                                            const void* mu, const void* r, const void* gamma,
-                                           const void* wt, void* dx, void* dw, void* dgamma,
+                                           const void* w, void* dx, void* dw, void* dgamma,
                                            void* dbeta, void* dy_scratch, void* part, int B, int H,
                                            int W, int C, int Co, int relu, int R, void* stream) {
   using msig_bf16::bf16;
@@ -69,6 +71,6 @@ extern "C" int msig_conv3x3_adain_bwd_bf16(const void* x, const void* y, const v
   const msig_f32::Map geom{B, H, W, C, Co};
   return (int)msig_bf16::conv3x3_bwd_launch(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dy_scratch),
-      static_cast<const bf16*>(wt), static_cast<bf16*>(dx), static_cast<float*>(dw),
+      static_cast<const bf16*>(w), static_cast<bf16*>(dx), static_cast<float*>(dw),
       static_cast<float*>(part), geom, relu != 0, st);
 }

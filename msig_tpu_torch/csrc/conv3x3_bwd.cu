@@ -12,8 +12,9 @@
 //    the partials;
 //  - bf16 operands, fp32 accumulation (msig_conv3x3_bwd_bf16, the JAX
 //    package's bf16 train step): the same 77.3 GFLOP at dense bf16, 0.078 ms.
-//    Design (conv3x3_bwd_bf16.cuh): the same grid and reductions, one
-//    mma.sync.m16n8k16 bf16 a product, fragments by ldmatrix.
+//    Design (conv3x3_bwd_bf16.cuh): wgmma on operands in shared memory fed
+//    by a producer warpgroup, a persistent grid over dx and dW tiles, dW's
+//    K in at most 8 chunks added in order.
 #include "conv3x3_bwd.cuh"
 #include "conv3x3_bwd_bf16.cuh"
 
@@ -32,15 +33,16 @@ extern "C" int msig_conv3x3_bwd(const void* x, const void* dy, const void* wt, v
       reinterpret_cast<cudaStream_t>(stream));
 }
 
-// As msig_conv3x3_bwd with x, dy and wt in bf16 and dx written in bf16; dw
-// and part stay fp32, part of the same size.
-extern "C" int msig_conv3x3_bwd_bf16(const void* x, const void* dy, const void* wt, void* dx,
+// As msig_conv3x3_bwd with x and dy in bf16, the taps w in bf16 as they are
+// (HWIO, [9, C, Co], dense), and dx written in bf16; dw and part fp32, part
+// of msig_bf16::part_floats floats (ops/conv3x3_vjp.py::scratch_floats).
+extern "C" int msig_conv3x3_bwd_bf16(const void* x, const void* dy, const void* w, void* dx,
                                      void* dw, void* part, int B, int H, int W, int C, int Co,
                                      int relu, void* stream) {
   using msig_bf16::bf16;
   const msig_f32::Map g{B, H, W, C, Co};
   return (int)msig_bf16::conv3x3_bwd_launch(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const bf16*>(wt),
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<const bf16*>(w),
       static_cast<bf16*>(dx), static_cast<float*>(dw), static_cast<float*>(part), g, relu != 0,
       reinterpret_cast<cudaStream_t>(stream));
 }
@@ -58,11 +60,23 @@ extern "C" int msig_conv3x3_bwd_config(int* out) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 core's configuration, as msig_conv3x3_bwd_config.
+// The bf16 core's configuration, into out[0 .. 13]: of its kernel at the
+// trunk's tile and loads (BN = 256: C and Co multiples of 256; TMA) tile M,
+// N, K per stage, ring stages, threads, dynamic shared memory (bytes), the
+// CTAs resident per SM (occupancy API), the producer's and the consumers'
+// registers after setmaxnreg, the kernel's registers as compiled; the most
+// chunks of dW's K and the most pixels a chunk (the limit that can add
+// chunks); the ring stages at BN = 128, and the fewest registers
+// any of its four kernels (BN 256 or 128, TMA or cp.async) was compiled to.
+// Returns 0, or the CUDA error of the queries.
 extern "C" int msig_conv3x3_bwd_bf16_config(int* out) {
   using namespace msig_bf16;
-  const int v[9] = {kBM, kBN, kBK, kStages, kThreads, kMaxK, kSmemBytes, ctas_per_sm<false>(),
-                    ctas_per_sm<true>()};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const int regs[4] = {kernel_regs<256, true>(), kernel_regs<256, false>(),
+                       kernel_regs<128, true>(), kernel_regs<128, false>()};
+  const int least = std::min(std::min(regs[0], regs[1]), std::min(regs[2], regs[3]));
+  const int v[14] = {kBM, 256, kBK, Layout<256>::kStages, kThreads, Layout<256>::kSmemBytes,
+                     ctas_per_sm<256, true>(), kProducerRegs, kConsumerRegs, regs[0],
+                     kMaxChunks, kMaxChunkPixels, Layout<128>::kStages, least};
+  for (int i = 0; i < 14; ++i) out[i] = v[i];
   return (int)cudaGetLastError();
 }

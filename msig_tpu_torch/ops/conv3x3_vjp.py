@@ -20,10 +20,11 @@ they run the plain versions (``*_plain``), the TPU kernels' formulas tap by
 tap in PyTorch, which ``chip_smoke.py`` holds the kernels against on the card.
 
 Each kernel has an fp32 entry (3xTF32 products, ``csrc/conv3x3_bwd.cuh``)
-and a bf16 one (bf16 operands, fp32 accumulation, ``csrc/conv3x3_bwd_bf16.cuh``),
-the configuration the JAX package's bf16 train step runs its Pallas kernels
-in. x, dy (or y and g) and w are of one of the two types; dx comes back in
-it, dW, dgamma and dbeta in fp32. The autograd functions below cast w to x's
+and a bf16 one (bf16 operands, fp32 accumulation, ``csrc/conv3x3_bwd_bf16.cuh``:
+wgmma, a persistent grid, dW's K in the chunks of ``bf16_plan``), the
+configuration the JAX package's bf16 train step runs its Pallas kernels in.
+x, dy (or y and g) and w are of one of the two types; dx comes back in it,
+dW, dgamma and dbeta in fp32. The autograd functions below cast w to x's
 type, as the JAX wrappers cast the taps (``conv3x3_vjp.py:143, 298``), pass
 bf16 tensors through as they are, and give dW back in w's type; the unit's
 dy is rounded to x's type before the conv backward, where JAX rounds it
@@ -43,6 +44,10 @@ from msig_tpu_torch.ops import adain_pallas as ap
 
 _IN_EPS = 1e-5  # torch nn.InstanceNorm2d default (ops/norm.py)
 _MAX_K = 2304  # the most K a kernel tile accumulates (kMaxK of csrc/conv3x3_bwd.cuh)
+# csrc/conv3x3_bwd_bf16.cuh: the tile's rows (its columns: bf16_plan's "bn"), K a
+# stage, and dW's chunks of K
+_BF16_TILE, _BF16_BK = 128, 64
+_BF16_MAX_CHUNKS, _BF16_MAX_CHUNK_PX = 7, 4864
 
 BWD = "conv3x3_bwd"
 ADAIN_BWD = "conv3x3_adain_bwd"
@@ -61,8 +66,14 @@ _ARGTYPES = {
 # The C entry of each kernel and its configuration query, by operand type.
 _DTYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-_CONFIG_KEYS = ("tile_m", "tile_n", "tile_k", "stages", "threads", "max_k", "smem_bytes",
-                "ctas_per_sm", "ctas_per_sm_relu")
+_CONFIG_KEYS = {
+    torch.float32: ("tile_m", "tile_n", "tile_k", "stages", "threads", "max_k", "smem_bytes",
+                    "ctas_per_sm", "ctas_per_sm_relu"),
+    torch.bfloat16: ("tile_m", "tile_n", "tile_k", "stages", "threads", "smem_bytes",
+                     "ctas_per_sm", "producer_regs", "consumer_regs", "kernel_regs",
+                     "max_chunks", "max_chunk_pixels", "stages_n128",
+                     "least_kernel_regs"),
+}
 
 
 def reset_launch_counts() -> None:
@@ -195,20 +206,57 @@ def _check_conv(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int, i
     b, h, wd, c = x.shape
     co = w.shape[-1]
     _check("x", x, x.shape, x.device, x.dtype)
-    _check("w", w, (3, 3, c, co), x.device, x.dtype, dense=False)  # any strides: _taps_t copies it
+    _check("w", w, (3, 3, c, co), x.device, x.dtype, dense=False)  # any strides: _taps copies it
     return b, h, wd, c, co
 
 
-def _taps_t(w: torch.Tensor) -> torch.Tensor:
-    """HWIO [3, 3, C, Co] -> the transposed taps [9, Co, C] the dx product reads."""
+def _taps(w: torch.Tensor) -> torch.Tensor:
+    """The taps as the core of w's type reads them: fp32, transposed [9, Co, C]
+    (the dx product's B); bf16, HWIO [3, 3, C, Co] as it is, dense (wgmma
+    reads it K-major)."""
+    if w.dtype == torch.bfloat16:
+        return w.contiguous()
     c, co = w.shape[2], w.shape[3]
     return w.reshape(9, c, co).transpose(1, 2).contiguous()
 
 
-def scratch_floats(b: int, h: int, w: int, c: int, co: int) -> int:
-    """Floats of the kernels' scratch (``part_floats`` of csrc/conv3x3_bwd.cuh):
-    dW's partials over chunks of ``_MAX_K`` pixels, then dx's over parts of at
-    most ``_MAX_K`` of its K = 9*Co where 9*Co exceeds it."""
+def bf16_plan(b: int, h: int, w: int, c: int, co: int) -> Dict[str, int]:
+    """The bf16 core's work (``dw_plan`` of csrc/conv3x3_bwd_bf16.cuh), from the
+    shape alone: dW's K (the pixels) in ``chunks`` chunks of ``chunk_px``
+    pixels (one per 9*Co / 2 pixels, half a dx item's K, at most
+    ``_BF16_MAX_CHUNKS`` so that the dW items are fewer than the card's SMs,
+    unless a chunk would pass ``_BF16_MAX_CHUNK_PX``:
+    the tensor cores' fp32 sums lose bits with their length; whole 64-pixel
+    stages, the last may be short), the tile's columns ``bn`` (256 where C
+    and Co are multiples of 256, else 128), whether TMA loads the tiles
+    (``tma``: a 128-pixel tile is whole rows of one image or a part of one
+    row), the dx and dW items (128 x bn tiles; dW's a chunk each), the stages
+    of a dx item, and which kind is dealt first (the longer)."""
+    cdiv = lambda a, d: -(-a // d)  # noqa: E731
+    n = b * h * w
+    bn = 256 if c % 256 == 0 and co % 256 == 0 else 128
+    chunks = min(max(n // (9 * co // 2), 1), _BF16_MAX_CHUNKS)
+    chunks = max(chunks, cdiv(n, _BF16_MAX_CHUNK_PX))
+    chunk_px = cdiv(cdiv(n, chunks), _BF16_BK) * _BF16_BK
+    chunks = cdiv(n, chunk_px)
+    dw_tiles = 9 * c // _BF16_TILE * (co // bn)
+    dx_nk = 9 * co // _BF16_BK
+    tma = (h * w) % _BF16_TILE == 0 and (w % _BF16_TILE == 0 or _BF16_TILE % w == 0)
+    return dict(bn=bn, tma=tma, np=n, chunks=chunks, chunk_px=chunk_px,
+                n_dx=cdiv(n, _BF16_TILE) * (c // bn), dw_tiles=dw_tiles,
+                n_dw=dw_tiles * chunks, dx_nk=dx_nk, dw_first=chunk_px // _BF16_BK >= dx_nk)
+
+
+def scratch_floats(b: int, h: int, w: int, c: int, co: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Floats of the kernels' scratch. fp32 (``part_floats`` of
+    csrc/conv3x3_bwd.cuh): dW's partials over chunks of ``_MAX_K`` pixels,
+    then dx's over parts of at most ``_MAX_K`` of its K = 9*Co where 9*Co
+    exceeds it. bf16 (csrc/conv3x3_bwd_bf16.cuh): dW's partials where
+    ``bf16_plan`` has more than one chunk, then the item counter."""
+    if dtype == torch.bfloat16:
+        chunks = bf16_plan(b, h, w, c, co)["chunks"]
+        return (chunks * 9 * c * co if chunks > 1 else 0) + 1
     cdiv = lambda a, d: -(-a // d)  # noqa: E731
     dx_splits = cdiv(9 * co, _MAX_K)
     dx_part = dx_splits * b * h * w * c if dx_splits > 1 else 0
@@ -216,17 +264,22 @@ def scratch_floats(b: int, h: int, w: int, c: int, co: int) -> int:
 
 
 def _part(x: torch.Tensor, c: int, co: int) -> torch.Tensor:
-    return torch.empty(scratch_floats(*x.shape[:3], c, co), dtype=torch.float32, device=x.device)
+    return torch.empty(scratch_floats(*x.shape[:3], c, co, x.dtype), dtype=torch.float32,
+                       device=x.device)
 
 
 def kernel_config(dtype: torch.dtype = torch.float32) -> Dict[str, int]:
-    """The conv core's tiles, ring stages, longest K a tile accumulates (dW's
-    chunk) and shared memory, and the CTAs the card keeps resident per SM
-    (occupancy API), for operands of ``dtype``; builds the kernel."""
-    out = (ctypes.c_int * len(_CONFIG_KEYS))()
+    """The conv core's configuration for operands of ``dtype``; builds the
+    kernel. fp32: tiles, ring stages, the longest K a tile accumulates (dW's
+    chunk), shared memory, the CTAs the card keeps resident per SM (occupancy
+    API) without and with the relu input. bf16: tiles, ring stages, shared
+    memory, CTAs per SM, the producer's and consumers' registers after
+    setmaxnreg and the kernel's as compiled, and dW's chunk limits."""
+    keys = _CONFIG_KEYS[dtype]
+    out = (ctypes.c_int * len(keys))()
     fn = _build.load(BWD, [_P], entry=f"msig_conv3x3_bwd{_SUFFIX[dtype]}_config")
     _build.check(BWD, fn(ctypes.addressof(out)))
-    return dict(zip(_CONFIG_KEYS, out))
+    return dict(zip(keys, out))
 
 
 def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, relu_input: bool = False):
@@ -239,7 +292,7 @@ def conv3x3_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, relu_input: 
     b, h, wd, c, co = _check_conv(x, w)
     _check("dy", dy, (b, h, wd, co), x.device, x.dtype)
     fn = _build.load(BWD, _ARGTYPES[BWD], entry=f"msig_{BWD}{_SUFFIX[x.dtype]}")
-    wt, part = _taps_t(w), _part(x, c, co)
+    wt, part = _taps(w), _part(x, c, co)
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), dy.data_ptr(), wt.data_ptr(), dx.data_ptr(), dw.data_ptr(),
@@ -270,7 +323,7 @@ def conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input: bool = False):
     dw = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
     dgamma = torch.empty((b, co), dtype=torch.float32, device=x.device)
     dbeta = torch.empty_like(dgamma)
-    dy, wt, part = torch.empty_like(y), _taps_t(w), _part(x, c, co)  # dy in x's type, as JAX's slab
+    dy, wt, part = torch.empty_like(y), _taps(w), _part(x, c, co)  # dy in x's type, as JAX's slab
     err = fn(x.data_ptr(), y.data_ptr(), g.data_ptr(), mu.data_ptr(), r.data_ptr(),
              gamma.data_ptr(), wt.data_ptr(), dx.data_ptr(), dw.data_ptr(), dgamma.data_ptr(),
              dbeta.data_ptr(), dy.data_ptr(), part.data_ptr(), b, h, wd, c, co, int(relu_input),

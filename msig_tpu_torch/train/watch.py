@@ -26,6 +26,25 @@ DEFAULT_BINS = 64  # wandb.Histogram's own default bin count
 Hist = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+_TINY = float(torch.finfo(torch.float32).tiny)  # the smallest normal float32
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """t with each subnormal value replaced by a zero of its sign, as XLA's
+    flush-to-zero gives it (``t * 0`` keeps the sign); inf and NaN pass."""
+    return torch.where(t.abs() < _TINY, t * 0, t)
+
+
+def _ordered(t: torch.Tensor) -> torch.Tensor:
+    """float32 <-> int32 keys in the floats' order with -0 below +0, so that a
+    min or max over the keys picks the zero that XLA's does (-0 for the min,
+    +0 for the max, wherever it stands); the map is its own inverse."""
+    if t.dtype == torch.float32:
+        b = t.view(torch.int32)
+        return b ^ ((b >> 31) & 0x7FFFFFFF)
+    return (t ^ ((t >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
 def leaf_histogram(g: torch.Tensor, bins: int = DEFAULT_BINS) -> Hist:
     """(counts [bins] int32, lo, hi) of one tensor, on its device, as the JAX
     package's ``_leaf_histogram`` computes them (``watch.py:27-56``):
@@ -38,20 +57,25 @@ def leaf_histogram(g: torch.Tensor, bins: int = DEFAULT_BINS) -> Hist:
 
     Every operation is the JAX function's in float32, the bin width's
     division included (a tensor over a tensor: PyTorch turns a number over a
-    tensor into a product with the reciprocal, one ulp away)."""
-    x = g.detach().to(torch.float32).reshape(-1)
+    tensor into a product with the reciprocal, one ulp away). XLA runs with
+    subnormals flushed, on the CPU and the TPU: a subnormal operand reads as a
+    zero of its sign and a subnormal result becomes one. PyTorch flushes
+    neither, so the input and every difference or product that can fall
+    below the smallest normal go through ``_ftz``; where none does, the
+    values keep their bits."""
+    x = _ftz(g.detach().to(torch.float32).reshape(-1))
     finite = torch.isfinite(x)
     any_finite = finite.any()
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     inf = torch.full((), float("inf"), dtype=torch.float32, device=x.device)
-    lo = torch.where(any_finite, torch.where(finite, x, inf).min(), zero)
-    hi = torch.where(any_finite, torch.where(finite, x, -inf).max(), zero)
+    lo = torch.where(any_finite, _ordered(_ordered(torch.where(finite, x, inf)).min()), zero)
+    hi = torch.where(any_finite, _ordered(_ordered(torch.where(finite, x, -inf)).max()), zero)
     degenerate = hi <= lo
     lo_ = torch.where(degenerate, lo - 0.5, lo)
     hi_ = torch.where(degenerate, hi + 0.5, hi)
-    scale = torch.full((), float(bins), dtype=torch.float32, device=x.device) / (hi_ - lo_)
+    scale = torch.full((), float(bins), dtype=torch.float32, device=x.device) / _ftz(hi_ - lo_)
     xf = torch.where(finite, x, lo_)
-    idx = ((xf - lo_) * scale).to(torch.int32).clamp(0, bins - 1)
+    idx = _ftz(_ftz(xf - lo_) * scale).to(torch.int32).clamp(0, bins - 1)
     counts = torch.zeros((bins,), dtype=torch.int32, device=x.device).index_add_(
         0, idx, finite.to(torch.int32))
     return counts, lo_, hi_

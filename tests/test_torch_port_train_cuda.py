@@ -240,7 +240,7 @@ def test_conv_kernels_bf16_entries_match_plain(cuda_device, b, side, c, co, relu
     """The bf16 entries (bf16 x, dy or y and g, and taps; fp32 accumulation): dx
     in bf16, dW, dgamma and dbeta in fp32, within the bf16 bar of the plain
     versions on the same bf16 inputs, one launch a call, the same bits over two
-    calls; Co = 384 splits dx's K in two parts."""
+    calls; Co = 384 gives a dx item a K of 9 * 384."""
     x, w, gamma, beta, g = _bf16_unit(b, side, c, cuda_device, seed=5 * side + b + co, co=co)
     before = cv.LAUNCHES[cv.BWD]
     dx, dw = cv.conv3x3_bwd(x, w, g, relu_input=relu)
@@ -262,6 +262,24 @@ def test_conv_kernels_bf16_entries_match_plain(cuda_device, b, side, c, co, relu
         _bf16_bar(a, b_, name)
     again = cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu_input=relu)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "two calls, the same bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+def test_bf16_core_over_several_chunks_of_an_odd_map(cuda_device, relu):
+    """The wgmma bf16 core at [2, 49, 49, 128] -> 256: 4,802 pixels, a map
+    width that neither divides a 128-pixel tile nor is divided by it, dW's K
+    in four chunks added in order (``bf16_plan``), C != Co; within the bf16
+    bar of the plain version, the same bits over two calls."""
+    x, w, _, _, g = _bf16_unit(2, 49, 128, cuda_device, seed=49 + relu, co=256)
+    assert cv.bf16_plan(2, 49, 49, 128, 256)["chunks"] == 4
+    dx, dw = cv.conv3x3_bwd(x, w, g, relu_input=relu)
+    dx_p, dw_p = cv.conv3x3_bwd_plain(x, w, g, relu_input=relu)
+    _bf16_bar(dx, dx_p, "dx")
+    _bf16_bar(dw, dw_p, "dw")
+    if relu:
+        assert bool((dx[x <= 0] == 0).all()), "dx must be exactly 0 where x <= 0"
+    assert all(torch.equal(a, b_) for a, b_ in zip((dx, dw), cv.conv3x3_bwd(x, w, g, relu)))
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ import types
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 from hypothesis.extra import numpy as hnp
 
@@ -52,11 +52,15 @@ def _both(x: np.ndarray, bins: int = BINS):
     return (c.numpy(), float(lo), float(hi)), (np.asarray(jc), float(jlo), float(jhi))
 
 
+def _bits(*v):
+    return tuple(int(np.float32(f).view(np.uint32)) for f in v)
+
+
 def _assert_same(x: np.ndarray, bins: int = BINS):
     (c, lo, hi), (jc, jlo, jhi) = _both(x, bins)
     assert c.dtype == np.int32
     np.testing.assert_array_equal(c, jc)
-    assert (lo, hi) == (jlo, jhi)
+    assert _bits(lo, hi) == _bits(jlo, jhi)  # to the bit: a zero's sign too
     assert int(c.sum()) == int(np.isfinite(x).sum())
 
 
@@ -64,17 +68,30 @@ _values = st.one_of(st.floats(-1e3, 1e3, width=32), st.sampled_from([np.nan, np.
                     st.floats(-2.0**-20, 2.0**-20, width=32))
 
 
-@settings(max_examples=60, deadline=None)
+# Subnormal float32 values: XLA flushes them, PyTorch does not.
+_SUB = 2.85903e-40
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
 @given(hnp.arrays(np.float32, st.sampled_from([(7,), (64,), (3, 5, 4)]), elements=_values),
        st.sampled_from([8, 64]))
+@example(np.array([1.0] + [_SUB] * 6, np.float32), 8)
+@example(np.array([0.0] + [_SUB] * 6, np.float32), 8)
 def test_leaf_histogram_equals_jax(x, bins):
     _assert_same(x, bins)
 
 
 @pytest.mark.parametrize("case", ["top_edge", "all_equal", "all_nan", "inf_and_nan_mixed",
-                                  "single", "zeros", "two_values"])
+                                  "single", "zeros", "two_values", "all_subnormal",
+                                  "zeros_and_subnormals", "subnormal_differences",
+                                  "signed_zeros"])
 def test_leaf_histogram_edge_cases(case):
     x = {
+        "all_subnormal": np.array([_SUB, -3e-41, 1e-39, _SUB], np.float32),
+        "zeros_and_subnormals": np.array([-_SUB, 0.0, -0.0, _SUB, 0.0, 1.0], np.float32),
+        # a normal range whose differences fall below the smallest normal (1.18e-38)
+        "subnormal_differences": np.array([1.2e-38, 1.3e-38, 1.25e-38, 1.2e-38], np.float32),
+        "signed_zeros": np.array([-1.0, 0.0, -0.0, 0.0], np.float32),
         "top_edge": np.array([0.0, 0.25, 0.5, 1.0, 1.0], np.float32),
         "all_equal": np.full((10,), 3.5, np.float32),
         "all_nan": np.array([np.nan, np.inf, -np.inf], np.float32),
@@ -91,6 +108,14 @@ def test_leaf_histogram_edge_cases(case):
         assert (lo, hi) == (3.0, 4.0) and c[BINS // 2] == 10
     if case == "all_nan":
         assert (lo, hi) == (-0.5, 0.5) and not c.any()
+    if case == "all_subnormal":  # zeros to XLA: the all-equal range around 0
+        assert (lo, hi) == (-0.5, 0.5) and c[BINS // 2] == 4
+    if case == "zeros_and_subnormals":  # -0 is the min, as XLA's min picks it
+        assert _bits(lo, hi) == _bits(-0.0, 1.0) and c[0] == 5 and c[-1] == 1
+    if case == "subnormal_differences":  # hi - lo flushes to 0: every value in bin 0
+        assert lo < hi and c[0] == 4
+    if case == "signed_zeros":
+        assert _bits(hi) == _bits(0.0)
 
 
 def test_leaf_histogram_takes_bf16():

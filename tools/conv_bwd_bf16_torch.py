@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rows 23-24 on the card: a digest of their outputs, and the bf16 train step on each route.
 
-    python3 tools/conv_bwd_bf16_torch.py [--parts digest step device] [--steps 10]
+    python3 tools/conv_bwd_bf16_torch.py [--parts digest kernel step device] [--steps 10]
 
 Run from the root of a checkout of msig_tpu_torch; copied into a checkout of
 another tree, it measures that tree (a tree whose kernels have no bf16 entry
@@ -13,6 +13,15 @@ does). Put parent and change in one call, in turns.
   inputs at [8, 64, 64, 256] and [1, 24, 24, 256], in fp32 (TF32 off) and,
   where the tree has them, on the bf16 entries: the sha256 of each call's
   outputs' bytes, and one over all of them per type.
+- ``kernel``: the bf16 entries of both conv kernels, with and without the
+  relu input, at the trunk shapes ``KERNEL_SHAPES`` ([8|4, 64, 64, 256] and
+  [8|4, 128, 128, 256] of the 256² and 512² steps at batch 4, and
+  [64|32, 64, 64, 256] of the bench's train mode at batch 32): ms a call (CUDA
+  events, the median of 5 runs of 20 calls), cuDNN's bf16
+  ``convolution_backward`` (dx and dW) on the same inputs under its default
+  and its deterministic algorithms, the bound (the products at 989 TFLOP/s of
+  dense bf16, or the bytes at 3.35 TB/s) and the share of it; then the
+  device ms a call of each kernel the call launches (``torch.profiler``).
 - ``step``: the bf16 train step (``compute_dtype=bfloat16``) at 256², batch 4,
   8 resblocks, style_dim 256, 10 domains, a seeded random VGG, cuDNN
   deterministic, as ``stock``, ``level1+pallas`` and ``level2``: ms per step,
@@ -40,7 +49,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = (("stock", "0", False), ("level1+pallas", "1", True), ("level2", "2", False))
 SHAPES = ((8, 64), (1, 24))  # (B, side) of [B, side, side, 256]
+KERNEL_SHAPES = ((8, 64), (4, 64), (8, 128), (4, 128), (64, 64), (32, 64))
 C = 256
+PEAK_BF16, PEAK_FP32, HBM = 989e12, 67e12, 3.35e12  # H100 SXM data sheet, dense
 
 
 def digest(torch, cv) -> None:
@@ -70,6 +81,94 @@ def digest(torch, cv) -> None:
                     print(f"[digest {str(dtype)[6:]}] {name} {[b, side, side, C]} relu={relu}: "
                           f"{h.hexdigest()}", flush=True)
         print(f"[digest {str(dtype)[6:]}] all: {whole.hexdigest()}", flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 20, runs: int = 5) -> float:
+    """Median over ``runs`` of the mean ms of ``reps`` calls back to back (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return sorted(out)[len(out) // 2]
+
+
+def bound_ms(name: str, b: int, side: int) -> tuple:
+    """(ms, what bounds it) of one bf16 call: the conv's two products at the
+    dense bf16 rate (and the unit's IN backward, ~8 flops an element, at the
+    fp32 rate) against its bytes (the maps read and dx written in 2 bytes, W
+    read in 2, dW written in 4; the unit's five [B, C] vectors in 4)."""
+    px = b * side * side
+    elems, conv, w = px * C, 2 * 2 * px * C * 9 * C, (2 + 4) * 9 * C * C
+    if name == "conv3x3_bwd":
+        nbytes, fp = 3 * 2 * elems + w, 0
+    else:
+        nbytes, fp = 4 * 2 * elems + w + 5 * 4 * b * C, 8 * elems
+    t_ops, t_bytes = conv / PEAK_BF16 + fp / PEAK_FP32, nbytes / HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_times(torch, cv) -> None:
+    import numpy as np
+
+    for b, side in KERNEL_SHAPES:
+        rng = np.random.default_rng(b * side)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+        x = t(rng.normal(0, 1, (b, side, side, C))).bfloat16()
+        w = t(rng.uniform(-1, 1, (3, 3, C, C)) / np.sqrt(9 * C)).bfloat16()
+        gamma, beta = t(rng.normal(1.0, 0.5, (b, C))), t(rng.normal(0.0, 0.5, (b, C)))
+        g = t(rng.normal(0, 1, (b, side, side, C))).bfloat16()
+        nchw = lambda v: v.permute(0, 3, 1, 2)  # noqa: E731
+        wl = w.permute(3, 2, 0, 1).contiguous()
+        library = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            nchw(g), nchw(x), wl, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+        lib = {}
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            lib[det] = cuda_ms(torch, library)
+        torch.backends.cudnn.deterministic = False
+        for relu in (False, True):
+            _, (y, mu, r) = cv._adain_unit_fwd_impl(x, w, gamma, beta, relu)
+            for name, call in (
+                    ("conv3x3_bwd", lambda: cv.conv3x3_bwd(x, w, g, relu)),
+                    ("conv3x3_adain_bwd",
+                     lambda: cv.conv3x3_adain_bwd(x, w, y, mu, r, gamma, g, relu))):
+                ms = cuda_ms(torch, call)
+                bound, by = bound_ms(name, b, side)
+                split = kernel_split(torch, call) if not relu else {}
+                parts = ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                print(f"[kernel bf16] {name} [{b}, {side}, {side}, {C}] relu={relu}: {ms:.4f} ms "
+                      f"a call; bound {bound:.4f} ms ({by}), {bound / ms:.1%} of it; cuDNN bf16 "
+                      f"convolution_backward {lib[False]:.4f} ms (default algorithms) / "
+                      f"{lib[True]:.4f} ms (deterministic)"
+                      + (f"; device ms a call by kernel: {parts}" if not relu else ""),
+                      flush=True)
+        del x, w, g, y
+        torch.cuda.empty_cache()
+
+
+def kernel_split(torch, fn, calls: int = 10) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by ``torch.profiler``
+    over ``calls`` calls after one ({} if the trace holds no device events)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
 
 
 def bf16_step(torch, cv, level: str, pallas: bool):
@@ -156,8 +255,8 @@ def device_times(torch, cv, label: str, steps: int = 3) -> None:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parts", nargs="+", choices=("digest", "step", "device"),
-                   default=["digest", "step", "device"])
+    p.add_argument("--parts", nargs="+", choices=("digest", "kernel", "step", "device"),
+                   default=["digest", "kernel", "step", "device"])
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--config", choices=[c[0] for c in CONFIGS], default=None,
                    help="with --parts device: profile this configuration in this process")
@@ -181,6 +280,8 @@ def main() -> int:
     print(f"[card] {card.stdout.strip() or card.stderr.strip()}; tree {ROOT}", flush=True)
     if "digest" in args.parts:
         digest(torch, cv)
+    if "kernel" in args.parts:
+        kernel_times(torch, cv)
     if "step" in args.parts:
         step_times(torch, cv, args.steps)
     if "device" in args.parts:
