@@ -180,7 +180,9 @@ Phases, each reported on its own line:
    across the three; each configuration launches each of its kernels 48 times
    a step and no other kernel; 5 more steps stay finite; ms per step, median of
    5 after a warm-up step, by CUDA events, with cuDNN held to its
-   deterministic algorithms as the Trainer holds it. Then ``[train 512]``
+   deterministic algorithms as the Trainer holds it; step 1 again from one
+   state and batch: every parameter, gradient, both Adam moments and the EMA
+   equal to the first run's to the bit. Then ``[train 512]``
    (``train512_phase``): the same three configurations and bars at the JAX
    package's 512² configuration (batch 4, trunk maps of 128x128), and
    ``level1+pallas`` with ``remat=True`` and ``"cycle"`` (step 1's losses equal
@@ -201,14 +203,16 @@ Phases, each reported on its own line:
    ``level1+pallas`` and ``level2`` (the conv backwards' bf16 entries, their
    wrappers given bf16 x, w and cotangent at every call): step 1 finite and
    each kernel route within 1e-2 of stock's, each route's kernels 48
-   launches a step and no other, ms per step; then ``[train options]``
+   launches a step and no other, ms per step, step 1 twice from one state
+   equal to the bit as in fp32; then ``[train options]``
    (``train_options_phase``) at the same width, ``level1+pallas``: step 1
    with ``remat=True`` and ``"cycle"`` equal to the bit to step 1 without
    (grad norms within rtol 1e-6), each mode's peak memory, ms per step and
    launches; a step each of ``r1_gamma``, ``style_recon_weight``,
    ``diversity_weight`` (also with ``remat=True``) and ``grad_hists=64``,
    finite, with its launches; a step of ``r1_gamma=1`` in the bf16 step; the train CLI for one epoch and ``--resume``
-   for a second, and ``--profile_steps 2``; latent int8 serving (a seeded
+   for a second, its checkpoints equal to a straight 2-epoch run's to the bit,
+   and ``--profile_steps 2``; latent int8 serving (a seeded
    mapping network as flax bytes, 22 kernel-site launches a batch); and
    ``--save_grid`` over two domains with the decode cache and without it,
    byte-equal; then ``DeviceData``
@@ -235,8 +239,9 @@ Phases, each reported on its own line:
    batch 4, as two gloo ranks on the one card (spawned processes; NCCL
    refuses two ranks on one GPU): rows 22-23 launched 48 times on each rank,
    the ranks' parameters equal, step 1's metrics and gradients held against
-   the one-process step; a one-rank NCCL group's step: metrics equal to the
-   bit, gradients within the bars beside a rerun of the no-group step;
+   the one-process step; a one-rank NCCL group's step: metrics, parameters,
+   gradients, both Adam moments and the EMA after step 1 equal to the
+   no-group step's to the bit, as are a rerun of the no-group step's;
 9. eval: InceptionV3 pool3 on a seeded random torchvision-layout npz, from
    uint8 256² images, on the card within rtol 1e-3 / atol 1e-4 of the CPU;
    ms per 32-image 299² batch; ``python -m msig_tpu_torch.tools.evaluate_fid``
@@ -2610,6 +2615,41 @@ def compare_grads(label: str, names, got, want, tag: str = "train") -> None:
               f"[{tag} level2] all {4 * N_RES} resblock conv biases have a zero gradient")
 
 
+def step1_again(torch, first, tag: str, rerun) -> int:
+    """Hold step 1's ``reproduce.snapshot`` ``first`` against a second step 1 from
+    one state and batch (``rerun()`` runs it and returns its state): every
+    parameter, gradient, both Adam moments and the EMA equal to the bit.
+    Returns the number of tensors compared."""
+    from msig_tpu_torch.train import reproduce
+
+    with reproduce.record_grads() as grads:
+        state = rerun()
+        torch.cuda.synchronize()
+    compared, differ = reproduce.differences(first, reproduce.snapshot(state, grads))
+    del state, grads
+    bad = {k: (len(v), v[:3]) for k, v in differ.items() if v}
+    check(not bad, f"[{tag}] step 1 twice from one state and batch: every parameter, gradient, "
+                   f"Adam moment and EMA copy equal to the bit ({compared} tensors; differing: "
+                   f"{bad})")
+    return compared
+
+
+def tree_apart(torch, a, b, path: str = "") -> tuple:
+    """(tensors compared, paths that differ) over two nested dicts / lists: tensors
+    by their bits, other leaves by ==."""
+    from msig_tpu_torch.train import reproduce
+
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return 1, [] if reproduce.bits_equal(a, b) else [path]
+    if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+        parts = [tree_apart(torch, a[k], b[k], f"{path}.{k}") for k in a]
+    elif isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b):
+        parts = [tree_apart(torch, x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))]
+    else:
+        return 0, [] if a == b else [path]
+    return sum(n for n, _ in parts), [p for _, bad in parts for p in bad]
+
+
 def train_inputs(torch, dev, size: int = TRAIN_SIZE, batch_size: int = TRAIN_B) -> tuple:
     """The train phases' seeded batch, random VGG and loss weights (the defaults,
     gan..style, at full warmup)."""
@@ -2643,11 +2683,11 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict, size: int = TRAIN_
     Returns {config: launches of step 1}, the step times, the peak memory (GiB,
     before the plain rerun) and step 1's metrics."""
     from msig_tpu_torch.config import TrainConfig
-    from msig_tpu_torch.train import create_train_state, make_train_step
+    from msig_tpu_torch.train import create_train_state, make_train_step, reproduce
     from msig_tpu_torch.train.state import G_KEYS
 
     batch, vgg, weights = train_inputs(torch, dev, size, batch_size)
-    first, launches, step_ms, peak = {}, {}, {}, {}
+    first, launches, step_ms, peak, bits = {}, {}, {}, {}, {}
     torch.backends.cudnn.deterministic = True
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2659,11 +2699,14 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict, size: int = TRAIN_
             step = make_train_step(cfg.ema_beta)
             for mod in (ap, cv) + int8_mods:
                 mod.reset_launch_counts()
-            metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
-            torch.cuda.synchronize()
+            with reproduce.record_grads() as kept:
+                metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                torch.cuda.synchronize()
             counts = {**ap.LAUNCHES, **cv.LAUNCHES}
             int8 = sum(v for m in int8_mods for v in m.LAUNCHES.values())
             copies = {**ap.COPIES, **cv.COPIES}
+            snap = reproduce.snapshot(state, kept)
+            del kept
             first[label] = {k: float(v) for k, v in metrics.items()}
             grads = step1_grads(state, cfg, first[label]["g_grad_norm"])
             want = {k: (2 * N_RES * 3 if TRAIN_KERNELS[k][2] == label else 0) for k in counts}
@@ -2701,7 +2744,15 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict, size: int = TRAIN_
                       f"bit: {[(k, float(m[k]), first[label][k]) for k in losses]}")
                 compare_grads(label, names, grads, step1_grads(state, cfg, float(m["g_grad_norm"])),
                               tag)
-            del grads
+            del grads, state
+
+            def rerun():
+                again = create_train_state(cfg, N_DOMAINS)
+                make_train_step(cfg.ema_beta)(again, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
+                return again
+
+            bits[label] = step1_again(torch, snap, f"{tag} {label}", rerun)
+            del snap
         share = ""
         side = size // 4
         for k, n in counts.items():
@@ -2716,8 +2767,9 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict, size: int = TRAIN_
               f"{step_ms[label]:.2f} ms per step (median of {steps} after step 1"
               f"{' and a warm-up step' if warmup else ''}, CUDA events); launches per step {({k: v for k, v in counts.items() if v})}, "
               f"layout copies {({k: v for k, v in copies.items() if v})}{share}; peak memory "
-              f"{mem:.3f} GiB (max_memory_allocated)", flush=True)
-        del state, step
+              f"{mem:.3f} GiB (max_memory_allocated); step 1 again from one state: "
+              f"{bits[label]} tensors equal to the bit", flush=True)
+        del step
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     base = first["stock"]
@@ -2728,8 +2780,9 @@ def train_phase(torch, ap, cv, int8_mods, dev, kernels: dict, size: int = TRAIN_
                   f"[{tag} {label}] step 1 {k} {v} vs stock {base[k]} (rtol {rtol})")
     print(f"[{tag}] step 1 agrees across {', '.join(first)}: losses within rtol 1e-4, grad norms "
           f"within 1e-3 (largest relative difference "
-          f"{max(abs(m[k] - base[k]) / abs(base[k]) for m in first.values() for k in m):.2e})",
-          flush=True)
+          f"{max(abs(m[k] - base[k]) / abs(base[k]) for m in first.values() for k in m):.2e}); "
+          f"step 1 twice from one state equal to the bit in every configuration ("
+          + ", ".join(f"{k} {v} tensors" for k, v in bits.items()) + ")", flush=True)
     return dict(launches=launches, step_ms=step_ms, peak=peak, first=first)
 
 
@@ -3022,10 +3075,10 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> dict:
     and cotangent (mu, r and gamma fp32) at every call; ms per step (median of
     3 after a warm-up step, CUDA events). Returns {config: launches of step 1}."""
     from msig_tpu_torch.config import TrainConfig
-    from msig_tpu_torch.train import create_train_state, make_train_step
+    from msig_tpu_torch.train import create_train_state, make_train_step, reproduce
 
     batch, vgg, weights = train_inputs(torch, dev)
-    first, step_ms, launches = {}, {}, {}
+    first, step_ms, launches, bits = {}, {}, {}, {}
     for label, level, pallas in TRAIN_CONFIGS:
         cfg = TrainConfig(image_size=TRAIN_SIZE, batch_size=TRAIN_B, n_residual_blocks=N_RES,
                           style_dim=256, use_pallas=pallas, compute_dtype="bfloat16",
@@ -3035,9 +3088,11 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> dict:
             state = create_train_state(cfg, N_DOMAINS)
             step = make_train_step(cfg.ema_beta, torch.bfloat16)
             reset_counts((ap, cv) + int8_mods)
-            with wrapper_types(cv) as seen:
+            with wrapper_types(cv) as seen, reproduce.record_grads() as kept:
                 metrics = step(state, batch, vgg, cfg.lr_g, cfg.lr_d, weights)
                 torch.cuda.synchronize()
+            snap = reproduce.snapshot(state, kept)
+            del kept
             counts = {**ap.LAUNCHES, **cv.LAUNCHES}
             int8 = sum(v for m in int8_mods for v in m.LAUNCHES.values())
             first[label] = {k: float(v) for k, v in metrics.items()}
@@ -3064,6 +3119,17 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> dict:
             check(bool(torch.isfinite(torch.stack(list(m.values()))).all()),
                   f"[train bf16 {label}] 3 more steps stay finite")
             step_ms[label] = float(np.median([a.elapsed_time(b) for a, b in events]))
+            mem = torch.cuda.max_memory_allocated() / 2**30
+            del state
+
+            def rerun():
+                again = create_train_state(cfg, N_DOMAINS)
+                make_train_step(cfg.ema_beta, torch.bfloat16)(again, batch, vgg, cfg.lr_g,
+                                                               cfg.lr_d, weights)
+                return again
+
+            bits[label] = step1_again(torch, snap, f"train bf16 {label}", rerun)
+            del snap
         received = "; ".join(f"{k} received {BF16_WRAPPER_TYPES[k]} at each of its {len(v)} calls"
                              for k, v in seen.items() if v)
         print(f"[train bf16 {label}] {TRAIN_SIZE}², batch {TRAIN_B}, {N_RES} resblocks, "
@@ -3071,9 +3137,9 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> dict:
               f"{json.dumps({k: round(v, 6) for k, v in first[label].items()})}; "
               f"{step_ms[label]:.2f} ms per step (median of 3 after a warm-up step, CUDA events); "
               f"launches per step {({k: v for k, v in counts.items() if v})}"
-              f"{'; ' + received if received else ''}; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-        del state, step
+              f"{'; ' + received if received else ''}; peak memory {mem:.1f} GiB; step 1 "
+              f"again from one state: {bits[label]} tensors equal to the bit", flush=True)
+        del step
         torch.cuda.empty_cache()
     base = first["stock"]
     worst = {label: max(abs(m[k] - base[k]) / abs(base[k]) for k in base)
@@ -3083,7 +3149,8 @@ def train_bf16_phase(torch, ap, cv, int8_mods, dev) -> dict:
     print(f"[train bf16] step 1 within 1e-2 of stock's: "
           f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (largest relative difference; "
           f"the routes round bf16 at other places); ms per step "
-          f"{', '.join(f'{k} {v:.2f}' for k, v in step_ms.items())}", flush=True)
+          f"{', '.join(f'{k} {v:.2f}' for k, v in step_ms.items())}; step 1 twice from one "
+          f"state equal to the bit in every configuration", flush=True)
     return launches
 
 
@@ -3304,6 +3371,16 @@ def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
           f"[train options] the resumed run's history {saved['loss_history']['G_loss']}, "
           f"Adam steps {steps}")
     resume_s = time.perf_counter() - t0
+    train("--epochs", "2", name="straight")
+    straight = os.path.join(out, "straight", "checkpoints", "epoch_2")
+    n_resume, apart = 0, []
+    for f in ("checkpoint.pth", "ema_checkpoint.pth"):
+        n, bad = tree_apart(torch, *(torch.load(os.path.join(d, f), map_location="cpu",
+                                                weights_only=False)
+                                     for d in (os.path.join(ckpt, "epoch_2"), straight)), f)
+        n_resume, apart = n_resume + n, apart + bad
+    check(not apart, f"[train options] the resumed run's epoch_2 checkpoint equals the straight "
+                     f"2-epoch run's to the bit ({n_resume} tensors; apart: {apart[:8]})")
     # a process of its own: after a torch.profiler session with CUDA activity in
     # this process, the later phases' traces lost their device events on the card
     t0 = time.perf_counter()
@@ -3323,7 +3400,9 @@ def train_options_phase(torch, ap, cv, int8_mods, dev, work: str) -> None:
     port = sorted(n for n in names if "msig_" in n)
     check(bool(port), "[train options] the profile trace holds the port's kernels")
     print(f"[train options] train CLI: 1 epoch then --resume for epoch 2 (8 sources, batch "
-          f"{TRAIN_B}: 4 Adam steps, 2 epochs of history) in {resume_s:.1f} s; --profile_steps 2 "
+          f"{TRAIN_B}: 4 Adam steps, 2 epochs of history) in {resume_s:.1f} s, its epoch_2 "
+          f"checkpoints equal to a straight 2-epoch run's to the bit ({n_resume} tensors: the "
+          f"networks, EMA, both Adam moments and steps; and the histories); --profile_steps 2 "
           f"(MSIG_CONV_VJP=1 --pallas, batch 2, its own process) wrote {os.path.getsize(trace)} "
           f"bytes in {time.perf_counter() - t0:.1f} s, {len(port)} kernels of the port among its "
           "events", flush=True)
@@ -3645,9 +3724,9 @@ def parallel_phase(torch, mods, work: str) -> None:
     and the step-1 gradients (Adam's first moments) held against the
     one-process step (losses rtol 1e-4, grad norms 1e-3, gradients within
     ``GRAD_RTOL`` / ``GRAD_ATOL_REL``); then a one-rank NCCL group's step
-    (every collective on NCCL): its metrics equal to the no-group step's to the
-    bit, its step-1 gradients within the bars, reported beside a rerun of the
-    no-group step (whose gradients are not bitwise reproducible either)."""
+    (every collective on NCCL): its metrics, and every parameter, gradient,
+    Adam moment and EMA copy after step 1, equal to the no-group step's to the
+    bit, as are a rerun of the no-group step's."""
     import dataclasses
 
     import torch.distributed as dist
@@ -3656,6 +3735,7 @@ def parallel_phase(torch, mods, work: str) -> None:
     from msig_tpu_torch.config import InferenceConfig
     from msig_tpu_torch.infer.engine import InferenceEngine
     from msig_tpu_torch.infer.loading import load_inference_params
+    from msig_tpu_torch.train import reproduce
 
     t0 = time.perf_counter()
     cfg = InferenceConfig(image_size=256, batch_size=B, quantize="int8", device="cuda")
@@ -3712,7 +3792,10 @@ def parallel_phase(torch, mods, work: str) -> None:
     t_ranks = time.perf_counter() - t1
     dev = torch.device("cuda")
     torch.backends.cudnn.deterministic = True
-    ref_metrics, ref_state, ref_launches = parallel_step(torch, dev, False)
+    with reproduce.record_grads() as kept:
+        ref_metrics, ref_state, ref_launches = parallel_step(torch, dev, False)
+    ref_snap = reproduce.snapshot(ref_state, kept)
+    del kept
     want = {"adain_pallas_fwd": 6 * N_RES, "adain_pallas_bwd": 6 * N_RES,
             "conv3x3_bwd": 6 * N_RES}
     check(ref_launches == want, f"[parallel] one-process launches {ref_launches}")
@@ -3739,42 +3822,28 @@ def parallel_phase(torch, mods, work: str) -> None:
           f"{GRAD_ATOL_REL} x max of the group); the ranks took {t_ranks:.1f} s "
           "(spawn, start, step 1)", flush=True)
 
+    nccl_metrics = {}
+
+    def nccl_step():
+        metrics, state, _ = parallel_step(torch, dev, True)
+        nccl_metrics.update(metrics)
+        return state
+
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
                             world_size=1, rank=0)
     try:
-        nccl_metrics, nccl_state, _ = parallel_step(torch, dev, True)
+        n_nccl = step1_again(torch, ref_snap, "parallel one-rank NCCL", nccl_step)
     finally:
         dist.destroy_process_group()
     apart = {k: (v, ref_metrics[k]) for k, v in nccl_metrics.items() if v != ref_metrics[k]}
     check(not apart, f"[parallel] a one-rank NCCL group's step-1 metrics equal the no-group "
                      f"step's to the bit (apart: {apart})")
-    nccl_mu = _first_moments(nccl_state)
-    del nccl_state
-    rerun_metrics, rerun_state, _ = parallel_step(torch, dev, False)
-    rerun_mu = _first_moments(rerun_state)
-    del rerun_state
-
-    def spread(mus) -> tuple:
-        """(leaves apart from the first no-group step's, max |diff|, worst share of the bar)"""
-        n, top, worst = 0, 0.0, 0.0
-        for lo, hi in ((0, n_g), (n_g, len(ref_mu))):
-            atol = GRAD_ATOL_REL * max(float(m.abs().max()) for m in ref_mu[lo:hi])
-            for g, w in zip(mus[lo:hi], ref_mu[lo:hi]):
-                n += not torch.equal(g, w)
-                top = max(top, float((g - w).abs().max()))
-                worst = max(worst, float(((g - w).abs() / (GRAD_RTOL * w.abs() + atol)).max()))
-        return n, top, worst
-
-    nccl, rerun = spread(nccl_mu), spread(rerun_mu)
-    check(rerun_metrics == ref_metrics and nccl[2] <= 1.0,
-          f"[parallel] one-rank NCCL step-1 gradients within their bars ({nccl}, rerun {rerun})")
+    n_rerun = step1_again(torch, ref_snap, "parallel rerun",
+                          lambda: parallel_step(torch, dev, False)[1])
     print(f"[parallel] one-rank NCCL group (every collective of the step on NCCL): step 1's "
-          f"metrics equal the no-group step's to the bit; first moments: {nccl[0]} of "
-          f"{len(ref_mu)} leaves apart, max |diff| {nccl[1]:.3g}, {nccl[2]:.3f} of their bars; "
-          f"a rerun of the no-group step itself: metrics equal to the bit, {rerun[0]} leaves "
-          f"apart, max |diff| {rerun[1]:.3g}, {rerun[2]:.3f} of the bars (the fp32 step's "
-          f"backward is not bitwise reproducible on the card); phase "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"metrics and all {n_nccl} tensors (every parameter, gradient, both Adam moments, the "
+          f"EMA) equal the no-group step's to the bit, as do a rerun of the no-group step's "
+          f"{n_rerun}; phase {time.perf_counter() - t0:.1f} s", flush=True)
     del ref_state
     torch.cuda.empty_cache()
 

@@ -19,6 +19,11 @@ modulation unit with its one fused backward. Only ``0``, ``1`` and ``2`` are
 accepted; the JAX package maps any other value to 1. The kernel routes take
 the unit's input and its taps in the input's dtype, as the JAX layers pass
 them: in a bf16 step the fused backwards run their bf16 entries.
+
+The generator's two reflect-padded 7x7 convs pad with :func:`reflect_pad2d`,
+whose backward folds the border back in a fixed order, so that a train step
+gives the same bits from run to run on the card: ``F.pad(mode="reflect")``'s
+own backward adds the border into the input gradient with atomics there.
 """
 
 from __future__ import annotations
@@ -41,6 +46,41 @@ def conv_vjp_level() -> int:
     return int(v)
 
 
+class _ReflectPad2d(torch.autograd.Function):
+    """``F.pad(x, (pw, pw, ph, ph), mode="reflect")`` on NCHW x; the backward is
+    the pad's transpose as two folds, the columns and then the rows (the JAX
+    VJP's order), each an interior copy plus two strip adds in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, ph: int, pw: int):
+        ctx.pads = (ph, pw)
+        return F.pad(x, (pw, pw, ph, ph), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        ph, pw = ctx.pads
+        return _reflect_fold(_reflect_fold(g, pw, -1), ph, -2), None, None
+
+
+def _reflect_fold(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """The transpose of reflect-padding axis ``dim`` by ``p``: the interior, with
+    each border strip added, flipped, onto the elements it copied."""
+    if p == 0:
+        return g
+    n = g.shape[dim] - 2 * p
+    out = g.narrow(dim, p, n).clone()
+    out.narrow(dim, 1, p).add_(g.narrow(dim, 0, p).flip(dim))
+    out.narrow(dim, n - 1 - p, p).add_(g.narrow(dim, n + p, p).flip(dim))
+    return out
+
+
+def reflect_pad2d(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Reflect padding of NCHW x by ``ph`` rows and ``pw`` columns a side: the
+    forward is ``F.pad(mode="reflect")``'s to the bit, the backward
+    deterministic (see :class:`_ReflectPad2d`)."""
+    return _ReflectPad2d.apply(x, ph, pw)
+
+
 class TorchConv(nn.Conv2d):
     """``nn.Conv2d(k, s, p)``; ``pad_mode='reflect'`` for the generator's 7x7 convs.
 
@@ -55,8 +95,12 @@ class TorchConv(nn.Conv2d):
         self.pre_relu = pre_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  None if self.bias is None else self.bias.to(x.dtype))
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.padding_mode == "reflect":  # nn.Conv2d's own F.pad, with a deterministic backward
+            return F.conv2d(reflect_pad2d(x, *self.padding), w, b, self.stride, 0, self.dilation,
+                            self.groups)
+        return self._conv_forward(x, w, b)
 
     def adain_unit(self, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, level: int,
                    use_pallas: bool) -> torch.Tensor:

@@ -4,9 +4,9 @@ on the demo checkpoint at 64² on the CPU.
 - ``--save_grid``: ``style_modes_grid.png`` is written in each domain's output
   directory; its tiles (the input, then one a style mode) against the root
   ``inference.py``'s: the input tile equal, the ``average`` and ``specific``
-  tiles within the float path's bars (fp32 rtol 1e-3, atol 1e-4). The random
-  modes draw from ``torch.Generator`` here and ``jax.random`` there, so only
-  their shape is held;
+  tiles within the float path's bars (fp32 rtol 1e-3, atol 1e-4), both CLIs
+  decoding with one core. The random modes draw from ``torch.Generator`` here
+  and ``jax.random`` there, so only their shape is held;
 - two target domains with the decode cache (each input decoded once) and
   with ``MSIG_DECODE_CACHE_MB=0`` (decoded once a domain) give byte-equal
   files;
@@ -21,7 +21,9 @@ import pytest
 import torch
 from PIL import Image
 
+from msig_tpu.data import native_loader as jax_native_loader
 from msig_tpu_torch import inference as cli
+from msig_tpu_torch.data import native_loader
 from msig_tpu_torch.infer import engine as engine_mod
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -70,6 +72,19 @@ class _Grids:
         return self.real(tiles, path, **kw)
 
 
+def _same_decoder(mp):
+    """Both CLIs decode the inputs with one core: the port's native library where
+    it builds, else PIL on both sides. The JAX binding's own state is set once a
+    process (``msig_tpu/data/native_loader.py:51-60``) and, beside other workers
+    racing on its ``make`` into ``native/``, can fall back to PIL where the port
+    took its native core; the JPEG inputs then differ by one level on a fifth
+    of their pixels."""
+    path = native_loader.library_path() if native_loader.available() else None
+    mp.setattr(jax_native_loader, "_lib", None)
+    mp.setattr(jax_native_loader, "_load_failed", path is None)
+    mp.setattr(jax_native_loader, "_find_or_build", lambda: str(path))
+
+
 @pytest.fixture(scope="module")
 def grids(dirs, tmp_path_factory):
     import inference as jax_cli
@@ -82,6 +97,7 @@ def grids(dirs, tmp_path_factory):
                       _Grids(msig_tpu.utils.save_sample_grid))
     mp.setattr(msig_tpu_torch.utils, "save_sample_grid", port)
     mp.setattr(msig_tpu.utils, "save_sample_grid", jax_side)
+    _same_decoder(mp)
     try:
         args = cli.build_arg_parser().parse_args(
             _argv(dirs, out / "port", "--save_grid", "--batch_size", "1", "--device", "cpu"))

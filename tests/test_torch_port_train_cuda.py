@@ -405,3 +405,78 @@ def test_diversity_adds_a_generator_launch_on_the_card(cuda_device):
     assert counts == (16, 16, 16)
     _, (f, b, c) = _options_step(cuda_device, True, diversity=True)
     assert 16 <= f <= 32 and (b, c) == (16, 16)
+
+
+def _step1_snapshot(dev, level: str, pallas: bool, dtype):
+    """Step 1 from the seeded state (128², batch 4, 2 resblocks, 3 domains) at
+    ``MSIG_CONV_VJP=level``: ``reproduce.snapshot`` of every parameter, gradient,
+    Adam moment and EMA copy."""
+    import os
+
+    from msig_tpu_torch.config import TrainConfig
+    from msig_tpu_torch.losses import init_random_vgg
+    from msig_tpu_torch.train import create_train_state, make_train_step, reproduce
+
+    torch.backends.cudnn.deterministic = True
+    cfg = TrainConfig(image_size=128, batch_size=4, n_residual_blocks=2, style_dim=64,
+                      use_pallas=pallas, device="cuda")
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (4, 128, 128, 3), dtype=np.uint8)).to(dev)
+             for k in ("source", "target")}
+    batch["source_domain"] = torch.zeros(4, dtype=torch.int32, device=dev)
+    batch["target_domain"] = torch.tensor([1, 2, 1, 2], dtype=torch.int32, device=dev)
+    old = os.environ.get("MSIG_CONV_VJP")
+    os.environ["MSIG_CONV_VJP"] = level
+    try:
+        state = create_train_state(cfg, 3)
+        with reproduce.record_grads() as grads:
+            make_train_step(cfg.ema_beta, dtype)(
+                state, batch, init_random_vgg(1234, device="cuda"), 2e-4, 1e-4, [1, 10, 5, 1, 1])
+            torch.cuda.synchronize()
+    finally:
+        if old is None:
+            del os.environ["MSIG_CONV_VJP"]
+        else:
+            os.environ["MSIG_CONV_VJP"] = old
+    return reproduce.snapshot(state, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,pallas", [("0", False), ("1", True), ("2", False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step1_twice_from_one_state_equal_to_the_bit(cuda_device, level, pallas, dtype):
+    """The JAX step is a pure function; the port's gives the same bits twice too:
+    every parameter, gradient, both Adam moments and the EMA after step 1."""
+    from msig_tpu_torch.train import reproduce
+
+    compared, differ = reproduce.differences(_step1_snapshot(cuda_device, level, pallas, dtype),
+                                             _step1_snapshot(cuda_device, level, pallas, dtype))
+    assert compared == 4 * 112 + 84
+    assert not any(differ.values()), {k: (len(v), v[:4]) for k, v in differ.items() if v}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype", [(3, torch.float32), (64, torch.float32), (64, torch.bfloat16)])
+def test_reflect_pad_backward_repeats_its_bits(cuda_device, c, dtype):
+    """``reflect_pad2d``'s backward at the generator's 7x7 convs (8 x 256², pad 3)
+    gives the same bits twice, and ``F.pad(mode="reflect")``'s backward within the
+    rounding of sums of at most four terms in the input's type (its atomics add in
+    another order): fp32 rtol 1e-6; bf16 each sum rounds at most three times by
+    half an ulp (2^-9) of a partial sum of at most 4 max|g|, so the two differ by at
+    most 2 x 3 x 2^-9 x 4 max|g|."""
+    import torch.nn.functional as F
+
+    from msig_tpu_torch.models.layers import reflect_pad2d
+    from msig_tpu_torch.train import reproduce
+
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.normal(size=(8, c, 256, 256)).astype(np.float32))
+    x = x.to(cuda_device, dtype).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(8, c, 262, 262)).astype(np.float32)).to(cuda_device, dtype)
+    a, = torch.autograd.grad(reflect_pad2d(x, 3, 3), x, g)
+    b, = torch.autograd.grad(reflect_pad2d(x, 3, 3), x, g)
+    want, = torch.autograd.grad(F.pad(x, (3, 3, 3, 3), mode="reflect"), x, g)
+    assert reproduce.bits_equal(a, b)
+    bound = 2 * 3 * 2.0 ** -9 * 4 * float(g.abs().max())
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(rtol=0.0, atol=bound)
+    torch.testing.assert_close(a, want, **tol)

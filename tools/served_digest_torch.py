@@ -13,7 +13,11 @@ then pixels, by file name), the digest ``chip_smoke.py`` prints for its
 paths. Then the float output (``256/float``):
 the int8 engine with ``out_uint8`` off (its decoder's ConvT site twice, then
 the unfused final conv) on two seeded batches of 8 at 256², a sha256 over the
-float32 outputs' bytes. It uses the package and ``chip_smoke.py`` beside it,
+float32 outputs' bytes; and the same for the fp32 float generator
+(``256/fp32``, ``--quantize`` off: its reflect-padded 7x7 convs; TF32 off,
+as the CLI runs before it set), under cuDNN's default algorithms, as the CLI
+serves (whose ``ConvTranspose2d`` may vary in its last bits from run to run),
+and under its deterministic ones. It uses the package and ``chip_smoke.py`` beside it,
 so that copied into another checkout it digests that checkout's outputs.
 Needs a card; exits 1 without one.
 """
@@ -32,15 +36,16 @@ PATHS = (("256/hifi0", 256, "0", "0"), ("256/hifi1", 256, "1", "0"),
          ("512/hifi1", 512, "1", "0"), ("512/hifi2", 512, "2", "0"))
 
 
-def float_digest(torch, cs, np) -> str:
-    """sha256 of the int8 engine's float32 outputs at 256² (demo checkpoint,
-    two seeded batches of 8 images and styles)."""
+def float_digest(torch, cs, np, quantize="int8") -> str:
+    """sha256 of the engine's float32 outputs at 256² (demo checkpoint, two seeded
+    batches of 8 images and styles): the int8 engine's, or with ``quantize=None``
+    the fp32 float generator's."""
     from msig_tpu_torch.config import InferenceConfig
     from msig_tpu_torch.infer.engine import InferenceEngine
     from msig_tpu_torch.infer.loading import load_inference_params
 
     cfg = InferenceConfig(image_size=256, batch_size=cs.B, device="cuda",
-                          compute_dtype="float32", quantize="int8")
+                          compute_dtype="float32", quantize=quantize)
     gen_sd, se_sd, meta, _ = load_inference_params(cs.DEMO, cfg, 10)
     eng = InferenceEngine.build(cfg, 10, gen_sd, se_sd, meta["n_residual_blocks"],
                                 meta["style_dim"])
@@ -94,6 +99,11 @@ def main() -> int:
                   f"images)", flush=True)
         print(f"[digest 256/float] float32 outputs sha256 {float_digest(torch, cs, np)} "
               f"(2 batches of {cs.B})", flush=True)
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            print(f"[digest 256/fp32] the fp32 float generator's outputs sha256 "
+                  f"{float_digest(torch, cs, np, None)} (2 batches of {cs.B}; cuDNN's "
+                  f"{'deterministic' if deterministic else 'default'} algorithms)", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
